@@ -1,0 +1,592 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  1. device  — torch / CUDA versions, the card's name and power limit;
+  2. build   — both Hopper kernels built from ``src/repro_torch/csrc`` with
+               nvcc for sm_90a (one nvcc per source, started together);
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               {f32, bf16, int8 + scale} tables x {dense, compact remap} at
+               the main path's shapes, a ragged small shape, Dh 16/32/64;
+  4. serve   — the port's DetrServeEngine on the full-width
+               deformable-DETR-DEFA detector at 512 px (random seeded
+               weights, float32) with backend="auto": 4 requests, launch
+               counters, and the same forward through torch_gather;
+  5. times   — CUDA-event medians of each kernel and its plain version on
+               the operands the main path gave it, their bounds, and one
+               serve forward at B = 2.
+
+Then the kernel summary line and, last, the contract line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device, or without the repository beside it, the script
+exits non-zero before printing any result.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 rate and the
+# float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# Eq. 4 per channel per live point: 5 add/sub + 3 mul inside the corner
+# differences, 3 add/mul to combine them, then p * S + acc.
+FLOPS_PER_CHANNEL_POINT = 13
+IMG = 512
+MAX_BATCH = 2
+N_REQUESTS = 4
+SEED = 0
+LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
+                "aggregation (F.grid_sample samples a dense per-level map and "
+                "knows neither the pixel->slot remap nor the int8 scale)")
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def tolerance(dtype, scale):
+    """Kernel vs plain: f32 1e-5; bf16 one bf16 rounding step of the
+    output; int8 1e-5 of the code range times the largest scale."""
+    import torch
+    if dtype == torch.bfloat16:
+        return {"rtol": 2 ** -7, "atol": 1e-5}
+    if scale is not None:
+        return {"rtol": 1e-5, "atol": 1e-5 * 127 * float(scale.max())}
+    return {"rtol": 1e-5, "atol": 1e-5}
+
+
+def check_close(name, got, want, tol):
+    import torch
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: kernel {got.dtype} {tuple(got.shape)} vs "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: kernel output not finite")
+    err = (g - w).abs()
+    bad = err > tol["atol"] + tol["rtol"] * w.abs()
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
+                             f"{tol}; max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+# --------------------------------------------------------------------------
+# phase 1 + 2
+# --------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    line = smi.strip().splitlines()[0]
+    print(line, flush=True)                    # name, power.limit as given
+    name, power = (s.strip() for s in line.split(",", 1))
+    emit("device", torch=torch.__version__, cuda=torch.version.cuda,
+         name=name, power_limit=power, count=torch.cuda.device_count(),
+         kind=torch.cuda.get_device_name(0))
+    return line
+
+
+def phase_build():
+    from repro_torch.kernels.build import build_dir, build_kernels
+    t0 = time.perf_counter()
+    info = build_kernels()
+    regs = {n: [ln.strip() for ln in i["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+            for n, i in info.items()}
+    emit("build", seconds=round(time.perf_counter() - t0, 3),
+         per_kernel_seconds={n: round(i["seconds"], 3) for n, i in info.items()},
+         dir=str(build_dir()), ptxas=regs)
+
+
+# --------------------------------------------------------------------------
+# phase 3: each kernel against its plain version on synthetic operands
+# --------------------------------------------------------------------------
+
+def synthetic_points(gen, shape, level_shapes, device):
+    """x, y, start, wl, hl, probs of ``shape`` with random levels; the
+    coordinates spill past every level edge; some probabilities are 0."""
+    import torch
+    starts, sizes = [], 0
+    for h, w in level_shapes:
+        starts.append(sizes)
+        sizes += h * w
+    lvl = torch.randint(0, len(level_shapes), shape, generator=gen)
+    wl = torch.tensor([w for _, w in level_shapes], dtype=torch.int32)[lvl]
+    hl = torch.tensor([h for h, _ in level_shapes], dtype=torch.int32)[lvl]
+    st = torch.tensor(starts, dtype=torch.int32)[lvl]
+    x = torch.rand(shape, generator=gen) * (wl + 3).float() - 1.5
+    y = torch.rand(shape, generator=gen) * (hl + 3).float() - 1.5
+    p = torch.softmax(torch.randn(shape, generator=gen), -1)
+    p = torch.where(torch.rand(shape, generator=gen) < 0.1, 0.0, p)
+    return tuple(t.contiguous().to(device) for t in (x, y, st, wl, hl, p)), sizes
+
+
+def synthetic_table(gen, b, n_rows, h, dh, dtype, compact, n_pix, device):
+    import torch
+    v = torch.randn((b, n_rows, h, dh), generator=gen)
+    scale = remap = None
+    if dtype == torch.int8:
+        v = torch.randint(-127, 128, (b, n_rows, h, dh), generator=gen)
+        scale = (torch.rand((b, 1, h, dh), generator=gen) * 0.02 + 0.002)
+    if compact:
+        v[:, -1] = 0                                      # zero sentinel row
+        remap = torch.randint(0, n_rows - 1, (b, n_pix), generator=gen)
+        remap = torch.where(torch.rand((b, n_pix), generator=gen) < 0.4,
+                            n_rows - 1, remap).to(torch.int32)
+    as_dev = lambda t: None if t is None else t.contiguous().to(device)
+    return as_dev(v.to(dtype)), as_dev(remap), as_dev(scale)
+
+
+def phase_kernel_checks(device, main_levels):
+    import torch
+    from repro_torch.kernels import msgs_decode, msgs_fused
+    from repro_torch.msda.plan import lane_layout
+    gen = torch.Generator().manual_seed(SEED)
+    small_levels = ((16, 20), (8, 10), (4, 5), (2, 3))
+    n_main = sum(h * w for h, w in main_levels)
+    cap_main = sum(max(1, int(round(0.6 * h * w))) for h, w in main_levels) + 1
+    # (label, levels, B, Nq_raster, Nq_decode, H, K, Dh, compact rows)
+    shapes = [("main", main_levels, 2, n_main, 300, 8, 4, 32, cap_main),
+              ("ragged_dh16", small_levels, 1, 37, 23, 4, 16, 16, 300),
+              ("dh64", small_levels, 2, 50, 30, 2, 4, 64, 300)]
+    results = []
+    for label, levels, b, nq, nq_dec, h, k, dh, cap in shapes:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for compact in (False, True):
+                (pts, n_pix) = synthetic_points(gen, (b, nq, h, k), levels, device)
+                n_rows = cap if compact else n_pix
+                v, remap, scale = synthetic_table(gen, b, n_rows, h, dh, dtype,
+                                                  compact, n_pix, device)
+                tol = tolerance(dtype, scale)
+                case = f"{label}/{str(dtype)[6:]}/{'compact' if compact else 'dense'}"
+                e1 = check_close(
+                    f"msgs_fused {case}",
+                    msgs_fused.msgs_fused(v, *pts, remap=remap, scale=scale),
+                    msgs_fused.msgs_fused_plain(v, *pts, remap=remap,
+                                                scale=scale), tol)
+                layout, g = lane_layout(h, dh)
+                staged = msgs_decode.stage_decode_table(
+                    v, remap, head_pack=g if layout == "pack" else 1,
+                    scale=scale)
+                dpts, _ = synthetic_points(gen, (b, 2, nq_dec, h, k), levels,
+                                           device)
+                want = msgs_decode.msgs_decode_plain(
+                    staged.v, *dpts, staged.remap, staged.scale,
+                    head_pack=staged.head_pack, dh=dh)
+                e2 = check_close(f"msgs_decode_layers {case}",
+                                 msgs_decode.msgs_decode_layers(staged, *dpts),
+                                 want, tol)
+                e3 = check_close(f"msgs_decode {case}",
+                                 msgs_decode.msgs_decode(
+                                     staged, *(t[:, 0].contiguous() for t in dpts)),
+                                 want[:, 0], tol)
+                results.append({"case": case, "fused_err": e1,
+                                "decode_layers_err": e2, "decode_err": e3})
+    emit("kernels", checks=len(results) * 3, results=results,
+         tolerance="f32 1e-5; bf16 rtol 2^-7; int8 1e-5*127*max(scale)")
+
+
+# --------------------------------------------------------------------------
+# phase 4: serve the full-width detector
+# --------------------------------------------------------------------------
+
+def slice_config(name):
+    import torch
+    from repro_torch.configs.detr_family import CONFIGS, with_dtype
+    from repro_torch.core.detector import DetectorConfig
+    from repro_torch.msda.decoder import MSDADecoderConfig
+    return DetectorConfig(encoder=with_dtype(CONFIGS[name].encoder, torch.float32),
+                          img_size=IMG, n_classes=4, backbone_width=32,
+                          decoder=MSDADecoderConfig())
+
+
+class Recorder:
+    """Keeps the operands of the first ``keep`` calls of one kernel
+    wrapper during the served run (for the timing phase); installed on
+    the wrapper's module and removed again afterwards."""
+
+    def __init__(self, module, attr, keep):
+        self.module, self.attr, self.keep = module, attr, keep
+        self.orig = getattr(module, attr)
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        if len(self.calls) < self.keep:
+            self.calls.append((args, kwargs))
+        return self.orig(*args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+def seeded_images(n):
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.uniform(0.0, 1.0, (3, IMG, IMG)).astype(np.float32)
+            for _ in range(n)]
+
+
+def phase_serve(device):
+    import numpy as np
+    import torch
+    from repro_torch.core.detector import detector_apply, init_detector
+    from repro_torch.kernels import msgs_decode, msgs_fused
+    from repro_torch.serve import DetrRequest, DetrServeEngine
+
+    cfg = slice_config("deformable-detr-defa")
+    params = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                           device=device)
+    images = seeded_images(N_REQUESTS)
+    with DetrServeEngine(cfg, params, max_batch=MAX_BATCH, backend="auto",
+                         device=device) as engine:
+        plan = engine.buckets[0].plan
+        with Recorder(msgs_fused, "msgs_fused", 6) as rec_f, \
+                Recorder(msgs_decode, "msgs_decode", 6) as rec_d:
+            msgs_fused.LAUNCHES = 0
+            msgs_decode.LAUNCHES = 0
+            t0 = time.perf_counter()
+            reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(images)]
+            for r in reqs:
+                if not engine.submit(r):
+                    raise AssertionError(f"request {r.rid} rejected: {r.error}")
+            engine.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"msgs_fused": msgs_fused.LAUNCHES,
+                        "msgs_decode": msgs_decode.LAUNCHES}
+        batches = engine.batches_dispatched
+    for r in reqs:
+        if not (r.done and r.cls_probs.shape == (300, 5)
+                and r.boxes.shape == (300, 4)
+                and np.isfinite(r.cls_probs).all() and np.isfinite(r.boxes).all()):
+            raise AssertionError(f"request {r.rid}: done={r.done} "
+                                 f"cls {getattr(r.cls_probs, 'shape', None)} "
+                                 f"boxes {getattr(r.boxes, 'shape', None)}")
+    n_blocks = cfg.encoder.n_blocks
+    n_layers = cfg.decoder.n_layers
+    if batches != N_REQUESTS // MAX_BATCH \
+            or launches["msgs_fused"] != n_blocks * batches \
+            or launches["msgs_decode"] != n_layers * batches:
+        raise AssertionError(f"launch counts {launches} over {batches} batches; "
+                             f"expected {n_blocks} fused and {n_layers} decode "
+                             "launches per batch")
+
+    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
+    compare = {}
+    # no pruning or quantization: no discrete decision can flip, so the
+    # kernels and torch_gather agree up to float32 reassociation carried
+    # through 6 blocks and 6 layers
+    plain_cfg = slice_config("deformable-detr")
+    plain_params = init_detector(plain_cfg, torch.Generator().manual_seed(SEED),
+                                 device=device)
+    with torch.inference_mode():
+        a = detector_apply(plain_params, plain_cfg, x, backend="auto")
+        g = detector_apply(plain_params, plain_cfg, x, backend="torch_gather")
+    for i, label in ((0, "cls_logits"), (1, "boxes")):
+        err = (a[i] - g[i]).abs()
+        compare[f"deformable-detr/{label}"] = {"max": float(err.max()),
+                                               "median": float(err.median())}
+        if not torch.allclose(a[i], g[i], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"deformable-detr {label}: auto vs torch_gather "
+                                 f"max {float(err.max()):.3e} > 1e-4")
+    # DEFA: INT12 fake-quant, PAP top-k and FWP compaction are discrete;
+    # a float-ulp difference between the kernel and the gather can flip a
+    # rounding or a pick, which moves that query's points. Most outputs
+    # must agree and none may run away: median 1e-3, max 0.5 (logits are
+    # O(1), boxes lie in [0, 1]).
+    with torch.inference_mode():
+        a = detector_apply(engine.params, cfg, x, backend="auto")
+        g = detector_apply(engine.params, cfg, x, backend="torch_gather")
+    for i, label in ((0, "cls_logits"), (1, "boxes")):
+        err = (a[i] - g[i]).abs()
+        compare[f"deformable-detr-defa/{label}"] = {
+            "max": float(err.max()), "median": float(err.median())}
+        if not (torch.isfinite(a[i]).all() and float(err.median()) <= 1e-3
+                and float(err.max()) <= 0.5):
+            raise AssertionError(f"deformable-detr-defa {label}: auto vs "
+                                 f"torch_gather {compare}")
+    emit("serve", model="deformable-detr-defa", img=IMG, n_in=plan.n_in,
+         requests=N_REQUESTS, batches=batches, wall_s=round(wall, 4),
+         plan=plan.describe(), launches=launches,
+         launches_per_batch={k: v // batches for k, v in launches.items()},
+         auto_vs_torch_gather=compare)
+    return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
+            "batches": batches, "fused_calls": rec_f.calls,
+            "decode_calls": rec_d.calls}
+
+
+# --------------------------------------------------------------------------
+# phase 5: times and bounds on the main path's own operands
+# --------------------------------------------------------------------------
+
+def cuda_ms(fn, reps, inner):
+    """Median over ``reps`` of CUDA-event time per call of ``inner``
+    back-to-back calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def _device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile(fn, calls=1):
+    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up:
+    (device kernel events, cpu op events, wall ms). Device events are the
+    kernels on the card, with their own durations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    return dev, cpu, wall
+
+
+def kernel_device_ms(fn, kernel_name, calls=20):
+    """Device time of one launch of ``kernel_name`` (profiler, CUPTI);
+    None when the profiler records no device time on this machine."""
+    dev, _, _ = profile(fn, calls)
+    hits = [e for e in dev if kernel_name in e.key]
+    total = sum(_device_us(e) for e in hits)
+    count = sum(e.count for e in hits)
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def forward_profile(fn):
+    """Where one forward's time goes: device busy ms, wall ms, and the
+    top kernels by device time and ops by host time."""
+    dev, cpu, wall = profile(fn)
+    busy = sum(_device_us(e) for e in dev) / 1e3
+    top = lambda evts, key: [
+        {"op": e.key[:90], "count": e.count, "ms": round(key(e) / 1e3, 4)}
+        for e in sorted(evts, key=key, reverse=True)[:12]]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if wall <= 0 else max(0.0, 1 - busy / wall),
+            "n_kernels": sum(e.count for e in dev),
+            "top_device": top(dev, _device_us),
+            "top_host": top(cpu, lambda e: float(e.self_cpu_time_total))}
+
+
+def touched_rows(pts, remap, n_rows, h):
+    """Distinct (batch, head, table row) triples the live points of this
+    call read: what the kernel must fetch of the table."""
+    import torch
+    from repro_torch.msda.sampling import corner_data
+    x, y, st, wl, hl, p = pts
+    idx, _, valid = corner_data(x, y, wl, hl, st)            # (..., 4)
+    live = valid & (p > 0)[..., None]
+    b = x.shape[0]
+    idx = idx.reshape(b, -1).long()
+    if remap is not None:
+        idx = torch.gather(remap.long(), 1, idx)
+    heads = torch.arange(x.shape[-2], device=x.device).view(
+        *([1] * (x.dim() - 2)), -1, 1, 1).expand(x.shape + (4,)).reshape(b, -1)
+    key = (torch.arange(b, device=x.device)[:, None] * h + heads) * n_rows + idx
+    return int(torch.unique(key[live.reshape(b, -1)]).numel()), \
+        int(live.any(-1).sum())
+
+
+def kernel_bound(pts, remap, scale, out, n_rows, h, dh, itemsize):
+    """Least time for the same work: every input byte read once (table:
+    the rows the live points touch), every output byte written once, and
+    the Eq. 4 operations of the live points at the float32 rate."""
+    rows, live_points = touched_rows(pts, remap, n_rows, h)
+    nbytes = sum(t.numel() * t.element_size() for t in pts)
+    nbytes += rows * dh * itemsize + out.numel() * out.element_size()
+    if remap is not None:
+        nbytes += remap.numel() * remap.element_size()
+    if scale is not None:
+        nbytes += scale.numel() * scale.element_size()
+    ops = live_points * dh * FLOPS_PER_CHANNEL_POINT
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "table_rows_touched": rows}
+
+
+def kernel_times(call, plain, kernel_name):
+    """``ms``: the kernel's own time on the card (profiler device time per
+    launch; CUDA events over back-to-back calls where the profiler sees no
+    device time). ``call_ms``: CUDA events per wrapper call, host checks
+    and launch included. ``plain_ms``: the plain version, CUDA events."""
+    call_ms = cuda_ms(call, 11, 20)
+    dev_ms = kernel_device_ms(call, kernel_name)
+    return {"ms": dev_ms if dev_ms is not None else call_ms,
+            "ms_source": "profiler" if dev_ms is not None else "cuda_events",
+            "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5, 1)}
+
+
+def phase_times(serve):
+    import torch
+    from repro_torch.kernels import msgs_decode, msgs_fused
+    kernels = []
+    # K1: the last encoder block's call (compact table, pix2slot remap)
+    args, kw = serve["fused_calls"][-1]
+    v, pts = args[0], args[1:7]
+    remap, scale = kw.get("remap"), kw.get("scale")
+    out = msgs_fused.msgs_fused(v, *pts, remap=remap, scale=scale)
+    plain = msgs_fused.msgs_fused_plain(v, *pts, remap=remap, scale=scale)
+    err = check_close("msgs_fused main path", out, plain,
+                      tolerance(v.dtype, scale))
+    k1 = {"name": "msgs_fused", "route": "cuda",
+          "source": "src/repro_torch/csrc/msgs_fused.cu",
+          "replaces": "src/repro/kernels/msgs_fused.py:145",
+          "launches": serve["launches"]["msgs_fused"], "max_abs_err": err,
+          **kernel_times(
+              lambda: msgs_fused.msgs_fused(v, *pts, remap=remap, scale=scale),
+              lambda: msgs_fused.msgs_fused_plain(v, *pts, remap=remap,
+                                                  scale=scale),
+              "msgs_fused_kernel"),
+          "library_ms": None}
+    b1 = kernel_bound(pts, remap, scale, out, v.shape[1], v.shape[2],
+                      v.shape[3], v.element_size())
+    k1.update(bound_ms=b1["bound_ms"], bound_by=b1["bound_by"])
+    kernels.append(k1)
+    detail = {"msgs_fused": dict(b1, shape=list(pts[0].shape),
+                                 table=list(v.shape), dtype=str(v.dtype))}
+
+    # K2: the first decoder layer's call on the once-staged table
+    args, kw = serve["decode_calls"][0]
+    staged, pts = args[0], args[1:7]
+    out = msgs_decode.msgs_decode(staged, *pts)
+    layered = tuple(t[:, None] for t in pts)
+    plain = msgs_decode.msgs_decode_plain(
+        staged.v, *layered, staged.remap, staged.scale,
+        head_pack=staged.head_pack, dh=staged.dh)[:, 0]
+    err = check_close("msgs_decode main path", out, plain,
+                      tolerance(staged.v.dtype, staged.scale))
+    k2 = {"name": "msgs_decode", "route": "cuda",
+          "source": "src/repro_torch/csrc/msgs_decode.cu",
+          "replaces": "src/repro/kernels/msgs_decode.py:231",
+          "launches": serve["launches"]["msgs_decode"], "max_abs_err": err,
+          **kernel_times(
+              lambda: msgs_decode.msgs_decode(staged, *pts),
+              lambda: msgs_decode.msgs_decode_plain(
+                  staged.v, *layered, staged.remap, staged.scale,
+                  head_pack=staged.head_pack, dh=staged.dh),
+              "msgs_decode_kernel"),
+          "library_ms": None}
+    h = pts[0].shape[2]
+    # staged rows are per head group; count (b, head, row) like K1
+    b2 = kernel_bound(pts, staged.remap, staged.scale, out, staged.n_rows, h,
+                      staged.dh, staged.v.element_size())
+    k2.update(bound_ms=b2["bound_ms"], bound_by=b2["bound_by"])
+    kernels.append(k2)
+    detail["msgs_decode"] = dict(b2, shape=list(pts[0].shape),
+                                 table=list(staged.v.shape),
+                                 dtype=str(staged.v.dtype))
+
+    from repro_torch.core.detector import detector_apply
+    x, params, cfg = serve["x"], serve["params"], serve["cfg"]
+
+    def host_ms(backend, reps=5):
+        """Median host time of one B = 2 forward, ending in a synchronize."""
+        def run():
+            with torch.inference_mode():
+                detector_apply(params, cfg, x, backend=backend)
+            torch.cuda.synchronize()
+        run()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    serve_ms = host_ms("auto")
+    gather_ms = host_ms("torch_gather")
+    for k in kernels:
+        detail[k["name"]].update(ms_source=k.pop("ms_source"),
+                                 call_ms=k.pop("call_ms"))
+
+    def forward():
+        with torch.inference_mode():
+            detector_apply(params, cfg, x, backend="auto")
+    emit("times", kernels=detail, library_ms=None, library_note=LIBRARY_NOTE,
+         serve_forward_ms_b2=serve_ms, torch_gather_forward_ms_b2=gather_ms,
+         forward_profile=forward_profile(forward),
+         launches_per_forward={k["name"]: k["launches"] // serve["batches"]
+                               for k in kernels},
+         peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
+                "f32_flop_per_s": F32_FLOP_PER_S})
+    return kernels
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no port package under {src}; run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    # parity and timing run in full float32: no TF32 in matmul or conv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda:0")
+    torch.cuda.set_device(device)
+
+    phase_device()
+    phase_build()
+    from repro_torch.msda.plan import level_shapes_for_resolution
+    phase_kernel_checks(device, level_shapes_for_resolution(IMG))
+    serve = phase_serve(device)
+    kernels = phase_times(serve)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,220 @@
+"""Fused MSGS (bilinear grid-sampling) + aggregation — kernel K1 of the port.
+
+The CUDA kernel (``csrc/msgs_fused.cu``) replaces the TPU kernels
+``msgs_fused_pallas`` and ``msgs_fused_packed_pallas``
+(``repro/kernels/msgs_fused.py``). Per (b, q, h) it sums, over the K
+points, p_k times the Eq. 4 factorised bilinear sample of the 4 corner
+rows of ``v (B, N_rows, H, Dh)`` inside the point's level; out-of-level
+corners are zero, the optional ``remap`` sends pruned pixels to the zero
+sentinel row, and an int8 table's per-channel ``scale`` multiplies once
+after aggregation.
+
+:func:`msgs_fused` and :func:`msgs_fused_packed` check their operands
+and then take the plain PyTorch version :func:`msgs_fused_plain` only
+when the tensors lie on the CPU; for CUDA tensors they launch the kernel
+or raise. ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+#: Number of CUDA kernel launches made by this module's wrappers.
+LAUNCHES = 0
+
+#: table dtype -> the C entry's ``table_dtype`` code
+TABLE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+MAX_HEAD_DIM = 128               # kMaxChannelsPerLane * 32 in eq4.cuh
+
+
+def out_dtype(table_dtype: torch.dtype) -> torch.dtype:
+    """int8 codes aggregate to float32; float tables keep their dtype."""
+    return torch.float32 if table_dtype == torch.int8 else table_dtype
+
+
+def check_table(v: torch.Tensor, scale: Optional[torch.Tensor],
+                scale_shape: Sequence[int], name: str) -> None:
+    if v.dtype not in TABLE_CODES:
+        raise TypeError(f"{name}: table dtype {v.dtype} unsupported; "
+                        f"expected one of {list(TABLE_CODES)}")
+    if (v.dtype == torch.int8) != (scale is not None):
+        raise ValueError(f"{name}: an int8 table needs its float32 scale and "
+                         "a float table takes none")
+    if scale is not None:
+        if scale.dtype != torch.float32 or tuple(scale.shape) != tuple(scale_shape):
+            raise ValueError(f"{name}: scale must be float32 {tuple(scale_shape)}, "
+                             f"got {scale.dtype} {tuple(scale.shape)}")
+        if scale.device != v.device or not scale.is_contiguous():
+            raise ValueError(f"{name}: scale must be contiguous on {v.device}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: table must be contiguous")
+
+
+def check_points(pts: Sequence[torch.Tensor], device: torch.device,
+                 name: str) -> None:
+    """x, y, start, wl, hl, probs: one shape, f32 / int32, contiguous."""
+    x = pts[0]
+    for label, t, dt in zip(("x_px", "y_px", "start", "wl", "hl", "probs"), pts,
+                            (torch.float32, torch.float32, torch.int32,
+                             torch.int32, torch.int32, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {label} must be {dt}, got {t.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != "
+                             f"x_px shape {tuple(x.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: {label} on {t.device}, table on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def check_remap(remap: Optional[torch.Tensor], b: int, device: torch.device,
+                name: str) -> None:
+    if remap is None:
+        return
+    if remap.dtype != torch.int32 or remap.dim() != 2 or remap.shape[0] != b:
+        raise ValueError(f"{name}: remap must be int32 (B={b}, N_pix), got "
+                         f"{remap.dtype} {tuple(remap.shape)}")
+    if remap.device != device or not remap.is_contiguous():
+        raise ValueError(f"{name}: remap must be contiguous on {device}")
+
+
+def check_device(device: torch.device, name: str) -> None:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {device}; expected cuda (the "
+                         "kernel) or cpu (the plain version)")
+
+
+def _check(v, pts, remap, scale) -> None:
+    name = "msgs_fused"
+    check_device(v.device, name)
+    if v.dim() != 4:
+        raise ValueError(f"{name}: table must be (B, N_rows, H, Dh), got "
+                         f"{tuple(v.shape)}")
+    b, _, h, dh = v.shape
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh} > {MAX_HEAD_DIM}")
+    check_table(v, scale, (b, 1, h, dh), name)
+    check_points(pts, v.device, name)
+    x = pts[0]
+    if x.dim() != 4 or x.shape[0] != b or x.shape[2] != h:
+        raise ValueError(f"{name}: points must be (B={b}, Nq, H={h}, K), got "
+                         f"{tuple(x.shape)}")
+    check_remap(remap, b, v.device, name)
+
+
+def msgs_fused_plain(v, x_px, y_px, start, wl, hl, probs,
+                     remap: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version: a batched mirror of the reference's
+    ``_eq4_sample_agg`` (repro/kernels/msgs_fused.py:40-87). Corners are
+    widened to float32 before Eq. 4, as in the kernel (the reference
+    subtracts bf16 corners in bf16). Returns (B, Nq, H, Dh)."""
+    b, n_rows, h, dh = v.shape
+    x0 = torch.floor(x_px)
+    y0 = torch.floor(y_px)
+    t1 = (x_px - x0)[..., None]
+    t0 = (y_px - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    vflat = v.reshape(b * n_rows * h, dh)
+    bidx = torch.arange(b, device=v.device).view(b, 1, 1, 1)
+    hidx = torch.arange(h, device=v.device).view(1, 1, h, 1)
+
+    def corner(dx, dy):
+        cx = x0i + dx
+        cy = y0i + dy
+        valid = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl)
+        idx = start + torch.minimum(torch.clamp(cy, min=0), hl - 1) * wl \
+            + torch.minimum(torch.clamp(cx, min=0), wl - 1)
+        if remap is not None:
+            idx = torch.gather(remap.long(), 1, idx.reshape(b, -1)
+                               ).reshape(idx.shape)
+        g = vflat[((bidx * n_rows + idx) * h + hidx).reshape(-1)]
+        g = g.reshape(idx.shape + (dh,)).to(torch.float32)
+        return g * valid[..., None]
+
+    n0 = corner(0, 0)
+    n1 = corner(1, 0)
+    n2 = corner(0, 1)
+    n3 = corner(1, 1)
+    s = n0 + (n2 - n0) * t0 + ((n1 - n0) + (n3 - n2 - n1 + n0) * t0) * t1
+    out = torch.sum(s * probs[..., None], dim=3)
+    if scale is not None:
+        return out * scale
+    return out.to(out_dtype(v.dtype))
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry ``msgs_fused_forward`` with every argument declared:
+    table code, 10 pointers (table, 6 point operands, remap, scale, out),
+    B, Nq, H, K, Dh, n_rows, n_pix and the stream."""
+    from repro_torch.kernels.build import load_library
+    fn = load_library("msgs_fused").msgs_fused_forward
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 5 + [ctypes.c_int64] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(v, x_px, y_px, start, wl, hl, probs, remap, scale) -> torch.Tensor:
+    global LAUNCHES
+    b, n_rows, h, dh = v.shape
+    _, nq, _, k = x_px.shape
+    out = torch.empty((b, nq, h, dh), dtype=out_dtype(v.dtype), device=v.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    n_pix = 0 if remap is None else remap.shape[1]
+    with torch.cuda.device(v.device):
+        code = _entry()(
+            TABLE_CODES[v.dtype], ptr(v), ptr(x_px), ptr(y_px), ptr(start),
+            ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(out),
+            b, nq, h, k, dh, n_rows, n_pix, stream_ptr(v.device))
+    LAUNCHES += 1
+    raise_on_error(code, "msgs_fused")
+    return out
+
+
+def msgs_fused(v, x_px, y_px, start, wl, hl, probs,
+               remap: Optional[torch.Tensor] = None,
+               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused grid-sample + aggregation over ``v (B, N_rows, H, Dh)``.
+
+    Points ``(B, Nq, H, K)``: x/y/probs float32, start/wl/hl int32;
+    ``remap (B, N_pix)`` int32; ``scale (B, 1, H, Dh)`` float32 with an
+    int8 table. Returns (B, Nq, H, Dh) in the table dtype (float32 for
+    int8). CUDA tensors launch the kernel; CPU tensors run the plain
+    version. The caller guarantees indices in range: ``start + wl * hl``
+    within the pixel axis and every ``remap`` value below N_rows."""
+    pts = (x_px, y_px, start, wl, hl, probs)
+    _check(v, pts, remap, scale)
+    if v.device.type == "cpu":
+        return msgs_fused_plain(v, *pts, remap=remap, scale=scale)
+    return _launch(v, *pts, remap, scale)
+
+
+def msgs_fused_packed(v, x_px, y_px, start, wl, hl, probs,
+                      remap: Optional[torch.Tensor] = None,
+                      scale: Optional[torch.Tensor] = None, *,
+                      head_pack: int = 4) -> torch.Tensor:
+    """The reference's head-packed entry point. Packing ``head_pack``
+    heads per 128-lane row is a TPU layout; on the H100 it is the same
+    kernel as :func:`msgs_fused`."""
+    if head_pack < 1 or v.shape[2] % head_pack:
+        raise ValueError(f"msgs_fused_packed: head_pack {head_pack} must "
+                         f"divide the head count {v.shape[2]}")
+    return msgs_fused(v, x_px, y_px, start, wl, hl, probs, remap=remap,
+                      scale=scale)

@@ -1,0 +1,31 @@
+"""repro_torch.msda — the layered MSDeformAttn subsystem of the port.
+
+  * :mod:`~repro_torch.msda.plan` — static :class:`MSDAPlan` (backend,
+    table dtype, the reference's lane layout for decode staging);
+  * :mod:`~repro_torch.msda.cache` — :class:`MSDAValueCache`, built once
+    per memory and sampled by every consumer;
+  * :mod:`~repro_torch.msda.backends` — the registry: ``torch_gather``,
+    ``cuda_fused`` (kernel K1) and ``cuda_decode`` (kernel K2);
+  * :mod:`~repro_torch.msda.pipeline` / :mod:`~repro_torch.msda.attention`
+    / :mod:`~repro_torch.msda.decoder` — planned execution threading an
+    explicit :class:`MSDAPipelineState` across blocks and layers.
+"""
+from repro_torch.msda.attention import msda_attention, msda_attention_cached
+from repro_torch.msda.backends import (BackendInfo, available_backends,
+                                       backend_info, get_backend,
+                                       register_backend)
+from repro_torch.msda.cache import MSDAValueCache, build_value_cache
+from repro_torch.msda.decoder import (MSDADecoderConfig, decoder_apply,
+                                      init_decoder)
+from repro_torch.msda.pipeline import MSDAPipelineState
+from repro_torch.msda.plan import (MSDAPlan, level_shapes_for_resolution,
+                                   make_plan, plan_for, resolve_table_dtype)
+
+__all__ = [
+    "BackendInfo", "MSDADecoderConfig", "MSDAPipelineState", "MSDAPlan",
+    "MSDAValueCache", "available_backends", "backend_info",
+    "build_value_cache", "decoder_apply", "get_backend", "init_decoder",
+    "level_shapes_for_resolution", "make_plan", "msda_attention",
+    "msda_attention_cached", "plan_for", "register_backend",
+    "resolve_table_dtype",
+]

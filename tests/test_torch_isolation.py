@@ -1,0 +1,139 @@
+"""The PyTorch port stands alone and hides no fallback.
+
+  * No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+    JAX or the JAX package (an AST scan of every import).
+  * Entry points default to the card: without CUDA a default call raises
+    instead of running on the CPU.
+  * The kernel wrappers reject what their kernels do not take — dtype,
+    shape, contiguity, device — on CPU tensors too.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for line, mod in _imported_roots(f)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_scan_detects_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import repro_torch\nfrom repro.core import nn\n"
+                     "import jax.numpy as jnp\n")
+    assert [m for _, m in _imported_roots(probe)] == ["repro_torch", "repro",
+                                                      "jax"]
+
+
+def _small_detector():
+    from repro_torch.core.detector import DetectorConfig
+    from repro_torch.core.encoder import EncoderConfig
+    from repro_torch.core.msdeform_attn import MSDeformAttnConfig
+    from repro_torch.msda.decoder import MSDADecoderConfig
+    attn = MSDeformAttnConfig(d_model=32, n_heads=4)
+    return DetectorConfig(encoder=EncoderConfig(attn=attn, n_blocks=1, d_ffn=64),
+                          img_size=32, decoder=MSDADecoderConfig(
+                              n_layers=1, n_queries=8, d_ffn=64))
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device: the default runs there")
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.detector import init_detector
+    from repro_torch.serve import DetrServeEngine
+    cfg = _small_detector()
+    params = init_detector(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        DetrServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        init_detector(cfg)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        params_from_numpy({"w": np.zeros(3, np.float32)})
+
+
+def _k1_operands(b=1, nq=5, h=2, k=4, dh=16, n_rows=30):
+    g = torch.Generator().manual_seed(0)
+    v = torch.randn((b, n_rows, h, dh), generator=g)
+    x = torch.rand((b, nq, h, k), generator=g) * 4
+    y = torch.rand((b, nq, h, k), generator=g) * 4
+    st = torch.zeros((b, nq, h, k), dtype=torch.int32)
+    wl = torch.full((b, nq, h, k), 5, dtype=torch.int32)
+    hl = torch.full((b, nq, h, k), 5, dtype=torch.int32)
+    p = torch.softmax(torch.randn((b, nq, h, k), generator=g), -1)
+    return v, [x, y, st, wl, hl, p]
+
+
+def test_k1_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels.msgs_fused import msgs_fused, msgs_fused_packed
+    v, pts = _k1_operands()
+    assert msgs_fused(v, *pts).shape == (1, 5, 2, 16)
+    with pytest.raises(TypeError, match="table dtype"):
+        msgs_fused(v.double(), *pts)
+    with pytest.raises(TypeError, match="x_px must be torch.float32"):
+        msgs_fused(v, pts[0].double(), *pts[1:])
+    with pytest.raises(TypeError, match="start must be torch.int32"):
+        msgs_fused(v, *pts[:2], pts[2].long(), *pts[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        msgs_fused(v.transpose(1, 2).contiguous().transpose(1, 2), *pts)
+    with pytest.raises(ValueError, match="contiguous"):
+        msgs_fused(v, pts[0].transpose(1, 2).contiguous().transpose(1, 2),
+                   *pts[1:])
+    with pytest.raises(ValueError, match="shape"):
+        msgs_fused(v, pts[0][:, :3].contiguous(), *pts[1:])
+    with pytest.raises(ValueError, match="int8 table needs"):
+        msgs_fused(v.to(torch.int8), *pts)
+    with pytest.raises(ValueError, match="int8 table needs"):
+        msgs_fused(v, *pts, scale=torch.ones((1, 1, 2, 16)))
+    with pytest.raises(ValueError, match="scale must be"):
+        msgs_fused(v.to(torch.int8), *pts, scale=torch.ones((1, 2, 16)))
+    with pytest.raises(ValueError, match="remap must be"):
+        msgs_fused(v, *pts, remap=torch.zeros((1, 30), dtype=torch.int64))
+    with pytest.raises(ValueError, match="head dim"):
+        msgs_fused(torch.zeros((1, 30, 1, 160)), *[t[:, :, :1].contiguous()
+                                                   for t in pts])
+    with pytest.raises(ValueError, match="head_pack"):
+        msgs_fused_packed(v, *pts, head_pack=3)
+
+
+def test_k2_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels.msgs_decode import msgs_decode, stage_decode_table
+    v, pts = _k1_operands(h=4)
+    staged = stage_decode_table(v, head_pack=2)
+    assert msgs_decode(staged, *pts).shape == (1, 5, 4, 16)
+    with pytest.raises(ValueError, match="points must be"):
+        msgs_decode(staged, *[t[:, :, :2].contiguous() for t in pts])
+    with pytest.raises(TypeError, match="probs must be torch.float32"):
+        msgs_decode(staged, *pts[:5], pts[5].double())
+    bad = stage_decode_table(v.to(torch.int8), head_pack=2)      # no scale
+    with pytest.raises(ValueError, match="int8 table needs"):
+        msgs_decode(bad, *pts)
