@@ -5,19 +5,30 @@
 
 Phases, each printing one JSON line:
 
-  1. device  — torch / CUDA versions, the card's name and power limit;
-  2. build   — both Hopper kernels built from ``src/repro_torch/csrc`` with
-               nvcc for sm_90a (one nvcc per source, started together);
-  3. kernels — each kernel against its plain PyTorch version on the card:
-               {f32, bf16, int8 + scale} tables x {dense, compact remap} at
-               the main path's shapes, a ragged small shape, Dh 16/32/64;
-  4. serve   — the port's DetrServeEngine on the full-width
-               deformable-DETR-DEFA detector at 512 px (random seeded
-               weights, float32) with backend="auto": 4 requests, launch
-               counters, and the same forward through torch_gather;
-  5. times   — CUDA-event medians of each kernel and its plain version on
-               the operands the main path gave it, their bounds, and one
-               serve forward at B = 2.
+  1. device   — torch / CUDA versions, the card's name and power limit;
+  2. build    — the three Hopper kernels built from ``src/repro_torch/csrc``
+                with nvcc for sm_90a (one nvcc per source, started
+                together);
+  3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
+                {f32, bf16, int8 + scale} tables x {dense, compact remap}
+                at the 512 px path's shapes, a ragged small shape, Dh
+                16/32/64;
+     windowed — K3 against its plain version: the same tables x {dense,
+                compact with keep_idx} at the 1024 px path's shape and on a
+                ragged small pyramid (Dh 16 and 64, head_pack 1), with
+                points up to three range bounds from their reference, so
+                that the windows drop corners;
+  4. serve    — the port's DetrServeEngine on the full-width
+                deformable-DETR-DEFA detector at 512 px (random seeded
+                weights, float32) with backend="auto": 4 requests, launch
+                counters, and the same forward through torch_gather;
+     serve_1024 — the same detector at the 1024 px bucket with an int8
+                value table and backend="cuda_windowed" (K3 in the
+                encoder, K2 in the decoder): 4 requests, launch counters,
+                and the same forward through torch_gather and cuda_fused;
+  5. times    — each kernel and its plain version on the operands its
+                path gave it, their bounds, K1 on K3's operands, and one
+                serve forward at B = 2 per path with its idle share.
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -39,9 +50,11 @@ F32_FLOP_PER_S = 67e12
 # differences, 3 add/mul to combine them, then p * S + acc.
 FLOPS_PER_CHANNEL_POINT = 13
 IMG = 512
+IMG_WINDOWED = 1024              # the bucket the reference serves with K3
 MAX_BATCH = 2
 N_REQUESTS = 4
 SEED = 0
+OUTPUTS = ("cls_logits", "boxes")
 LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
                 "aggregation (F.grid_sample samples a dense per-level map and "
                 "knows neither the pixel->slot remap nor the int8 scale)")
@@ -197,18 +210,160 @@ def phase_kernel_checks(device, main_levels):
          tolerance="f32 1e-5; bf16 rtol 2^-7; int8 1e-5*127*max(scale)")
 
 
+def window_points(gen, b, levels, h, k, ranges, device):
+    """x, y, lvl_of_pt, probs (B, N_in, H, K) for raster queries: every
+    point on a random level, offset from its query's reference point by
+    up to three times the level's range bound, so that some corners leave
+    the tile's windows; some probabilities are 0."""
+    import torch
+    refs = []
+    for hh, ww in levels:
+        ys, xs = torch.meshgrid((torch.arange(hh) + 0.5) / hh,
+                                (torch.arange(ww) + 0.5) / ww, indexing="ij")
+        refs.append(torch.stack([xs.reshape(-1), ys.reshape(-1)], -1))
+    refs = torch.cat(refs)
+    shape = (b, refs.shape[0], h, k)
+    lvl = torch.randint(0, len(levels), shape, generator=gen)
+    wl = torch.tensor([w for _, w in levels], dtype=torch.float32)[lvl]
+    hl = torch.tensor([hh for hh, _ in levels], dtype=torch.float32)[lvl]
+    bound = torch.tensor(ranges, dtype=torch.float32)[lvl]
+    spread = lambda: (torch.rand(shape, generator=gen) * 6 - 3) * bound
+    x = refs[:, 0].view(1, -1, 1, 1) * wl - 0.5 + spread()
+    y = refs[:, 1].view(1, -1, 1, 1) * hl - 0.5 + spread()
+    p = torch.softmax(torch.randn(shape, generator=gen), -1)
+    p = torch.where(torch.rand(shape, generator=gen) < 0.1, 0.0, p)
+    return [t.contiguous().to(device) for t in (x, y, lvl.to(torch.int32), p)]
+
+
+def window_table(gen, b, levels, h, dh, dtype, compact, head_pack, device):
+    """(v, remap, keep_idx, scale, caps): a dense table, or an FWP-like
+    compact one — per level a raster-sorted keep list of the level's
+    capacity, 30 % of it routed to the zero sentinel row."""
+    import torch
+    from repro_torch.core.fwp import level_capacities, level_starts
+    starts, n_in = level_starts(levels)
+    remap = keep = caps = None
+    n_rows = n_in
+    if compact:
+        caps = tuple(level_capacities(levels, 0.6))
+        keep = torch.stack([torch.cat([
+            torch.sort(torch.randperm(hh * ww, generator=gen)[:c])[0] + int(s)
+            for (hh, ww), c, s in zip(levels, caps, starts)]) for _ in range(b)])
+        n_rows = sum(caps) + 1
+        alive = torch.rand((b, n_rows - 1), generator=gen) > 0.3
+        slots = torch.where(alive, torch.arange(n_rows - 1), n_rows - 1)
+        remap = torch.full((b, n_in), n_rows - 1, dtype=torch.int64)
+        remap.scatter_(1, keep, slots)
+        keep, remap = keep.to(torch.int32), remap.to(torch.int32)
+    v = torch.randn((b, n_rows, h, dh), generator=gen)
+    scale = None
+    if dtype == torch.int8:
+        v = torch.randint(-127, 128, (b, n_rows, h, dh), generator=gen)
+        scale = torch.rand((b, h // head_pack, head_pack, dh), generator=gen) \
+            * 0.02 + 0.002
+    if compact:
+        v[:, -1] = 0                                      # zero sentinel row
+    as_dev = lambda t: None if t is None else t.contiguous().to(device)
+    return as_dev(v.to(dtype)), as_dev(remap), as_dev(keep), as_dev(scale), caps
+
+
+def level_operands(lvl, levels):
+    """K1's per-point (start, width, height) int32 for K3's level index."""
+    from repro_torch.msda.sampling import level_meta
+    starts, ws, hs, _ = level_meta(levels, device=lvl.device)
+    li = lvl.long()
+    return [t[li].contiguous() for t in (starts, ws, hs)]
+
+
+def k1_on_k3_operands(args, kw):
+    """K1 (no windows) on the operands of one K3 call: the same table,
+    remap and scale, with the level index expanded to K1's geometry."""
+    from repro_torch.kernels import msgs_fused
+    v, x, y, lvl, p = args
+    b, _, h, dh = v.shape
+    scale = kw.get("scale")
+    if scale is not None:
+        scale = scale.reshape(b, 1, h, dh).contiguous()
+    st, wl, hl = level_operands(lvl, kw["level_shapes"])
+    return lambda: msgs_fused.msgs_fused(v, x, y, st, wl, hl, p,
+                                         remap=kw.get("remap"), scale=scale)
+
+
+def gather_on_k3_operands(args, kw):
+    """The torch_gather backend on the operands of one K3 call (the same
+    table, points, remap and scale)."""
+    from types import SimpleNamespace
+    from repro_torch.msda.backends import torch_gather
+    from repro_torch.msda.sampling import SamplingPoints
+    v, x, y, lvl, p = args
+    b, _, h, dh = v.shape
+    st, wl, hl = level_operands(lvl, kw["level_shapes"])
+    scale = kw.get("scale")
+    cache = SimpleNamespace(
+        scale=None if scale is None else scale.reshape(b, 1, h, dh))
+    return torch_gather(None, v, SamplingPoints(x, y, st, wl, hl, lvl,
+                                                kw.get("remap")), p,
+                        cache=cache)
+
+
+def phase_windowed_checks(device):
+    import torch
+    from repro_torch.kernels import msgs_windowed
+    from repro_torch.msda.plan import (block_q_for_levels,
+                                       level_shapes_for_resolution)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    ragged = ((13, 17), (7, 9), (4, 5), (2, 3))
+    small_ranges = (3.5, 2.5, 1.5, 1.0)
+    # (label, levels, B, H, K, Dh, ranges, head_pack)
+    shapes = [("main_1024", level_shapes_for_resolution(IMG_WINDOWED), 2, 8,
+               4, 32, (16.0, 12.0, 8.0, 4.0), 4),
+              ("ragged_dh16", ragged, 1, 4, 16, 16, small_ranges, 1),
+              ("ragged_dh64", ragged, 2, 2, 4, 64, small_ranges, 1)]
+    results = []
+    for label, levels, b, h, k, dh, ranges, hp in shapes:
+        tile_q = max(block_q_for_levels(levels, 128))
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for compact in (False, True):
+                pts = window_points(gen, b, levels, h, k, ranges, device)
+                v, remap, keep, scale, caps = window_table(
+                    gen, b, levels, h, dh, dtype, compact, hp, device)
+                kw = dict(remap=remap, keep_idx=keep, scale=scale,
+                          level_shapes=levels, ranges=ranges, tile_q=tile_q,
+                          head_pack=hp, caps=caps)
+                case = f"{label}/{str(dtype)[6:]}/{'compact' if compact else 'dense'}"
+                got = msgs_windowed.msgs_windowed_msp(v, *pts, **kw)
+                err = check_close(f"msgs_windowed {case}", got,
+                                  msgs_windowed.msgs_windowed_msp_plain(
+                                      v, *pts, **kw), tolerance(dtype, scale))
+                # the windows decide: K1 has none and must differ somewhere
+                k1 = k1_on_k3_operands((v, *pts), kw)()
+                decided = float(((k1.float() - got.float()).abs().amax(-1)
+                                 > 1e-3).float().mean())
+                if not decided > 0:
+                    raise AssertionError(f"msgs_windowed {case}: no corner "
+                                         "left its window; the check is void")
+                results.append({"case": case, "windowed_err": err,
+                                "window_decided_share": decided})
+    emit("windowed", checks=len(results), results=results,
+         tolerance="f32 1e-5; bf16 rtol 2^-7; int8 1e-5*127*max(scale)")
+
+
 # --------------------------------------------------------------------------
 # phase 4: serve the full-width detector
 # --------------------------------------------------------------------------
 
-def slice_config(name):
+def slice_config(name, img=None, table_dtype=None):
+    import dataclasses
     import torch
     from repro_torch.configs.detr_family import CONFIGS, with_dtype
     from repro_torch.core.detector import DetectorConfig
     from repro_torch.msda.decoder import MSDADecoderConfig
-    return DetectorConfig(encoder=with_dtype(CONFIGS[name].encoder, torch.float32),
-                          img_size=IMG, n_classes=4, backbone_width=32,
-                          decoder=MSDADecoderConfig())
+    enc = with_dtype(CONFIGS[name].encoder, torch.float32)
+    if table_dtype is not None:
+        enc = dataclasses.replace(enc, attn=dataclasses.replace(
+            enc.attn, table_dtype=table_dtype))
+    return DetectorConfig(encoder=enc, img_size=img or IMG, n_classes=4,
+                          backbone_width=32, decoder=MSDADecoderConfig())
 
 
 class Recorder:
@@ -234,11 +389,62 @@ class Recorder:
         setattr(self.module, self.attr, self.orig)
 
 
-def seeded_images(n):
+def seeded_images(n, img=None):
     import numpy as np
     rng = np.random.default_rng(SEED)
-    return [rng.uniform(0.0, 1.0, (3, IMG, IMG)).astype(np.float32)
+    img = img or IMG
+    return [rng.uniform(0.0, 1.0, (3, img, img)).astype(np.float32)
             for _ in range(n)]
+
+
+def check_requests(reqs):
+    import numpy as np
+    for r in reqs:
+        if not (r.done and r.cls_probs.shape == (300, 5)
+                and r.boxes.shape == (300, 4)
+                and np.isfinite(r.cls_probs).all() and np.isfinite(r.boxes).all()):
+            raise AssertionError(f"request {r.rid}: done={r.done} "
+                                 f"cls {getattr(r.cls_probs, 'shape', None)} "
+                                 f"boxes {getattr(r.boxes, 'shape', None)}")
+
+
+def serve_requests(engine, images):
+    """Submit one request per image, drain, synchronize; wall seconds."""
+    import torch
+    from repro_torch.serve import DetrRequest
+    t0 = time.perf_counter()
+    reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(images)]
+    for r in reqs:
+        if not engine.submit(r):
+            raise AssertionError(f"request {r.rid} rejected: {r.error}")
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def abs_errors(a, g):
+    """Median and max of |a - g| for the detector's logits and boxes."""
+    out = {}
+    for i, name in enumerate(OUTPUTS):
+        err = (a[i] - g[i]).abs()
+        out[name] = {"max": float(err.max()), "median": float(err.median())}
+    return out
+
+
+def defa_agreement(label, a, g, compare, median=None):
+    """DEFA: INT12 fake-quant, PAP top-k and FWP compaction are discrete;
+    a float-ulp difference between two samplers can flip a rounding or a
+    pick, which moves that query's points. Most outputs must agree and
+    none may run away: median 1e-3 (or ``median[output]``), max 0.5
+    (logits are O(1), boxes lie in [0, 1])."""
+    import torch
+    errs = abs_errors(a, g)
+    for i, name in enumerate(OUTPUTS):
+        compare[f"{label}/{name}"] = errs[name]
+        bound = 1e-3 if median is None else median[name]
+        if not (torch.isfinite(a[i]).all() and errs[name]["median"] <= bound
+                and errs[name]["max"] <= 0.5):
+            raise AssertionError(f"{label} {name}: {compare}")
 
 
 def phase_serve(device):
@@ -246,7 +452,7 @@ def phase_serve(device):
     import torch
     from repro_torch.core.detector import detector_apply, init_detector
     from repro_torch.kernels import msgs_decode, msgs_fused
-    from repro_torch.serve import DetrRequest, DetrServeEngine
+    from repro_torch.serve import DetrServeEngine
 
     cfg = slice_config("deformable-detr-defa")
     params = init_detector(cfg, torch.Generator().manual_seed(SEED),
@@ -259,24 +465,11 @@ def phase_serve(device):
                 Recorder(msgs_decode, "msgs_decode", 6) as rec_d:
             msgs_fused.LAUNCHES = 0
             msgs_decode.LAUNCHES = 0
-            t0 = time.perf_counter()
-            reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(images)]
-            for r in reqs:
-                if not engine.submit(r):
-                    raise AssertionError(f"request {r.rid} rejected: {r.error}")
-            engine.run_until_drained()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            reqs, wall = serve_requests(engine, images)
             launches = {"msgs_fused": msgs_fused.LAUNCHES,
                         "msgs_decode": msgs_decode.LAUNCHES}
         batches = engine.batches_dispatched
-    for r in reqs:
-        if not (r.done and r.cls_probs.shape == (300, 5)
-                and r.boxes.shape == (300, 4)
-                and np.isfinite(r.cls_probs).all() and np.isfinite(r.boxes).all()):
-            raise AssertionError(f"request {r.rid}: done={r.done} "
-                                 f"cls {getattr(r.cls_probs, 'shape', None)} "
-                                 f"boxes {getattr(r.boxes, 'shape', None)}")
+    check_requests(reqs)
     n_blocks = cfg.encoder.n_blocks
     n_layers = cfg.decoder.n_layers
     if batches != N_REQUESTS // MAX_BATCH \
@@ -304,22 +497,10 @@ def phase_serve(device):
         if not torch.allclose(a[i], g[i], rtol=1e-4, atol=1e-4):
             raise AssertionError(f"deformable-detr {label}: auto vs torch_gather "
                                  f"max {float(err.max()):.3e} > 1e-4")
-    # DEFA: INT12 fake-quant, PAP top-k and FWP compaction are discrete;
-    # a float-ulp difference between the kernel and the gather can flip a
-    # rounding or a pick, which moves that query's points. Most outputs
-    # must agree and none may run away: median 1e-3, max 0.5 (logits are
-    # O(1), boxes lie in [0, 1]).
     with torch.inference_mode():
         a = detector_apply(engine.params, cfg, x, backend="auto")
         g = detector_apply(engine.params, cfg, x, backend="torch_gather")
-    for i, label in ((0, "cls_logits"), (1, "boxes")):
-        err = (a[i] - g[i]).abs()
-        compare[f"deformable-detr-defa/{label}"] = {
-            "max": float(err.max()), "median": float(err.median())}
-        if not (torch.isfinite(a[i]).all() and float(err.median()) <= 1e-3
-                and float(err.max()) <= 0.5):
-            raise AssertionError(f"deformable-detr-defa {label}: auto vs "
-                                 f"torch_gather {compare}")
+    defa_agreement("deformable-detr-defa", a, g, compare)
     emit("serve", model="deformable-detr-defa", img=IMG, n_in=plan.n_in,
          requests=N_REQUESTS, batches=batches, wall_s=round(wall, 4),
          plan=plan.describe(), launches=launches,
@@ -328,6 +509,89 @@ def phase_serve(device):
     return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
             "batches": batches, "fused_calls": rec_f.calls,
             "decode_calls": rec_d.calls}
+
+
+def phase_serve_windowed(device):
+    """The 1024 px bucket with an int8 value table through K3."""
+    import numpy as np
+    import torch
+    from repro_torch.core.detector import detector_apply, init_detector
+    from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
+    from repro_torch.msda.plan import plan_for
+    from repro_torch.serve import DetrServeEngine
+
+    cfg = slice_config("deformable-detr-defa", IMG_WINDOWED, "int8")
+    params = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                           device=device)
+    images = seeded_images(N_REQUESTS, IMG_WINDOWED)
+    enc_plan = plan_for(cfg.encoder.attn, cfg.level_shapes, "cuda_windowed")
+    with DetrServeEngine(cfg, params, max_batch=MAX_BATCH,
+                         backend="cuda_windowed", resolutions=(IMG_WINDOWED,),
+                         device=device) as engine:
+        dec_plan = engine.buckets[0].plan
+        with Recorder(msgs_windowed, "msgs_windowed_msp", 6) as rec_w:
+            msgs_windowed.LAUNCHES = 0
+            msgs_decode.LAUNCHES = 0
+            msgs_fused.LAUNCHES = 0
+            reqs, wall = serve_requests(engine, images)
+            launches = {"msgs_windowed": msgs_windowed.LAUNCHES,
+                        "msgs_decode": msgs_decode.LAUNCHES,
+                        "msgs_fused": msgs_fused.LAUNCHES}
+        batches = engine.batches_dispatched
+    check_requests(reqs)
+    n_blocks, n_layers = cfg.encoder.n_blocks, cfg.decoder.n_layers
+    if batches != N_REQUESTS // MAX_BATCH \
+            or launches != {"msgs_windowed": n_blocks * batches,
+                             "msgs_decode": n_layers * batches,
+                             "msgs_fused": 0}:
+        raise AssertionError(f"launch counts {launches} over {batches} batches; "
+                             f"expected {n_blocks} windowed, {n_layers} decode "
+                             "and 0 fused launches per batch")
+    if enc_plan.backend != "cuda_windowed" or dec_plan.backend != "cuda_decode" \
+            or enc_plan.table_dtype != "int8":
+        raise AssertionError(f"plans {enc_plan.describe()} / "
+                             f"{dec_plan.describe()}")
+
+    # every served block's K3 output against torch_gather on the same
+    # operands, within the kernel tolerance
+    blocks = [check_close(f"msgs_windowed block {i} vs torch_gather",
+                          msgs_windowed.msgs_windowed_msp(*args, **kw),
+                          gather_on_k3_operands(args, kw),
+                          tolerance(args[0].dtype, kw.get("scale")))
+              for i, (args, kw) in enumerate(rec_w.calls)]
+
+    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
+    compare = {}
+    with torch.inference_mode():
+        w = detector_apply(engine.params, cfg, x, backend="cuda_windowed")
+        # K1 and K3 sum each point's terms in the same order
+        defa_agreement("cuda_windowed_vs_cuda_fused", w, detector_apply(
+            engine.params, cfg, x, backend="cuda_fused"), compare)
+        # At this size the discrete decisions of six blocks amplify any
+        # float-ulp difference (the blocks agree above): hold K3 to
+        # torch_gather as closely as torch_gather holds to itself when
+        # its input images move by one ulp, twice that spread, and never
+        # looser than the 1e-3 rule.
+        g = detector_apply(engine.params, cfg, x, backend="torch_gather")
+        spread = abs_errors(g, detector_apply(
+            engine.params, cfg, torch.nextafter(x, torch.full_like(x, 2.0)),
+            backend="torch_gather"))
+        compare.update({f"torch_gather_vs_one_ulp_input/{k}": v
+                        for k, v in spread.items()})
+        defa_agreement("cuda_windowed_vs_torch_gather", w, g, compare,
+                       median={k: max(1e-3, 2 * v["median"])
+                               for k, v in spread.items()})
+    emit("serve_1024", model="deformable-detr-defa", img=IMG_WINDOWED,
+         table_dtype="int8", n_in=enc_plan.n_in, requests=N_REQUESTS,
+         batches=batches, wall_s=round(wall, 4),
+         encoder_plan=enc_plan.describe(), decoder_plan=dec_plan.describe(),
+         tile_q=enc_plan.tile_q, window_bytes=enc_plan.window_bytes,
+         window_bytes_compact=enc_plan.window_bytes_compact,
+         launches=launches,
+         launches_per_batch={k: v // batches for k, v in launches.items()},
+         blocks_vs_torch_gather_max_abs_err=blocks, windowed_vs=compare)
+    return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
+            "batches": batches, "windowed_calls": rec_w.calls}
 
 
 # --------------------------------------------------------------------------
@@ -408,41 +672,51 @@ def forward_profile(fn):
             "top_host": top(cpu, lambda e: float(e.self_cpu_time_total))}
 
 
-def touched_rows(pts, remap, n_rows, h):
-    """Distinct (batch, head, table row) triples the live points of this
-    call read: what the kernel must fetch of the table."""
+def touched(pts, remap, n_rows, h):
+    """What the live points of one call read: distinct (batch, head,
+    table row) triples, distinct (batch, pixel) pairs (the pix2slot
+    entries under a remap), and the live point count."""
     import torch
     from repro_torch.msda.sampling import corner_data
     x, y, st, wl, hl, p = pts
     idx, _, valid = corner_data(x, y, wl, hl, st)            # (..., 4)
     live = valid & (p > 0)[..., None]
     b = x.shape[0]
-    idx = idx.reshape(b, -1).long()
-    if remap is not None:
-        idx = torch.gather(remap.long(), 1, idx)
+    pix = idx.reshape(b, -1).long()
+    row = pix if remap is None else torch.gather(remap.long(), 1, pix)
     heads = torch.arange(x.shape[-2], device=x.device).view(
         *([1] * (x.dim() - 2)), -1, 1, 1).expand(x.shape + (4,)).reshape(b, -1)
-    key = (torch.arange(b, device=x.device)[:, None] * h + heads) * n_rows + idx
-    return int(torch.unique(key[live.reshape(b, -1)]).numel()), \
-        int(live.any(-1).sum())
+    bidx = torch.arange(b, device=x.device)[:, None]
+    live = live.reshape(b, -1)
+    rows = torch.unique(((bidx * h + heads) * n_rows + row)[live]).numel()
+    n_pix = int(pix.max()) + 1
+    pixels = torch.unique((bidx * n_pix + pix)[live]).numel()
+    return int(rows), int(pixels), int(live.reshape(x.shape + (4,)).any(-1).sum())
 
 
-def kernel_bound(pts, remap, scale, out, n_rows, h, dh, itemsize):
+def kernel_bound(pts, remap, scale, out, n_rows, h, dh, itemsize,
+                 operands=None):
     """Least time for the same work: every input byte read once (table:
     the rows the live points touch), every output byte written once, and
-    the Eq. 4 operations of the live points at the float32 rate."""
-    rows, live_points = touched_rows(pts, remap, n_rows, h)
-    nbytes = sum(t.numel() * t.element_size() for t in pts)
+    the Eq. 4 operations of the live points at the float32 rate. The
+    point operands are ``operands`` (default ``pts``). K1 and K2 count
+    their whole ``remap``; K3 (``operands`` given) counts the pix2slot
+    entries its live points touch."""
+    rows, pixels, live_points = touched(pts, remap, n_rows, h)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (pts if operands is None else operands))
     nbytes += rows * dh * itemsize + out.numel() * out.element_size()
     if remap is not None:
-        nbytes += remap.numel() * remap.element_size()
+        nbytes += (remap.numel() if operands is None else pixels) \
+            * remap.element_size()
     if scale is not None:
         nbytes += scale.numel() * scale.element_size()
     ops = live_points * dh * FLOPS_PER_CHANNEL_POINT
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "table_rows_touched": rows}
+            "bytes": nbytes, "ops": ops, "table_rows_touched": rows,
+            "pixels_touched": pixels}
 
 
 def kernel_times(call, plain, kernel_name):
@@ -457,9 +731,38 @@ def kernel_times(call, plain, kernel_name):
             "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5, 1)}
 
 
-def phase_times(serve):
+def forward_ms(serve, backend, reps=5):
+    """Median host time of one B = 2 forward, ending in a synchronize."""
     import torch
-    from repro_torch.kernels import msgs_decode, msgs_fused
+    from repro_torch.core.detector import detector_apply
+
+    def run():
+        with torch.inference_mode():
+            detector_apply(serve["params"], serve["cfg"], serve["x"],
+                           backend=backend)
+        torch.cuda.synchronize()
+    run()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def serve_profile(serve, backend):
+    import torch
+    from repro_torch.core.detector import detector_apply
+
+    def forward():
+        with torch.inference_mode():
+            detector_apply(serve["params"], serve["cfg"], serve["x"],
+                           backend=backend)
+    return forward_profile(forward)
+
+
+def phase_times(serve, serve_w):
+    from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
     args, kw = serve["fused_calls"][-1]
@@ -517,36 +820,53 @@ def phase_times(serve):
                                  table=list(staged.v.shape),
                                  dtype=str(staged.v.dtype))
 
-    from repro_torch.core.detector import detector_apply
-    x, params, cfg = serve["x"], serve["params"], serve["cfg"]
+    # K3: the last encoder block's call at 1024 px (int8 compact table)
+    args, kw = serve_w["windowed_calls"][-1]
+    v, pts = args[0], args[1:5]
+    call = lambda: msgs_windowed.msgs_windowed_msp(*args, **kw)
+    out = call()
+    err = check_close("msgs_windowed main path", out,
+                      msgs_windowed.msgs_windowed_msp_plain(*args, **kw),
+                      tolerance(v.dtype, kw.get("scale")))
+    k3 = {"name": "msgs_windowed", "route": "cuda",
+          "source": "src/repro_torch/csrc/msgs_windowed.cu",
+          "replaces": "src/repro/kernels/msgs_windowed.py:318",
+          "launches": serve_w["launches"]["msgs_windowed"], "max_abs_err": err,
+          **kernel_times(call,
+                         lambda: msgs_windowed.msgs_windowed_msp_plain(*args,
+                                                                       **kw),
+                         "msgs_windowed_kernel"),
+          "library_ms": None}
+    st, wl, hl = level_operands(pts[2], kw["level_shapes"])
+    b3 = kernel_bound((pts[0], pts[1], st, wl, hl, pts[3]), kw.get("remap"),
+                      kw.get("scale"), out, v.shape[1], v.shape[2], v.shape[3],
+                      v.element_size(), operands=pts)
+    k3.update(bound_ms=b3["bound_ms"], bound_by=b3["bound_by"])
+    kernels.append(k3)
+    # K1 on the same operands: does windowing pay on this card?
+    k1_call = k1_on_k3_operands(args, kw)
+    k1_dev = kernel_device_ms(k1_call, "msgs_fused_kernel")
+    detail["msgs_windowed"] = dict(
+        b3, shape=list(pts[0].shape), table=list(v.shape), dtype=str(v.dtype),
+        tile_q=kw["tile_q"], head_pack=kw["head_pack"],
+        k1_same_operands={"ms": k1_dev, "call_ms": cuda_ms(k1_call, 11, 20),
+                          "max_abs_diff_vs_k3":
+                              float((k1_call() - out).abs().max())})
 
-    def host_ms(backend, reps=5):
-        """Median host time of one B = 2 forward, ending in a synchronize."""
-        def run():
-            with torch.inference_mode():
-                detector_apply(params, cfg, x, backend=backend)
-            torch.cuda.synchronize()
-        run()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            run()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts)
-
-    serve_ms = host_ms("auto")
-    gather_ms = host_ms("torch_gather")
+    times = {"serve_forward_ms_b2": forward_ms(serve, "auto"),
+             "torch_gather_forward_ms_b2": forward_ms(serve, "torch_gather"),
+             "serve_1024_forward_ms_b2": forward_ms(serve_w, "cuda_windowed"),
+             "torch_gather_1024_forward_ms_b2": forward_ms(
+                 serve_w, "torch_gather", reps=3)}
     for k in kernels:
         detail[k["name"]].update(ms_source=k.pop("ms_source"),
                                  call_ms=k.pop("call_ms"))
-
-    def forward():
-        with torch.inference_mode():
-            detector_apply(params, cfg, x, backend="auto")
+    batches = {"msgs_fused": serve["batches"], "msgs_decode": serve["batches"],
+               "msgs_windowed": serve_w["batches"]}
     emit("times", kernels=detail, library_ms=None, library_note=LIBRARY_NOTE,
-         serve_forward_ms_b2=serve_ms, torch_gather_forward_ms_b2=gather_ms,
-         forward_profile=forward_profile(forward),
-         launches_per_forward={k["name"]: k["launches"] // serve["batches"]
+         **times, forward_profile=serve_profile(serve, "auto"),
+         forward_profile_1024=serve_profile(serve_w, "cuda_windowed"),
+         launches_per_forward={k["name"]: k["launches"] // batches[k["name"]]
                                for k in kernels},
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                 "f32_flop_per_s": F32_FLOP_PER_S})
@@ -579,8 +899,10 @@ def main() -> int:
     phase_build()
     from repro_torch.msda.plan import level_shapes_for_resolution
     phase_kernel_checks(device, level_shapes_for_resolution(IMG))
+    phase_windowed_checks(device)
     serve = phase_serve(device)
-    kernels = phase_times(serve)
+    serve_w = phase_serve_windowed(device)
+    kernels = phase_times(serve, serve_w)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

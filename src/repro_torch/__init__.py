@@ -11,11 +11,12 @@ Layout of the first slice (one detection request, decoder head):
   * ``core`` — nn primitives, fake-quant, PAP, FWP, the MSDeformAttn
     config/init/oracle, the encoder and the detector;
   * ``msda`` — plan, sampling geometry, value cache, backend registry
-    (``torch_gather`` / ``cuda_fused`` / ``cuda_decode``), attention and
-    the decoder;
-  * ``kernels`` + ``csrc`` — the two hand-written Hopper kernels (fused
-    MSGS + aggregation, persistent-cache decode), built with ``nvcc`` at
-    first use and bound through ``ctypes``;
+    (``torch_gather`` / ``cuda_fused`` / ``cuda_windowed`` /
+    ``cuda_decode``), attention and the decoder;
+  * ``kernels`` + ``csrc`` — the hand-written Hopper kernels (fused MSGS
+    + aggregation, windowed multi-scale-parallel MSGS, persistent-cache
+    decode), built with ``nvcc`` at first use and bound through
+    ``ctypes``;
   * ``configs`` — the deformable-DETR family;
   * ``serve`` — shape buckets, post-processing and ``DetrServeEngine``.
 

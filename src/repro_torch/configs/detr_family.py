@@ -17,7 +17,7 @@ from repro_torch.core.msdeform_attn import MSDeformAttnConfig
 
 # 800x1333 input, strides 8,16,32,64 (official deformable-DETR pyramid)
 LEVEL_SHAPES = ((100, 167), (50, 84), (25, 42), (13, 21))
-N_IN = sum(h * w for h, w in LEVEL_SHAPES)                 # 21900 queries
+N_IN = sum(h * w for h, w in LEVEL_SHAPES)                 # 22223 queries
 
 
 @dataclasses.dataclass(frozen=True)

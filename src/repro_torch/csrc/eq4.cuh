@@ -1,6 +1,8 @@
 // Eq. 4 corner gather + factorised bilinear sample + probability-weighted
-// aggregation, shared by the fused encoder kernel (msgs_fused.cu) and the
-// persistent-cache decode kernel (msgs_decode.cu).
+// aggregation, shared by the fused encoder kernel (msgs_fused.cu), the
+// persistent-cache decode kernel (msgs_decode.cu) and the windowed
+// encoder kernel (msgs_windowed.cu, which supplies its own corner rows
+// to eq4_point).
 //
 // One warp serves one (batch, query, head) item; lane j holds channel j
 // (and j + 32, j + 64, j + 96 when Dh > 32; lanes >= Dh idle when
@@ -42,6 +44,30 @@ struct PointRefs {
   const int* wl;
   const int* hl;
 };
+
+// acc[i] += p * S(channel lane + 32 i) for one point, S from Eq. 4:
+//   S = N0 + (N2 - N0) t0 + [(N1 - N0) + (N3 - N2 - N1 + N0) t0] t1
+// Corner c (order (0,0) (1,0) (0,1) (1,1)) is the row at rows + off[c],
+// or zero when valid[c] is false (that row is never loaded).
+template <typename T>
+__device__ __forceinline__ void eq4_point(const T* __restrict__ rows,
+                                          const int64_t off[4],
+                                          const bool valid[4], float t0,
+                                          float t1, float p, int dh, int lane,
+                                          float acc[kMaxChannelsPerLane]) {
+#pragma unroll
+  for (int i = 0; i < kMaxChannelsPerLane; ++i) {
+    const int ch = lane + kWarp * i;
+    if (ch < dh) {
+      float nv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) nv[c] = valid[c] ? to_f32(rows[off[c] + ch]) : 0.f;
+      const float s = nv[0] + (nv[2] - nv[0]) * t0 +
+                      ((nv[1] - nv[0]) + (nv[3] - nv[2] - nv[1] + nv[0]) * t0) * t1;
+      acc[i] += p * s;
+    }
+  }
+}
 
 // acc[i] <- sum_k p_k * S_k(channel lane + 32 i), S from Eq. 4:
 //   S = N0 + (N2 - N0) t0 + [(N1 - N0) + (N3 - N2 - N1 + N0) t0] t1
@@ -97,18 +123,7 @@ __device__ __forceinline__ void eq4_sample_agg(const PointRefs pts, int K,
           off[c] = static_cast<int64_t>(idx) * row_stride;
         }
       }
-#pragma unroll
-      for (int i = 0; i < kMaxChannelsPerLane; ++i) {
-        const int ch = lane + kWarp * i;
-        if (ch < dh) {
-          float nv[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) nv[c] = valid[c] ? to_f32(rows[off[c] + ch]) : 0.f;
-          const float s = nv[0] + (nv[2] - nv[0]) * t0 +
-                          ((nv[1] - nv[0]) + (nv[3] - nv[2] - nv[1] + nv[0]) * t0) * t1;
-          acc[i] += p * s;
-        }
-      }
+      eq4_point<T>(rows, off, valid, t0, t1, p, dh, lane, acc);
     }
   }
 }

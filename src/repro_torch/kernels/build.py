@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: kernel name -> source file under csrc/ (every *.cuh there is a header)
-SOURCES = {"msgs_fused": "msgs_fused.cu", "msgs_decode": "msgs_decode.cu"}
+SOURCES = {"msgs_fused": "msgs_fused.cu", "msgs_decode": "msgs_decode.cu",
+           "msgs_windowed": "msgs_windowed.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,27 +5,31 @@
   * :mod:`~repro_torch.msda.cache` — :class:`MSDAValueCache`, built once
     per memory and sampled by every consumer;
   * :mod:`~repro_torch.msda.backends` — the registry: ``torch_gather``,
-    ``cuda_fused`` (kernel K1) and ``cuda_decode`` (kernel K2);
+    ``cuda_fused`` (kernel K1), ``cuda_windowed`` (kernel K3) and
+    ``cuda_decode`` (kernel K2);
   * :mod:`~repro_torch.msda.pipeline` / :mod:`~repro_torch.msda.attention`
     / :mod:`~repro_torch.msda.decoder` — planned execution threading an
     explicit :class:`MSDAPipelineState` across blocks and layers.
 """
 from repro_torch.msda.attention import msda_attention, msda_attention_cached
 from repro_torch.msda.backends import (BackendInfo, available_backends,
-                                       backend_info, get_backend,
-                                       register_backend)
+                                       backend_info, cuda_windowed,
+                                       get_backend, register_backend)
 from repro_torch.msda.cache import MSDAValueCache, build_value_cache
 from repro_torch.msda.decoder import (MSDADecoderConfig, decoder_apply,
                                       init_decoder)
 from repro_torch.msda.pipeline import MSDAPipelineState
-from repro_torch.msda.plan import (MSDAPlan, level_shapes_for_resolution,
-                                   make_plan, plan_for, resolve_table_dtype)
+from repro_torch.msda.plan import (MSDAPlan, block_q_for_levels,
+                                   level_shapes_for_resolution, make_plan,
+                                   plan_for, resolve_table_dtype,
+                                   windowed_eligible)
 
 __all__ = [
     "BackendInfo", "MSDADecoderConfig", "MSDAPipelineState", "MSDAPlan",
     "MSDAValueCache", "available_backends", "backend_info",
-    "build_value_cache", "decoder_apply", "get_backend", "init_decoder",
+    "block_q_for_levels", "build_value_cache", "cuda_windowed",
+    "decoder_apply", "get_backend", "init_decoder",
     "level_shapes_for_resolution", "make_plan", "msda_attention",
     "msda_attention_cached", "plan_for", "register_backend",
-    "resolve_table_dtype",
+    "resolve_table_dtype", "windowed_eligible",
 ]

@@ -12,13 +12,16 @@ Names map to the reference's backends:
   ==============  ==================  ====================================
   ``torch_gather``  ``jnp_gather``      plain PyTorch flat gather (any device)
   ``cuda_fused``    ``pallas_fused``    kernel K1, ``csrc/msgs_fused.cu``
+  ``cuda_windowed`` ``pallas_windowed`` kernel K3, ``csrc/msgs_windowed.cu``:
+                                        raster encoder queries only, each
+                                        query tile samples the
+                                        range-narrowed window of every level
   ``cuda_decode``   ``pallas_decode``   kernel K2, ``csrc/msgs_decode.cu``,
                                         on the once-staged decode table
   ==============  ==================  ====================================
 
-``cuda_fused`` and ``cuda_decode`` launch their CUDA kernel for tensors on
-the card and take the kernel's plain PyTorch version only for tensors on
-the CPU. ``pallas_windowed`` has no port yet (ROADMAP, kernel K3).
+The CUDA backends launch their kernel for tensors on the card and take
+the kernel's plain PyTorch version only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -103,6 +106,47 @@ def cuda_fused(plan, v: torch.Tensor, pts: SamplingPoints,
     return msgs_fused.msgs_fused(v.contiguous(), *_point_operands(pts, probs),
                                  remap=pts.pix2slot,
                                  scale=getattr(cache, "scale", None))
+
+
+def _require_raster(plan, nq: int) -> None:
+    if nq != plan.n_in:
+        raise ValueError(f"windowed backends need raster-ordered encoder "
+                         f"queries (Nq={nq} != N_in={plan.n_in}); plan a "
+                         "different backend")
+    if plan.cfg.range_narrow is None:
+        raise ValueError("windowed backends need cfg.range_narrow")
+
+
+@register_backend("cuda_windowed", raster_only=True)
+def cuda_windowed(plan, v: torch.Tensor, pts: SamplingPoints,
+                  probs: torch.Tensor, cache=None) -> torch.Tensor:
+    """Kernel K3, one launch across all levels; under FWP compact it
+    samples the compacted table through ``pix2slot`` with slot windows
+    located by ``keep_idx``. Mirrors ``pallas_windowed``
+    (repro/msda/backends.py:173-218)."""
+    from repro_torch.core import fwp as fwp_lib
+    from repro_torch.kernels import msgs_windowed
+    cfg = plan.cfg
+    b, nq, h, _ = probs.shape
+    _require_raster(plan, nq)
+    g = plan.head_pack if (plan.lane_layout == "pack"
+                           and h % plan.head_pack == 0) else 1
+    caps = None
+    if pts.pix2slot is not None:
+        if pts.keep_idx is None:
+            raise ValueError("FWP-compact windowed sampling needs the "
+                             "raster-ordered keep_idx (slot -> pixel map)")
+        caps = fwp_lib.level_capacities(plan.level_shapes, cfg.fwp_capacity)
+    scale = getattr(cache, "scale", None)
+    if scale is not None:
+        # per head group, as the kernel's (batch, group) blocks read it
+        scale = scale.reshape(b, h // g, g, v.shape[3])
+    return msgs_windowed.msgs_windowed_msp(
+        v.contiguous(), *(t.contiguous() for t in
+                          (pts.x_px, pts.y_px, pts.lvl_of_pt, probs)),
+        remap=pts.pix2slot, keep_idx=pts.keep_idx, scale=scale,
+        level_shapes=plan.level_shapes, ranges=cfg.range_narrow,
+        tile_q=plan.tile_q, head_pack=g, caps=caps)
 
 
 @register_backend("cuda_decode", decode_only=True)

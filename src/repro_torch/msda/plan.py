@@ -3,15 +3,19 @@
 
 The plan decides, once per shape family:
 
-  * **backend** — ``torch_gather`` | ``cuda_fused`` | ``cuda_decode``.
-    Requests resolve in the reference's order: explicit argument >
-    ``cfg.backend`` > legacy ``cfg.impl`` (``"jnp"`` -> ``torch_gather``,
-    ``"pallas"`` -> ``cuda_fused``). ``"auto"`` resolves to ``cuda_fused``
-    for raster launches and to ``cuda_decode`` for decode-shaped ones.
-    The TPU's VMEM and staging gates have no H100 counterpart; deriving
-    ``auto`` from H100 limits (shared memory, L2) is later work. Both
-    CUDA backends take their plain PyTorch version for tensors on the
-    CPU, so an ``auto`` plan also runs there;
+  * **backend** — ``torch_gather`` | ``cuda_fused`` | ``cuda_windowed``
+    | ``cuda_decode``. Requests resolve in the reference's order:
+    explicit argument > ``cfg.backend`` > legacy ``cfg.impl`` (``"jnp"``
+    -> ``torch_gather``, ``"pallas"`` -> ``cuda_fused``). ``"auto"``
+    resolves to ``cuda_fused`` for raster launches and to ``cuda_decode``
+    for decode-shaped ones; it never picks ``cuda_windowed``, which is
+    asked for by name. The TPU's VMEM and staging gates have no H100
+    counterpart; deriving ``auto`` from H100 limits (shared memory, L2)
+    is later work. The CUDA backends take their plain PyTorch version
+    for tensors on the CPU, so every plan also runs there;
+  * **windowed geometry** — ``tile_q`` and the reference's staged-window
+    accounting ``window_bytes`` / ``window_bytes_compact``, equal to the
+    reference plan's fields;
   * **table dtype** — arg > ``cfg.table_dtype`` > ``REPRO_MSDA_TABLE_DTYPE``
     > ``cfg.dtype``;
   * **lane layout** — kept from the reference because the decode staging
@@ -32,6 +36,7 @@ import torch
 from repro_torch.core import fwp as fwp_lib
 
 _LANE_WIDTH = 128
+_BLOCK_Q = 128                   # the reference's default query tile
 
 #: Table storage dtypes the cache/kernels understand (canonical names).
 _TABLE_DTYPES = ("int8", "float32", "bfloat16", "float16")
@@ -84,6 +89,24 @@ def resolve_query_order(cfg, override: Optional[str] = None) -> str:
     return choice
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (max(1, int(n)) - 1).bit_length()
+
+
+def block_q_for_levels(level_shapes: Sequence[Tuple[int, int]],
+                       block_q: int) -> Tuple[int, ...]:
+    """Per-query-level tile size: ``min(block_q, next_pow2(nq_l))``, so
+    the tiny levels' tiles stay tiny."""
+    return tuple(min(block_q, next_pow2(h * w)) for h, w in level_shapes)
+
+
+def windowed_eligible(cfg) -> bool:
+    """The windowed kernel needs a finite sampling radius (range
+    narrowing) to bound its fmap window."""
+    return cfg.range_narrow is not None
+
+
 def lane_layout(n_heads: int, head_dim: int) -> Tuple[str, int]:
     """The reference's last-dim layout: ``("native", 1)`` when Dh fills
     128 lanes, ``("pack", g)`` when g = gcd(n_heads, 128 // Dh) heads share
@@ -106,6 +129,12 @@ class MSDAPlan:
     lane_layout: str             # "native" | "pad" | "pack"
     head_pack: int               # heads per 128-lane group (1 unless packed)
     n_in: int                    # total flat pixels across levels
+    tile_q: int = _BLOCK_Q       # query tile of the windowed kernel
+    #   (= max of the per-level tiles; the decode tile when decode-shaped)
+    window_bytes: Optional[int] = None          # the reference's dense
+    #   staged-window bytes per grid step (max over tile x level pairs)
+    window_bytes_compact: Optional[int] = None  # the same for the
+    #   FWP-compact table: slot windows + the pix2slot window slices
     n_queries: Optional[int] = None   # decode-shaped launches: learned
     #   query count (None => raster encoder queries, Nq == n_in)
     n_consumers: int = 1         # attention layers sharing one value cache
@@ -179,6 +208,28 @@ def make_plan(cfg, level_shapes: Sequence[Tuple[int, int]], *,
     _, n_in = fwp_lib.level_starts(level_shapes)
     layout, pack = lane_layout(cfg.n_heads, cfg.head_dim)
     decode_shaped = n_queries is not None and n_queries != n_in
+    tdtype = resolve_table_dtype(cfg, table_dtype)
+
+    # the reference's windowed accounting (repro/msda/plan.py:616-656):
+    # table itemsize, reference lane layout, one f32 scale row when int8
+    if decode_shaped:
+        tile_q = min(_BLOCK_Q, next_pow2(n_queries))
+    else:
+        tile_q = max(block_q_for_levels(level_shapes, _BLOCK_Q))
+    window_bytes = window_bytes_compact = None
+    if windowed_eligible(cfg) and not decode_shaped:
+        from repro_torch.kernels.msgs_windowed import window_geometry
+        lanes = cfg.head_dim if layout == "native" else _LANE_WIDTH
+        t_item = _ITEMSIZE[tdtype]
+        scale_extra = lanes * 4 if tdtype == "int8" else 0
+        geo = window_geometry(level_shapes,
+                              tuple(float(r) for r in cfg.range_narrow),
+                              tile_q)
+        window_bytes = geo.staged_bytes(lanes, t_item) + scale_extra
+        if cfg.fwp_mode == "compact":
+            caps = fwp_lib.level_capacities(level_shapes, cfg.fwp_capacity)
+            window_bytes_compact = geo.staged_bytes(lanes, t_item,
+                                                    caps=caps) + scale_extra
 
     requested = backend
     if requested is None:
@@ -193,6 +244,9 @@ def make_plan(cfg, level_shapes: Sequence[Tuple[int, int]], *,
             f"unknown MSDA backend {requested!r}; "
             f"available: {backend_registry.available_backends()}")
     info = backend_registry.backend_info(requested)
+    if requested == "cuda_windowed" and not windowed_eligible(cfg):
+        raise ValueError(f"{requested} needs cfg.range_narrow set (the "
+                         "bound is what makes the fmap window finite)")
     if info.raster_only and decode_shaped:
         raise ValueError(
             f"{requested} needs raster encoder queries (Nq == N_in); "
@@ -204,8 +258,10 @@ def make_plan(cfg, level_shapes: Sequence[Tuple[int, int]], *,
 
     return MSDAPlan(cfg=cfg, level_shapes=level_shapes, backend=requested,
                     lane_layout=layout, head_pack=pack, n_in=n_in,
+                    tile_q=tile_q, window_bytes=window_bytes,
+                    window_bytes_compact=window_bytes_compact,
                     n_queries=n_queries, n_consumers=n_consumers,
-                    table_dtype=resolve_table_dtype(cfg, table_dtype),
+                    table_dtype=tdtype,
                     query_order=resolve_query_order(cfg, query_order))
 
 

@@ -71,3 +71,52 @@ def test_msgs_decode_kernel_matches_plain(cuda, int8):
                                          staged.scale, head_pack=4, dh=32)
     atol = 1e-5 if scale is None else 1e-5 * 127 * float(scale.max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_msgs_windowed_kernel_matches_plain(cuda, int8, layout):
+    """K3 on a ragged pyramid (tile 8) with points up to three range
+    bounds from their reference, so that the windows drop corners."""
+    from repro_torch.kernels import msgs_windowed
+    levels, ranges, hp = ((6, 7), (3, 4), (2, 2)), (1.5, 1.0, 0.5), 2
+    g = torch.Generator().manual_seed(1)
+    b, h, k, dh = 2, 4, 6, 32
+    n_in = sum(a * c for a, c in levels)
+    lvl = torch.randint(0, 3, (b, n_in, h, k), generator=g, dtype=torch.int32)
+    wl = torch.tensor([w for _, w in levels])[lvl.long()]
+    hl = torch.tensor([a for a, _ in levels])[lvl.long()]
+    x = torch.rand((b, n_in, h, k), generator=g) * (wl + 2) - 1
+    y = torch.rand((b, n_in, h, k), generator=g) * (hl + 2) - 1
+    p = torch.softmax(torch.randn((b, n_in, h, k), generator=g), -1)
+    remap = keep = caps = None
+    n_rows = n_in
+    if layout == "compact":
+        caps = (25, 7, 2)
+        starts = (0, 42, 54)
+        keep = torch.cat([torch.sort(torch.randperm(a * c, generator=g)[:cap]
+                                     )[0] + s for (a, c), cap, s
+                          in zip(levels, caps, starts)]).expand(b, -1)
+        n_rows = sum(caps) + 1
+        remap = torch.full((b, n_in), n_rows - 1, dtype=torch.int64)
+        remap.scatter_(1, keep, torch.arange(n_rows - 1).expand(b, -1))
+        keep, remap = keep.to(torch.int32), remap.to(torch.int32)
+    if int8:
+        v = torch.randint(-127, 128, (b, n_rows, h, dh), generator=g).to(torch.int8)
+        scale = torch.rand((b, h // hp, hp, dh), generator=g) * 0.01 + 0.001
+    else:
+        v, scale = torch.randn((b, n_rows, h, dh), generator=g), None
+    if layout == "compact":
+        v[:, -1] = 0
+    to = lambda t: None if t is None else t.contiguous().to(cuda)
+    args = [to(t) for t in (v, x, y, lvl, p)]
+    kw = dict(remap=to(remap), keep_idx=to(keep), scale=to(scale),
+              level_shapes=levels, ranges=ranges, tile_q=8, head_pack=hp,
+              caps=caps)
+    before = msgs_windowed.LAUNCHES
+    got = msgs_windowed.msgs_windowed_msp(*args, **kw)
+    torch.cuda.synchronize()
+    assert msgs_windowed.LAUNCHES == before + 1
+    want = msgs_windowed.msgs_windowed_msp_plain(*args, **kw)
+    atol = 1e-5 if scale is None else 1e-5 * 127 * float(scale.max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)

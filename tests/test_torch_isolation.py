@@ -4,8 +4,8 @@
     JAX or the JAX package (an AST scan of every import).
   * Entry points default to the card: without CUDA a default call raises
     instead of running on the CPU.
-  * The kernel wrappers reject what their kernels do not take — dtype,
-    shape, contiguity, device — on CPU tensors too.
+  * The kernel wrappers (K1, K2, K3) reject what their kernels do not
+    take — dtype, shape, contiguity, device — on CPU tensors too.
 """
 import ast
 from pathlib import Path
@@ -137,3 +137,48 @@ def test_k2_wrapper_rejects_unsupported_operands():
     bad = stage_decode_table(v.to(torch.int8), head_pack=2)      # no scale
     with pytest.raises(ValueError, match="int8 table needs"):
         msgs_decode(bad, *pts)
+
+
+def _k3_operands():
+    levels = ((4, 5), (2, 3))
+    g = torch.Generator().manual_seed(1)
+    b, n_in, h, k, dh = 1, 26, 4, 4, 16
+    v = torch.randn((b, n_in, h, dh), generator=g)
+    x = torch.rand((b, n_in, h, k), generator=g) * 4
+    y = torch.rand((b, n_in, h, k), generator=g) * 3
+    lvl = torch.randint(0, 2, (b, n_in, h, k), generator=g, dtype=torch.int32)
+    p = torch.softmax(torch.randn((b, n_in, h, k), generator=g), -1)
+    return v, [x, y, lvl, p], dict(level_shapes=levels, ranges=(2.0, 1.0),
+                                    tile_q=8)
+
+
+def test_k3_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels.msgs_windowed import msgs_windowed_msp
+    v, pts, kw = _k3_operands()
+    assert msgs_windowed_msp(v, *pts, **kw).shape == (1, 26, 4, 16)
+    with pytest.raises(TypeError, match="table dtype"):
+        msgs_windowed_msp(v.double(), *pts, **kw)
+    with pytest.raises(TypeError, match="lvl_of_pt must be torch.int32"):
+        msgs_windowed_msp(v, *pts[:2], pts[2].long(), pts[3], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        msgs_windowed_msp(v, pts[0].transpose(1, 2).contiguous().transpose(1, 2),
+                          *pts[1:], **kw)
+    with pytest.raises(ValueError, match="raster encoder queries"):
+        msgs_windowed_msp(v[:, :20].contiguous(),
+                          *[t[:, :20].contiguous() for t in pts], **kw)
+    with pytest.raises(ValueError, match="head_pack"):
+        msgs_windowed_msp(v, *pts, head_pack=3, **kw)
+    with pytest.raises(ValueError, match="scale must be"):
+        msgs_windowed_msp(v.to(torch.int8), *pts,
+                          scale=torch.ones((1, 1, 4, 16)), head_pack=2, **kw)
+    with pytest.raises(ValueError, match="int8 table needs"):
+        msgs_windowed_msp(v.to(torch.int8), *pts, **kw)
+    remap = torch.zeros((1, 26), dtype=torch.int32)
+    with pytest.raises(ValueError, match="both remap and keep_idx"):
+        msgs_windowed_msp(v, *pts, remap=remap, **kw)
+    with pytest.raises(ValueError, match="keep_idx must be"):
+        msgs_windowed_msp(v, *pts, remap=remap,
+                          keep_idx=torch.zeros((1, 9), dtype=torch.int64), **kw)
+    with pytest.raises(ValueError, match="remap covers"):
+        msgs_windowed_msp(v, *pts, remap=remap[:, :20].contiguous(),
+                          keep_idx=torch.zeros((1, 9), dtype=torch.int32), **kw)

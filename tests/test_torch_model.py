@@ -1,7 +1,9 @@
 """The port's model against the JAX reference: ``detector_apply`` with both
 heads (dense per-pixel and the deformable-DETR decoder) against the
-reference's jitted ``detector_apply`` on converted reference params, and
-the port's ``DetrServeEngine`` on the CPU.
+reference's jitted ``detector_apply`` on converted reference params, the
+int8-table DEFA detector through ``cuda_windowed`` against the
+reference's ``pallas_windowed`` (interpret mode), and the port's
+``DetrServeEngine`` on the CPU.
 
 Sizes: d_model 64, 4 heads, 2 encoder blocks, 2 decoder layers of 30
 queries, 64 px images (levels 16², 8², 4², 2²).
@@ -38,8 +40,9 @@ DEFA = dict(pap_mode="topk", pap_keep=4, fwp_mode="compact", fwp_capacity=0.6,
             range_narrow=(16.0, 12.0, 8.0, 4.0), act_bits=12, weight_bits=12)
 
 
-def _cfgs(defa: bool, decoder: bool):
-    kw = dict(d_model=64, n_heads=4, **(DEFA if defa else {}))
+def _cfgs(defa: bool, decoder: bool, table=None):
+    kw = dict(d_model=64, n_heads=4, table_dtype=table,
+              **(DEFA if defa else {}))
     ref = rdet.DetectorConfig(
         encoder=renc.EncoderConfig(attn=rattn.MSDeformAttnConfig(**kw),
                                    n_blocks=2, d_ffn=128),
@@ -54,15 +57,21 @@ def _cfgs(defa: bool, decoder: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(defa: bool, decoder: bool):
-    ref_cfg, cfg = _cfgs(defa, decoder)
+def _case(defa: bool, decoder: bool, table=None, ref_backend=None):
+    ref_cfg, cfg = _cfgs(defa, decoder, table)
     params = jax.tree.map(np.asarray, rdet.init_detector(jax.random.PRNGKey(0),
                                                          ref_cfg))
     images = np.random.default_rng(0).normal(size=(2, 3, 64, 64)).astype(
         np.float32)
-    cls, boxes, _ = jax.jit(lambda p, x: rdet.detector_apply(p, ref_cfg, x))(
-        params, images)
+    cls, boxes, _ = jax.jit(lambda p, x: rdet.detector_apply(
+        p, ref_cfg, x, backend=ref_backend))(params, images)
     return cfg, params, images, np.asarray(cls), np.asarray(boxes)
+
+
+def _assert_defa_close(got, want):
+    diff = np.abs(got - want)
+    assert diff.max() <= 2e-3 and np.median(diff) <= 1e-5, \
+        (diff.max(), np.median(diff))
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch_gather"])
@@ -78,11 +87,54 @@ def test_detector_apply_matches_reference(defa, decoder, backend):
     assert len(aux["blocks"]) == 2
     for got, want in ((cls.numpy(), r_cls), (boxes.numpy(), r_boxes)):
         if defa:
-            diff = np.abs(got - want)
-            assert diff.max() <= 2e-3 and np.median(diff) <= 1e-5, \
-                (diff.max(), np.median(diff))
+            _assert_defa_close(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+class _Spy:
+    """Counts the calls of one kernel wrapper (on CPU tensors each call
+    runs the kernel's plain version)."""
+
+    def __init__(self, monkeypatch, module, attr):
+        self.calls = 0
+        orig = getattr(module, attr)
+
+        def spy(*args, **kwargs):
+            self.calls += 1
+            return orig(*args, **kwargs)
+        monkeypatch.setattr(module, attr, spy)
+
+
+def _spies(monkeypatch):
+    from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
+    return {"msgs_windowed": _Spy(monkeypatch, msgs_windowed,
+                                  "msgs_windowed_msp"),
+            "msgs_decode": _Spy(monkeypatch, msgs_decode, "msgs_decode"),
+            "msgs_fused": _Spy(monkeypatch, msgs_fused, "msgs_fused")}
+
+
+@pytest.mark.parametrize("decoder", [False, True], ids=["dense_head", "decoder"])
+def test_int8_windowed_detector_matches_reference(decoder, monkeypatch):
+    """The 1024 px slice's path at toy size: DEFA, int8 value table, the
+    encoder through ``cuda_windowed`` against the reference's
+    ``pallas_windowed``; the decoder head degrades the raster-only request
+    to ``auto`` on both sides (``cuda_decode`` / ``pallas_decode``) on the
+    int8 staged table."""
+    cfg, params, images, r_cls, r_boxes = _case(True, decoder, "int8",
+                                                "pallas_windowed")
+    if decoder:
+        plan = det.decoder_plan(cfg, "cuda_windowed")
+        assert plan.backend == "cuda_decode" and plan.table_dtype == "int8"
+    spies = _spies(monkeypatch)
+    cls, boxes, _ = det.detector_apply(params_from_numpy(params, "cpu"), cfg,
+                                       torch.from_numpy(images),
+                                       backend="cuda_windowed")
+    assert {k: s.calls for k, s in spies.items()} == {
+        "msgs_windowed": 2, "msgs_decode": 2 if decoder else 0,
+        "msgs_fused": 0}
+    for got, want in ((cls.numpy(), r_cls), (boxes.numpy(), r_boxes)):
+        _assert_defa_close(got, want)
 
 
 def test_default_device_detector_raises_without_cuda():
@@ -128,6 +180,33 @@ def test_serve_engine_answers_requests_like_detector_apply(pipelined):
         np.testing.assert_allclose(r.boxes, want_boxes[r.rid], rtol=1e-5,
                                    atol=1e-6)
         assert len(r.detections["scores"]) == 5
+
+
+def test_serve_engine_answers_through_cuda_windowed(monkeypatch):
+    """An int8-table engine asked for ``cuda_windowed`` answers like
+    ``detector_apply`` through the same backend, each batch sampling the
+    encoder through K3 and the decoder through K2."""
+    cfg, params, *_ = _case(True, True, "int8", "pallas_windowed")
+    rng = np.random.default_rng(2)
+    imgs = [rng.normal(size=(3, 64, 64)).astype(np.float32) for _ in range(2)]
+    spies = _spies(monkeypatch)
+    with DetrServeEngine(cfg, params_from_numpy(params, "cpu"), max_batch=2,
+                         backend="cuda_windowed", device="cpu") as eng:
+        reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+        assert all(eng.submit(r) for r in reqs)
+        eng.run_until_drained()
+        assert eng.batches_dispatched == 1
+    assert {k: s.calls for k, s in spies.items()} == {
+        "msgs_windowed": 2, "msgs_decode": 2, "msgs_fused": 0}
+    cls, boxes, _ = det.detector_apply(
+        params_from_numpy(params, "cpu"), cfg, torch.from_numpy(np.stack(imgs)),
+        backend="cuda_windowed")
+    for r in reqs:
+        assert r.done and r.cls_probs.shape == (30, 5)
+        np.testing.assert_allclose(r.cls_probs, cls.softmax(-1)[r.rid].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(r.boxes, boxes[r.rid].numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_serve_engine_starvation_and_close():

@@ -1,8 +1,10 @@
 """The port's MSDA layer against the JAX reference: a 2-block
 ``msda_attention`` chain over the matrix {fwp off/mask/compact} x
-{pap off/threshold/topk} x {float32, int8 table}, through ``torch_gather``
-and through ``cuda_fused`` (on CPU tensors: the kernel's plain version),
-and the decode-shaped ``cuda_decode`` path, all against ``jnp_gather``.
+{pap off/threshold/topk} x {float32, int8 table}, through ``torch_gather``,
+``cuda_fused`` and ``cuda_windowed`` (on CPU tensors: the kernels' plain
+versions; the windows cover every corner the range bounds let a point
+reach), and the decode-shaped ``cuda_decode`` path, all against
+``jnp_gather``.
 
 The FWP state (counts, keep mask, keep list, pix2slot) must be equal.
 Block outputs: float32 tables rtol = atol = 1e-5. int8 tables: the two
@@ -113,7 +115,8 @@ def _assert_fwp_equal(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("backend", ["torch_gather", "cuda_fused"])
+@pytest.mark.parametrize("backend",
+                         ["torch_gather", "cuda_fused", "cuda_windowed"])
 @pytest.mark.parametrize("table", TABLES)
 @pytest.mark.parametrize("pap", PAP)
 @pytest.mark.parametrize("fwp", FWP)
