@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
   1. device   — torch / CUDA versions, the card's name and power limit;
-  2. build    — the three Hopper kernels built from ``src/repro_torch/csrc``
+  2. build    — the four Hopper kernels built from ``src/repro_torch/csrc``
                 with nvcc for sm_90a (one nvcc per source, started
                 together);
   3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
@@ -18,6 +18,12 @@ Phases, each printing one JSON line:
                 ragged small pyramid (Dh 16 and 64, head_pack 1), with
                 points up to three range bounds from their reference, so
                 that the windows drop corners;
+     decode_grad — K2's backward kernel against its closed-form plain
+                version: the same tables x {dense, compact} x head_pack
+                {1, 4} x L {1, 3} at the 512 px decoder's shape and a
+                ragged small one, with points on integer coordinates and
+                outside their level; K2's output carries a grad_fn under
+                autograd, and the forward-only K1 and K3 refuse it;
   4. serve    — the port's DetrServeEngine on the full-width
                 deformable-DETR-DEFA detector at 512 px (random seeded
                 weights, float32) with backend="auto": 4 requests, launch
@@ -26,9 +32,17 @@ Phases, each printing one JSON line:
                 value table and backend="cuda_windowed" (K3 in the
                 encoder, K2 in the decoder): 4 requests, launch counters,
                 and the same forward through torch_gather and cuda_fused;
+     train    — the full-width deformable-DETR-DEFA detector (512 px,
+                float32, decoder head) trained for 3 AdamW steps at B = 2
+                on one seeded synthetic batch with backend="cuda_decode"
+                (K2 forward and backward in the decoder, torch_gather in
+                the encoder): launch counters, finite and falling losses,
+                live decoder gradients, and the first step's gradients
+                against the same step through torch_gather;
   5. times    — each kernel and its plain version on the operands its
-                path gave it, their bounds, K1 on K3's operands, and one
-                serve forward at B = 2 per path with its idle share.
+                path gave it, their bounds, K1 on K3's operands, one
+                serve forward at B = 2 per path and one train step, each
+                with its idle share.
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -36,6 +50,7 @@ without a CUDA device, or without the repository beside it, the script
 exits non-zero before printing any result.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +64,12 @@ F32_FLOP_PER_S = 67e12
 # Eq. 4 per channel per live point: 5 add/sub + 3 mul inside the corner
 # differences, 3 add/mul to combine them, then p * S + acc.
 FLOPS_PER_CHANNEL_POINT = 13
+# K2 backward per channel: <v_c, g> (multiply, add) for every valid corner
+# of every point, and p w_c g (multiply) plus its atomic add for every
+# valid corner of a live point.
+FLOPS_PER_CHANNEL_CORNER_DOT = 2
+FLOPS_PER_CHANNEL_CORNER_SCATTER = 2
+TRAIN_STEPS = 3
 IMG = 512
 IMG_WINDOWED = 1024              # the bucket the reference serves with K3
 MAX_BATCH = 2
@@ -57,7 +78,8 @@ SEED = 0
 OUTPUTS = ("cls_logits", "boxes")
 LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
                 "aggregation (F.grid_sample samples a dense per-level map and "
-                "knows neither the pixel->slot remap nor the int8 scale)")
+                "knows neither the pixel->slot remap nor the int8 scale), nor "
+                "its vjp over the staged decode table")
 
 
 def emit(phase, **fields):
@@ -348,6 +370,122 @@ def phase_windowed_checks(device):
          tolerance="f32 1e-5; bf16 rtol 2^-7; int8 1e-5*127*max(scale)")
 
 
+def on_grid(gen, pts, share=0.2):
+    """The points with ``share`` of their x and of their y moved onto an
+    integer coordinate (where a corner weight is exactly 0 or 1)."""
+    import torch
+    x, y, *rest = pts
+    snap = lambda t: torch.where(
+        torch.rand(t.shape, generator=gen).to(t.device) < share, torch.floor(t),
+        t).contiguous()
+    return (snap(x), snap(y), *rest)
+
+
+def grad_tolerance(name, dtype, scale, want):
+    """K2 backward vs plain. d_vp and d_scale: the kernel sums them with
+    float32 atomics in an order that changes from run to run, so rtol
+    1e-5 (2^-7 for a bf16 d_vp, rounded once from float32 on both sides)
+    and atol 1e-5 of the largest entry. The point gradients: each a sum
+    over one point's corners in the same order on both sides: float32
+    1e-5, int8 1e-5 * 127 * max scale."""
+    import torch
+    if name in ("d_vp", "d_scale"):
+        return {"rtol": 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
+                "atol": 1e-5 * max(float(want.abs().max()), 1e-30)}
+    return tolerance(torch.float32, scale)
+
+
+GRAD_NAMES = ("d_vp", "d_x", "d_y", "d_probs", "d_scale")
+
+
+def check_backward(case, got, want, dtype, scale):
+    errs = {}
+    for name, a, w in zip(GRAD_NAMES, got, want):
+        if (a is None) != (w is None):
+            raise AssertionError(f"msgs_decode_backward {case}: {name} is "
+                                 f"{a is None} on the card, {w is None} plain")
+        if w is not None:
+            errs[name] = check_close(f"msgs_decode_backward {case} {name}", a,
+                                     w, grad_tolerance(name, dtype, scale, w))
+    return errs
+
+
+def phase_decode_grad(device, main_levels):
+    """K2's backward kernel against msgs_decode_backward_plain, and the
+    autograd contract of the three kernels on the card."""
+    import torch
+    from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
+    gen = torch.Generator().manual_seed(SEED + 2)
+    small_levels = ((13, 17), (7, 9), (4, 5), (2, 3))
+    cap_main = sum(max(1, int(round(0.6 * h * w))) for h, w in main_levels) + 1
+    # (label, levels, B, Nq, H, K, Dh, compact rows)
+    shapes = [("main", main_levels, 2, 300, 8, 4, 32, cap_main),
+              ("ragged_dh16", small_levels, 1, 23, 4, 16, 16, 200)]
+    results = []
+    for label, levels, b, nq, h, k, dh, cap in shapes:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for compact in (False, True):
+                for g in (1, 4):
+                    for n_layers in (1, 3):
+                        pts, n_pix = synthetic_points(gen, (b, n_layers, nq, h, k),
+                                                      levels, device)
+                        pts = on_grid(gen, pts)
+                        n_rows = cap if compact else n_pix
+                        v, remap, scale = synthetic_table(
+                            gen, b, n_rows, h, dh, dtype, compact, n_pix, device)
+                        staged = msgs_decode.stage_decode_table(
+                            v, remap, head_pack=g, scale=scale)
+                        g_out = torch.randn((b, n_layers, nq, h, dh),
+                                            generator=gen).to(device)
+                        case = (f"{label}/{str(dtype)[6:]}/"
+                                f"{'compact' if compact else 'dense'}/G{g}/L{n_layers}")
+                        got = msgs_decode.msgs_decode_backward(staged, *pts, g_out)
+                        want = msgs_decode.msgs_decode_backward_plain(
+                            staged.v, *pts, g_out, staged.remap, staged.scale,
+                            head_pack=g, dh=dh)
+                        results.append({"case": case, **check_backward(
+                            case, got, want, dtype, staged.scale)})
+
+    # fault 1: K2 under autograd keeps its gradient path
+    v, remap, _ = synthetic_table(gen, 2, 300, 8, 32, torch.float32, True,
+                                  1000, device)
+    pts, _ = synthetic_points(gen, (2, 30, 8, 4), ((20, 25), (10, 10), (5, 5),
+                                                   (3, 5)), device)
+    v.requires_grad_()
+    with torch.enable_grad():
+        out = msgs_decode.msgs_decode(
+            msgs_decode.stage_decode_table(v, remap, head_pack=4), *pts)
+        node = out.grad_fn.next_functions[0][0] if out.grad_fn else None
+        if "MsgsDecode" not in type(node).__name__:
+            raise AssertionError(f"msgs_decode output's grad_fn {out.grad_fn} "
+                                 "does not lead to MsgsDecode")
+        before = msgs_decode.LAUNCHES_BWD
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        if msgs_decode.LAUNCHES_BWD != before + 1 or not v.grad.abs().sum() > 0:
+            raise AssertionError("msgs_decode backward did not launch its "
+                                 "kernel or gave no table gradient")
+        # fault 2: the forward-only kernels refuse autograd
+        refused = []
+        for name, call in (
+                ("msgs_fused", lambda: msgs_fused.msgs_fused(v, *pts, remap=remap)),
+                ("msgs_windowed", lambda: msgs_windowed.msgs_windowed_msp(
+                    v, pts[0], pts[1], torch.zeros_like(pts[2]), pts[5],
+                    level_shapes=((20, 50),), ranges=(2.0,), tile_q=8))):
+            try:
+                call()
+            except RuntimeError as e:
+                if "torch_gather" in str(e):
+                    refused.append(name)
+                    continue
+                raise
+            raise AssertionError(f"{name} ran under autograd")
+    emit("decode_grad", checks=len(results), results=results,
+         grad_fn=type(node).__name__, refused_under_autograd=refused,
+         tolerance="d_vp, d_scale: rtol 1e-5 (bf16 2^-7), atol 1e-5*max; "
+                   "d_x, d_y, d_probs: f32 1e-5, int8 1e-5*127*max(scale)")
+
+
 # --------------------------------------------------------------------------
 # phase 4: serve the full-width detector
 # --------------------------------------------------------------------------
@@ -594,6 +732,135 @@ def phase_serve_windowed(device):
             "batches": batches, "windowed_calls": rec_w.calls}
 
 
+def median_rel_diff(a, b):
+    """Median over the elements of |a - b| / |b| (0 where a equals b)."""
+    import torch
+    diff = (a.double() - b.double()).abs()
+    return float(torch.where(diff == 0, 0.0, diff / b.double().abs()).median())
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, leaf) for every tensor of a param tree, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in leaf_paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def phase_train(device):
+    """Three AdamW steps of the full-width detector through K2 forward and
+    backward, and the first step's gradients against torch_gather."""
+    import torch
+    from repro_torch.core.detector import init_detector
+    from repro_torch.data.detection import synth_detection_batch
+    from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
+    from repro_torch.optim.adamw import OptConfig, adamw_init
+    from repro_torch.train.detr import loss_and_grads, train_config, train_step
+
+    # slice_config's model with the trainer's routing: torch_gather as the
+    # encoder's own backend
+    cfg = train_config("deformable-detr-defa", IMG)
+    params0 = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                            device=device)
+    batch = synth_detection_batch(torch.Generator().manual_seed(SEED),
+                                  MAX_BATCH, IMG, cfg.level_shapes,
+                                  cfg.n_classes, device=device)
+    # DETR's AdamW settings: lr 1e-4, weight decay 1e-4, gradient clip 0.1
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=0, total_steps=400,
+                        weight_decay=1e-4, clip_norm=0.1)
+    params, opt = params0, adamw_init(params0)
+    steps, first_grads = [], None
+    with Recorder(msgs_decode, "_backward", 1) as rec_b:
+        msgs_decode.LAUNCHES = msgs_decode.LAUNCHES_BWD = 0
+        msgs_fused.LAUNCHES = msgs_windowed.LAUNCHES = 0
+        for i in range(TRAIN_STEPS):
+            fwd0, bwd0 = msgs_decode.LAUNCHES, msgs_decode.LAUNCHES_BWD
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt, metrics, grads = train_step(
+                params, opt, batch, cfg, opt_cfg, backend="cuda_decode")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            finite = all(bool(torch.isfinite(g).all()) for _, g in leaf_paths(grads))
+            steps.append({"step": i + 1, "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]), "wall_ms": wall,
+                          "msgs_decode": msgs_decode.LAUNCHES - fwd0,
+                          "msgs_decode_backward": msgs_decode.LAUNCHES_BWD - bwd0,
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "grads_finite": finite})
+            emit("train_step", **steps[-1])
+            if first_grads is None:
+                first_grads = grads
+        launches = {"msgs_decode": msgs_decode.LAUNCHES,
+                    "msgs_decode_backward": msgs_decode.LAUNCHES_BWD,
+                    "msgs_fused": msgs_fused.LAUNCHES,
+                    "msgs_windowed": msgs_windowed.LAUNCHES}
+    n_layers = cfg.decoder.n_layers
+    if launches != {"msgs_decode": n_layers * TRAIN_STEPS,
+                    "msgs_decode_backward": n_layers * TRAIN_STEPS,
+                    "msgs_fused": 0, "msgs_windowed": 0}:
+        raise AssertionError(f"train launch counts {launches}; expected "
+                             f"{n_layers} K2 forward and {n_layers} backward "
+                             "launches per step and no K1 or K3")
+    if not all(math.isfinite(st["loss"]) and st["grads_finite"] for st in steps):
+        raise AssertionError(f"non-finite loss or gradient: {steps}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"loss did not fall on the repeated batch: {steps}")
+    dead = [p for p, g in leaf_paths(first_grads["decoder"])
+            if ("/cross/" in p or p.startswith("/value/"))
+            and not float(g.abs().sum()) > 0]
+    if dead:
+        raise AssertionError(f"decoder leaves without gradient: {dead}")
+
+    # the first step again through torch_gather, and torch_gather's own
+    # spread when the input images move by one ulp
+    img = batch[0]
+    nudged = (torch.nextafter(img, torch.full_like(img, 2.0)), *batch[1:])
+    _, _, g_gather = loss_and_grads(params0, cfg, batch, backend="torch_gather")
+    _, _, g_spread = loss_and_grads(params0, cfg, nudged, backend="torch_gather")
+    # A leaf whose exact gradient is 0 carries only float roundoff on both
+    # sides (the self-attention key bias: it adds the same q.b to every
+    # logit of a softmax row); its relative differences are noise, so it
+    # is held in absolute terms, to 1e-6 of the largest gradient.
+    g_max = max(float(b.abs().max()) for _, b in leaf_paths(g_gather))
+    per_leaf, roundoff = [], []
+    for (path, a), (_, b), (_, c) in zip(leaf_paths(first_grads),
+                                         leaf_paths(g_gather),
+                                         leaf_paths(g_spread)):
+        if float(b.abs().max()) <= 1e-6 * g_max:
+            roundoff.append({"leaf": path, "max_abs": float(b.abs().max()),
+                             "max_abs_diff": float((a - b).abs().max())})
+            continue
+        per_leaf.append({"leaf": path, "vs_torch_gather": median_rel_diff(a, b),
+                         "one_ulp_spread": median_rel_diff(c, b)})
+    if any(r["max_abs_diff"] > 1e-6 * g_max for r in roundoff):
+        raise AssertionError(f"roundoff-only gradient leaves differ by more "
+                             f"than 1e-6 of the largest gradient: {roundoff}")
+    rule = "median relative difference <= 1e-3 per leaf"
+    bad = [r for r in per_leaf if not r["vs_torch_gather"] <= 1e-3]
+    if bad:
+        rule = "median relative difference <= max(1e-3, 2 x one-ulp spread)"
+        bad = [r for r in per_leaf if not r["vs_torch_gather"]
+               <= max(1e-3, 2 * r["one_ulp_spread"])]
+    worst = sorted(per_leaf, key=lambda r: -r["vs_torch_gather"])[:8]
+    if bad:
+        raise AssertionError(f"first-step gradients, cuda_decode vs "
+                             f"torch_gather: {bad[:8]}")
+    emit("train", model="deformable-detr-defa", img=IMG, batch=MAX_BATCH,
+         encoder_backend=cfg.encoder.attn.backend, backend="cuda_decode",
+         steps=steps, launches=launches,
+         launches_per_step={k: v // TRAIN_STEPS for k, v in launches.items()},
+         grad_rule_held=rule, leaves=len(per_leaf), worst_leaves=worst,
+         roundoff_leaves=roundoff, largest_gradient=g_max,
+         max_vs_torch_gather=max(r["vs_torch_gather"] for r in per_leaf),
+         max_one_ulp_spread=max(r["one_ulp_spread"] for r in per_leaf))
+    return {"cfg": cfg, "params": params, "opt": opt, "opt_cfg": opt_cfg,
+            "batch": batch, "launches": launches, "steps": TRAIN_STEPS,
+            "backward_calls": rec_b.calls}
+
+
 # --------------------------------------------------------------------------
 # phase 5: times and bounds on the main path's own operands
 # --------------------------------------------------------------------------
@@ -761,7 +1028,57 @@ def serve_profile(serve, backend):
     return forward_profile(forward)
 
 
-def phase_times(serve, serve_w):
+def backward_bound(pts, remap, scale, g_out, vp, h, dh):
+    """Least time for K2's backward: the points, g_out, the whole remap and
+    the table rows that the valid corners touch read once; the dense
+    float32 d_vp (or d_scale) and the three point gradients written
+    once; the operations of ``FLOPS_PER_CHANNEL_CORNER_*``."""
+    import torch
+    from repro_torch.msda.sampling import corner_data
+    x, y, st, wl, hl, p = pts
+    _, valid = corner_data(x, y, wl, hl, st)[1:]
+    n_valid = int(valid.sum())
+    n_live = int((valid & (p > 0)[..., None]).sum())
+    rows, _, _ = touched((x, y, st, wl, hl, torch.ones_like(p)), remap,
+                         vp.shape[2], h)
+    nbytes = sum(t.numel() * t.element_size() for t in pts)
+    nbytes += g_out.numel() * 4 + rows * dh * vp.element_size()
+    nbytes += 3 * x.numel() * 4
+    if remap is not None:
+        nbytes += remap.numel() * remap.element_size()
+    if scale is None:
+        nbytes += vp.numel() * 4
+    else:
+        nbytes += 2 * scale.numel() * scale.element_size()
+    ops = dh * (FLOPS_PER_CHANNEL_CORNER_DOT * n_valid
+                + FLOPS_PER_CHANNEL_CORNER_SCATTER * n_live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "table_rows_touched": rows,
+            "valid_corners": n_valid, "live_corners": n_live}
+
+
+def train_step_ms(train, reps=5):
+    """Median host time of one train step at B = 2 (the same params and
+    batch each time), ending in a synchronize, after one warm-up."""
+    import torch
+    from repro_torch.train.detr import train_step
+
+    def run():
+        train_step(train["params"], train["opt"], train["batch"], train["cfg"],
+                   train["opt_cfg"], backend="cuda_decode")
+        torch.cuda.synchronize()
+    run()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), run
+
+
+def phase_times(serve, serve_w, train):
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
@@ -853,7 +1170,38 @@ def phase_times(serve, serve_w):
                           "max_abs_diff_vs_k3":
                               float((k1_call() - out).abs().max())})
 
-    times = {"serve_forward_ms_b2": forward_ms(serve, "auto"),
+    # K2 backward: the first backward call of the first train step (the
+    # last decoder layer), on the operands autograd gave it
+    args, kw = train["backward_calls"][0]
+    vp, pts, g_out, remap, scale, g, dh = (args[0], args[1:7], args[7], args[8],
+                                           args[9], args[10], args[11])
+    staged = msgs_decode.DecodeStagedTable(v=vp, remap=remap, n_rows=vp.shape[2],
+                                           head_pack=g, dh=dh, table_bytes=0,
+                                           scale=scale)
+    call = lambda: msgs_decode.msgs_decode_backward(staged, *pts, g_out)
+    plain = lambda: msgs_decode.msgs_decode_backward_plain(
+        vp, *pts, g_out, remap, scale, head_pack=g, dh=dh)
+    errs = check_backward("main path", call(), plain(), vp.dtype, scale)
+    kb = {"name": "msgs_decode_backward", "route": "cuda",
+          "source": "src/repro_torch/csrc/msgs_decode_bwd.cu",
+          "replaces": "src/repro/kernels/msgs_decode.py:350",
+          "launches": train["launches"]["msgs_decode_backward"],
+          "max_abs_err": max(errs.values()),
+          **kernel_times(call, plain, "msgs_decode_backward_kernel"),
+          "library_ms": None}
+    h = pts[0].shape[3]
+    bb = backward_bound(pts, remap, scale, g_out, vp, h, dh)
+    kb.update(bound_ms=bb["bound_ms"], bound_by=bb["bound_by"])
+    kernels.append(kb)
+    dev, _, _ = profile(call, 20)
+    detail["msgs_decode_backward"] = dict(
+        bb, shape=list(pts[0].shape), table=list(vp.shape), dtype=str(vp.dtype),
+        max_abs_err_by_output=errs,
+        wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3)
+
+    step_ms, step = train_step_ms(train)
+    times = {"train_step_ms_b2": step_ms,
+             "serve_forward_ms_b2": forward_ms(serve, "auto"),
              "torch_gather_forward_ms_b2": forward_ms(serve, "torch_gather"),
              "serve_1024_forward_ms_b2": forward_ms(serve_w, "cuda_windowed"),
              "torch_gather_1024_forward_ms_b2": forward_ms(
@@ -862,10 +1210,14 @@ def phase_times(serve, serve_w):
         detail[k["name"]].update(ms_source=k.pop("ms_source"),
                                  call_ms=k.pop("call_ms"))
     batches = {"msgs_fused": serve["batches"], "msgs_decode": serve["batches"],
-               "msgs_windowed": serve_w["batches"]}
+               "msgs_windowed": serve_w["batches"],
+               "msgs_decode_backward": train["steps"]}
     emit("times", kernels=detail, library_ms=None, library_note=LIBRARY_NOTE,
          **times, forward_profile=serve_profile(serve, "auto"),
          forward_profile_1024=serve_profile(serve_w, "cuda_windowed"),
+         train_step_profile=forward_profile(step),
+         train_launches_per_step={k: v // train["steps"]
+                                  for k, v in train["launches"].items()},
          launches_per_forward={k["name"]: k["launches"] // batches[k["name"]]
                                for k in kernels},
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
@@ -900,9 +1252,11 @@ def main() -> int:
     from repro_torch.msda.plan import level_shapes_for_resolution
     phase_kernel_checks(device, level_shapes_for_resolution(IMG))
     phase_windowed_checks(device)
+    phase_decode_grad(device, level_shapes_for_resolution(IMG))
     serve = phase_serve(device)
     serve_w = phase_serve_windowed(device)
-    kernels = phase_times(serve, serve_w)
+    train = phase_train(device)
+    kernels = phase_times(serve, serve_w, train)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

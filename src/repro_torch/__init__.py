@@ -5,7 +5,8 @@ package it ports (``repro_torch/msda/cache.py`` ports
 ``repro/msda/cache.py``) and keeps that module's tensor layouts at its
 public functions. The package imports ``torch`` and ``numpy`` only.
 
-Layout of the first slice (one detection request, decoder head):
+Layout (serving one detection request with the decoder head, and
+training the detector):
 
   * ``bridge`` — reference param pytree -> torch params, device checks;
   * ``core`` — nn primitives, fake-quant, PAP, FWP, the MSDeformAttn
@@ -15,10 +16,12 @@ Layout of the first slice (one detection request, decoder head):
     ``cuda_decode``), attention and the decoder;
   * ``kernels`` + ``csrc`` — the hand-written Hopper kernels (fused MSGS
     + aggregation, windowed multi-scale-parallel MSGS, persistent-cache
-    decode), built with ``nvcc`` at first use and bound through
-    ``ctypes``;
+    decode and its backward), built with ``nvcc`` at first use and bound
+    through ``ctypes``;
   * ``configs`` — the deformable-DETR family;
-  * ``serve`` — shape buckets, post-processing and ``DetrServeEngine``.
+  * ``serve`` — shape buckets, post-processing and ``DetrServeEngine``;
+  * ``optim``, ``data``, ``train`` — AdamW on param trees, synthetic
+    rectangle detection, and the detector's train step and loop.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; on a machine without a CUDA device a default call

@@ -1,17 +1,19 @@
-"""End-to-end detector around the deformable encoder (port of the forward
-half of repro/core/detector.py; the losses and ``match_queries`` wait for
-the training slice).
+"""End-to-end detector around the deformable encoder, with its training
+losses (port of repro/core/detector.py).
 
 A conv backbone builds a 4-level pyramid (strides 4/8/16/32), the DEFA
 encoder refines it, and a head predicts class + box: the dense per-pixel
 head (``decoder=None``) or the deformable-DETR decoder head, whose N_q
 learned queries cross-attend the encoder memory through ONE shared value
-cache."""
+cache. :func:`detection_loss` trains the dense head, and
+:func:`decoder_detection_loss` the decoder head through the set
+matching of :func:`match_queries` (scipy on the host)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.bridge import resolve_device
@@ -19,6 +21,11 @@ from repro_torch.core import nn
 from repro_torch.core.encoder import EncoderConfig, encoder_apply, init_encoder
 from repro_torch.msda.decoder import (MSDADecoderConfig, decoder_apply,
                                       init_decoder)
+
+try:                                       # optional dependency
+    from scipy.optimize import linear_sum_assignment as _linear_sum_assignment
+except ImportError:                        # pragma: no cover - env-dependent
+    _linear_sum_assignment = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +88,20 @@ def decoder_plan(cfg: DetectorConfig, backend: Optional[str] = None):
                     cfg.decoder.n_queries, cfg.decoder.n_layers)
 
 
-def encoder_backend(backend: Optional[str]) -> Optional[str]:
-    """Decode-only backends (``cuda_decode``) have no raster launch: such a
-    request degrades to ``auto`` for the encoder."""
+def encoder_backend(backend: Optional[str],
+                    own: Optional[str] = None) -> Optional[str]:
+    """Decode-only backends (``cuda_decode``) have no raster launch: for
+    the encoder such a request degrades to ``own``, the config's own
+    backend (``cfg.encoder.attn.backend``), when that names a raster
+    backend, and to ``auto`` otherwise, as in the reference. A trainer
+    sets ``own="torch_gather"``: ``auto``'s raster pick K1 is
+    forward-only and refuses autograd."""
     from repro_torch.msda.backends import backend_info
     if backend is not None and backend != "auto" \
             and backend_info(backend).decode_only:
+        if own is not None and own != "auto" \
+                and not backend_info(own).decode_only:
+            return own
         return "auto"
     return backend
 
@@ -121,7 +136,9 @@ def detector_apply(params: dict, cfg: DetectorConfig, images: torch.Tensor,
     refs = nn.reference_points_for_levels(level_shapes, device=dev)
     enc, aux, state = encoder_apply(
         params["encoder"], cfg.encoder, x_flat, pos, refs, level_shapes,
-        collect_stats=collect_stats, backend=encoder_backend(backend),
+        collect_stats=collect_stats,
+        backend=encoder_backend(backend, getattr(cfg.encoder.attn, "backend",
+                                                 None)),
         return_state=True)
 
     if cfg.decoder is None:
@@ -141,3 +158,110 @@ def detector_apply(params: dict, cfg: DetectorConfig, images: torch.Tensor,
     aux = dict(aux)
     aux["decoder_blocks"] = list(dstate.block_stats)
     return cls_logits, boxes, aux
+
+
+def _class_loss(cls_logits: torch.Tensor, tgt_cls: torch.Tensor,
+                n_classes: int) -> torch.Tensor:
+    """Class-balanced cross entropy: positives weigh 5, background 1."""
+    logp = torch.log_softmax(cls_logits, dim=-1)
+    ce = -torch.gather(logp, -1, tgt_cls.long()[..., None])[..., 0]
+    pos = (tgt_cls < n_classes).to(torch.float32)
+    w = torch.where(pos > 0, 5.0, 1.0)
+    return torch.sum(ce * w) / torch.sum(w)
+
+
+def detection_loss(params: dict, cfg: DetectorConfig, images: torch.Tensor,
+                   tgt_cls: torch.Tensor, tgt_box: torch.Tensor, *,
+                   backend: Optional[str] = None):
+    """Dense per-query assignment loss (per-pixel head).
+
+    tgt_cls: (B, N_in) int — class index, n_classes == background.
+    tgt_box: (B, N_in, 4) — cxcywh of the owning box (zeros for
+    background). Returns (loss, {"cls_loss", "box_loss"})."""
+    cls_logits, boxes, _ = detector_apply(params, cfg, images, backend=backend)
+    cls_loss = _class_loss(cls_logits, tgt_cls, cfg.n_classes)
+    pos = (tgt_cls < cfg.n_classes).to(torch.float32)
+    l1 = torch.sum(torch.abs(boxes - tgt_box), dim=-1)
+    box_loss = torch.sum(l1 * pos) / torch.clamp(torch.sum(pos), min=1.0)
+    return cls_loss + box_loss, {"cls_loss": cls_loss, "box_loss": box_loss}
+
+
+_INACTIVE_COST = 1e6
+
+
+def _hungarian_owners_host(cost: np.ndarray) -> np.ndarray:
+    """Host-side optimal assignment per batch element: owner[b, m] is the
+    query column assigned to gt row m (rows than columns or fewer)."""
+    owner = np.zeros(cost.shape[:2], np.int32)
+    for b in range(cost.shape[0]):
+        row, col = _linear_sum_assignment(cost[b])
+        owner[b, row] = col.astype(np.int32)
+    return owner
+
+
+def match_queries(cost: torch.Tensor, gt_active: torch.Tensor,
+                  matcher: Optional[str] = None) -> torch.Tensor:
+    """gt -> query assignment (B, M) int32 for the set-prediction loss.
+
+    ``cost`` (B, M, Nq) is consumed detached: the assignment is a discrete
+    decision, gradients flow through the matched boxes. ``"hungarian"``
+    copies the cost to the host and runs scipy's
+    ``linear_sum_assignment`` (every active gt gets a distinct query;
+    inactive rows take a constant cost, non-finite entries become large
+    finite ones); ``"greedy"`` is the per-gt argmin, collisions allowed,
+    and the fallback without scipy or with more gts than queries.
+    ``matcher=None`` picks hungarian when scipy is installed."""
+    if matcher is None:
+        matcher = "hungarian" if _linear_sum_assignment is not None \
+            else "greedy"
+    if matcher not in ("hungarian", "greedy"):
+        raise ValueError(f"unknown matcher {matcher!r}")
+    cost = cost.detach()
+    _, m, nq = cost.shape
+    if matcher == "greedy" or _linear_sum_assignment is None or m > nq:
+        return torch.argmin(cost, dim=-1).to(torch.int32)
+    cost = torch.where(gt_active[:, :, None], cost, _INACTIVE_COST)
+    cost = torch.nan_to_num(cost, nan=_INACTIVE_COST, posinf=_INACTIVE_COST,
+                            neginf=-_INACTIVE_COST)
+    owner = _hungarian_owners_host(cost.cpu().numpy())
+    return torch.from_numpy(owner).to(cost.device)
+
+
+def decoder_detection_loss(params: dict, cfg: DetectorConfig,
+                           images: torch.Tensor, gt_cls: torch.Tensor,
+                           gt_box: torch.Tensor, gt_active: torch.Tensor,
+                           matcher: Optional[str] = None, *,
+                           backend: Optional[str] = None):
+    """Set-prediction loss for the decoder head.
+
+    Each ACTIVE gt box is assigned the query whose predicted box is
+    closest in L1 (:func:`match_queries`); matched queries learn class and
+    box, the rest learn background. Class targets are derived query-side:
+    an inactive gt never claims a query, and under the greedy matcher a
+    collision goes to the lowest gt index.
+
+    gt_cls (B, M) int, gt_box (B, M, 4) cxcywh, gt_active (B, M) bool.
+    ``backend=None`` is the reference's behaviour; see
+    :func:`encoder_backend` for a decode-only request."""
+    if cfg.decoder is None:
+        raise ValueError("decoder_detection_loss needs a decoder head")
+    cls_logits, boxes, _ = detector_apply(params, cfg, images, backend=backend)
+    _, nq, _ = cls_logits.shape
+
+    cost = torch.sum(torch.abs(boxes[:, None] - gt_box[:, :, None]), -1)
+    owner = match_queries(cost, gt_active, matcher)                 # (B, M)
+
+    queries = torch.arange(nq, device=owner.device)
+    claimed = (owner[:, :, None] == queries[None, None]) \
+        & gt_active[:, :, None]                                     # (B, M, Nq)
+    matched = torch.any(claimed, dim=1)                             # (B, Nq)
+    first_m = torch.argmax(claimed.to(torch.int32), dim=1)          # (B, Nq)
+    cls_of = torch.gather(gt_cls.long(), 1, first_m)
+    tgt_cls = torch.where(matched, cls_of, cfg.n_classes)
+    cls_loss = _class_loss(cls_logits, tgt_cls, cfg.n_classes)
+
+    matched_box = torch.gather(boxes, 1, owner.long()[..., None].expand(-1, -1, 4))
+    l1 = torch.sum(torch.abs(matched_box - gt_box), dim=-1)
+    act = gt_active.to(torch.float32)
+    box_loss = torch.sum(l1 * act) / torch.clamp(torch.sum(act), min=1.0)
+    return cls_loss + box_loss, {"cls_loss": cls_loss, "box_loss": box_loss}

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import fwp as fwp_lib
+from repro_torch.core import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +144,7 @@ def msdeform_attn_ref(params: dict, cfg: MSDeformAttnConfig,
     if cfg.range_narrow is not None:
         bounds = torch.as_tensor(cfg.range_narrow, dtype=query.dtype,
                                  device=query.device).reshape(1, 1, 1, l, 1, 1)
-        offs = torch.clamp(offs, -bounds, bounds)
+        offs = nn.clip(offs, -bounds, bounds)
     v = torch.einsum("bnd,dhk->bnhk", x_flat, params["value_w"]) \
         + params["value_b"]
     if resolve_table_dtype(cfg) == "int8":

@@ -64,9 +64,17 @@ def conv2d(p: dict, x: torch.Tensor, stride: int = 1,
     return F.conv2d(x, p["w"], p["b"], stride=stride)
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi). Where x lies exactly on a bound
+    its gradient is 1/2, as JAX's maximum and minimum share a tie;
+    ``torch.clamp`` would pass all of it."""
+    as_t = lambda a: torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, as_t(lo)), as_t(hi))
+
+
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """logit(x) with clamping — the reference-point refinement inverse."""
-    x = torch.clamp(x, eps, 1.0 - eps)
+    x = clip(x, eps, 1.0 - eps)
     return torch.log(x) - torch.log1p(-x)
 
 

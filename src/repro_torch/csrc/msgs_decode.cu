@@ -8,7 +8,7 @@
 // is lane group j = h % G of row group h / G. The grid carries a layer
 // axis: one warp per (b, layer, q, h) item of the stacked
 // (B, L, Nq, H, K) points, so the stacked entry point is one launch too.
-// The backward waits for the training slice of the port.
+// Its backward is msgs_decode_bwd.cu.
 //
 // The TPU kernel keeps the staged table resident in VMEM across its
 // (query-tile x layer) sweep. No explicit staging is needed here: the

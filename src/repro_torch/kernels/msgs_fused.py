@@ -82,6 +82,20 @@ def check_remap(remap: Optional[torch.Tensor], b: int, device: torch.device,
         raise ValueError(f"{name}: remap must be contiguous on {device}")
 
 
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Forward-only kernels (K1, K3) raise under autograd instead of
+    returning an output with no gradient path: the reference's
+    ``pallas_call`` has no autodiff rule either, and raises under
+    ``jax.grad`` even in interpret mode. Checked on both devices, so the
+    CPU shows what the card does."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only and cannot be differentiated; train "
+            "through the differentiable torch_gather backend (or "
+            "cuda_decode in the decoder)")
+
+
 def check_device(device: torch.device, name: str) -> None:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors on {device}; expected cuda (the "
@@ -197,9 +211,11 @@ def msgs_fused(v, x_px, y_px, start, wl, hl, probs,
     ``remap (B, N_pix)`` int32; ``scale (B, 1, H, Dh)`` float32 with an
     int8 table. Returns (B, Nq, H, Dh) in the table dtype (float32 for
     int8). CUDA tensors launch the kernel; CPU tensors run the plain
-    version. The caller guarantees indices in range: ``start + wl * hl``
+    version; under autograd it raises (:func:`refuse_autograd`). The
+    caller guarantees indices in range: ``start + wl * hl``
     within the pixel axis and every ``remap`` value below N_rows."""
     pts = (x_px, y_px, start, wl, hl, probs)
+    refuse_autograd("msgs_fused", v, x_px, y_px, probs, scale)
     _check(v, pts, remap, scale)
     if v.device.type == "cpu":
         return msgs_fused_plain(v, *pts, remap=remap, scale=scale)

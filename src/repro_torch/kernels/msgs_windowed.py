@@ -31,7 +31,8 @@ import torch
 from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
                                             check_device, check_remap,
                                             check_table, out_dtype,
-                                            raise_on_error, stream_ptr)
+                                            raise_on_error, refuse_autograd,
+                                            stream_ptr)
 
 #: Number of CUDA kernel launches made by this module's wrappers.
 LAUNCHES = 0
@@ -449,7 +450,9 @@ def msgs_windowed_msp(v, x_px, y_px, lvl_of_pt, probs,
     int32 together select the FWP-compact table (``caps`` bounds its slot
     windows); ``scale (B, H/G, G, Dh)`` float32 with an int8 table.
     Returns (B, N_in, H, Dh) in the table dtype (float32 for int8). CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    tensors launch the kernel; CPU tensors run the plain version; under
+    autograd it raises, as the forward-only K1 does."""
+    refuse_autograd("msgs_windowed_msp", v, x_px, y_px, probs, scale)
     pts = (x_px, y_px, lvl_of_pt, probs)
     shapes, rngs = _shapes_key(level_shapes), _ranges_key(ranges)
     geo = window_geometry(shapes, rngs, int(tile_q))

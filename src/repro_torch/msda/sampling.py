@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import fwp as fwp_lib
+from repro_torch.core import nn
 from repro_torch.core import pap as pap_lib
 from repro_torch.core.quant import maybe_fake_quant
 
@@ -100,7 +101,7 @@ def select_points(params: dict, cfg, query: torch.Tensor):
     if cfg.range_narrow is not None:
         bounds = torch.as_tensor(cfg.range_narrow, dtype=query.dtype,
                                  device=query.device)[lvl_of_pt][..., None]
-        offs_k = torch.clamp(offs_k, -bounds, bounds)
+        offs_k = nn.clip(offs_k, -bounds, bounds)      # jnp.clip's gradient
     offs_k = maybe_fake_quant(offs_k, cfg.act_bits)     # INT12 BI datapath input
     return sel, offs_k, lvl_of_pt.to(torch.int32)
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card against their plain versions.
+"""The port's CUDA kernels on the card against their plain versions, and
+K2's backward kernel against its closed-form plain version.
 
 Marked ``gpu``: without a CUDA device these tests skip (the decision is
 made inside each test, never at import). On a machine with an H100:
@@ -6,7 +7,9 @@ made inside each test, never at import). On a machine with an H100:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: float32 rtol = atol = 1e-5; int8
-1e-5 * 127 * max scale."""
+1e-5 * 127 * max scale; the backward's table and scale gradients, which
+the kernel sums with float32 atomics in an order that changes from run to
+run, rtol 1e-5 and atol 1e-5 of their largest entry."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -120,3 +123,45 @@ def test_msgs_windowed_kernel_matches_plain(cuda, int8, layout):
     want = msgs_windowed.msgs_windowed_msp_plain(*args, **kw)
     atol = 1e-5 if scale is None else 1e-5 * 127 * float(scale.max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_msgs_decode_backward_kernel_matches_plain(cuda, int8):
+    from repro_torch.kernels import msgs_decode
+    v, pts, remap, scale = _operands(cuda, int8=int8)
+    staged = msgs_decode.stage_decode_table(v, remap, head_pack=4, scale=scale)
+    layered = [torch.stack([t, t.flip(1)], 1).contiguous() for t in pts]
+    gen = torch.Generator().manual_seed(2)
+    g_out = torch.randn(layered[0].shape[:4] + (32,), generator=gen).to(cuda)
+    before = msgs_decode.LAUNCHES_BWD
+    got = msgs_decode.msgs_decode_backward(staged, *layered, g_out)
+    torch.cuda.synchronize()
+    assert msgs_decode.LAUNCHES_BWD == before + 1
+    want = msgs_decode.msgs_decode_backward_plain(
+        staged.v, *layered, g_out, staged.remap, staged.scale, head_pack=4,
+        dh=32)
+    assert (got[0] is None) == int8 and (got[4] is None) == (not int8)
+    atol = 1e-5 if scale is None else 1e-5 * 127 * float(scale.max())
+    for i, (a, w) in enumerate(zip(got, want)):
+        if w is None:
+            continue
+        tol = 1e-5 * float(w.abs().max()) if i in (0, 4) else atol
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=tol)
+
+
+def test_cuda_decode_output_carries_a_gradient(cuda):
+    """Under autograd K2's output has a grad_fn, and backward launches the
+    backward kernel; the forward-only K1 refuses."""
+    from repro_torch.kernels import msgs_decode, msgs_fused
+    v, pts, remap, _ = _operands(cuda)
+    v.requires_grad_()
+    staged = msgs_decode.stage_decode_table(v, remap, head_pack=4)
+    before = msgs_decode.LAUNCHES_BWD
+    out = msgs_decode.msgs_decode(staged, *pts)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert msgs_decode.LAUNCHES_BWD == before + 1
+    assert float(v.grad.abs().sum()) > 0
+    with pytest.raises(RuntimeError, match="torch_gather"):
+        msgs_fused.msgs_fused(v, *pts, remap=remap)
