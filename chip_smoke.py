@@ -6,9 +6,9 @@
 Phases, each printing one JSON line:
 
   1. device   — torch / CUDA versions, the card's name and power limit;
-  2. build    — the four Hopper kernels built from ``src/repro_torch/csrc``
-                with nvcc for sm_90a (one nvcc per source, started
-                together);
+  2. build    — the six Hopper kernel libraries built from
+                ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per
+                source, started together);
   3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
                 {f32, bf16, int8 + scale} tables x {dense, compact remap}
                 at the 512 px path's shapes, a ragged small shape, Dh
@@ -24,6 +24,13 @@ Phases, each printing one JSON line:
                 ragged small one, with points on integer coordinates and
                 outside their level; K2's output carries a grad_fn under
                 autograd, and the forward-only K1 and K3 refuse it;
+     lm_kernels — K5 (flash-decode) and K4 (matmul) against their plain
+                versions: K5 in f32 and bf16 on the reference's sweep, the
+                slice's decode shape (B 4, Hq 24, Hkv 8, Dh 128, W 4096),
+                a ragged W, Hkv not dividing Hq, MQA, ring-buffer masks and
+                rows with no valid slot; K4 in f32, bf16 and int8 + scale
+                on the reference's shapes and minitron-4b's prefill and
+                decode MLP-up products;
   4. serve    — the port's DetrServeEngine on the full-width
                 deformable-DETR-DEFA detector at 512 px (random seeded
                 weights, float32) with backend="auto": 4 requests, launch
@@ -39,10 +46,19 @@ Phases, each printing one JSON line:
                 the encoder): launch counters, finite and falling losses,
                 live decoder gradients, and the first step's gradients
                 against the same step through torch_gather;
+     lm_serve — minitron-4b at its published width and depth (bf16,
+                random weights drawn on the card from the seed) served by
+                ServeEngine (max_batch 4, cache_len 4096): 4 prompts of 37,
+                128, 300 and 512 tokens, 16 greedy tokens each; launch
+                counters (32 K5 per decode step, no K4), tokens in range,
+                finite logits, peak memory, the next decode step's logits
+                through K5 against the plain attention, and how often the
+                greedy streams agree with a plain-attention run;
   5. times    — each kernel and its plain version on the operands its
-                path gave it, their bounds, K1 on K3's operands, one
-                serve forward at B = 2 per path and one train step, each
-                with its idle share.
+                path gave it, their bounds and the library call where one
+                exists, K1 on K3's operands, one serve forward at B = 2
+                per path, one train step, one LM decode step at B = 4 and
+                one 512-token prefill, each with its idle share.
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -61,6 +77,8 @@ from pathlib import Path
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# ... and the dense bf16 tensor-core rate
+BF16_FLOP_PER_S = 989e12
 # Eq. 4 per channel per live point: 5 add/sub + 3 mul inside the corner
 # differences, 3 add/mul to combine them, then p * S + acc.
 FLOPS_PER_CHANNEL_POINT = 13
@@ -75,6 +93,11 @@ IMG_WINDOWED = 1024              # the bucket the reference serves with K3
 MAX_BATCH = 2
 N_REQUESTS = 4
 SEED = 0
+LM_ARCH = "minitron-4b"          # published width and depth, bf16
+LM_MAX_BATCH = 4
+LM_CACHE_LEN = 4096              # minitron's context length
+LM_PROMPTS = (37, 128, 300, 512)
+LM_NEW_TOKENS = 16
 OUTPUTS = ("cls_logits", "boxes")
 LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
                 "aggregation (F.grid_sample samples a dense per-level map and "
@@ -486,6 +509,118 @@ def phase_decode_grad(device, main_levels):
                    "d_x, d_y, d_probs: f32 1e-5, int8 1e-5*127*max(scale)")
 
 
+def ring_valid(gen, b, w, window=0, empty_rows=()):
+    """(B, W) slot validity of a ring-buffer cache: each row at a random
+    position in [0, 3 W) holds the positions (pos - window, pos] that its
+    W slots still keep (window 0: all of them); ``empty_rows`` hold no
+    valid slot."""
+    import torch
+    pos = torch.randint(0, 3 * w, (b, 1), generator=gen)
+    latest = pos - (pos - torch.arange(w)) % w         # newest position per slot
+    win = window if window > 0 else 3 * w
+    valid = (latest >= 0) & (latest > pos - win)
+    valid[list(empty_rows)] = False
+    return valid
+
+
+def k5_operands(gen, b, hq, hkv, dh, w, dtype, mask, device):
+    import torch
+    q = torch.randn((b, hq, dh), generator=gen)
+    k = torch.randn((b, w, hkv, dh), generator=gen)
+    v = torch.randn((b, w, hkv, dh), generator=gen)
+    if mask == "sweep":                     # the reference's: slot 0 valid
+        valid = torch.rand((b, w), generator=gen) < 0.7
+        valid[:, 0] = True
+    elif mask == "full":
+        valid = torch.ones((b, w), dtype=torch.bool)
+    else:                                   # ring, ring_window, ring_empty
+        valid = ring_valid(gen, b, w, w // 3 if mask == "ring_window" else 0,
+                           (0,) if mask == "ring_empty" else ())
+    return [t.to(dtype).contiguous().to(device) for t in (q, k, v)] + \
+        [valid.to(device)]
+
+
+def k4_operands(gen, m, k, n, kind, device):
+    """x, w, w_scale: float32 or bf16 x and w, or int8 w codes with their
+    per-column scale (x float32 on the small shapes, bf16 on the model's)."""
+    import torch
+    x = torch.randn((m, k), generator=gen)
+    w = torch.randn((k, n), generator=gen)
+    scale = None
+    if kind == "bfloat16":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    elif kind == "int8":
+        scale = w.abs().amax(0, keepdim=True) / 127
+        w = (w / scale).round().clamp(-127, 127).to(torch.int8)
+        if k >= 1024:
+            x = x.to(torch.bfloat16)
+    as_dev = lambda t: None if t is None else t.contiguous().to(device)
+    return as_dev(x), as_dev(w), as_dev(scale)
+
+
+def matmul_tolerance(x, w, scale):
+    """K4 vs plain: the two sum K in other orders, so atol 2^-20 of the
+    largest absolute sum |x| @ |w|; a bf16 output adds rtol 2^-7 (one
+    bf16 rounding step)."""
+    import torch
+    from repro_torch.kernels.matmul import dequantized
+    big = float((x.float().abs() @ dequantized(w, scale).abs()).max())
+    return {"rtol": 2 ** -7 if x.dtype == torch.bfloat16 else 0.0,
+            "atol": 2 ** -20 * big}
+
+
+# (label, B, Hq, Hkv, Dh, W, chunk, mask): the reference's sweep (chunk
+# 64), the slice's decode shape, a ragged W with a row that has no valid
+# slot, Hkv not dividing Hq, and an MQA shape of 12 head groups
+K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
+            ("sweep_b", 1, 4, 4, 64, 513, 64, "sweep"),
+            ("sweep_c", 3, 25, 5, 16, 64, 64, "sweep"),
+            ("sweep_d", 2, 48, 8, 32, 257, 64, "sweep"),
+            ("slice", 4, 24, 8, 128, 4096, 512, "ring"),
+            ("ragged_w_empty_row", 4, 24, 8, 128, 1000, 512, "ring_empty"),
+            ("hq6_hkv4", 2, 6, 4, 64, 300, 64, "ring_window"),
+            ("mqa_hq48", 2, 48, 1, 128, 777, 256, "ring_empty")]
+# (label, M, K, N): the reference's sweep and int8 shapes, minitron-4b's
+# prefill (2048 tokens) and decode (B = 4) MLP-up products
+K4_CASES = [("sweep_a", 70, 90, 50), ("sweep_b", 128, 128, 128),
+            ("sweep_c", 33, 257, 65), ("int8_ref", 64, 96, 48),
+            ("prefill_mlp_up", 2048, 3072, 9216),
+            ("decode_mlp_up", 4, 3072, 9216)]
+
+
+def phase_lm_kernels(device):
+    """K5 and K4 against their plain versions on the card."""
+    import torch
+    from repro_torch.kernels import flash_decode, matmul
+    gen = torch.Generator().manual_seed(SEED + 3)
+    k5 = []
+    for label, b, hq, hkv, dh, w, chunk, mask in K5_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, valid = k5_operands(gen, b, hq, hkv, dh, w, dtype, mask,
+                                         device)
+            case = f"{label}/{str(dtype)[6:]}"
+            err = check_close(f"flash_decode {case}",
+                              flash_decode.flash_decode(q, k, v, valid, chunk=chunk),
+                              flash_decode.flash_decode_plain(q, k, v, valid,
+                                                              chunk=chunk),
+                              tolerance(dtype, None))
+            k5.append({"case": case, "pad": flash_decode.chunk_padding(w, chunk),
+                       "rows_without_valid_slot": int((~valid.any(1)).sum()),
+                       "max_abs_err": err})
+    k4 = []
+    for label, m, kk, n in K4_CASES:
+        for kind in ("float32", "bfloat16", "int8"):
+            x, w, scale = k4_operands(gen, m, kk, n, kind, device)
+            case = f"{label}/{kind}"
+            err = check_close(f"matmul {case}", matmul.matmul(x, w, scale),
+                              matmul.matmul_plain(x, w, scale),
+                              matmul_tolerance(x, w, scale))
+            k4.append({"case": case, "x": str(x.dtype), "max_abs_err": err})
+    emit("lm_kernels", checks=len(k5) + len(k4), flash_decode=k5, matmul=k4,
+         tolerance="flash_decode: f32 1e-5, bf16 rtol 2^-7 atol 1e-5; matmul: "
+                   "atol 2^-20*max(|x|@|w|), bf16 output rtol 2^-7")
+
+
 # --------------------------------------------------------------------------
 # phase 4: serve the full-width detector
 # --------------------------------------------------------------------------
@@ -862,6 +997,157 @@ def phase_train(device):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: serve the full-width dense LM
+# --------------------------------------------------------------------------
+
+def lm_config():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
+def seeded_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in LM_PROMPTS]
+
+
+class PlainAttention:
+    """Inside the block, the decoder's decode attention takes K5's plain
+    version on the card (``ops.flash_decode`` swapped in this process
+    only)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_decode, ops
+        self.orig = ops.flash_decode
+        ops.flash_decode = lambda q, k, v, valid, *, chunk=512: \
+            flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_decode = self.orig
+
+
+def lm_serve_run(cfg, params, prompts, device):
+    """One ServeEngine run of the prompts: (engine, requests, decode steps,
+    wall seconds). Each decode step records its K5 launches and whether
+    its logits are finite."""
+    import torch
+    from repro_torch.kernels import flash_decode
+    from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
+    engine = ServeEngine(cfg, params, ServeConfig(max_batch=LM_MAX_BATCH,
+                                                  cache_len=LM_CACHE_LEN),
+                         device=device)
+    inner, steps = engine.api.decode_step, []
+
+    def decode_step(*args, **kwargs):
+        before = flash_decode.LAUNCHES
+        logits, cache = inner(*args, **kwargs)
+        steps.append({"flash_decode": flash_decode.LAUNCHES - before,
+                      "finite": bool(torch.isfinite(logits).all())})
+        return logits, cache
+    engine.api = engine.api._replace(decode_step=decode_step)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    return engine, reqs, steps, time.perf_counter() - t0
+
+
+def phase_lm_serve(device):
+    """Full-width minitron-4b (bf16, random seeded weights drawn on the
+    card) served through ServeEngine: 4 requests, K5 in every decode
+    layer; the decode-step logits against the plain attention."""
+    import torch
+    from repro_torch.kernels import flash_decode, matmul
+    from repro_torch.models.decoder import decode_step, init_decoder
+
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_decoder(cfg, torch.Generator(device=device).manual_seed(SEED),
+                          device=device)
+    param_bytes = sum(t.numel() * t.element_size() for _, t in leaf_paths(params))
+    prompts = seeded_prompts(cfg.vocab_size)
+    with Recorder(flash_decode, "flash_decode", 1) as rec:
+        flash_decode.LAUNCHES = 0
+        matmul.LAUNCHES = 0
+        engine, reqs, steps, wall = lm_serve_run(cfg, params, prompts, device)
+        launches = {"flash_decode": flash_decode.LAUNCHES,
+                    "matmul": matmul.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers, n_steps = cfg.n_layers, len(steps)
+    if n_steps != LM_NEW_TOKENS - 1 \
+            or any(s["flash_decode"] != n_layers for s in steps) \
+            or launches != {"flash_decode": n_layers * n_steps, "matmul": 0}:
+        raise AssertionError(f"launch counts {launches} over {n_steps} decode "
+                             f"steps {steps}; expected {n_layers} flash_decode "
+                             "launches per step and no matmul")
+    for r in reqs:
+        if not (r.done and len(r.output) == LM_NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in r.output)):
+            raise AssertionError(f"request {r.rid}: done={r.done} "
+                                 f"output={r.output}")
+    if not all(s["finite"] for s in steps):
+        raise AssertionError(f"non-finite decode logits: {steps}")
+
+    # the next decode step from the served cache, through K5 and through
+    # the plain attention (each writes the same slots before reading them)
+    tokens, pos = engine.last_tok.clone(), engine.pos.clone()
+    with torch.inference_mode():
+        got, _ = decode_step(engine.params, cfg, engine.cache, tokens, pos)
+        with PlainAttention():
+            want, _ = decode_step(engine.params, cfg, engine.cache, tokens, pos)
+    torch.cuda.synchronize()
+    # bf16 tolerance: the two attentions round their outputs to bf16 at a
+    # float32-ulp distance, so an output may move one bf16 step, and 32
+    # layers carry that on: max |d logit| <= 16 bf16 steps (2^-4) and the
+    # median <= one step (2^-8) of the largest |logit|
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    logit_cmp = {"max_abs": float(err.max()), "median_abs": float(err.median()),
+                 "max_logit": scale, "tol_max": 2 ** -4 * scale,
+                 "tol_median": 2 ** -8 * scale}
+    if not (torch.isfinite(got).all() and logit_cmp["max_abs"] <= logit_cmp["tol_max"]
+            and logit_cmp["median_abs"] <= logit_cmp["tol_median"]):
+        raise AssertionError(f"decode logits, K5 vs plain attention: {logit_cmp}")
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    decided = gap > 2 * logit_cmp["tol_max"]
+    agree = got.argmax(-1) == want.argmax(-1)
+    if not bool(agree[decided].all()):
+        raise AssertionError(f"greedy token differs where the top-2 gap "
+                             f"{gap.tolist()} exceeds twice the tolerance")
+    # the whole run again through the plain attention: how often do the
+    # greedy streams agree (random heads have small top-2 gaps)
+    with PlainAttention():
+        _, plain_reqs, _, plain_wall = lm_serve_run(cfg, params, prompts, device)
+    same = [sum(a == b for a, b in zip(r.output, p.output))
+            for r, p in zip(reqs, plain_reqs)]
+    first_diff = [next((i for i, (a, b) in enumerate(zip(r.output, p.output))
+                        if a != b), None) for r, p in zip(reqs, plain_reqs)]
+    cache_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    emit("lm_serve", model=cfg.name, dtype=str(cfg.dtype),
+         params=cfg.param_count(), param_bytes=param_bytes,
+         cache_bytes=cache_bytes, max_batch=LM_MAX_BATCH,
+         cache_len=LM_CACHE_LEN, prompts=list(LM_PROMPTS),
+         new_tokens=LM_NEW_TOKENS, decode_steps=n_steps, wall_s=wall,
+         plain_attention_wall_s=plain_wall, launches=launches,
+         launches_per_decode_step={k: v // n_steps for k, v in launches.items()},
+         max_memory_allocated=peak, outputs=[r.output for r in reqs],
+         decode_logits_vs_plain=logit_cmp, top2_gap=gap.tolist(),
+         greedy_agree=agree.tolist(), greedy_decided=decided.tolist(),
+         stream_tokens_agree=same, stream_first_difference=first_diff)
+    args, kw = rec.calls[0]
+    return {"cfg": cfg, "params": engine.params, "cache": engine.cache,
+            "tokens": tokens, "pos": pos, "launches": launches,
+            "steps": n_steps, "param_bytes": param_bytes,
+            "k5_call": ([t.clone() for t in args], kw), "prompts": prompts}
+
+
+# --------------------------------------------------------------------------
 # phase 5: times and bounds on the main path's own operands
 # --------------------------------------------------------------------------
 
@@ -1078,7 +1364,176 @@ def train_step_ms(train, reps=5):
     return statistics.median(ts), run
 
 
-def phase_times(serve, serve_w, train):
+def peak_flop_per_s(dtype):
+    """The card's dense rate for an input dtype: bf16 on the tensor
+    cores, float32 (and int8 codes dequantized to float32) outside them."""
+    import torch
+    return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+
+
+def roofline(nbytes, ops, dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_flop_per_s(dtype)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def flash_decode_bound(q, k, v, valid, out):
+    """Least time for K5's function on these inputs: q, the mask and the
+    output once, and the K and V rows of the valid slots (a row with no
+    valid slot needs all its V rows and no K); 4 operations per channel,
+    query head and needed slot (the score's multiply-add and P.V's)."""
+    b, hq, dh = q.shape
+    _, w, hkv, _ = k.shape
+    n_valid = valid.sum(1)
+    empty = n_valid == 0
+    k_rows = int(n_valid.sum())
+    v_rows = k_rows + int(empty.sum()) * w
+    row = hkv * dh * k.element_size()
+    nbytes = nbytes_of(q, valid, out) + (k_rows + v_rows) * row
+    ops = 4 * dh * hq * (k_rows + int(empty.sum()) * w)
+    return dict(roofline(nbytes, ops, q.dtype), valid_slots=k_rows,
+                slots=b * w)
+
+
+def matmul_bound(x, w, scale, out):
+    """Least time for K4: x, w (and the scale) read once, the output
+    written once, 2 M N K operations at x's rate."""
+    m, k = x.shape
+    return roofline(nbytes_of(x, w, scale, out), 2 * m * k * w.shape[1],
+                    x.dtype)
+
+
+def sdpa_call(q, k, v, valid):
+    """The library's one call for K5's function (GQA and a boolean mask);
+    used only as a yardstick."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+
+def k5_entry(args, kw, launches):
+    from repro_torch.kernels import flash_decode
+    call = lambda: flash_decode.flash_decode(*args, **kw)
+    plain = lambda: flash_decode.flash_decode_plain(*args, **kw)
+    out = call()
+    err = check_close("flash_decode timing operands", out, plain(),
+                      tolerance(args[0].dtype, None))
+    entry = {"name": "flash_decode", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_decode.cu",
+             "replaces": "src/repro/kernels/flash_decode.py:69",
+             "launches": launches, "max_abs_err": err,
+             **kernel_times(call, plain, "flash_decode_kernel"),
+             "library_ms": cuda_ms(sdpa_call(*args), 11, 20)}
+    bound = flash_decode_bound(*args, out)
+    entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    return entry, dict(bound, shape=[list(t.shape) for t in args],
+                       dtype=str(args[0].dtype))
+
+
+def k4_entry(x, w, scale, launches, library=True):
+    import torch
+    from repro_torch.kernels import matmul
+    call = lambda: matmul.matmul(x, w, scale)
+    plain = lambda: matmul.matmul_plain(x, w, scale)
+    out = call()
+    err = check_close("matmul timing operands", out, plain(),
+                      matmul_tolerance(x, w, scale))
+    entry = {"name": "matmul", "route": "cuda",
+             "source": "src/repro_torch/csrc/matmul.cu",
+             "replaces": "src/repro/kernels/matmul.py:44",
+             "launches": launches, "max_abs_err": err,
+             **kernel_times(call, plain, "matmul_kernel"),
+             "library_ms": cuda_ms(lambda: torch.matmul(x, w), 11, 20)
+             if library else None}
+    bound = matmul_bound(x, w, scale, out)
+    entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    return entry, dict(bound, shape=[list(x.shape), list(w.shape)],
+                       x=str(x.dtype), w=str(w.dtype))
+
+
+def lm_step_ms(fn, reps=5):
+    """Median host time of ``fn`` ending in a synchronize, after a
+    warm-up; and its peak device memory."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), torch.cuda.max_memory_allocated()
+
+
+def lm_times(lm):
+    """K5 on the served path's first decode call and on a full cache, K4
+    on minitron-4b's MLP-up products, one decode step at B = 4 and one
+    512-token prefill."""
+    import torch
+    from repro_torch.models.decoder import decode_step, init_cache, prefill
+    cfg, params, dev = lm["cfg"], lm["params"], lm["tokens"].device
+    k5, d5 = k5_entry(*lm["k5_call"], lm["launches"]["flash_decode"])
+    gen = torch.Generator().manual_seed(SEED + 4)
+    full = k5_operands(gen, LM_MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+                       LM_CACHE_LEN, cfg.dtype, "full", dev)
+    full_entry, full_bound = k5_entry(full, {"chunk": 512}, 0)
+    d5["full_cache"] = {k: full_entry[k] for k in
+                        ("ms", "ms_source", "call_ms", "plain_ms", "library_ms",
+                         "max_abs_err")} | full_bound
+
+    # K4 on layer 0's real w_up: the prefill product (2048 tokens) is the
+    # summary's row, in bf16 like the model
+    w_up = params["layers"]["mlp"]["w_up"][0].contiguous()
+    x = torch.randn((2048, cfg.d_model), generator=gen).to(cfg.dtype).to(dev)
+    k4, d4 = k4_entry(x, w_up, None, lm["launches"]["matmul"])
+    d4["other_operands"] = {}
+    for label, xx, ww, sc, lib in (
+            ("decode_mlp_up_b4_bf16", x[:LM_MAX_BATCH].contiguous(), w_up, None, True),
+            ("prefill_mlp_up_f32", x.float(), w_up.float(), None, True),
+            ("prefill_mlp_up_int8", *k4_operands(gen, 2048, cfg.d_model,
+                                                 cfg.d_ff, "int8", dev), False)):
+        e, bd = k4_entry(xx, ww, sc, 0, library=lib)
+        d4["other_operands"][label] = {k: e[k] for k in
+                                       ("ms", "ms_source", "call_ms", "plain_ms",
+                                        "library_ms", "max_abs_err")} | bd
+
+    # one decode step at B = 4 from the served cache (it rewrites the
+    # same slots every time), and one 512-token prefill into a fresh cache
+    def step():
+        with torch.inference_mode():
+            decode_step(params, cfg, lm["cache"], lm["tokens"], lm["pos"])
+    step_ms, step_peak = lm_step_ms(step)
+    prompt = torch.as_tensor(lm["prompts"][-1], device=dev)[None]
+
+    def fill():
+        with torch.inference_mode():
+            prefill(params, cfg, init_cache(cfg, 1, LM_CACHE_LEN, device=dev),
+                    prompt)
+    fill_ms, fill_peak = lm_step_ms(fill, reps=3)
+    valid_rows = sum(int(((lm["cache"]["kpos"][i] <= lm["pos"][:, None])).sum())
+                     for i in range(cfg.n_layers))
+    weights = lm["param_bytes"] - nbytes_of(params["embed"]) \
+        + LM_MAX_BATCH * cfg.d_model * params["embed"].element_size()
+    kv = 2 * valid_rows * cfg.n_kv_heads * cfg.dh * params["embed"].element_size()
+    timing = {
+        "decode_step_ms_b4": step_ms, "decode_step_peak_bytes": step_peak,
+        "decode_step_profile": forward_profile(step),
+        "decode_step_bound": roofline(weights + kv, 0, cfg.dtype)
+        | {"weight_bytes": weights, "valid_kv_bytes": kv},
+        "prefill_512_ms": fill_ms, "prefill_512_peak_bytes": fill_peak,
+        "prefill_512_profile": forward_profile(fill)}
+    return [k4, k5], {"matmul": d4, "flash_decode": d5}, timing
+
+
+def phase_times(serve, serve_w, train, lm):
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
@@ -1199,6 +1654,10 @@ def phase_times(serve, serve_w, train):
         max_abs_err_by_output=errs,
         wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3)
 
+    lm_kernels, lm_detail, lm_timing = lm_times(lm)
+    kernels += lm_kernels
+    detail.update(lm_detail)
+
     step_ms, step = train_step_ms(train)
     times = {"train_step_ms_b2": step_ms,
              "serve_forward_ms_b2": forward_ms(serve, "auto"),
@@ -1211,8 +1670,13 @@ def phase_times(serve, serve_w, train):
                                  call_ms=k.pop("call_ms"))
     batches = {"msgs_fused": serve["batches"], "msgs_decode": serve["batches"],
                "msgs_windowed": serve_w["batches"],
-               "msgs_decode_backward": train["steps"]}
-    emit("times", kernels=detail, library_ms=None, library_note=LIBRARY_NOTE,
+               "msgs_decode_backward": train["steps"],
+               "flash_decode": lm["steps"], "matmul": lm["steps"]}
+    emit("times", kernels=detail,
+         library_note={"msgs_*": LIBRARY_NOTE,
+                       "flash_decode": "F.scaled_dot_product_attention with "
+                                       "enable_gqa=True and the boolean mask",
+                       "matmul": "torch.matmul (bf16)"},
          **times, forward_profile=serve_profile(serve, "auto"),
          forward_profile_1024=serve_profile(serve_w, "cuda_windowed"),
          train_step_profile=forward_profile(step),
@@ -1220,8 +1684,10 @@ def phase_times(serve, serve_w, train):
                                   for k, v in train["launches"].items()},
          launches_per_forward={k["name"]: k["launches"] // batches[k["name"]]
                                for k in kernels},
+         lm=lm_timing,
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
-                "f32_flop_per_s": F32_FLOP_PER_S})
+                "f32_flop_per_s": F32_FLOP_PER_S,
+                "bf16_flop_per_s": BF16_FLOP_PER_S})
     return kernels
 
 
@@ -1253,10 +1719,12 @@ def main() -> int:
     phase_kernel_checks(device, level_shapes_for_resolution(IMG))
     phase_windowed_checks(device)
     phase_decode_grad(device, level_shapes_for_resolution(IMG))
+    phase_lm_kernels(device)
     serve = phase_serve(device)
     serve_w = phase_serve_windowed(device)
     train = phase_train(device)
-    kernels = phase_times(serve, serve_w, train)
+    lm = phase_lm_serve(device)
+    kernels = phase_times(serve, serve_w, train, lm)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,24 @@
-"""Model configurations of the port."""
+"""Model configurations of the port: the deformable-DETR family
+(``detr_family``) and the dense LM architectures, each module with a
+published-width ``CONFIG`` and a ``SMOKE`` config for the CPU tests."""
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+}
+
+#: the architectures ported so far (the reference has ten; ROADMAP.md)
+ARCH_IDS = list(_ARCH_MODULES)
+
+
+def get_config(arch: str):
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+def get_smoke_config(arch: str):
+    return importlib.import_module(_ARCH_MODULES[arch]).SMOKE

@@ -9,6 +9,12 @@
   * :mod:`repro_torch.kernels.msgs_windowed` — K3, windowed
     multi-scale-parallel MSGS + aggregation (replaces
     ``msgs_windowed_msp_pallas``), plus ``window_geometry``;
+  * :mod:`repro_torch.kernels.flash_decode` — K5, one-token GQA
+    flash-decode attention (replaces ``flash_decode_pallas``);
+  * :mod:`repro_torch.kernels.matmul` — K4, tiled matmul with the int8
+    weight variant (replaces ``matmul_pallas``);
+  * :mod:`repro_torch.kernels.ops` — all of them under the reference's
+    public names (port of ``repro/kernels/ops.py``);
   * :mod:`repro_torch.kernels.build` — ``nvcc`` build and ``ctypes`` load.
 
 Nothing is built or loaded at import time.

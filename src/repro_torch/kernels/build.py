@@ -27,7 +27,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: kernel name -> source file under csrc/ (every *.cuh there is a header)
 SOURCES = {"msgs_fused": "msgs_fused.cu", "msgs_decode": "msgs_decode.cu",
            "msgs_decode_bwd": "msgs_decode_bwd.cu",
-           "msgs_windowed": "msgs_windowed.cu"}
+           "msgs_windowed": "msgs_windowed.cu",
+           "flash_decode": "flash_decode.cu", "matmul": "matmul.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,163 @@
+"""The decoder stack of the LM families (port of ``repro/models/decoder.py``,
+dense family).
+
+Params and cache keep the reference's stacked layout, the layer index
+first, and the reference's ``lax.scan`` over layers becomes a Python loop
+over the layer index. ``remat`` and ``comm_barrier`` are XLA memory and
+fusion knobs of the reference's training path and have no effect here.
+The cache is written in place: :func:`prefill` and :func:`decode_step`
+return the tensors they were given. MoE, SSM and hybrid families raise
+``NotImplementedError`` (ROADMAP.md)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.common import ModelConfig, init_dense, rms_norm
+
+PORTED_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
+            f"port has {PORTED_FAMILIES} (see ROADMAP.md, modules still to "
+            "port: the LM substrate)")
+
+
+# ---------------------------------------------------------------------------
+# per-layer window schedule (0 = full attention)
+# ---------------------------------------------------------------------------
+
+def window_schedule(cfg: ModelConfig) -> np.ndarray:
+    win = np.full((cfg.n_layers,), cfg.attn_window, np.int32)
+    if cfg.attn_window and cfg.global_every:
+        win[::cfg.global_every] = 0                   # periodic global layers
+    for gl in cfg.global_layers:                      # explicit global layers
+        win[gl] = 0
+    return win
+
+
+# ---------------------------------------------------------------------------
+# layer init / apply
+# ---------------------------------------------------------------------------
+
+def _layer_init(cfg: ModelConfig, gen: torch.Generator, lead=(),
+                device=None) -> dict:
+    d = cfg.d_model
+    ones = lambda: torch.ones(tuple(lead) + (d,), dtype=cfg.dtype, device=device)
+    return {"ln1": ones(), "attn": L.attn_init(cfg, gen, lead, device),
+            "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
+
+
+def _layer_forward(p: dict, cfg: ModelConfig, x, positions, window):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + L.attn_forward(p["attn"], cfg, h, positions, window)
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h2), aux
+
+
+def _layer_prefill(p, cfg, x, positions, cache, window):
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    y, cache = L.attn_prefill(p["attn"], cfg, h, positions, cache, window)
+    x = x + y
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h2), cache
+
+
+def _layer_decode(p, cfg, x1, cache, pos, window):
+    h = rms_norm(p["ln1"], x1, cfg.norm_eps)
+    y, cache = L.attn_decode(p["attn"], cfg, h, cache, pos, window)
+    x1 = x1 + y
+    h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
+    return x1 + L.mlp_apply(p["mlp"], h2), cache
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree (views, so writes reach the stack)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def init_decoder(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
+                 device="cuda") -> dict:
+    """Random params on ``device`` from ``gen`` (default: a CPU generator
+    seeded 0), drawn on the generator's device; pass a CUDA generator to
+    draw a full-width model on the card. Each stacked leaf is drawn at
+    once for all layers."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    d = cfg.d_model
+    return {
+        "embed": init_dense(gen, (cfg.vocab_size, d), d, cfg.dtype, dev),
+        "layers": _layer_init(cfg, gen, (cfg.n_layers,), dev),
+        "final_norm": torch.ones((d,), dtype=cfg.dtype, device=dev),
+        "head": init_dense(gen, (d, cfg.vocab_size), d, cfg.dtype, dev),
+    }
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V) in the model dtype,
+    moe_aux)."""
+    check_family(cfg)
+    x = params["embed"][tokens.long()] if embeds is None else embeds
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, win in enumerate(window_schedule(cfg)):
+        x, a = _layer_forward(layer_slice(params["layers"], i), cfg, x,
+                              positions, win)
+        aux = aux + a
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return x @ params["head"], aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> dict:
+    """Stacked (n_layers leading axis) cache."""
+    check_family(cfg)
+    return L.attn_cache_init(cfg, batch, cache_len, (cfg.n_layers,),
+                             resolve_device(device))
+
+
+def prefill(params: dict, cfg: ModelConfig, cache: dict,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None):
+    """Prefill S tokens into the cache; returns (last-position logits (B,V)
+    float32, cache)."""
+    check_family(cfg)
+    x = params["embed"][tokens.long()] if embeds is None else embeds
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for i, win in enumerate(window_schedule(cfg)):
+        x, _ = _layer_prefill(layer_slice(params["layers"], i), cfg, x,
+                              positions, layer_slice(cache, i), win)
+    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return (x @ params["head"])[:, 0].float(), cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos):
+    """One decode step. tokens (B,) integer; pos (B,) int32 per-request
+    positions (a scalar broadcasts — uniform batch).
+
+    Returns (logits (B,V) float32, cache)."""
+    check_family(cfg)
+    x = params["embed"][tokens[:, None].long()]                     # (B,1,D)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(
+        tokens.shape[0]).contiguous()
+    for i, win in enumerate(window_schedule(cfg)):
+        x, _ = _layer_decode(layer_slice(params["layers"], i), cfg, x,
+                             layer_slice(cache, i), pos, win)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return (x @ params["head"])[:, 0].float(), cache

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain versions, and
-K2's backward kernel against its closed-form plain version.
+K2's backward kernel against its closed-form plain version. K4 and K5
+state their tolerances in their own docstrings.
 
 Marked ``gpu``: without a CUDA device these tests skip (the decision is
 made inside each test, never at import). On a machine with an H100:
@@ -165,3 +166,51 @@ def test_cuda_decode_output_carries_a_gradient(cuda):
     assert float(v.grad.abs().sum()) > 0
     with pytest.raises(RuntimeError, match="torch_gather"):
         msgs_fused.msgs_fused(v, *pts, remap=remap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_matches_plain(cuda, dtype):
+    """K5 with Hkv not dividing Hq (6 over 4), W 100 padded at chunk 16,
+    one row with no valid slot. float32 1e-5; bf16 rtol 2^-7 (one bf16
+    rounding step of the output)."""
+    from repro_torch.kernels import flash_decode
+    g = torch.Generator().manual_seed(3)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g).to(tdt).to(cuda)
+               for s in ((3, 6, 64), (3, 100, 4, 64), (3, 100, 4, 64)))
+    valid = torch.rand((3, 100), generator=g) < 0.6
+    valid[0] = False
+    valid = valid.to(cuda)
+    before = flash_decode.LAUNCHES
+    got = flash_decode.flash_decode(q, k, v, valid, chunk=16)
+    torch.cuda.synchronize()
+    assert flash_decode.LAUNCHES == before + 1
+    want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=16)
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16", "int8"])
+def test_matmul_kernel_matches_plain(cuda, w_dtype):
+    """K4 on ragged (70, 257) x (257, 65). atol 2^-20 of the largest
+    absolute sum |x| @ |w| (the kernel and the plain version sum K in
+    other orders); bf16 output rtol 2^-7 (one bf16 rounding step)."""
+    from repro_torch.kernels import matmul
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((70, 257), generator=g)
+    w = torch.randn((257, 65), generator=g)
+    scale = None
+    if w_dtype == "int8":
+        scale = (w.abs().amax(0, keepdim=True) / 127).to(cuda)
+        w = (w / scale.cpu()).round().to(torch.int8)
+    elif w_dtype == "bfloat16":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    x, w = x.to(cuda), w.to(cuda)
+    before = matmul.LAUNCHES
+    got = matmul.matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES == before + 1
+    want = matmul.matmul_plain(x, w, scale)
+    atol = 2 ** -20 * float((x.float().abs() @ matmul.dequantized(w, scale).abs()).max())
+    rtol = 2 ** -7 if x.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)

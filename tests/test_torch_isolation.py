@@ -4,7 +4,7 @@
     JAX or the JAX package (an AST scan of every import).
   * Entry points default to the card: without CUDA a default call raises
     instead of running on the CPU.
-  * The kernel wrappers (K1, K2, K3) reject what their kernels do not
+  * The kernel wrappers (K1 to K5) reject what their kernels do not
     take — dtype, shape, contiguity, device — on CPU tensors too.
 """
 import ast
@@ -182,3 +182,62 @@ def test_k3_wrapper_rejects_unsupported_operands():
     with pytest.raises(ValueError, match="remap covers"):
         msgs_windowed_msp(v, *pts, remap=remap[:, :20].contiguous(),
                           keep_idx=torch.zeros((1, 9), dtype=torch.int32), **kw)
+
+
+def _k5_operands(b=2, hq=6, hkv=2, dh=16, w=10):
+    g = torch.Generator().manual_seed(2)
+    return (torch.randn((b, hq, dh), generator=g),
+            torch.randn((b, w, hkv, dh), generator=g),
+            torch.randn((b, w, hkv, dh), generator=g),
+            torch.rand((b, w), generator=g) < 0.7)
+
+
+def test_k5_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, valid = _k5_operands()
+    assert flash_decode(q, k, v, valid).shape == (2, 6, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_decode(q.double(), k.double(), v.double(), valid)
+    with pytest.raises(TypeError, match="share one dtype"):
+        flash_decode(q, k.to(torch.bfloat16), v, valid)
+    with pytest.raises(ValueError, match=r"q must be \(B, Hq, Dh\)"):
+        flash_decode(q[:, None], k, v, valid)
+    with pytest.raises(ValueError, match="does not match q"):
+        flash_decode(q[:1], k, v, valid)
+    with pytest.raises(ValueError, match=r"valid must be bool \(B=2, W=10\)"):
+        flash_decode(q, k, v, valid[:, :9])
+    with pytest.raises(ValueError, match="valid must be bool"):
+        flash_decode(q, k, v, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode(torch.zeros((1, 2, 160)), torch.zeros((1, 4, 1, 160)),
+                     torch.zeros((1, 4, 1, 160)), torch.ones((1, 4), dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_decode(q.requires_grad_(), k, v, valid)
+
+
+def test_k4_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels.matmul import matmul
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn((5, 7), generator=g), torch.randn((7, 3), generator=g)
+    wq, s = (w * 20).round().to(torch.int8), torch.full((1, 3), 0.05)
+    assert matmul(x, w).shape == (5, 3) and matmul(x, wq, s).shape == (5, 3)
+    with pytest.raises(TypeError, match="x dtype"):
+        matmul(x.double(), w.double())
+    with pytest.raises(TypeError, match="w dtype"):
+        matmul(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match=r"expected x \(M, K\)"):
+        matmul(x[None], w)
+    with pytest.raises(ValueError, match=r"expected x \(M, K\)"):
+        matmul(x[:, :6], w)
+    with pytest.raises(ValueError, match="int8 w needs"):
+        matmul(x, wq)
+    with pytest.raises(ValueError, match="int8 w needs"):
+        matmul(x, w, s)
+    with pytest.raises(ValueError, match="w_scale must be"):
+        matmul(x, wq, s[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="tile sizes"):
+        matmul(x, w, bk=0)
