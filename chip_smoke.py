@@ -8,7 +8,10 @@ Phases, each printing one JSON line:
   1. device   — torch / CUDA versions, the card's name and power limit;
   2. build    — the six Hopper kernel libraries built from
                 ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per
-                source, started together);
+                source, started together); ptxas registers, shared memory
+                and spills per kernel, and the HGMMA (wgmma) and UTMALDG
+                (TMA load) counts of libmatmul.so and libflash_decode.so
+                from ``cuobjdump -sass`` (K4 must have both);
   3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
                 {f32, bf16, int8 + scale} tables x {dense, compact remap}
                 at the 512 px path's shapes, a ragged small shape, Dh
@@ -27,10 +30,15 @@ Phases, each printing one JSON line:
      lm_kernels — K5 (flash-decode) and K4 (matmul) against their plain
                 versions: K5 in f32 and bf16 on the reference's sweep, the
                 slice's decode shape (B 4, Hq 24, Hkv 8, Dh 128, W 4096),
-                a ragged W, Hkv not dividing Hq, MQA, ring-buffer masks and
-                rows with no valid slot; K4 in f32, bf16 and int8 + scale
-                on the reference's shapes and minitron-4b's prefill and
-                decode MLP-up products;
+                a ragged W, Hkv not dividing Hq, MQA, ring-buffer masks,
+                rows with no valid slot and K5's split edges (W not a
+                multiple of the split, splits with no valid slot, one
+                valid slot at W - 1, B * Hkv = 1), each with its split
+                plan; K4 in f32, bf16 and int8 + scale on the reference's
+                shapes, minitron-4b's prefill and decode MLP-up products
+                and the wgmma route's edges (M 1 and 65, K 3000, int8 with
+                N % 16 == 0 or not), each with its route (the bf16 and int8
+                prefill products must take "wgmma");
   4. serve    — the port's DetrServeEngine on the full-width
                 deformable-DETR-DEFA detector at 512 px (random seeded
                 weights, float32) with backend="auto": 4 requests, launch
@@ -132,8 +140,11 @@ def check_close(name, got, want, tol):
     err = (g - w).abs()
     bad = err > tol["atol"] + tol["rtol"] * w.abs()
     if bad.any():
+        limit = {key: lim if isinstance(lim, (int, float))
+                 else f"per row, at most {float(lim.max()):.3e}"
+                 for key, lim in tol.items()}
         raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
-                             f"{tol}; max abs err {float(err.max()):.3e}")
+                             f"{limit}; max abs err {float(err.max()):.3e}")
     return float(err.max())
 
 
@@ -155,16 +166,40 @@ def phase_device():
     return line
 
 
+def ptxas_per_kernel(log):
+    """{demangled-ish kernel entry: "registers, smem, spills"} from the
+    ``-Xptxas -v`` lines of one nvcc log."""
+    per, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif name and ("registers" in ln or "spill" in ln):
+            per[name] = (per.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
+    return per
+
+
+def sass_counts(lib):
+    """Counts of the Hopper instructions that show the design in one
+    library's SASS: HGMMA (wgmma) and UTMALDG (a TMA tile load)."""
+    from repro_torch.kernels.build import nvcc_path
+    dump = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(dump), "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
 def phase_build():
     from repro_torch.kernels.build import build_dir, build_kernels
     t0 = time.perf_counter()
     info = build_kernels()
-    regs = {n: [ln.strip() for ln in i["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-            for n, i in info.items()}
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
+    seconds = time.perf_counter() - t0
+    sass = {n: sass_counts(info[n]["path"]) for n in ("matmul", "flash_decode")}
+    if not (sass["matmul"]["HGMMA"] and sass["matmul"]["UTMALDG"]):
+        raise AssertionError(f"libmatmul.so lacks wgmma or TMA: {sass['matmul']}")
+    emit("build", seconds=round(seconds, 3),
          per_kernel_seconds={n: round(i["seconds"], 3) for n, i in info.items()},
-         dir=str(build_dir()), ptxas=regs)
+         dir=str(build_dir()), sass=sass,
+         ptxas={n: ptxas_per_kernel(i["log"]) for n, i in info.items()})
 
 
 # --------------------------------------------------------------------------
@@ -542,17 +577,18 @@ def k5_operands(gen, b, hq, hkv, dh, w, dtype, mask, device):
 
 def k4_operands(gen, m, k, n, kind, device):
     """x, w, w_scale: float32 or bf16 x and w, or int8 w codes with their
-    per-column scale (x float32 on the small shapes, bf16 on the model's)."""
+    per-column scale ("int8": x float32 on the small shapes, bf16 on the
+    model's; "int8_bf16x": x bf16 always)."""
     import torch
     x = torch.randn((m, k), generator=gen)
     w = torch.randn((k, n), generator=gen)
     scale = None
     if kind == "bfloat16":
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    elif kind == "int8":
+    elif kind in ("int8", "int8_bf16x"):
         scale = w.abs().amax(0, keepdim=True) / 127
         w = (w / scale).round().clamp(-127, 127).to(torch.int8)
-        if k >= 1024:
+        if k >= 1024 or kind == "int8_bf16x":
             x = x.to(torch.bfloat16)
     as_dev = lambda t: None if t is None else t.contiguous().to(device)
     return as_dev(x), as_dev(w), as_dev(scale)
@@ -571,7 +607,11 @@ def matmul_tolerance(x, w, scale):
 
 # (label, B, Hq, Hkv, Dh, W, chunk, mask): the reference's sweep (chunk
 # 64), the slice's decode shape, a ragged W with a row that has no valid
-# slot, Hkv not dividing Hq, and an MQA shape of 12 head groups
+# slot, Hkv not dividing Hq, an MQA shape of 12 head groups; then K5's
+# splits: W not a multiple of the split, splits with no valid slot in rows
+# that have valid slots, a single valid slot at W - 1, B * Hkv = 1, and
+# the LM's shape with K and V two bytes off a 16-byte boundary (the split
+# pass that reads rows element by element, in both dtypes)
 K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
             ("sweep_b", 1, 4, 4, 64, 513, 64, "sweep"),
             ("sweep_c", 3, 25, 5, 16, 64, 64, "sweep"),
@@ -579,46 +619,128 @@ K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
             ("slice", 4, 24, 8, 128, 4096, 512, "ring"),
             ("ragged_w_empty_row", 4, 24, 8, 128, 1000, 512, "ring_empty"),
             ("hq6_hkv4", 2, 6, 4, 64, 300, 64, "ring_window"),
-            ("mqa_hq48", 2, 48, 1, 128, 777, 256, "ring_empty")]
-# (label, M, K, N): the reference's sweep and int8 shapes, minitron-4b's
-# prefill (2048 tokens) and decode (B = 4) MLP-up products
-K4_CASES = [("sweep_a", 70, 90, 50), ("sweep_b", 128, 128, 128),
-            ("sweep_c", 33, 257, 65), ("int8_ref", 64, 96, 48),
-            ("prefill_mlp_up", 2048, 3072, 9216),
-            ("decode_mlp_up", 4, 3072, 9216)]
+            ("mqa_hq48", 2, 48, 1, 128, 777, 256, "ring_empty"),
+            ("w_not_split_multiple", 4, 24, 8, 128, 4000, 512, "ring"),
+            ("empty_splits", 4, 24, 8, 128, 4096, 512, "prefix"),
+            ("last_slot_only", 4, 24, 8, 128, 1000, 512, "last"),
+            ("b1_hkv1", 1, 4, 1, 128, 2048, 512, "ring_window"),
+            ("unaligned_rows", 4, 24, 8, 128, 4000, 512, "ring")]
+# (label, M, K, N, kinds): the reference's sweep and int8 shapes,
+# minitron-4b's prefill (2048 tokens) and decode (B = 4) MLP-up products;
+# then the wgmma route's edges: an aligned small shape, M 1 (a split K) and
+# 65 (across a tile edge), K 3000 (not a multiple of the K step of 64),
+# int8 codes with N % 16 == 0 (wgmma) and N % 16 == 8 (simt)
+K4_KINDS = ("float32", "bfloat16", "int8")
+K4_CASES = [("sweep_a", 70, 90, 50, K4_KINDS), ("sweep_b", 128, 128, 128, K4_KINDS),
+            ("sweep_c", 33, 257, 65, K4_KINDS), ("int8_ref", 64, 96, 48, K4_KINDS),
+            ("prefill_mlp_up", 2048, 3072, 9216, K4_KINDS),
+            ("decode_mlp_up", 4, 3072, 9216, K4_KINDS),
+            ("aligned_small", 96, 256, 192, ("bfloat16", "int8_bf16x")),
+            ("m1", 1, 1024, 512, ("bfloat16", "int8_bf16x")),
+            ("m65", 65, 512, 384, ("bfloat16", "int8_bf16x")),
+            ("k3000", 128, 3000, 256, ("bfloat16", "int8_bf16x")),
+            ("int8_n_mod16_8", 96, 256, 200, ("bfloat16", "int8_bf16x"))]
+# K5's split-edge cases (the last five above). Their float32 runs are held
+# to the kernel tolerance (1e-5: no score rounding in float32). Their bf16
+# runs keep rtol 2^-7 and take atol 2^-8 of the largest |output| of each
+# (b, h) row: a bf16 score is an f32 sum rounded to bf16, the kernel and
+# the plain version sum in other orders, and where a score lands on the
+# other side of a rounding boundary its softmax weight moves by
+# exp(scale * ulp) - 1 (about 1 % for scores of 16 to 32). That moves
+# every channel of the row by the same share of its V, so a channel near
+# zero may move by many of its own bf16 steps, but not by half a step of
+# the row's largest output. Dropping the ragged last split of
+# w_not_split_multiple's bf16 run (a planted fault, PERF.md §6) breaks
+# this limit.
+K5_SPLIT_EDGE_CASES = {"w_not_split_multiple", "empty_splits", "last_slot_only",
+                       "b1_hkv1", "unaligned_rows"}
+# cases whose route is fixed by the contract of this kernel
+K4_MUST_ROUTE = {"prefill_mlp_up/bfloat16": "wgmma", "prefill_mlp_up/int8": "wgmma",
+                 "decode_mlp_up/bfloat16": "wgmma", "int8_n_mod16_8/int8_bf16x": "simt",
+                 "sweep_a/bfloat16": "simt", "prefill_mlp_up/float32": "simt"}
+
+
+def k5_row_tolerance(want):
+    """bf16 runs of K5's split-edge cases: rtol 2^-7 and, per (b, h) row,
+    atol 2^-8 of the row's largest |output| (see K5_SPLIT_EDGE_CASES)."""
+    return {"rtol": 2 ** -7,
+            "atol": 2 ** -8 * want.float().abs().amax(-1, keepdim=True)}
+
+
+def k5_mask(gen, b, w, mask):
+    """The slot validity of one K5 case: ``k5_operands``'s masks plus
+    "prefix" (row i valid in its first 100 + 900 i slots only, so later
+    splits hold none) and "last" (one valid slot, at W - 1)."""
+    import torch
+    if mask == "prefix":
+        return torch.arange(w)[None] < (100 + 900 * torch.arange(b))[:, None]
+    valid = torch.zeros((b, w), dtype=torch.bool)
+    valid[:, w - 1] = True
+    return valid
+
+
+def off_by_two(t):
+    """A contiguous copy of ``t`` whose data starts two bytes past a
+    16-byte boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    return flat[1:1 + t.numel()].view(t.shape).copy_(t)
 
 
 def phase_lm_kernels(device):
-    """K5 and K4 against their plain versions on the card."""
+    """K5 and K4 against their plain versions on the card, with K5's
+    split plan and K4's route per case."""
     import torch
     from repro_torch.kernels import flash_decode, matmul
+    from repro_torch.kernels.msgs_fused import sm_count
     gen = torch.Generator().manual_seed(SEED + 3)
     k5 = []
     for label, b, hq, hkv, dh, w, chunk, mask in K5_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, valid = k5_operands(gen, b, hq, hkv, dh, w, dtype, mask,
-                                         device)
+            q, k, v, valid = k5_operands(gen, b, hq, hkv, dh, w, dtype,
+                                         mask if mask not in ("prefix", "last")
+                                         else "full", device)
+            if mask in ("prefix", "last"):
+                valid = k5_mask(gen, b, w, mask).to(device)
+            if label == "unaligned_rows":
+                k, v = off_by_two(k), off_by_two(v)
             case = f"{label}/{str(dtype)[6:]}"
+            want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk)
+            tol = (k5_row_tolerance(want) if label in K5_SPLIT_EDGE_CASES
+                   and dtype == torch.bfloat16 else tolerance(dtype, None))
             err = check_close(f"flash_decode {case}",
                               flash_decode.flash_decode(q, k, v, valid, chunk=chunk),
-                              flash_decode.flash_decode_plain(q, k, v, valid,
-                                                              chunk=chunk),
-                              tolerance(dtype, None))
+                              want, tol)
+            length, n_splits = flash_decode.decode_splits(
+                b, hkv, flash_decode.head_groups(hq, hkv), w, sm_count(q.device))
+            per_split = torch.nn.functional.pad(
+                valid, (0, n_splits * length - w)).reshape(b, n_splits, length).any(-1)
             k5.append({"case": case, "pad": flash_decode.chunk_padding(w, chunk),
+                       "split_len": length, "splits": n_splits,
                        "rows_without_valid_slot": int((~valid.any(1)).sum()),
+                       "empty_splits_in_rows_with_valid_slots":
+                           int((~per_split & valid.any(1, keepdim=True)).sum()),
                        "max_abs_err": err})
     k4 = []
-    for label, m, kk, n in K4_CASES:
-        for kind in ("float32", "bfloat16", "int8"):
+    for label, m, kk, n, kinds in K4_CASES:
+        for kind in kinds:
             x, w, scale = k4_operands(gen, m, kk, n, kind, device)
             case = f"{label}/{kind}"
+            route = matmul.matmul_route(x, w, scale)
+            if K4_MUST_ROUTE.get(case, route) != route:
+                raise AssertionError(f"matmul {case}: route {route}, expected "
+                                     f"{K4_MUST_ROUTE[case]}")
             err = check_close(f"matmul {case}", matmul.matmul(x, w, scale),
                               matmul.matmul_plain(x, w, scale),
                               matmul_tolerance(x, w, scale))
-            k4.append({"case": case, "x": str(x.dtype), "max_abs_err": err})
+            k4.append({"case": case, "x": str(x.dtype), "route": route,
+                       "splits": matmul.matmul_splits(m, n, kk, sm_count(x.device))
+                       if route == "wgmma" else None, "max_abs_err": err})
     emit("lm_kernels", checks=len(k5) + len(k4), flash_decode=k5, matmul=k4,
-         tolerance="flash_decode: f32 1e-5, bf16 rtol 2^-7 atol 1e-5; matmul: "
-                   "atol 2^-20*max(|x|@|w|), bf16 output rtol 2^-7")
+         tolerance="flash_decode: f32 1e-5, bf16 rtol 2^-7 atol 1e-5 (the split-"
+                   "edge cases in bf16: atol 2^-8 of each (b, h) row's largest "
+                   "|output|); matmul: atol 2^-20*max(|x|@|w|), bf16 output "
+                   "rtol 2^-7")
 
 
 # --------------------------------------------------------------------------
@@ -1200,14 +1322,25 @@ def profile(fn, calls=1):
     return dev, cpu, wall
 
 
-def kernel_device_ms(fn, kernel_name, calls=20):
-    """Device time of one launch of ``kernel_name`` (profiler, CUPTI);
-    None when the profiler records no device time on this machine."""
+def kernel_device_split(fn, kernel_names, calls=20):
+    """Device time per call of ``fn`` in each kernel whose name contains
+    one of ``kernel_names`` (a name or a tuple of names: every kernel one
+    wrapper call launches), keyed by that name; profiler, CUPTI. Empty
+    when the profiler records no device time on this machine."""
+    names = (kernel_names,) if isinstance(kernel_names, str) else kernel_names
     dev, _, _ = profile(fn, calls)
-    hits = [e for e in dev if kernel_name in e.key]
-    total = sum(_device_us(e) for e in hits)
-    count = sum(e.count for e in hits)
-    return total / count / 1e3 if count and total > 0 else None
+    split = {}
+    for e in dev:
+        for n in names:
+            if n in e.key and _device_us(e) > 0:
+                split[n] = split.get(n, 0.0) + _device_us(e) / calls / 1e3
+    return split
+
+
+def kernel_device_ms(fn, kernel_names, calls=20):
+    """The sum of ``kernel_device_split``; None without device time."""
+    split = kernel_device_split(fn, kernel_names, calls)
+    return sum(split.values()) if split else None
 
 
 def forward_profile(fn):
@@ -1272,16 +1405,16 @@ def kernel_bound(pts, remap, scale, out, n_rows, h, dh, itemsize,
             "pixels_touched": pixels}
 
 
-def kernel_times(call, plain, kernel_name):
+def kernel_times(call, plain, kernel_names):
     """``ms``: the kernel's own time on the card (profiler device time per
-    launch; CUDA events over back-to-back calls where the profiler sees no
+    call, summed over ``kernel_names``; CUDA events over back-to-back calls where the profiler sees no
     device time). ``call_ms``: CUDA events per wrapper call, host checks
     and launch included. ``plain_ms``: the plain version, CUDA events."""
     call_ms = cuda_ms(call, 11, 20)
-    dev_ms = kernel_device_ms(call, kernel_name)
-    return {"ms": dev_ms if dev_ms is not None else call_ms,
-            "ms_source": "profiler" if dev_ms is not None else "cuda_events",
-            "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5, 1)}
+    split = kernel_device_split(call, kernel_names)
+    return {"ms": sum(split.values()) if split else call_ms,
+            "ms_source": "profiler" if split else "cuda_events",
+            "by_kernel": split, "call_ms": call_ms, "plain_ms": cuda_ms(plain, 5, 1)}
 
 
 def forward_ms(serve, backend, reps=5):
@@ -1417,8 +1550,16 @@ def sdpa_call(q, k, v, valid):
         attn_mask=valid[:, None, None, :], enable_gqa=True)
 
 
+K5_KERNELS = ("flash_decode_split_kernel", "flash_decode_mma_kernel",
+              "flash_decode_merge_kernel")
+#: the kernels one K4 call launches, by route
+K4_KERNELS = {"wgmma": ("matmul_wgmma_kernel", "matmul_splitk_reduce_kernel"),
+              "simt": ("matmul_kernel",)}
+
+
 def k5_entry(args, kw, launches):
     from repro_torch.kernels import flash_decode
+    from repro_torch.kernels.msgs_fused import sm_count
     call = lambda: flash_decode.flash_decode(*args, **kw)
     plain = lambda: flash_decode.flash_decode_plain(*args, **kw)
     out = call()
@@ -1428,19 +1569,26 @@ def k5_entry(args, kw, launches):
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_decode.py:69",
              "launches": launches, "max_abs_err": err,
-             **kernel_times(call, plain, "flash_decode_kernel"),
+             **kernel_times(call, plain, K5_KERNELS),
              "library_ms": cuda_ms(sdpa_call(*args), 11, 20)}
     bound = flash_decode_bound(*args, out)
     entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    q, k = args[0], args[1]
+    length, n_splits = flash_decode.decode_splits(
+        q.shape[0], k.shape[2], flash_decode.head_groups(q.shape[1], k.shape[2]),
+        k.shape[1], sm_count(q.device))
     return entry, dict(bound, shape=[list(t.shape) for t in args],
-                       dtype=str(args[0].dtype))
+                       dtype=str(args[0].dtype), kernels=list(K5_KERNELS),
+                       split_len=length, splits=n_splits)
 
 
 def k4_entry(x, w, scale, launches, library=True):
     import torch
     from repro_torch.kernels import matmul
+    from repro_torch.kernels.msgs_fused import sm_count
     call = lambda: matmul.matmul(x, w, scale)
     plain = lambda: matmul.matmul_plain(x, w, scale)
+    route = matmul.matmul_route(x, w, scale)
     out = call()
     err = check_close("matmul timing operands", out, plain(),
                       matmul_tolerance(x, w, scale))
@@ -1448,13 +1596,18 @@ def k4_entry(x, w, scale, launches, library=True):
              "source": "src/repro_torch/csrc/matmul.cu",
              "replaces": "src/repro/kernels/matmul.py:44",
              "launches": launches, "max_abs_err": err,
-             **kernel_times(call, plain, "matmul_kernel"),
+             **kernel_times(call, plain, K4_KERNELS[route]),
              "library_ms": cuda_ms(lambda: torch.matmul(x, w), 11, 20)
              if library else None}
     bound = matmul_bound(x, w, scale, out)
     entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    m, k = x.shape
     return entry, dict(bound, shape=[list(x.shape), list(w.shape)],
-                       x=str(x.dtype), w=str(w.dtype))
+                       x=str(x.dtype), w=str(w.dtype), k4_route=route,
+                       kernels=list(K4_KERNELS[route]),
+                       splits=matmul.matmul_splits(m, w.shape[1], k,
+                                                   sm_count(x.device))
+                       if route == "wgmma" else None)
 
 
 def lm_step_ms(fn, reps=5):
@@ -1474,20 +1627,27 @@ def lm_step_ms(fn, reps=5):
 
 
 def lm_times(lm):
-    """K5 on the served path's first decode call and on a full cache, K4
-    on minitron-4b's MLP-up products, one decode step at B = 4 and one
-    512-token prefill."""
+    """K5 on the served path's first decode call (and its operands in
+    float32) and on a full cache in bf16 and float32, K4 on minitron-4b's
+    MLP-up products (prefill and decode, bf16 and int8 + scale, prefill in
+    float32), one decode step at B = 4 and one 512-token prefill."""
     import torch
     from repro_torch.models.decoder import decode_step, init_cache, prefill
     cfg, params, dev = lm["cfg"], lm["params"], lm["tokens"].device
     k5, d5 = k5_entry(*lm["k5_call"], lm["launches"]["flash_decode"])
     gen = torch.Generator().manual_seed(SEED + 4)
-    full = k5_operands(gen, LM_MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
-                       LM_CACHE_LEN, cfg.dtype, "full", dev)
-    full_entry, full_bound = k5_entry(full, {"chunk": 512}, 0)
-    d5["full_cache"] = {k: full_entry[k] for k in
-                        ("ms", "ms_source", "call_ms", "plain_ms", "library_ms",
-                         "max_abs_err")} | full_bound
+    keep = ("ms", "ms_source", "by_kernel", "call_ms", "plain_ms", "library_ms",
+            "max_abs_err")
+    for label, dtype in (("full_cache", cfg.dtype), ("full_cache_f32", torch.float32),
+                         ("served_f32", torch.float32)):
+        if label == "served_f32":
+            args, kw = lm["k5_call"]
+            ops = [t.float() if t.is_floating_point() else t for t in args]
+        else:
+            ops, kw = k5_operands(gen, LM_MAX_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.dh, LM_CACHE_LEN, dtype, "full", dev), {"chunk": 512}
+        e, bd = k5_entry(ops, kw, 0)
+        d5[label] = {k: e[k] for k in keep} | bd
 
     # K4 on layer 0's real w_up: the prefill product (2048 tokens) is the
     # summary's row, in bf16 like the model
@@ -1499,11 +1659,12 @@ def lm_times(lm):
             ("decode_mlp_up_b4_bf16", x[:LM_MAX_BATCH].contiguous(), w_up, None, True),
             ("prefill_mlp_up_f32", x.float(), w_up.float(), None, True),
             ("prefill_mlp_up_int8", *k4_operands(gen, 2048, cfg.d_model,
-                                                 cfg.d_ff, "int8", dev), False)):
+                                                 cfg.d_ff, "int8", dev), False),
+            ("decode_mlp_up_b4_int8", *k4_operands(gen, LM_MAX_BATCH, cfg.d_model,
+                                                   cfg.d_ff, "int8_bf16x", dev),
+             False)):
         e, bd = k4_entry(xx, ww, sc, 0, library=lib)
-        d4["other_operands"][label] = {k: e[k] for k in
-                                       ("ms", "ms_source", "call_ms", "plain_ms",
-                                        "library_ms", "max_abs_err")} | bd
+        d4["other_operands"][label] = {k: e[k] for k in keep} | bd
 
     # one decode step at B = 4 from the served cache (it rewrites the
     # same slots every time), and one 512-token prefill into a fresh cache
@@ -1667,7 +1828,7 @@ def phase_times(serve, serve_w, train, lm):
                  serve_w, "torch_gather", reps=3)}
     for k in kernels:
         detail[k["name"]].update(ms_source=k.pop("ms_source"),
-                                 call_ms=k.pop("call_ms"))
+                                 call_ms=k.pop("call_ms"), by_kernel=k.pop("by_kernel"))
     batches = {"msgs_fused": serve["batches"], "msgs_decode": serve["batches"],
                "msgs_windowed": serve_w["batches"],
                "msgs_decode_backward": train["steps"],

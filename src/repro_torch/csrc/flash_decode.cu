@@ -11,24 +11,50 @@
 //     float32, and the denominator is clamped at 1e-20;
 //   * the TPU kernel pads W to a multiple of its chunk with invalid zero
 //     slots. They change only a row with no valid slot, whose softmax
-//     is then uniform over real and padded slots alike: the sum gains
-//     one per padded slot and the numerator nothing (argument `pad`).
+//     is then uniform over real and padded slots alike: sum V / (W + pad)
+//     (argument `pad`).
 //
-// Design: one block per (b, KV head, group of up to kMaxRep query heads of
-// that KV head), so each K/V row is read once for all the query heads
-// that share it. Each of the block's warps walks its own slots, loading
-// kSlotsPerStep slots' K and V rows before it computes, with lane =
-// channel (Dh <= 128, four channels per lane) and the online-softmax state
-// of every query head in registers; the warps' states merge through
-// shared memory at the end.
+// Design: a split pass and a merge pass. The split pass runs a block per
+// (split of W, b, KV head, group of up to kMaxRep query heads of that KV
+// head); kernels/flash_decode.py's decode_splits picks the split length
+// (a multiple of 32, at most kMaxSplit) so that at least four blocks per
+// SM run (at the LM's decode shape: 128 slots, 1,024 blocks). A block
+// first compacts the indices of its split's valid slots into shared
+// memory (__ballot_sync / __popc per 32 mask bytes) and then reads the K
+// and V rows of those slots only, each once for all the query heads of
+// its group, through a warp-private cp.async ring. Two versions of the
+// split pass:
+//   * flash_decode_mma_kernel, bf16 with Dh % 32 == 0 (the LM's path): a
+//     warp takes 16 compacted slots per step; the scores and P.V are
+//     mma.sync m16n8k16 products on the tensor cores (query heads as the
+//     rows of a zero-padded 16-row tile), see the note at the kernel;
+//   * flash_decode_split_kernel, float32 and the other bf16 shapes: a row
+//     goes to a group of `lpr` lanes, each holding 16 bytes (8 bf16 or 4
+//     float32 channels; rows that 16-byte copies cannot address are read
+//     element by element), kUnroll slots per step, dot products reduced
+//     by warp shuffles.
+// Each warp (or lane group) keeps its own online-softmax state per query
+// head in registers (one rescale per step); the block merges them through
+// shared memory into a partial (m, l, acc[Dh]) per (b, h, split), plus
+// the split's valid-slot count. flash_decode_merge_kernel then merges each
+// (b, h)'s splits in split order (no float atomics: the result does not
+// depend on block timing).
+//
+// Why skipping invalid slots is exact: in a row with at least one valid
+// slot, an invalid slot weighs exp(-1e30 - m) = 0 once m is finite, and
+// whatever was summed before the first valid slot is wiped by the
+// exp(m_old - m_new) = 0 factor. So dropping them changes only the float32
+// summation order. The exception is a row with no valid slot at all,
+// where the TPU kernel averages V over its W real slots and its padded
+// zero slots; the merge sees a total count of 0 and computes exactly that,
+// reading V itself. The served path never has such a row (the token's own
+// slot is valid).
 //
 // What bounds it on the H100: memory. At minitron-4b's decode shape
-// (B = 4, Hq = 24, Hkv = 8, Dh = 128, W = 4096, bf16) the K and V rows
-// are 67.1 MB, about 20 us at 3.35 TB/s; the operations (4 per score
-// channel and per P.V channel, 0.2 GFLOP) are far below the rate. This
-// first version is simple and right: its B * Hkv = 32 blocks use 32 of
-// the 132 SMs. Splitting W across blocks (with a second pass that merges
-// the partial softmax states) and 16-byte loads are later work.
+// (B = 4, Hq = 24, Hkv = 8, Dh = 128, W = 4096, bf16) a full cache's K and
+// V rows are 67.1 MB, 20 us at 3.35 TB/s; the served first decode call
+// needs only its 981 valid slots' rows (4.0 MB, 1.2 us). The operations
+// (4 per channel, query head and slot) are far below the rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,11 +62,15 @@
 namespace repro_torch {
 
 constexpr int kWarp = 32;
-constexpr int kWarps = 16;          // warps per block, each on its own slots
+constexpr int kWarps = 4;           // warps per split block
 constexpr int kMaxRep = 4;          // query heads per block
-constexpr int kLaneCh = 4;          // channels per lane: Dh <= 128
-constexpr int kMaxDh = kWarp * kLaneCh;
-constexpr int kSlotsPerStep = 4;    // slots a warp loads before it computes
+constexpr int kMaxDh = 128;
+constexpr int kMaxSplit = 512;      // slots per split, at most
+constexpr int kUnroll = 4;          // slots a lane group loads before it computes
+constexpr int kStages = 3;          // steps in a warp's cp.async ring
+constexpr int kBlocksPerSm = 4;     // split blocks resident per SM (registers, smem)
+constexpr int kMergeThreads = 128;
+constexpr int kMaxMergeSplits = 1024;
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -56,150 +86,703 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// VEC channels of one row from `p` (channel ch0 of the row) into r,
+// element by element up to `left` channels; zeros when !in. The path for
+// rows that 16-byte loads cannot address.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_row(const T* p, float (&r)[VEC], bool in, int left) {
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int i = 0; i < VEC; ++i) r[i] = (in && i < left) ? widen(p[i]) : 0.f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarp * kWarps)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                    T* __restrict__ out, int Hq, int Hkv, int Dh, int W, int n_rep,
-                    int pad, float scale) {
-  __shared__ float sm_m[kWarps][kMaxRep];
-  __shared__ float sm_l[kWarps][kMaxRep];
-  __shared__ float sm_acc[kWarps][kMaxRep][kMaxDh];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without a register stop; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&r)[VEC]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) r[i] = widen(e[i]);
+}
+
+// Where a split block sits: blockIdx.x is the split, blockIdx.y the
+// (b, KV head g, query-head group grp); its heads are h0 .. h0 + nh - 1
+// (nh <= 0: heads past Hq, the block has nothing to do); its slots are
+// [w0, w_end).
+struct SplitBlock {
+  int b, g, grp, h0, nh, split, n_splits, w0, w_end;
+};
+
+__device__ __forceinline__ SplitBlock split_block(int Hq, int Hkv, int W, int n_rep,
+                                                  int split_len) {
+  SplitBlock p;
+  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
+  p.grp = blockIdx.y % n_groups;
+  p.g = (blockIdx.y / n_groups) % Hkv;
+  p.b = blockIdx.y / n_groups / Hkv;
+  p.h0 = p.g * n_rep + p.grp * kMaxRep;
+  p.nh = min(min(kMaxRep, n_rep - p.grp * kMaxRep), Hq - p.h0);
+  p.split = blockIdx.x;
+  p.n_splits = gridDim.x;
+  p.w0 = p.split * split_len;
+  p.w_end = min(W, p.w0 + split_len);
+  return p;
+}
+
+// The indices of the split's valid slots, in slot order, into `slots`
+// (__ballot_sync / __popc over 32 mask bytes at a time); returns their
+// count. Block-wide: every thread calls it, and sees `slots` on return.
+__device__ __forceinline__ int compact_split(const uint8_t* ok_b, const SplitBlock& p,
+                                             int* slots) {
+  __shared__ uint32_t ballots[kMaxSplit / kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const int n_chunks = (p.w_end - p.w0 + kWarp - 1) / kWarp;
+  for (int c = warp; c < n_chunks; c += n_warps) {
+    const int w = p.w0 + c * kWarp + lane;
+    const uint32_t bal = __ballot_sync(0xffffffffu, w < p.w_end && ok_b[w] != 0);
+    if (lane == 0) ballots[c] = bal;
+  }
+  __syncthreads();
+  int n_valid = 0;
+  for (int c = 0; c < n_chunks; ++c) n_valid += __popc(ballots[c]);
+  for (int c = warp; c < n_chunks; c += n_warps) {
+    int base = 0;
+    for (int c2 = 0; c2 < c; ++c2) base += __popc(ballots[c2]);
+    const uint32_t bal = ballots[c];
+    if ((bal >> lane) & 1u)
+      slots[base + __popc(bal & ((1u << lane) - 1u))] = p.w0 + c * kWarp + lane;
+  }
+  __syncthreads();
+  return n_valid;
+}
+
+// The block's partial (m, l, acc[Dh]) for each of its heads, merged from
+// `groups` online-softmax states in shared memory: head r, state i has
+// its max at sm_m[r * m_stride + i], its sum at sm_l[...], and channel ch
+// at sm_acc[r * acc_r + i * acc_i + ch].
+__device__ __forceinline__ void write_partials(const SplitBlock& p, const float* sm_m,
+                                               const float* sm_l, int m_stride, int groups,
+                                               const float* sm_acc, int acc_r, int acc_i,
+                                               int Hq, int Dh, float* part) {
+  for (int e = threadIdx.x; e < p.nh * Dh; e += blockDim.x) {
+    const int r = e / Dh;
+    const int ch = e % Dh;
+    float mx = kNeg;
+    for (int i = 0; i < groups; ++i) mx = fmaxf(mx, sm_m[r * m_stride + i]);
+    float den = 0.f, num = 0.f;
+    for (int i = 0; i < groups; ++i) {
+      const float c = expf(sm_m[r * m_stride + i] - mx);
+      den += sm_l[r * m_stride + i] * c;
+      num += sm_acc[r * acc_r + i * acc_i + ch] * c;
+    }
+    float* dst = part + ((static_cast<int64_t>(p.b) * Hq + p.h0 + r) * p.n_splits + p.split) *
+                            (Dh + 2);
+    if (ch == 0) {
+      dst[0] = mx;
+      dst[1] = den;
+    }
+    dst[2 + ch] = num;
+  }
+}
+
+// Dynamic shared memory of one split block: the warps' cp.async rings on
+// the 16-byte-load path (kStages steps of kUnroll slots, K and V, 16 bytes
+// per lane), which the lane groups' accumulators reuse after the loop.
+template <typename T, int VEC, bool kVecLoad>
+constexpr int split_smem_bytes() {
+  return kVecLoad && kWarps * kStages * kUnroll * 2 * kWarp * 16 >
+                         kMaxRep * kWarps * kWarp * VEC * 4
+             ? kWarps * kStages * kUnroll * 2 * kWarp * 16
+             : kMaxRep * kWarps * kWarp * VEC * 4;
+}
+
+template <typename T, int VEC, bool kVecLoad>
+__global__ void __launch_bounds__(kWarp * kWarps, kBlocksPerSm)
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const uint8_t* __restrict__ valid,
+                          float* __restrict__ part, int* __restrict__ counts, int Hq, int Hkv,
+                          int Dh, int W, int n_rep, int split_len, int lpr, float scale) {
+  __shared__ int slots[kMaxSplit];
+  __shared__ float sm_m[kMaxRep][kWarps * kWarp];
+  __shared__ float sm_l[kMaxRep][kWarps * kWarp];
+  extern __shared__ uint4 dyn[];
+  // the accumulators after the loop: [kMaxRep][kWarps * kWarp * VEC]
+  float* sm_acc = reinterpret_cast<float*>(dyn);
 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
-  const int grp = blockIdx.x % n_groups;
-  const int g = (blockIdx.x / n_groups) % Hkv;
-  const int b = blockIdx.x / n_groups / Hkv;
-  const int h0 = g * n_rep + grp * kMaxRep;
-  const int nh = min(min(kMaxRep, n_rep - grp * kMaxRep), Hq - h0);
+  const SplitBlock pos = split_block(Hq, Hkv, W, n_rep, split_len);
+  const int b = pos.b, g = pos.g, h0 = pos.h0, nh = pos.nh;
   if (nh <= 0) return;                       // heads past Hq: the whole block
 
-  float qr[kMaxRep][kLaneCh];
+  // lane groups of lpr lanes, one slot each; lane lig holds channels
+  // ch0 .. ch0 + VEC - 1. q is loaded first: its latency overlaps the
+  // compaction.
+  const int lig = lane % lpr;
+  const int spw = kWarp / lpr;
+  const int gsub = lane / lpr;
+  const int groups = kWarps * spw;
+  const int gid = warp * spw + gsub;
+  const int ch0 = lig * VEC;
+  const bool ch_in = ch0 < Dh;
+
+  float qr[kMaxRep][VEC];
 #pragma unroll
   for (int r = 0; r < kMaxRep; ++r)
 #pragma unroll
-    for (int i = 0; i < kLaneCh; ++i) {
-      const int ch = lane + kWarp * i;
+    for (int i = 0; i < VEC; ++i) {
+      const int ch = ch0 + i;
       qr[r][i] = (r < nh && ch < Dh)
                      ? widen(q[(static_cast<int64_t>(b) * Hq + h0 + r) * Dh + ch]) : 0.f;
     }
-  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][kLaneCh];
+
+  const int n_valid = compact_split(valid + static_cast<int64_t>(b) * W, pos, slots);
+  if (pos.g == 0 && pos.grp == 0 && threadIdx.x == 0)
+    counts[static_cast<int64_t>(b) * pos.n_splits + pos.split] = n_valid;
+
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][VEC];
 #pragma unroll
   for (int r = 0; r < kMaxRep; ++r) {
     m[r] = kNeg;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLaneCh; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
   }
+
+  // One step: kUnroll slots per lane group (slot u of group gsub in this
+  // warp's step `base` is compacted index base + gsub + u * groups); one
+  // max over them per head, so the online softmax rescales once per step.
+  // Every lane of the warp runs every step: the shuffles need all 32.
+  // load_k(u, r) / load_v(u, r) fetch slot u's channels of this lane.
+  auto consume = [&](auto&& load_k, auto&& load_v, const bool (&have)[kUnroll]) {
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r >= nh) break;                    // block-uniform
+      float s[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float kr[VEC];
+        load_k(u, kr);
+        s[u] = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s[u] += qr[r][i] * kr[i];
+      }
+      for (int off = lpr / 2; off > 0; off /= 2) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      }
+      float m_new = m[r];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s[u] = round_to<T>(s[u]) * scale;
+        if (have[u]) m_new = fmaxf(m_new, s[u]);
+      }
+      const float corr = expf(m[r] - m_new);
+      l[r] *= corr;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[r][i] *= corr;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float pw = have[u] ? expf(s[u] - m_new) : 0.f;
+        float vr[VEC];
+        load_v(u, vr);
+        l[r] += pw;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] += pw * vr[i];
+      }
+      m[r] = m_new;
+    }
+  };
 
   const int64_t row = static_cast<int64_t>(Hkv) * Dh;
-  const T* kb = k + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh;
-  const T* vb = v + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh;
-  const uint8_t* ok_b = valid + static_cast<int64_t>(b) * W;
-  for (int w0 = warp * kSlotsPerStep; w0 < W; w0 += kWarps * kSlotsPerStep) {
-    float kr[kSlotsPerStep][kLaneCh], vr[kSlotsPerStep][kLaneCh];
-    bool ok[kSlotsPerStep];
+  const T* kb = k + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh + ch0;
+  const T* vb = v + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh + ch0;
+  const int step_slots = groups * kUnroll;
+  const int first = warp * spw;              // this warp's first compacted index
+  const int n_steps = n_valid > first ? (n_valid - first + step_slots - 1) / step_slots : 0;
+  if constexpr (kVecLoad) {
+    // a warp-private ring of kStages steps: each lane copies its own 16
+    // bytes of K and V per slot and reads back only those, so the lane's
+    // own cp.async.wait_group is the only synchronisation needed
+    uint4* ring = dyn + warp * kStages * kUnroll * 2 * kWarp;
+    auto issue = [&](int step) {
+      uint4* st = ring + (step % kStages) * kUnroll * 2 * kWarp;
 #pragma unroll
-    for (int j = 0; j < kSlotsPerStep; ++j) {
-      const int w = w0 + j;
-      ok[j] = w < W && ok_b[w] != 0;
-#pragma unroll
-      for (int i = 0; i < kLaneCh; ++i) {
-        const int ch = lane + kWarp * i;
-        const bool in = w < W && ch < Dh;
-        kr[j][i] = in ? widen(kb[w * row + ch]) : 0.f;
-        vr[j][i] = in ? widen(vb[w * row + ch]) : 0.f;
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = first + step * step_slots + gsub + u * groups;
+        const bool ok = p < n_valid && ch_in;
+        const int64_t w = ok ? slots[p] : 0;
+        cp_async16(st + (2 * u) * kWarp + lane, kb + w * row, ok);
+        cp_async16(st + (2 * u + 1) * kWarp + lane, vb + w * row, ok);
       }
+    };
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < n_steps) issue(i);
+      cp_async_commit();                     // empty groups keep the count
     }
+    for (int step = 0; step < n_steps; ++step) {
+      if (step + kStages - 1 < n_steps) issue(step + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();          // this step's copies have landed
+      const uint4* st = ring + (step % kStages) * kUnroll * 2 * kWarp;
+      bool have[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kSlotsPerStep; ++j) {
-      if (w0 + j >= W) break;                // warp-uniform
+      for (int u = 0; u < kUnroll; ++u)
+        have[u] = first + step * step_slots + gsub + u * groups < n_valid;
+      consume([&](int u, float (&r)[VEC]) { unpack16<T, VEC>(st[(2 * u) * kWarp + lane], r); },
+              [&](int u, float (&r)[VEC]) { unpack16<T, VEC>(st[(2 * u + 1) * kWarp + lane], r); },
+              have);
+    }
+    cp_async_wait<0>();
+  } else {
+    for (int step = 0; step < n_steps; ++step) {
+      float kr[kUnroll][VEC], vr[kUnroll][VEC];
+      bool have[kUnroll];
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r >= nh) break;                  // block-uniform
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < kLaneCh; ++i) s += qr[r][i] * kr[j][i];
-        s = round_to<T>(warp_sum(s)) * scale;
-        if (!ok[j]) s = kNeg;
-        const float m_new = fmaxf(m[r], s);
-        const float p = expf(s - m_new);
-        const float corr = expf(m[r] - m_new);
-        l[r] = l[r] * corr + p;
-#pragma unroll
-        for (int i = 0; i < kLaneCh; ++i) acc[r][i] = acc[r][i] * corr + p * vr[j][i];
-        m[r] = m_new;
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = first + step * step_slots + gsub + u * groups;
+        have[u] = p < n_valid;
+        const int64_t w = have[u] ? slots[p] : 0;
+        load_row<T, VEC>(kb + w * row, kr[u], have[u] && ch_in, Dh - ch0);
+        load_row<T, VEC>(vb + w * row, vr[u], have[u] && ch_in, Dh - ch0);
       }
+      consume([&](int u, float (&r)[VEC]) {
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) r[i] = kr[u][i];
+              },
+              [&](int u, float (&r)[VEC]) {
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) r[i] = vr[u][i];
+              },
+              have);
     }
   }
 
+  // merge the lane groups' states into the block's partial for each head
+  // (sm_acc reuses the rings: every warp is past its loop first)
+  __syncthreads();
+  const int width = lpr * VEC;               // >= Dh
+  const int acc_row = kWarps * kWarp * VEC;
 #pragma unroll
   for (int r = 0; r < kMaxRep; ++r) {
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
+    if (lig == 0) {
+      sm_m[r][gid] = m[r];
+      sm_l[r][gid] = l[r];
     }
 #pragma unroll
-    for (int i = 0; i < kLaneCh; ++i) sm_acc[warp][r][lane + kWarp * i] = acc[r][i];
+    for (int i = 0; i < VEC; ++i) sm_acc[r * acc_row + gid * width + ch0 + i] = acc[r][i];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nh * Dh; idx += blockDim.x) {
-    const int r = idx / Dh;
-    const int ch = idx % Dh;
-    float mx = kNeg;
-    for (int wp = 0; wp < kWarps; ++wp) mx = fmaxf(mx, sm_m[wp][r]);
-    float den = 0.f, num = 0.f;
-    for (int wp = 0; wp < kWarps; ++wp) {
-      const float c = expf(sm_m[wp][r] - mx);
-      den += sm_l[wp][r] * c;
-      num += sm_acc[wp][r][ch] * c;
-    }
-    if (mx == kNeg) den += static_cast<float>(pad);   // no valid slot
-    store(out + (static_cast<int64_t>(b) * Hq + h0 + r) * Dh + ch, num / fmaxf(den, 1e-20f));
+  write_partials(pos, &sm_m[0][0], &sm_l[0][0], kWarps * kWarp, groups, sm_acc, acc_row, width,
+                 Hq, Dh, part);
+}
+
+// Sum (or max) over the block's threads, in a fixed order: the result
+// does not depend on timing. Every thread gets it.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* scratch) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = kMax ? fmaxf(x, y) : x + y;
   }
+  __syncthreads();                           // scratch is free again
+  if (threadIdx.x % kWarp == 0) scratch[threadIdx.x / kWarp] = x;
+  __syncthreads();
+  x = scratch[0];
+  for (int w = 1; w < kMergeThreads / kWarp; ++w) x = kMax ? fmaxf(x, scratch[w]) : x + scratch[w];
+  return x;
+}
+
+// One block per (b, h): the splits' partials merged in split order; a
+// row with no valid slot at all is the TPU kernel's uniform average over
+// its W real and `pad` padded slots. The splits' counts, maxima and sums
+// are read in parallel (a thread per split), the weights exp(m_s - max)
+// kept in shared memory, then each thread sums its channel over the
+// splits in split order.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ counts,
+                          const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv, int Dh,
+                          int W, int n_rep, int n_splits, int pad) {
+  __shared__ float weight[kMaxMergeSplits];
+  __shared__ float scratch[kMergeThreads / kWarp];
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int row = Dh + 2;
+  const float* src = part + static_cast<int64_t>(bh) * n_splits * row;
+  float total = 0.f, mx = kNeg;
+  for (int s = threadIdx.x; s < n_splits; s += blockDim.x) {
+    total += static_cast<float>(counts[static_cast<int64_t>(b) * n_splits + s]);
+    mx = fmaxf(mx, src[s * row]);
+  }
+  total = block_reduce<false>(total, scratch);
+  mx = block_reduce<true>(mx, scratch);
+  if (total == 0.f) {
+    const int g = h / n_rep;
+    for (int ch = threadIdx.x; ch < Dh; ch += blockDim.x) {
+      float sum = 0.f;
+#pragma unroll 8
+      for (int w = 0; w < W; ++w)
+        sum += widen(v[((static_cast<int64_t>(b) * W + w) * Hkv + g) * Dh + ch]);
+      store(out + static_cast<int64_t>(bh) * Dh + ch,
+            sum / fmaxf(static_cast<float>(W + pad), 1e-20f));
+    }
+    return;
+  }
+  float den = 0.f;
+  for (int s = threadIdx.x; s < n_splits; s += blockDim.x) {
+    const float c = expf(src[s * row] - mx);
+    weight[s] = c;
+    den += src[s * row + 1] * c;
+  }
+  den = block_reduce<false>(den, scratch);   // its barriers also publish `weight`
+  for (int ch = threadIdx.x; ch < Dh; ch += blockDim.x) {
+    float num = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_splits; ++s) num += src[s * row + 2 + ch] * weight[s];
+    store(out + static_cast<int64_t>(bh) * Dh + ch, num / fmaxf(den, 1e-20f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 with Dh % 32 == 0: the split pass on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaSlots = 16;       // compacted slots per warp step
+constexpr int kMmaStages = 2;       // steps in a warp's cp.async ring (3 blocks per SM)
+constexpr int kRowBytes = kMaxDh * 2 + 16;   // a staged K or V row, padded: no bank conflicts
+constexpr int kMmaWarpBytes = kMmaStages * 2 * kMmaSlots * kRowBytes;
+constexpr int kMmaSmem = kWarps * kMmaWarpBytes;
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&two);
+}
+
+// The split pass of flash_decode_split_kernel for bf16 rows whose Dh is a
+// multiple of 32, with mma.sync m16n8k16 (bf16 in, f32 sums). Per block
+// the same grid, compaction, partials and arithmetic; per warp a step of
+// kMmaSlots consecutive compacted slots staged by cp.async (a ring of
+// kMmaStages steps), then:
+//   * scores = q (16 rows: the block's query heads, zero-padded) . K^T,
+//     the K fragments by ldmatrix. Each k16 product starts from zero and
+//     the eight partial sums are added in f32 on the CUDA cores: the
+//     tensor cores' own f32 accumulation truncates, and a score that
+//     lands on the other side of a bf16 rounding boundary than the plain
+//     version's moves the output by far more than its rounding step.
+//     Each score is then rounded to bf16 and scaled, as in the CUDA-core
+//     pass;
+//   * the online softmax per head row (a row's 16 scores sit in the four
+//     lanes of one lane quad);
+//   * P . V with P split into bf16 hi + lo parts (two products), so that
+//     P keeps about 16 significant bits where one bf16 would keep 8; the
+//     V fragments by ldmatrix.trans; the sums stay in f32.
+__global__ void __launch_bounds__(kWarp * kWarps)
+flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
+                        float* __restrict__ part, int* __restrict__ counts, int Hq, int Hkv,
+                        int Dh, int W, int n_rep, int split_len, float scale) {
+  __shared__ int slots[kMaxSplit];
+  __shared__ float sm_m[kMaxRep][kWarps];
+  __shared__ float sm_l[kMaxRep][kWarps];
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  // the accumulators after the loop: [kMaxRep][kWarps][Dh]
+  float* sm_acc = reinterpret_cast<float*>(mma_smem);
+
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const SplitBlock pos = split_block(Hq, Hkv, W, n_rep, split_len);
+  const int b = pos.b, g = pos.g, h0 = pos.h0, nh = pos.nh;
+  if (nh <= 0) return;                       // heads past Hq: the whole block
+  const int gr = lane / 4;                   // fragment row: the query head
+  const int tq = lane % 4;                   // thread in the quad
+  const int n_kk = Dh / 16;
+
+  // q as the A fragments of the score product: row gr, channels
+  // 16 kk + 2 tq (+1) and + 8; rows past nh (and 8-15) are zero
+  uint32_t qa[kMaxDh / 16][2];
+#pragma unroll
+  for (int kk = 0; kk < kMaxDh / 16; ++kk) {
+    qa[kk][0] = qa[kk][1] = 0u;
+    if (kk < n_kk && gr < nh) {
+      const __nv_bfloat16* qr = q + (static_cast<int64_t>(b) * Hq + h0 + gr) * Dh + 16 * kk;
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr + 2 * tq);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * tq);
+    }
+  }
+
+  const int n_valid = compact_split(valid + static_cast<int64_t>(b) * W, pos, slots);
+  if (pos.g == 0 && pos.grp == 0 && threadIdx.x == 0)
+    counts[static_cast<int64_t>(b) * pos.n_splits + pos.split] = n_valid;
+
+  float m = kNeg, l = 0.f;                   // row gr; l is this lane's share
+  float acc[kMaxDh / 8][4];                  // O fragments: row gr (and gr + 8)
+#pragma unroll
+  for (int nt = 0; nt < kMaxDh / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  const int64_t row = static_cast<int64_t>(Hkv) * Dh;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * W * row + static_cast<int64_t>(g) * Dh;
+  uint8_t* ring = mma_smem + warp * kMmaWarpBytes;
+  const int chunks = Dh / 8;                 // 16-byte pieces of a row
+  const int n_steps_all = (n_valid + kMmaSlots - 1) / kMmaSlots;
+  const int n_steps = n_steps_all > warp ? (n_steps_all - warp + kWarps - 1) / kWarps : 0;
+  // step i of this warp covers compacted slots (warp + i kWarps) kMmaSlots + 0..15
+  auto issue = [&](int i) {
+    uint8_t* st = ring + (i % kMmaStages) * 2 * kMmaSlots * kRowBytes;
+    const int p0 = (warp + i * kWarps) * kMmaSlots;
+    for (int e = lane; e < kMmaSlots * chunks; e += kWarp) {
+      const int r = e / chunks, c = e % chunks;
+      const bool ok = p0 + r < n_valid;
+      const int64_t w = ok ? slots[p0 + r] : 0;
+      cp_async16(st + r * kRowBytes + c * 16, kb + w * row + c * 8, ok);
+      cp_async16(st + (kMmaSlots + r) * kRowBytes + c * 16, vb + w * row + c * 8, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) {
+    if (i < n_steps) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + kMmaStages - 1 < n_steps) issue(i + kMmaStages - 1);
+    cp_async_commit();
+    cp_async_wait<kMmaStages - 1>();
+    __syncwarp();                            // every lane's copies of step i are in
+    const uint8_t* ks = ring + (i % kMmaStages) * 2 * kMmaSlots * kRowBytes;
+    const uint8_t* vs = ks + kMmaSlots * kRowBytes;
+    const int p0 = (warp + i * kWarps) * kMmaSlots;
+
+    // scores: two n-tiles of 8 slots; ldmatrix x4 gives two k16 steps
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int pp = 0; pp < kMaxDh / 32; ++pp) {
+        if (pp < n_kk / 2) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, ks + (8 * j + lane % 8) * kRowBytes + (4 * pp + lane / 8) * 16);
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(t0, qa[2 * pp][0], 0u, qa[2 * pp][1], 0u, bf[0], bf[1]);
+          mma_bf16(t1, qa[2 * pp + 1][0], 0u, qa[2 * pp + 1][1], 0u, bf[2], bf[3]);
+          sc[j][0] += t0[0] + t1[0];
+          sc[j][1] += t0[1] + t1[1];
+        }
+      }
+    }
+    // the online softmax of row gr over this step's 16 slots (slot
+    // 8 j + 2 tq + e sits in sc[j][e])
+    float s[4];
+    bool have[4];
+    float mx = m;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * (e / 2) + 2 * tq + e % 2;
+      have[e] = p0 + col < n_valid;
+      s[e] = round_to<__nv_bfloat16>(sc[e / 2][e % 2]) * scale;
+      if (have[e]) mx = fmaxf(mx, s[e]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = expf(m - mx);
+    float p[4];
+    l *= corr;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = have[e] ? expf(s[e] - mx) : 0.f;
+      l += p[e];
+    }
+    m = mx;
+#pragma unroll
+    for (int nt = 0; nt < kMaxDh / 8; ++nt) {
+      acc[nt][0] *= corr;
+      acc[nt][1] *= corr;
+    }
+    // P (row gr, 16 slots) as A fragments, hi and lo bf16 parts
+    const uint32_t hi0 = pack_bf16(p[0], p[1]), hi1 = pack_bf16(p[2], p[3]);
+    const __nv_bfloat162 h0v = *reinterpret_cast<const __nv_bfloat162*>(&hi0);
+    const __nv_bfloat162 h1v = *reinterpret_cast<const __nv_bfloat162*>(&hi1);
+    const uint32_t lo0 = pack_bf16(p[0] - __low2float(h0v), p[1] - __high2float(h0v));
+    const uint32_t lo1 = pack_bf16(p[2] - __low2float(h1v), p[3] - __high2float(h1v));
+    // P . V: ldmatrix.trans x4 gives the k16 fragments of two n-tiles
+#pragma unroll
+    for (int qq = 0; qq < kMaxDh / 16; ++qq) {
+      if (qq < n_kk) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vs + (lane % 8 + 8 * ((lane / 8) % 2)) * kRowBytes +
+                                  (2 * qq + lane / 16) * 16);
+        mma_bf16(acc[2 * qq], hi0, 0u, hi1, 0u, bf[0], bf[1]);
+        mma_bf16(acc[2 * qq], lo0, 0u, lo1, 0u, bf[0], bf[1]);
+        mma_bf16(acc[2 * qq + 1], hi0, 0u, hi1, 0u, bf[2], bf[3]);
+        mma_bf16(acc[2 * qq + 1], lo0, 0u, lo1, 0u, bf[2], bf[3]);
+      }
+    }
+    __syncwarp();                            // the ring slot is read before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // merge the warps' states: l over the quad first
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  __syncthreads();                           // sm_acc reuses the rings
+  if (gr < nh) {
+    if (tq == 0) {
+      sm_m[gr][warp] = m;
+      sm_l[gr][warp] = l;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kMaxDh / 8; ++nt) {
+      if (nt < Dh / 8) {
+        float* dst = sm_acc + (gr * kWarps + warp) * Dh + 8 * nt + 2 * tq;
+        dst[0] = acc[nt][0];
+        dst[1] = acc[nt][1];
+      }
+    }
+  }
+  __syncthreads();
+  write_partials(pos, &sm_m[0][0], &sm_l[0][0], kWarps, kWarps, sm_acc, kWarps * Dh, Dh, Hq, Dh,
+                 part);
+}
+
+template <typename T>
+int launch_merge(const float* part, const int* counts, const void* v, void* out, int B, int Hq,
+                 int Hkv, int Dh, int W, int n_rep, int n_splits, int pad, cudaStream_t s) {
+  flash_decode_merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(
+      part, counts, static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Dh, W, n_rep,
+      n_splits, pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC, bool kVecLoad>
+int launch(const void* q, const void* k, const void* v, const uint8_t* ok, void* out, float* part,
+           int* counts, int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad, int split_len,
+           int lpr, float scale, cudaStream_t s) {
+  const int n_splits = (W + split_len - 1) / split_len;
+  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
+  constexpr int smem = split_smem_bytes<T, VEC, kVecLoad>();
+  cudaError_t e = cudaFuncSetAttribute(flash_decode_split_kernel<T, VEC, kVecLoad>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(n_splits, B * Hkv * n_groups);
+  flash_decode_split_kernel<T, VEC, kVecLoad><<<grid, kWarp * kWarps, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ok, part,
+      counts, Hq, Hkv, Dh, W, n_rep, split_len, lpr, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_merge<T>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_rep, n_splits, pad, s);
+}
+
+int launch_mma(const void* q, const void* k, const void* v, const uint8_t* ok, void* out,
+               float* part, int* counts, int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad,
+               int split_len, float scale, cudaStream_t s) {
+  const int n_splits = (W + split_len - 1) / split_len;
+  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
+  cudaError_t e = cudaFuncSetAttribute(flash_decode_mma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(n_splits, B * Hkv * n_groups);
+  flash_decode_mma_kernel<<<grid, kWarp * kWarps, kMmaSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), ok, part, counts, Hq, Hkv, Dh, W, n_rep, split_len,
+      scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_merge<__nv_bfloat16>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_rep, n_splits,
+                                     pad, s);
+}
+
+int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
 }
 
 }  // namespace repro_torch
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out alike); valid is one byte
 // per slot (torch.bool). n_rep = ceil(Hq / Hkv); pad = the TPU kernel's
-// padded slots, (-W) mod min(chunk, W). Returns cudaGetLastError() after
-// the launch.
+// padded slots, (-W) mod min(chunk, W); split_len a multiple of 32, at
+// most 512. part: float32 scratch (B, Hq, ceil(W / split_len), Dh + 2);
+// counts: int32 scratch (B, ceil(W / split_len)). Returns the first
+// non-zero cudaGetLastError() of the two launches.
 extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, const void* v,
-                                    const void* valid, void* out, int B, int Hq, int Hkv,
-                                    int Dh, int W, int n_rep, int pad, float scale,
-                                    void* stream) {
+                                    const void* valid, void* out, void* part, void* counts,
+                                    int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad,
+                                    int split_len, float scale, void* stream) {
   using namespace repro_torch;
-  if (Dh > kMaxDh || n_rep < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks =
-      static_cast<long long>(B) * Hkv * ((n_rep + kMaxRep - 1) / kMaxRep);
-  if (blocks == 0) return 0;
-  const dim3 threads(kWarp * kWarps);
+  if (Dh < 1 || Dh > kMaxDh || n_rep < 1 || split_len < kWarp || split_len > kMaxSplit ||
+      split_len % kWarp != 0 || (W + split_len - 1) / split_len > kMaxMergeSplits ||
+      static_cast<long long>(B) * Hkv * ((n_rep + kMaxRep - 1) / kMaxRep) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0 || W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ok = static_cast<const uint8_t*>(valid);
-  switch (dtype) {
+  auto* pt = static_cast<float*>(part);
+  auto* ct = static_cast<int*>(counts);
+  const int elem = dtype == 0 ? 4 : 2;
+  const bool vec = (Dh * elem) % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  const int vec_ch = vec ? 16 / elem : 4;    // channels per lane
+  const int lpr = pow2_at_least((Dh + vec_ch - 1) / vec_ch);
+  if (dtype == 1 && vec && Dh % 32 == 0)
+    return launch_mma(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad, split_len, scale,
+                      s);
+  switch (dtype * 2 + (vec ? 1 : 0)) {
     case 0:
-      flash_decode_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), ok, static_cast<float*>(out), Hq, Hkv, Dh, W,
-          n_rep, pad, scale);
-      break;
+      return launch<float, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad,
+                                     split_len, lpr, scale, s);
     case 1:
-      flash_decode_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), ok, static_cast<__nv_bfloat16*>(out), Hq,
-          Hkv, Dh, W, n_rep, pad, scale);
-      break;
+      return launch<float, 4, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad,
+                                    split_len, lpr, scale, s);
+    case 2:
+      return launch<__nv_bfloat16, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep,
+                                             pad, split_len, lpr, scale, s);
+    case 3:
+      return launch<__nv_bfloat16, 8, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep,
+                                            pad, split_len, lpr, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

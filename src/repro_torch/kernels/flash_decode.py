@@ -16,8 +16,10 @@ reference's oracle ``flash_decode_ref`` computes:
 
 :func:`flash_decode` checks its operands and takes the plain PyTorch
 version :func:`flash_decode_plain` only when the tensors lie on the CPU;
-for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts
-kernel launches.
+for CUDA tensors it launches the kernel or raises. The kernel splits W
+over blocks (:func:`decode_splits`), reads the K and V rows of the valid
+slots only, and merges the splits in a second pass; ``LAUNCHES`` counts
+wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -29,15 +31,42 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.msgs_fused import (check_device, raise_on_error,
-                                            stream_ptr)
+                                            sm_count, stream_ptr)
 
-#: Number of CUDA kernel launches made by :func:`flash_decode`.
+#: Number of CUDA kernel launches made by :func:`flash_decode` (one per
+#: call: the split pass and its merge).
 LAUNCHES = 0
 
 #: q / k / v dtype -> the C entry's ``dtype`` code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128               # kMaxDh in flash_decode.cu
 NEG = -1e30                      # the TPU kernel's mask and initial max
+MAX_REP = 4                      # kMaxRep: query heads per block
+MAX_SPLIT = 512                  # kMaxSplit: slots per split, at most
+MIN_SPLIT = 64                   # the shortest split decode_splits picks
+MAX_SPLITS = 1024                # kMaxMergeSplits: splits the merge takes
+BLOCKS_PER_SM = 4                # the grid decode_splits aims at, per SM
+
+
+def decode_splits(b: int, hkv: int, n_groups: int, w: int, sms: int) -> tuple:
+    """(split length, number of splits) for K5's grid over (split, b, KV
+    head, query-head group) on a card of ``sms`` SMs: the longest split
+    of MAX_SPLIT, halved down to MIN_SPLIT, that gives at least
+    BLOCKS_PER_SM blocks per SM (short
+    splits also bound the slots the busiest block walks when the valid
+    slots bunch together, as in a served cache). The splits cover W
+    exactly; the last one may be ragged. Lengths are multiples of 32 (the
+    kernel compacts the mask 32 slots at a time)."""
+    blocks = b * hkv * n_groups
+    length = MAX_SPLIT
+    while length > MIN_SPLIT and blocks * -(-w // length) < BLOCKS_PER_SM * sms:
+        length //= 2
+    return length, -(-w // length)
+
+
+def head_groups(hq: int, hkv: int) -> int:
+    """Blocks per KV head: its ``n_rep`` query heads in groups of MAX_REP."""
+    return -(-n_rep_of(hq, hkv) // MAX_REP)
 
 
 def n_rep_of(hq: int, hkv: int) -> int:
@@ -121,12 +150,12 @@ def flash_decode_plain(q, k, v, valid, *, chunk: int = 512) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The C entry ``flash_decode_forward``: dtype code, 5 pointers (q, k,
-    v, valid, out), B, Hq, Hkv, Dh, W, n_rep, pad, the scale and the
-    stream."""
+    """The C entry ``flash_decode_forward``: dtype code, 7 pointers (q, k,
+    v, valid, out, the partials and the split counts), B, Hq, Hkv, Dh, W,
+    n_rep, pad, the split length, the scale and the stream."""
     from repro_torch.kernels.build import load_library
     fn = load_library("flash_decode").flash_decode_forward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -137,10 +166,19 @@ def _launch(q, k, v, valid, chunk) -> torch.Tensor:
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
     out = torch.empty_like(q)
+    length, n_splits = decode_splits(b, hkv, head_groups(hq, hkv), w,
+                                     sm_count(q.device))
+    if n_splits > MAX_SPLITS:
+        raise ValueError(f"flash_decode: W {w} needs {n_splits} splits of "
+                         f"{length}; the kernel merges at most {MAX_SPLITS}")
+    part = torch.empty((b, hq, n_splits, dh + 2), dtype=torch.float32,
+                       device=q.device)
+    counts = torch.empty((b, n_splits), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         code = _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), valid.data_ptr(), out.data_ptr(), b, hq,
-                        hkv, dh, w, n_rep_of(hq, hkv), chunk_padding(w, chunk),
+                        v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                        part.data_ptr(), counts.data_ptr(), b, hq, hkv, dh, w,
+                        n_rep_of(hq, hkv), chunk_padding(w, chunk), length,
                         1.0 / math.sqrt(dh), stream_ptr(q.device))
     LAUNCHES += 1
     raise_on_error(code, "flash_decode")

@@ -166,6 +166,13 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card that holds ``device``: what
+    K4's and K5's launch plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def raise_on_error(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

@@ -214,3 +214,81 @@ def test_matmul_kernel_matches_plain(cuda, w_dtype):
     atol = 2 ** -20 * float((x.float().abs() @ matmul.dequantized(w, scale).abs()).max())
     rtol = 2 ** -7 if x.dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def _matmul_tolerance(x, w, scale):
+    from repro_torch.kernels import matmul
+    big = float((x.float().abs() @ matmul.dequantized(w, scale).abs()).max())
+    return {"rtol": 2 ** -7 if x.dtype == torch.bfloat16 else 0.0,
+            "atol": 2 ** -20 * big}
+
+
+@pytest.mark.parametrize("m,k,n", [(96, 256, 192), (1, 1024, 512), (65, 512, 384),
+                                   (128, 3000, 256), (300, 128, 1040)])
+@pytest.mark.parametrize("w_dtype", ["bfloat16", "int8"])
+def test_matmul_wgmma_route_matches_plain(cuda, m, k, n, w_dtype):
+    """K4's wgmma route on bf16 x: a tile edge in M (1, 65, 300), K 3000
+    (not a multiple of the K step), N 1040 (not a multiple of the tile),
+    and a split K (M 1). Tolerance as in test_matmul_kernel_matches_plain:
+    atol 2^-20 of max(|x| @ |w|) and bf16 rtol 2^-7; an int8 w's scale
+    multiplies the float32 sum instead of each code, which changes only
+    the float32 rounding order."""
+    from repro_torch.kernels import matmul
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g)
+    scale = None
+    if w_dtype == "int8":
+        scale = w.abs().amax(0, keepdim=True) / 127
+        w = (w / scale).round().clamp(-127, 127).to(torch.int8)
+        scale = scale.to(cuda)
+    else:
+        w = w.to(torch.bfloat16)
+    x, w = x.to(cuda), w.to(cuda)
+    assert matmul.matmul_route(x, w, scale) == "wgmma"
+    before = dict(matmul.LAUNCHES_BY_ROUTE)
+    got = matmul.matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES_BY_ROUTE["wgmma"] == before["wgmma"] + 1
+    want = matmul.matmul_plain(x, w, scale)
+    torch.testing.assert_close(got, want, **_matmul_tolerance(x, w, scale))
+
+
+def test_matmul_ragged_bf16_takes_the_simt_route(cuda):
+    """(70, 257) x (257, 65) in bf16: K and N not multiples of 8, so TMA
+    cannot describe it and the SIMT kernel runs."""
+    from repro_torch.kernels import matmul
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((70, 257), generator=g).to(torch.bfloat16).to(cuda)
+    w = torch.randn((257, 65), generator=g).to(torch.bfloat16).to(cuda)
+    assert matmul.matmul_route(x, w) == "simt"
+    before = matmul.LAUNCHES_BY_ROUTE["simt"]
+    got = matmul.matmul(x, w)
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES_BY_ROUTE["simt"] == before + 1
+    torch.testing.assert_close(got, matmul.matmul_plain(x, w),
+                               **_matmul_tolerance(x, w, None))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_empty_split_and_empty_row(cuda, dtype):
+    """K5 with W 1000 in splits of 64 (a ragged last split): row 0 has no
+    valid slot, row 1 valid slots only outside its first splits, row 2 a
+    single valid slot at W - 1. float32 1e-5; bf16 rtol 2^-7."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.kernels.msgs_fused import sm_count
+    g = torch.Generator().manual_seed(6)
+    tdt = getattr(torch, dtype)
+    b, hq, hkv, dh, w = 3, 8, 2, 128, 1000
+    q = torch.randn((b, hq, dh), generator=g).to(tdt).to(cuda)
+    k, v = (torch.randn((b, w, hkv, dh), generator=g).to(tdt).to(cuda)
+            for _ in range(2))
+    valid = torch.zeros((b, w), dtype=torch.bool)
+    valid[1, 300:700] = torch.rand(400, generator=g) < 0.5
+    valid[2, w - 1] = True
+    valid = valid.to(cuda)
+    assert flash_decode.decode_splits(b, hkv, 1, w, sm_count(valid.device))[0] == 64
+    got = flash_decode.flash_decode(q, k, v, valid, chunk=512)
+    want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=512)
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
