@@ -15,12 +15,13 @@ Phases, each printing one JSON line:
   3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
                 {f32, bf16, int8 + scale} tables x {dense, compact remap}
                 at the 512 px path's shapes, a ragged small shape, Dh
-                16/32/64;
+                12/16/32/64 (Dh 12: rows of 48, 24 and 12 B, which K1's
+                gather plan serves with 16, 8 and 4 B vectors);
      windowed — K3 against its plain version: the same tables x {dense,
                 compact with keep_idx} at the 1024 px path's shape and on a
-                ragged small pyramid (Dh 16 and 64, head_pack 1), with
-                points up to three range bounds from their reference, so
-                that the windows drop corners;
+                ragged small pyramid (Dh 16 and 64, head_pack 1; Dh 12,
+                head_pack 2), with points up to three range bounds from
+                their reference, so that the windows drop corners;
      decode_grad — K2's backward kernel against its closed-form plain
                 version: the same tables x {dense, compact} x head_pack
                 {1, 4} x L {1, 3} at the 512 px decoder's shape and a
@@ -52,8 +53,10 @@ Phases, each printing one JSON line:
                 on one seeded synthetic batch with backend="cuda_decode"
                 (K2 forward and backward in the decoder, torch_gather in
                 the encoder): launch counters, finite and falling losses,
-                live decoder gradients, and the first step's gradients
-                against the same step through torch_gather;
+                live decoder gradients, the first step's gradients
+                against the same step through torch_gather, and whether
+                two identical gradient passes agree bitwise (K2's backward
+                adds with float32 atomics);
      lm_serve — minitron-4b at its published width and depth (bf16,
                 random weights drawn on the card from the seed) served by
                 ServeEngine (max_batch 4, cache_len 4096): 4 prompts of 37,
@@ -64,9 +67,10 @@ Phases, each printing one JSON line:
                 greedy streams agree with a plain-attention run;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
-                exists, K1 on K3's operands, one serve forward at B = 2
-                per path, one train step, one LM decode step at B = 4 and
-                one 512-token prefill, each with its idle share.
+                exists, K1's and K3's L2 gather bytes, K1 on K3's operands,
+                one serve forward at B = 2 per path, one train step, one LM
+                decode step at B = 4 and one 512-token prefill, each with
+                its idle share.
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -95,6 +99,8 @@ FLOPS_PER_CHANNEL_POINT = 13
 # valid corner of a live point.
 FLOPS_PER_CHANNEL_CORNER_DOT = 2
 FLOPS_PER_CHANNEL_CORNER_SCATTER = 2
+# L2 serves global loads in 32-byte sectors
+SECTOR_BYTES = 32
 TRAIN_STEPS = 3
 IMG = 512
 IMG_WINDOWED = 1024              # the bucket the reference serves with K3
@@ -252,7 +258,8 @@ def phase_kernel_checks(device, main_levels):
     # (label, levels, B, Nq_raster, Nq_decode, H, K, Dh, compact rows)
     shapes = [("main", main_levels, 2, n_main, 300, 8, 4, 32, cap_main),
               ("ragged_dh16", small_levels, 1, 37, 23, 4, 16, 16, 300),
-              ("dh64", small_levels, 2, 50, 30, 2, 4, 64, 300)]
+              ("dh64", small_levels, 2, 50, 30, 2, 4, 64, 300),
+              ("ragged_dh12", small_levels, 2, 45, 19, 4, 4, 12, 300)]
     results = []
     for label, levels, b, nq, nq_dec, h, k, dh, cap in shapes:
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
@@ -398,7 +405,8 @@ def phase_windowed_checks(device):
     shapes = [("main_1024", level_shapes_for_resolution(IMG_WINDOWED), 2, 8,
                4, 32, (16.0, 12.0, 8.0, 4.0), 4),
               ("ragged_dh16", ragged, 1, 4, 16, 16, small_ranges, 1),
-              ("ragged_dh64", ragged, 2, 2, 4, 64, small_ranges, 1)]
+              ("ragged_dh64", ragged, 2, 2, 4, 64, small_ranges, 1),
+              ("ragged_dh12", ragged, 2, 4, 4, 12, small_ranges, 2)]
     results = []
     for label, levels, b, h, k, dh, ranges, hp in shapes:
         tile_q = max(block_q_for_levels(levels, 128))
@@ -1005,6 +1013,33 @@ def leaf_paths(tree, prefix=""):
     return [(prefix, tree)]
 
 
+def bitwise_rerun(params, cfg, batch, backward_call):
+    """Whether two identical gradient passes agree bit for bit, and one K2
+    backward call twice on the same operands. K2's backward adds the table
+    and scale gradients with float32 atomics (csrc/msgs_decode_bwd.cu),
+    the encoder's torch_gather backward with index_add_; either may add
+    in another order on every run. Recorded, not required."""
+    import torch
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.train.detr import loss_and_grads
+    runs = [leaf_paths(loss_and_grads(params, cfg, batch,
+                                      backend="cuda_decode")[2])
+            for _ in range(2)]
+    differ = [(path, float((a - b).abs().max()))
+              for (path, a), (_, b) in zip(*runs) if not torch.equal(a, b)]
+    args, kw = backward_call
+    k2 = [msgs_decode._backward(*args, **kw) for _ in range(2)]
+    k2_differ = [i for i, (a, b) in enumerate(zip(*k2))
+                 if a is not None and not torch.equal(a, b)]
+    return {"step_grads_bitwise_equal": not differ, "leaves": len(runs[0]),
+            "differing_leaves": len(differ),
+            "max_abs_diff": max((d for _, d in differ), default=0.0),
+            "differing_leaf_paths": [p for p, _ in differ[:12]],
+            "k2_backward_bitwise_equal": not k2_differ,
+            "k2_backward_differing_outputs": [
+                ("d_vp", "d_x", "d_y", "d_probs", "d_scale")[i] for i in k2_differ]}
+
+
 def phase_train(device):
     """Three AdamW steps of the full-width detector through K2 forward and
     backward, and the first step's gradients against torch_gather."""
@@ -1070,6 +1105,7 @@ def phase_train(device):
             and not float(g.abs().sum()) > 0]
     if dead:
         raise AssertionError(f"decoder leaves without gradient: {dead}")
+    rerun = bitwise_rerun(params0, cfg, batch, rec_b.calls[0])
 
     # the first step again through torch_gather, and torch_gather's own
     # spread when the input images move by one ulp
@@ -1112,7 +1148,8 @@ def phase_train(device):
          grad_rule_held=rule, leaves=len(per_leaf), worst_leaves=worst,
          roundoff_leaves=roundoff, largest_gradient=g_max,
          max_vs_torch_gather=max(r["vs_torch_gather"] for r in per_leaf),
-         max_one_ulp_spread=max(r["one_ulp_spread"] for r in per_leaf))
+         max_one_ulp_spread=max(r["one_ulp_spread"] for r in per_leaf),
+         rerun=rerun)
     return {"cfg": cfg, "params": params, "opt": opt, "opt_cfg": opt_cfg,
             "batch": batch, "launches": launches, "steps": TRAIN_STEPS,
             "backward_calls": rec_b.calls}
@@ -1403,6 +1440,24 @@ def kernel_bound(pts, remap, scale, out, n_rows, h, dh, itemsize,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops, "table_rows_touched": rows,
             "pixels_touched": pixels}
+
+
+def gather_bytes(pts, row_bytes):
+    """Corner-row bytes K1 or K3 gathers from L2: every in-level corner of
+    every live point loads its row, rounded up to whole 32 B sectors
+    (rows start at multiples of their size). For K3 this counts the
+    corners before its windows drop any."""
+    from repro_torch.msda.sampling import corner_data
+    x, y, st, wl, hl, p = pts
+    _, _, valid = corner_data(x, y, wl, hl, st)
+    loads = int((valid & (p > 0)[..., None]).sum())
+    return loads * SECTOR_BYTES * math.ceil(row_bytes / SECTOR_BYTES)
+
+
+def l2_gather(pts, row_bytes, ms):
+    nbytes = gather_bytes(pts, row_bytes)
+    return {"l2_gather_bytes": nbytes,
+            "l2_gather_tb_per_s": None if not ms else nbytes / ms / 1e9}
 
 
 def kernel_times(call, plain, kernel_names):
@@ -1720,7 +1775,9 @@ def phase_times(serve, serve_w, train, lm):
     k1.update(bound_ms=b1["bound_ms"], bound_by=b1["bound_by"])
     kernels.append(k1)
     detail = {"msgs_fused": dict(b1, shape=list(pts[0].shape),
-                                 table=list(v.shape), dtype=str(v.dtype))}
+                                 table=list(v.shape), dtype=str(v.dtype),
+                                 **l2_gather(pts, v.shape[3] * v.element_size(),
+                                             k1["ms"]))}
 
     # K2: the first decoder layer's call on the once-staged table
     args, kw = serve["decode_calls"][0]
@@ -1782,6 +1839,8 @@ def phase_times(serve, serve_w, train, lm):
     detail["msgs_windowed"] = dict(
         b3, shape=list(pts[0].shape), table=list(v.shape), dtype=str(v.dtype),
         tile_q=kw["tile_q"], head_pack=kw["head_pack"],
+        **l2_gather((pts[0], pts[1], st, wl, hl, pts[3]),
+                    v.shape[3] * v.element_size(), k3["ms"]),
         k1_same_operands={"ms": k1_dev, "call_ms": cuda_ms(k1_call, 11, 20),
                           "max_abs_diff_vs_k3":
                               float((k1_call() - out).abs().max())})

@@ -1,8 +1,8 @@
 // Eq. 4 corner gather + factorised bilinear sample + probability-weighted
-// aggregation, shared by the fused encoder kernel (msgs_fused.cu), the
-// persistent-cache decode kernel (msgs_decode.cu) and the windowed
-// encoder kernel (msgs_windowed.cu, which supplies its own corner rows
-// to eq4_point).
+// aggregation for K2: only the persistent-cache decode kernel
+// (msgs_decode.cu) still runs eq4_sample_agg, and K2's backward
+// (msgs_decode_bwd.cu) shares the constants and widening helpers. The
+// encoder kernels K1 and K3 run the gather engine of msgs_gather.cuh.
 //
 // One warp serves one (batch, query, head) item; lane j holds channel j
 // (and j + 32, j + 64, j + 96 when Dh > 32; lanes >= Dh idle when

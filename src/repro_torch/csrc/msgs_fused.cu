@@ -1,102 +1,158 @@
-// Fused MSGS (bilinear grid-sampling) + aggregation for Hopper (sm_90a).
+// K1: fused MSGS (bilinear grid-sampling) + aggregation for Hopper (sm_90a).
 //
 // Replaces the TPU kernels msgs_fused_pallas and msgs_fused_packed_pallas
 // (src/repro/kernels/msgs_fused.py, bodies _make_kernel and
 // _make_kernel_packed, math _eq4_sample_agg). The packed form is a TPU
 // lane layout (128 / Dh heads side by side in one 128-lane row); here
-// both entry points are this one kernel over the (B, N_rows, H, Dh)
-// table, one warp per (b, q, h) item, lane = channel (see eq4.cuh).
+// both entry points are this one kernel over the (B, N_rows, H, Dh) table.
+// The TPU kernel stages a head's whole table in VMEM; nothing is staged
+// here: the compact f32 table of the 512 px path is 13.4 MB per image, so
+// both images' tables stay in the 50 MB L2.
 //
-// The TPU kernel stages a head's whole table in VMEM. Nothing here stages
-// it: at 512 px an encoder block's table is about 13 MB per image after
-// FWP compaction (22 MB dense), so both images' tables fit the H100's
-// 50 MB L2 and the corner rows of neighbouring queries hit in L2.
+// What bounds it on the H100: the gather, not HBM. An encoder block of
+// the 512 px detector at B = 2 (21,760 raster queries, 8 heads, K = 4
+// PAP-kept points, Dh = 32, f32) moves about 100 MB of unique bytes
+// (0.030 ms at 3.35 TB/s) but gathers 348,160 items x 16 corner rows of
+// 128 B (626 MB of L2 sectors for the in-level corners).
 //
-// What bounds it on the H100: memory traffic. An encoder block of the
-// 512 px detector at B = 2 (N_q = 21,760 raster queries, 8 heads, K = 4
-// PAP-kept points, Dh = 32, f32) moves about 105 MB of unique bytes:
-// point operands about 33 MB, compact table about 27 MB, output about
-// 45 MB — about 31 us at 3.35 TB/s. The arithmetic (Eq. 4 is 3 multiplies
-// per channel per point) is two orders of magnitude below the f32 rate.
-// This first version is simple and right; making it fast is later work:
-// shared-memory reuse of corner rows across the queries of a tile,
-// vectorised (16 B) loads, and several (q, h) items per warp so fewer
-// lanes idle on the point loads.
-#include "eq4.cuh"
+// The design is the gather engine of msgs_gather.cuh (shared with K3, so
+// both sum each point's terms in the same order): per point, x, y, the
+// probability and the level's flat start, width and height; the optional
+// remap sends pruned pixels to the zero sentinel row. f32 Dh 32: 8 lanes
+// per 128 B row, 4 items per warp, all 16 corner rows of an item in
+// flight at once.
+#include "msgs_gather.cuh"
 
 namespace repro_torch {
 
-template <typename T, typename O>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-msgs_fused_kernel(const T* __restrict__ v, const float* __restrict__ x,
-                  const float* __restrict__ y, const int* __restrict__ st,
-                  const int* __restrict__ wl, const int* __restrict__ hl,
-                  const float* __restrict__ probs, const int* __restrict__ remap,
-                  const float* __restrict__ scale, O* __restrict__ out, int B,
-                  int Nq, int H, int K, int Dh, int64_t n_rows, int64_t n_pix) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t item = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (item >= static_cast<int64_t>(B) * Nq * H) return;   // whole warp
-  const int h = static_cast<int>(item % H);
-  const int b = static_cast<int>(item / H / Nq);
-  const int64_t pt = item * K;
-  const PointRefs pts{x + pt, y + pt, probs + pt, st + pt, wl + pt, hl + pt};
-  const T* rows = v + static_cast<int64_t>(b) * n_rows * H * Dh + static_cast<int64_t>(h) * Dh;
-  const int* rm = remap != nullptr ? remap + static_cast<int64_t>(b) * n_pix : nullptr;
-  float acc[kMaxChannelsPerLane];
-  eq4_sample_agg<T>(pts, K, rm, rows, static_cast<int64_t>(H) * Dh, Dh, lane, acc);
-  O* o = out + item * Dh;
-  const float* sc = scale != nullptr ? scale + (static_cast<int64_t>(b) * H + h) * Dh : nullptr;
+struct FusedSource {
+  const float* x;
+  const float* y;
+  const float* p;
+  const int* st;
+  const int* wl;
+  const int* hl;
+  const int* remap;        // (B, n_pix) pixel -> row, or null
+  int64_t n_pix;
+
+  struct Operands {
+    float x, y, p;
+    int st, wl, hl;
+  };
+  struct Info {};          // nothing per item beyond its batch
+
+  static __device__ Operands dead() { return {0.f, 0.f, 0.f, 0, 1, 1}; }
+  static __device__ Info shfl(const Info&, int) { return {}; }
+  __device__ Info info(int) const { return {}; }
+
+  __device__ Operands load(int64_t pt) const {
+    return {gather::load_once(x + pt), gather::load_once(y + pt), gather::load_once(p + pt),
+            gather::load_once(st + pt), gather::load_once(wl + pt), gather::load_once(hl + pt)};
+  }
+
+  // Branch-free: a pruned point (p 0) or a corner outside the level
+  // loads nothing.
+  __device__ gather::PointRec resolve(const Operands& o, int b, const Info&) const {
+    const gather::Corners cr = gather::corners(o.x, o.y, o.st, o.wl, o.hl);
+    const int* rm = remap + b * n_pix;
+    gather::PointRec r;
 #pragma unroll
-  for (int i = 0; i < kMaxChannelsPerLane; ++i) {
-    const int ch = lane + kWarp * i;
-    if (ch < Dh) store_out(o + ch, sc != nullptr ? acc[i] * sc[ch] : acc[i]);
+    for (int c = 0; c < 4; ++c) {
+      const bool ok = o.p != 0.f && cr.in[c];
+      const int row = ok && remap != nullptr ? __ldg(rm + cr.pix[c]) : cr.pix[c];
+      r.row[c] = ok ? row : -1;
+    }
+    r.t0 = cr.t0;
+    r.t1 = cr.t1;
+    r.p = o.p;
+    r.pad = 0.f;
+    return r;
+  }
+};
+
+template <typename T, typename O, int VEC>
+__global__ void __launch_bounds__(kWarp * gather::kWarps, gather::kMinBlocks)
+msgs_fused_kernel(const FusedSource src, const T* __restrict__ v,
+                  const float* __restrict__ scale, O* __restrict__ out,
+                  const gather::Shape sh, int b0, const gather::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gather::gather_items<T, O, VEC>(src, v, scale, out, sh, b0, plan,
+                                  reinterpret_cast<gather::PointRec*>(smem));
+}
+
+// One launch per kMaxGridY batches (grid y is the batch).
+template <typename T, typename O, int VEC>
+int launch(const FusedSource& src, const void* v, const float* scale, void* out, int B,
+           const gather::Shape& sh, const gather::Plan& plan, int group_lanes,
+           cudaStream_t s) {
+  if constexpr (VEC < static_cast<int>(sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    for (int b0 = 0; b0 < B; b0 += gather::kMaxGridY) {
+      const dim3 grid(gather::grid_blocks(sh.per_batch, group_lanes),
+                      static_cast<unsigned>(std::min(B - b0, gather::kMaxGridY)));
+      msgs_fused_kernel<T, O, VEC><<<grid, kWarp * gather::kWarps,
+                                     gather::smem_bytes(group_lanes), s>>>(
+          src, static_cast<const T*>(v), scale, static_cast<O*>(out), sh, b0, plan);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  }
+}
+
+template <typename T, typename O>
+int launch_vec(int vec, const FusedSource& src, const void* v, const float* scale, void* out,
+               int B, const gather::Shape& sh, const gather::Plan& plan, int group_lanes,
+               cudaStream_t s) {
+  switch (vec) {
+    case 16: return launch<T, O, 16>(src, v, scale, out, B, sh, plan, group_lanes, s);
+    case 8: return launch<T, O, 8>(src, v, scale, out, B, sh, plan, group_lanes, s);
+    case 4: return launch<T, O, 4>(src, v, scale, out, B, sh, plan, group_lanes, s);
+    case 2: return launch<T, O, 2>(src, v, scale, out, B, sh, plan, group_lanes, s);
+    case 1: return launch<T, O, 1>(src, v, scale, out, B, sh, plan, group_lanes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace repro_torch
 
 // table_dtype: 0 float32 (out float32), 1 bfloat16 (out bfloat16),
-// 2 int8 codes with a (B, 1, H, Dh) f32 scale (out float32).
-// Returns cudaGetLastError() after the launch.
+// 2 int8 codes with a (B, 1, H, Dh) f32 scale (out float32). vec_bytes,
+// group_lanes, lanes_per_row and row_chunks are the wrapper's
+// gather_plan(); a plan that does not fit the row or the table pointer is
+// refused. Returns cudaGetLastError() after the launch.
 extern "C" int msgs_fused_forward(int table_dtype, const void* v, const void* x,
                                   const void* y, const void* st, const void* wl,
                                   const void* hl, const void* probs,
                                   const void* remap, const void* scale, void* out,
                                   int B, int Nq, int H, int K, int Dh,
-                                  long long n_rows, long long n_pix, void* stream) {
+                                  long long n_rows, long long n_pix, int vec_bytes,
+                                  int group_lanes, int lanes_per_row, int row_chunks,
+                                  void* stream) {
   using namespace repro_torch;
-  const long long items = static_cast<long long>(B) * Nq * H;
-  if (items == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((items + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 threads(kWarp * kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* yf = static_cast<const float*>(y);
-  const auto* pf = static_cast<const float*>(probs);
-  const auto* sti = static_cast<const int*>(st);
-  const auto* wli = static_cast<const int*>(wl);
-  const auto* hli = static_cast<const int*>(hl);
-  const auto* rm = static_cast<const int*>(remap);
+  static const int kItemsize[3] = {4, 2, 1};
+  const int64_t per_batch = static_cast<int64_t>(Nq) * H;
+  if (table_dtype < 0 || table_dtype > 2 ||
+      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, Dh, v, group_lanes,
+                       lanes_per_row, row_chunks, per_batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (per_batch == 0 || B == 0) return 0;
+  const FusedSource src{static_cast<const float*>(x), static_cast<const float*>(y),
+                        static_cast<const float*>(probs), static_cast<const int*>(st),
+                        static_cast<const int*>(wl), static_cast<const int*>(hl),
+                        static_cast<const int*>(remap), n_pix};
+  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, n_rows};
+  const gather::Plan plan{gather::log2_int(group_lanes), lanes_per_row, row_chunks};
   const auto* sc = static_cast<const float*>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (table_dtype) {
     case 0:
-      msgs_fused_kernel<float, float><<<blocks, threads, 0, s>>>(
-          static_cast<const float*>(v), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<float*>(out), B, Nq, H, K, Dh, n_rows, n_pix);
-      break;
+      return launch_vec<float, float>(vec_bytes, src, v, sc, out, B, sh, plan, group_lanes, s);
     case 1:
-      msgs_fused_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, threads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(v), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<__nv_bfloat16*>(out), B, Nq, H, K, Dh, n_rows, n_pix);
-      break;
-    case 2:
-      msgs_fused_kernel<int8_t, float><<<blocks, threads, 0, s>>>(
-          static_cast<const int8_t*>(v), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<float*>(out), B, Nq, H, K, Dh, n_rows, n_pix);
-      break;
+      return launch_vec<__nv_bfloat16, __nv_bfloat16>(vec_bytes, src, v, sc, out, B, sh, plan,
+                                                      group_lanes, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_vec<int8_t, float>(vec_bytes, src, v, sc, out, B, sh, plan, group_lanes, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

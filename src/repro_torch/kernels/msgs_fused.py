@@ -13,12 +13,16 @@ after aggregation.
 and then take the plain PyTorch version :func:`msgs_fused_plain` only
 when the tensors lie on the CPU; for CUDA tensors they launch the kernel
 or raise. ``LAUNCHES`` counts kernel launches.
+
+The kernel is the gather engine of ``csrc/msgs_gather.cuh``, shared with
+K3: :func:`gather_plan` says how the lanes of a warp cover a table row
+(vector width, lanes per item, items per warp).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -27,7 +31,14 @@ LAUNCHES = 0
 
 #: table dtype -> the C entry's ``table_dtype`` code
 TABLE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_HEAD_DIM = 128               # kMaxChannelsPerLane * 32 in eq4.cuh
+MAX_HEAD_DIM = 128               # the widest head the wrappers accept
+
+#: the gather engine's launch constants (csrc/msgs_gather.cuh)
+WARP = 32
+WARPS_PER_BLOCK = 4              # gather::kWarps
+MIN_BLOCKS_PER_SM = 8            # gather::kMinBlocks, in __launch_bounds__
+POINTS_PER_PASS = 4              # gather::kPass: an item's points in flight together
+VECTOR_WIDTHS = (16, 8, 4, 2, 1)  # bytes one lane loads from a row
 
 
 def out_dtype(table_dtype: torch.dtype) -> torch.dtype:
@@ -162,6 +173,50 @@ def msgs_fused_plain(v, x_px, y_px, start, wl, hl, probs,
     return out.to(out_dtype(v.dtype))
 
 
+class GatherPlan(NamedTuple):
+    """How the lanes of a warp cover one table row of ``dh`` channels."""
+    vec_bytes: int        # bytes one lane loads per row (the VEC template)
+    lanes_per_row: int    # row bytes / vec_bytes
+    group_lanes: int      # lanes serving one item: a power of two <= 32
+    items_per_warp: int   # 32 // group_lanes
+    row_chunks: int       # passes over a row wider than the group
+    channels_per_lane: int  # vec_bytes // itemsize, per pass
+
+
+def gather_plan(dh: int, itemsize: int, align: int = 16) -> GatherPlan:
+    """The widest vector (16 B at most) that divides the row's bytes and
+    the table pointer's alignment ``align``; lanes per row; the smallest
+    power-of-two lane group that holds them (at most a warp, the rest in
+    ``row_chunks`` passes)."""
+    row = dh * itemsize
+    vec = next(w for w in VECTOR_WIDTHS
+               if w >= itemsize and row % w == 0 and align % w == 0)
+    lanes = row // vec
+    group = min(WARP, 1 << (lanes - 1).bit_length())
+    return GatherPlan(vec, lanes, group, WARP // group, -(-lanes // group),
+                      vec // itemsize)
+
+
+def pointer_alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides ``t``'s address."""
+    ptr = t.data_ptr()
+    return 16 if ptr % 16 == 0 else ptr & -ptr
+
+
+#: the kernels count a batch's (Nq, H) items and the bytes of one table row
+#: of H heads in 31 bits (8.6 GB per point array and batch, 2 GB per row)
+MAX_BATCH_ITEMS = 2 ** 31 - WARPS_PER_BLOCK * WARP - 1
+MAX_TABLE_ROW_BYTES = 2 ** 31 - 1
+
+
+def check_gather_sizes(per_batch: int, table_row_bytes: int, name: str) -> None:
+    if per_batch > MAX_BATCH_ITEMS or table_row_bytes > MAX_TABLE_ROW_BYTES:
+        raise ValueError(f"{name}: {per_batch} (query, head) items per batch "
+                         f"and {table_row_bytes} B table rows; the kernel "
+                         f"counts at most {MAX_BATCH_ITEMS} and "
+                         f"{MAX_TABLE_ROW_BYTES}")
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -182,12 +237,13 @@ def raise_on_error(code: int, name: str) -> None:
 def _entry():
     """The C entry ``msgs_fused_forward`` with every argument declared:
     table code, 10 pointers (table, 6 point operands, remap, scale, out),
-    B, Nq, H, K, Dh, n_rows, n_pix and the stream."""
+    B, Nq, H, K, Dh, n_rows, n_pix, the 4 numbers of the gather plan and
+    the stream."""
     from repro_torch.kernels.build import load_library
     fn = load_library("msgs_fused").msgs_fused_forward
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 5 + [ctypes.c_int64] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -199,11 +255,14 @@ def _launch(v, x_px, y_px, start, wl, hl, probs, remap, scale) -> torch.Tensor:
     out = torch.empty((b, nq, h, dh), dtype=out_dtype(v.dtype), device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     n_pix = 0 if remap is None else remap.shape[1]
+    check_gather_sizes(nq * h, h * dh * v.element_size(), "msgs_fused")
+    plan = gather_plan(dh, v.element_size(), pointer_alignment(v))
     with torch.cuda.device(v.device):
         code = _entry()(
             TABLE_CODES[v.dtype], ptr(v), ptr(x_px), ptr(y_px), ptr(start),
             ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(out),
-            b, nq, h, k, dh, n_rows, n_pix, stream_ptr(v.device))
+            b, nq, h, k, dh, n_rows, n_pix, plan.vec_bytes, plan.group_lanes,
+            plan.lanes_per_row, plan.row_chunks, stream_ptr(v.device))
     LAUNCHES += 1
     raise_on_error(code, "msgs_fused")
     return out

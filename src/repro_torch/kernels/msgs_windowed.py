@@ -11,7 +11,10 @@ accumulate in one pass and the int8 scale multiplies once at the end.
 
 The window geometry is host numpy, a copy of the reference's, resolved
 once per (level shapes, ranges, tile). Window starts in the compact
-table come from ``searchsorted(keep_idx, pix_lo)`` on the device.
+table come from ``searchsorted(keep_idx, pix_lo)`` on the device. The
+kernel is K1's gather engine (``csrc/msgs_gather.cuh``, the same
+:func:`gather_plan`) over the (q, h) items of each batch; a query finds
+its tile in the table :func:`query_tiles` builds with the geometry.
 
 :func:`msgs_windowed_msp` checks its operands and takes the plain
 PyTorch version :func:`msgs_windowed_msp_plain` only when the tensors
@@ -29,18 +32,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
-                                            check_device, check_remap,
-                                            check_table, out_dtype,
+                                            check_device, check_gather_sizes,
+                                            check_remap, check_table,
+                                            gather_plan,
+                                            out_dtype, pointer_alignment,
                                             raise_on_error, refuse_autograd,
                                             stream_ptr)
 
 #: Number of CUDA kernel launches made by this module's wrappers.
 LAUNCHES = 0
 
-MAX_LEVELS = 8                   # kMaxLevels in msgs_windowed.cu
-#: dynamic shared memory a block may take on the H100 (227 KB) less the
-#: kernel's static shared arrays
-MAX_WINDOW_SMEM = 232448 - 1024
+MAX_LEVELS = 8                   # gather::kMaxLevels in msgs_gather.cuh
 
 
 # ==========================================================================
@@ -142,8 +144,8 @@ def window_geometry(level_shapes: Tuple[Tuple[int, int], ...],
 
 def tile_spans(geo: WindowGeometry) -> Tuple[np.ndarray, np.ndarray]:
     """(first raster query, query count) of every tile, int32 (T,): the
-    kernel reads the raster-ordered points in place, so no padded copy
-    of them is made."""
+    tiles of the raster-ordered queries, level by level (no padded copy
+    of the points is made)."""
     first, count = [], []
     for ql, (h, w) in enumerate(geo.level_shapes):
         n = h * w
@@ -151,6 +153,18 @@ def tile_spans(geo: WindowGeometry) -> Tuple[np.ndarray, np.ndarray]:
             first.append(geo.level_starts[ql] + i)
             count.append(min(geo.tile_q, n - i))
     return np.asarray(first, np.int32), np.asarray(count, np.int32)
+
+
+def query_tiles(geo: WindowGeometry) -> np.ndarray:
+    """The tile of every raster query, (N_in,) int64, the table the kernel
+    reads: the query's level ql is the last whose flat start is at or
+    below it, and its tile the level's first (padded offset / tile_q)
+    plus ``(q - start[ql]) // tile_q``."""
+    q = np.arange(geo.n_in)
+    starts = np.asarray(geo.level_starts)
+    ql = np.searchsorted(starts, q, side="right") - 1
+    first = np.asarray(geo.pad_offsets) // geo.tile_q
+    return first[ql] + (q - starts[ql]) // geo.tile_q
 
 
 def repack_queries(geo: WindowGeometry, arr: torch.Tensor,
@@ -186,8 +200,8 @@ def unpack_queries(geo: WindowGeometry, arr: torch.Tensor) -> torch.Tensor:
 class _DeviceGeometry(NamedTuple):
     pstart: torch.Tensor       # (T, L) int32
     pix_lo: torch.Tensor       # (T * L,) int32
-    tile_first: torch.Tensor   # (T,) int32
-    tile_count: torch.Tensor   # (T,) int32
+    dense_starts: torch.Tensor  # (1, T, L, 2) int32: pstart twice
+    qtile: torch.Tensor        # (N_in,) int32: the tile of each raster query
 
 
 @functools.lru_cache(maxsize=64)
@@ -195,11 +209,12 @@ def _device_geometry(level_shapes, ranges, tile_q: int,
                      device: str) -> _DeviceGeometry:
     """The geometry's arrays on ``device``, copied there once."""
     geo = window_geometry(level_shapes, ranges, tile_q)
-    first, count = tile_spans(geo)
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                      device=device)
-    return _DeviceGeometry(as_t(geo.pstart), as_t(geo.pix_lo.reshape(-1)),
-                           as_t(first), as_t(count))
+    pstart = as_t(geo.pstart)
+    return _DeviceGeometry(pstart, as_t(geo.pix_lo.reshape(-1)),
+                           torch.stack((pstart, pstart), -1)[None].contiguous(),
+                           as_t(query_tiles(geo)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -212,14 +227,16 @@ def _row_limits(w_rows_v: Tuple[int, ...], n_rows: int,
 def window_starts(geo: WindowGeometry, dgeo: _DeviceGeometry, n_rows: int,
                   keep_idx: Optional[torch.Tensor],
                   caps: Optional[Sequence[int]]):
-    """(w_rows_v, vstart) as the reference computes them
+    """(w_rows_v, starts) as the reference computes them
     (repro/kernels/msgs_windowed.py:356-374): the per-level value-row
-    window and its per-(batch, tile, level) start. Compact tables start
-    at the first slot at or after the pixel window start, clipped so the
-    window fits the table; dense tables (``keep_idx`` None) start at
-    ``pstart`` and ``vstart`` is (T, L)."""
+    window, and ``starts`` (B, T, L, 2) int32: per (batch, tile, level)
+    the pixel-window start ``pstart`` and the row-window start ``vstart``
+    side by side (one 8-byte load in the kernel). Compact tables start
+    their rows at the first slot at or after the pixel window start,
+    clipped so the window fits the table; dense tables (``keep_idx``
+    None) start at ``pstart`` and ``starts`` is (1, T, L, 2)."""
     if keep_idx is None:
-        return geo.w_pix_levels, dgeo.pstart
+        return geo.w_pix_levels, dgeo.dense_starts
     w_rows_v = tuple(min(w, n_rows) for w in (
         geo.slot_windows(caps) if caps is not None else geo.w_pix_levels))
     b = keep_idx.shape[0]
@@ -228,7 +245,8 @@ def window_starts(geo: WindowGeometry, dgeo: _DeviceGeometry, n_rows: int,
                                 out_int32=True)
     vstart = vstart.view(b, geo.n_tiles, len(geo.level_shapes))
     hi = _row_limits(w_rows_v, n_rows, str(keep_idx.device))
-    return w_rows_v, torch.minimum(vstart.clamp(min=0), hi).contiguous()
+    vstart = torch.minimum(vstart.clamp(min=0), hi)
+    return w_rows_v, torch.stack((dgeo.pstart.expand(b, -1, -1), vstart), -1)
 
 
 # ==========================================================================
@@ -253,7 +271,7 @@ def msgs_windowed_msp_plain(v, x_px, y_px, lvl_of_pt, probs,
                           int(tile_q))
     dgeo = _device_geometry(geo.level_shapes, _ranges_key(ranges), geo.tile_q,
                             str(v.device))
-    w_rows_v, vstart = window_starts(geo, dgeo, n_rows,
+    w_rows_v, starts = window_starts(geo, dgeo, n_rows,
                                      keep_idx if use_remap else None, caps)
     n_t, tq = geo.n_tiles, geo.tile_q
     tiled = lambda a, fill=0: repack_queries(geo, a, fill).reshape(
@@ -270,10 +288,7 @@ def msgs_windowed_msp_plain(v, x_px, y_px, lvl_of_pt, probs,
     vflat = v.reshape(b * n_rows * h, dh)
     bidx = torch.arange(b, device=v.device).view(b, 1, 1, 1, 1)
     hidx = torch.arange(h, device=v.device).view(1, 1, 1, h, 1)
-    pstart = dgeo.pstart.long()
-    vstart = vstart.long()
-    if vstart.dim() == 2:                        # dense: one start per tile
-        vstart = vstart.expand(b, -1, -1)
+    starts = starts.long().expand(b, -1, -1, -1)  # dense: one start per tile
 
     acc = torch.zeros((b, n_t, tq, h, dh), dtype=torch.float32,
                       device=v.device)
@@ -282,8 +297,8 @@ def msgs_windowed_msp_plain(v, x_px, y_px, lvl_of_pt, probs,
         wv = w_rows_v[l]
         wp = geo.w_pix_levels[l]
         on = lvlp == l                                   # point on level l
-        s_lo = vstart[:, :, l].view(b, n_t, 1, 1, 1)
-        p_lo = pstart[:, l].view(1, n_t, 1, 1, 1)
+        p_lo = starts[:, :, l, 0].view(b, n_t, 1, 1, 1)
+        s_lo = starts[:, :, l, 1].view(b, n_t, 1, 1, 1)
 
         def corner(dx, dy):
             cx = x0i + dx
@@ -389,20 +404,22 @@ def _check(v, pts, remap, keep_idx, scale, geo, head_pack, caps) -> None:
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry ``msgs_windowed_forward`` with every argument declared:
-    table code, 12 pointers (table, x, y, level, probs, remap, pstart,
-    vstart, tile first, tile count, scale, out), B, Nq, H, K, Dh, G, T, L,
-    n_rows, n_pix, the host level array and the stream."""
+    table code, 10 pointers (table, x, y, level, probs, remap, query
+    tiles, window starts, scale, out), B, Nq, H, K, Dh, L, n_rows, n_pix, the
+    starts' batch stride, the host level array, the 4 numbers of the
+    gather plan and the stream."""
     from repro_torch.kernels.build import load_library
     fn = load_library("msgs_windowed").msgs_windowed_forward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
-                   + [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64] * 3
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v, vstart,
-            head_pack) -> torch.Tensor:
+def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v,
+            starts) -> torch.Tensor:
     global LAUNCHES
     b, n_rows, h, dh = v.shape
     x, y, lvl, probs = pts
@@ -410,11 +427,6 @@ def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v, vstart,
     n_l = len(geo.level_shapes)
     if n_l > MAX_LEVELS:
         raise ValueError(f"msgs_windowed: {n_l} levels > {MAX_LEVELS}")
-    smem = 4 * sum(geo.w_pix_levels) if remap is not None else 0
-    if smem > MAX_WINDOW_SMEM:
-        raise ValueError(f"msgs_windowed: the tile's pix2slot windows take "
-                         f"{smem} B of shared memory, more than "
-                         f"{MAX_WINDOW_SMEM} B")
     # per level: height, width, flat start, pixel window, row window
     levels = (ctypes.c_int * (5 * n_l))(
         *[hh for hh, _ in geo.level_shapes], *[ww for _, ww in geo.level_shapes],
@@ -422,14 +434,16 @@ def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v, vstart,
     out = torch.empty((b, nq, h, dh), dtype=out_dtype(v.dtype), device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     n_pix = 0 if remap is None else remap.shape[1]
+    check_gather_sizes(nq * h, h * dh * v.element_size(), "msgs_windowed")
+    plan = gather_plan(dh, v.element_size(), pointer_alignment(v))
     with torch.cuda.device(v.device):
         code = _entry()(
             TABLE_CODES[v.dtype], ptr(v), ptr(x), ptr(y), ptr(lvl), ptr(probs),
-            ptr(remap), ptr(dgeo.pstart),
-            ptr(vstart) if remap is not None else None,
-            ptr(dgeo.tile_first), ptr(dgeo.tile_count), ptr(scale), ptr(out),
-            b, nq, h, k, dh, head_pack, geo.n_tiles, n_l, n_rows, n_pix,
-            levels, stream_ptr(v.device))
+            ptr(remap), ptr(dgeo.qtile), ptr(starts), ptr(scale), ptr(out),
+            b, nq, h, k, dh, n_l, n_rows, n_pix,
+            0 if starts.shape[0] == 1 else geo.n_tiles * n_l, levels,
+            plan.vec_bytes, plan.group_lanes, plan.lanes_per_row,
+            plan.row_chunks, stream_ptr(v.device))
     LAUNCHES += 1
     raise_on_error(code, "msgs_windowed")
     return out
@@ -463,6 +477,5 @@ def msgs_windowed_msp(v, x_px, y_px, lvl_of_pt, probs,
             level_shapes=shapes, ranges=rngs, tile_q=tile_q,
             head_pack=head_pack, caps=caps)
     dgeo = _device_geometry(shapes, rngs, geo.tile_q, str(v.device))
-    w_rows_v, vstart = window_starts(geo, dgeo, v.shape[1], keep_idx, caps)
-    return _launch(v, pts, remap, scale, geo, dgeo, w_rows_v, vstart,
-                   head_pack)
+    w_rows_v, starts = window_starts(geo, dgeo, v.shape[1], keep_idx, caps)
+    return _launch(v, pts, remap, scale, geo, dgeo, w_rows_v, starts)

@@ -126,6 +126,157 @@ def test_msgs_windowed_kernel_matches_plain(cuda, int8, layout):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
 
 
+def _gather_tolerance(got, scale):
+    if got.dtype == torch.bfloat16:
+        return dict(rtol=2 ** -7, atol=1e-5)
+    return dict(rtol=1e-5, atol=1e-5 if scale is None
+                else 1e-5 * 127 * float(scale.max()))
+
+
+def _table(g, shape, dtype, device, offset=0):
+    """A random table of ``dtype`` on ``device``; with ``offset`` it is
+    contiguous but starts ``offset`` elements into its storage."""
+    if dtype == "int8":
+        v = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+    else:
+        v = torch.randn(shape, generator=g).to(getattr(torch, dtype))
+    buf = torch.empty(v.numel() + offset, dtype=v.dtype, device=device)
+    out = buf[offset:].view(shape)
+    out.copy_(v)
+    return out
+
+
+def _level_points(g, b, levels, h, k, device, spread=None):
+    """(x, y, level, probs) of raster queries over ``levels``: each point
+    on a random level, around its query's reference point (``spread``
+    range bounds per level) or anywhere on the level; some p are 0."""
+    refs = torch.cat([torch.stack(torch.meshgrid(
+        (torch.arange(a) + 0.5) / a, (torch.arange(c) + 0.5) / c,
+        indexing="ij")[::-1], -1).reshape(-1, 2) for a, c in levels])
+    shape = (b, refs.shape[0], h, k)
+    lvl = torch.randint(0, len(levels), shape, generator=g)
+    wl = torch.tensor([c for _, c in levels], dtype=torch.float32)[lvl]
+    hl = torch.tensor([a for a, _ in levels], dtype=torch.float32)[lvl]
+    if spread is None:
+        x = torch.rand(shape, generator=g) * (wl + 2) - 1
+        y = torch.rand(shape, generator=g) * (hl + 2) - 1
+    else:
+        bound = torch.tensor(spread)[lvl]
+        x = refs[:, 0].view(1, -1, 1, 1) * wl - 0.5 + \
+            (torch.rand(shape, generator=g) * 6 - 3) * bound
+        y = refs[:, 1].view(1, -1, 1, 1) * hl - 0.5 + \
+            (torch.rand(shape, generator=g) * 6 - 3) * bound
+    p = torch.softmax(torch.randn(shape, generator=g), -1)
+    p = torch.where(torch.rand(shape, generator=g) < 0.1, 0.0, p)
+    return [t.contiguous().to(device) for t in (x, y, lvl.to(torch.int32), p)]
+
+
+def _fused_call(g, levels, b, h, k, dh, dtype, device, compact, offset=0):
+    from repro_torch.kernels.msgs_fused import msgs_fused, msgs_fused_plain
+    from repro_torch.msda.sampling import level_meta
+    x, y, lvl, p = _level_points(g, b, levels, h, k, device)
+    starts, ws, hs, _ = level_meta(levels, device=device)
+    st, wl, hl = (t[lvl.long()].contiguous() for t in (starts, ws, hs))
+    n_pix = sum(a * c for a, c in levels)
+    n_rows = (n_pix * 3) // 5 + 1 if compact else n_pix
+    v = _table(g, (b, n_rows, h, dh), dtype, device, offset)
+    remap = None
+    if compact:
+        v[:, -1] = 0
+        remap = torch.randint(0, n_rows, (b, n_pix), generator=g)
+        remap = remap.to(torch.int32).to(device)
+    scale = None
+    if dtype == "int8":
+        scale = (torch.rand((b, 1, h, dh), generator=g) * 0.01 + 0.001).to(device)
+    args, kw = (v, x, y, st, wl, hl, p), dict(remap=remap, scale=scale)
+    return msgs_fused(*args, **kw), msgs_fused_plain(*args, **kw), scale
+
+
+@pytest.mark.parametrize("dh,offset", [(12, 0), (125, 0), (32, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_msgs_fused_gather_plan_widths(cuda, dtype, dh, offset):
+    """K1 on rows the 16 B vector does not fit: Dh 12 (rows of 48, 24 and
+    12 B: 3 lanes of 16, 8 and 4 B), Dh 125 (odd rows: 4 chunks of narrow
+    vectors per row), and a table one element off its 16 B alignment."""
+    from repro_torch.kernels import msgs_fused
+    v_item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    plan = msgs_fused.gather_plan(dh, v_item, 16 if offset == 0 else v_item)
+    assert plan.vec_bytes < 16 or plan.lanes_per_row % 2 == 1
+    g = torch.Generator().manual_seed(3)
+    before = msgs_fused.LAUNCHES
+    got, want, scale = _fused_call(g, ((8, 10), (4, 5)), 2, 4, 6, dh, dtype,
+                                   cuda, compact=True, offset=offset)
+    torch.cuda.synchronize()
+    assert msgs_fused.LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, **_gather_tolerance(got, scale))
+
+
+def test_msgs_fused_kernel_at_the_512px_path_shape(cuda):
+    """K1 at the 512 px encoder block's shape: points (2, 21760, 8, 4), a
+    compact float32 table (2, 13057, 8, 32)."""
+    g = torch.Generator().manual_seed(4)
+    levels = tuple((512 // s, 512 // s) for s in (4, 8, 16, 32))
+    got, want, _ = _fused_call(g, levels, 2, 8, 4, 32, "float32", cuda,
+                               compact=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _windowed_call(g, levels, ranges, tile_q, b, h, k, dh, dtype, hp,
+                   device, compact):
+    from repro_torch.core.fwp import level_capacities, level_starts
+    from repro_torch.kernels import msgs_windowed
+    x, y, lvl, p = _level_points(g, b, levels, h, k, device, spread=ranges)
+    starts, n_in = level_starts(levels)
+    remap = keep = caps = None
+    n_rows = n_in
+    if compact:
+        caps = tuple(level_capacities(levels, 0.6))
+        keep = torch.cat([torch.sort(torch.randperm(a * c, generator=g)[:cap])[0]
+                          + int(s) for (a, c), cap, s in zip(levels, caps, starts)])
+        keep = keep.expand(b, -1).contiguous()
+        n_rows = sum(caps) + 1
+        remap = torch.full((b, n_in), n_rows - 1, dtype=torch.int64)
+        remap.scatter_(1, keep, torch.arange(n_rows - 1).expand(b, -1).contiguous())
+        keep, remap = (t.to(torch.int32).to(device) for t in (keep, remap))
+    v = _table(g, (b, n_rows, h, dh), dtype, device)
+    if compact:
+        v[:, -1] = 0
+    scale = None
+    if dtype == "int8":
+        scale = (torch.rand((b, h // hp, hp, dh), generator=g) * 0.01
+                 + 0.001).to(device)
+    args = (v, x, y, lvl, p)
+    kw = dict(remap=remap, keep_idx=keep, scale=scale, level_shapes=levels,
+              ranges=ranges, tile_q=tile_q, head_pack=hp, caps=caps)
+    before = msgs_windowed.LAUNCHES
+    got = msgs_windowed.msgs_windowed_msp(*args, **kw)
+    torch.cuda.synchronize()
+    assert msgs_windowed.LAUNCHES == before + 1
+    return got, msgs_windowed.msgs_windowed_msp_plain(*args, **kw), scale
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_msgs_windowed_kernel_dh12(cuda, dtype, layout):
+    """K3 with Dh 12 (rows of 48, 24 and 12 B) on a ragged pyramid whose
+    windows drop corners."""
+    g = torch.Generator().manual_seed(5)
+    got, want, scale = _windowed_call(
+        g, ((13, 17), (7, 9), (4, 5), (2, 3)), (3.5, 2.5, 1.5, 1.0), 16, 2, 4,
+        4, 12, dtype, 2, cuda, layout == "compact")
+    torch.testing.assert_close(got, want, **_gather_tolerance(got, scale))
+
+
+def test_msgs_windowed_kernel_at_the_1024px_path_shape(cuda):
+    """K3 at the 1024 px encoder block's shape: points (2, 87040, 8, 4), a
+    compact int8 table of 8 heads x Dh 32, head groups of 4, tile 128."""
+    g = torch.Generator().manual_seed(6)
+    levels = tuple((1024 // s, 1024 // s) for s in (4, 8, 16, 32))
+    got, want, scale = _windowed_call(g, levels, (16.0, 12.0, 8.0, 4.0), 128,
+                                      2, 8, 4, 32, "int8", 4, cuda, True)
+    torch.testing.assert_close(got, want, **_gather_tolerance(got, scale))
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_msgs_decode_backward_kernel_matches_plain(cuda, int8):
     from repro_torch.kernels import msgs_decode
