@@ -15,18 +15,21 @@ Phases, each printing one JSON line:
   3. kernels  — K1 and K2 against their plain PyTorch versions on the card:
                 {f32, bf16, int8 + scale} tables x {dense, compact remap}
                 at the 512 px path's shapes, a ragged small shape, Dh
-                12/16/32/64 (Dh 12: rows of 48, 24 and 12 B, which K1's
-                gather plan serves with 16, 8 and 4 B vectors);
+                12/16/32/64 (Dh 12: rows of 48, 24 and 12 B, which the
+                gather plan serves with 16, 8 and 4 B vectors); K2 also
+                with Dh 12 in head groups of 4 and on a staged table one
+                element off its 16 B boundary;
      windowed — K3 against its plain version: the same tables x {dense,
                 compact with keep_idx} at the 1024 px path's shape and on a
                 ragged small pyramid (Dh 16 and 64, head_pack 1; Dh 12,
                 head_pack 2), with points up to three range bounds from
                 their reference, so that the windows drop corners;
-     decode_grad — K2's backward kernel against its closed-form plain
+     decode_grad — K2's backward kernels against their closed-form plain
                 version: the same tables x {dense, compact} x head_pack
                 {1, 4} x L {1, 3} at the 512 px decoder's shape and a
                 ragged small one, with points on integer coordinates and
-                outside their level; K2's output carries a grad_fn under
+                outside their level, each case called twice and held to
+                bitwise-equal outputs; K2's output carries a grad_fn under
                 autograd, and the forward-only K1 and K3 refuse it;
      lm_kernels — K5 (flash-decode) and K4 (matmul) against their plain
                 versions: K5 in f32 and bf16 on the reference's sweep, the
@@ -55,8 +58,9 @@ Phases, each printing one JSON line:
                 the encoder): launch counters, finite and falling losses,
                 live decoder gradients, the first step's gradients
                 against the same step through torch_gather, and whether
-                two identical gradient passes agree bitwise (K2's backward
-                adds with float32 atomics);
+                two identical gradient passes agree bitwise (required of
+                one K2 backward call repeated; recorded for the whole
+                step, whose torch_gather encoder adds with index_add_);
      lm_serve — minitron-4b at its published width and depth (bf16,
                 random weights drawn on the card from the seed) served by
                 ServeEngine (max_batch 4, cache_len 4096): 4 prompts of 37,
@@ -67,10 +71,19 @@ Phases, each printing one JSON line:
                 greedy streams agree with a plain-attention run;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
-                exists, K1's and K3's L2 gather bytes, K1 on K3's operands,
-                one serve forward at B = 2 per path, one train step, one LM
-                decode step at B = 4 and one 512-token prefill, each with
-                its idle share.
+                exists (K2's backward: the whole call, every kernel it
+                launches; K2 also on the 1024 px path's first decoder
+                call), K1's and K3's L2 gather bytes, K1 on K3's and on
+                K2's operands, the device time of one train step's
+                table-gradient chain, one serve forward at B = 2 per path,
+                one train step, one LM decode step at B = 4 and one
+                512-token prefill, each with its idle share.
+
+    python3 chip_smoke.py --table-grad-chain SRC
+
+times only the table-gradient chain of the train step's first backward
+pass, with the port package under ``SRC`` (for example an unpacked
+parent commit's ``src``), and prints it as one JSON line.
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -95,10 +108,14 @@ BF16_FLOP_PER_S = 989e12
 # differences, 3 add/mul to combine them, then p * S + acc.
 FLOPS_PER_CHANNEL_POINT = 13
 # K2 backward per channel: <v_c, g> (multiply, add) for every valid corner
-# of every point, and p w_c g (multiply) plus its atomic add for every
-# valid corner of a live point.
+# of every point, and p w_c g (multiply) plus its add into the row's sum
+# for every valid corner of a live point.
 FLOPS_PER_CHANNEL_CORNER_DOT = 2
 FLOPS_PER_CHANNEL_CORNER_SCATTER = 2
+# every kernel a K2 backward call launches: the points kernel, then the
+# table kernel (float tables) or the scale kernel (int8 tables)
+K2_BWD_KERNELS = ("msgs_decode_bwd_points_kernel", "msgs_decode_bwd_table_kernel",
+                  "msgs_decode_bwd_scale_kernel")
 # L2 serves global loads in 32-byte sectors
 SECTOR_BYTES = 32
 TRAIN_STEPS = 3
@@ -248,6 +265,7 @@ def synthetic_table(gen, b, n_rows, h, dh, dtype, compact, n_pix, device):
 
 
 def phase_kernel_checks(device, main_levels):
+    import dataclasses
     import torch
     from repro_torch.kernels import msgs_decode, msgs_fused
     from repro_torch.msda.plan import lane_layout
@@ -293,7 +311,35 @@ def phase_kernel_checks(device, main_levels):
                                  want[:, 0], tol)
                 results.append({"case": case, "fused_err": e1,
                                 "decode_layers_err": e2, "decode_err": e3})
-    emit("kernels", checks=len(results) * 3, results=results,
+    # K2 alone: Dh 12 in head groups of 4, and a staged table one element
+    # off its 16 B boundary (both narrow the gather plan's vector)
+    for label, dh, g, offset in (("decode_dh12_g4", 12, 4, 0),
+                                 ("decode_misaligned_g4", 32, 4, 1)):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for compact in (False, True):
+                pts, n_pix = synthetic_points(gen, (2, 3, 19, 8, 4),
+                                              small_levels, device)
+                n_rows = 300 if compact else n_pix
+                v, remap, scale = synthetic_table(gen, 2, n_rows, 8, dh, dtype,
+                                                  compact, n_pix, device)
+                staged = msgs_decode.stage_decode_table(v, remap, head_pack=g,
+                                                        scale=scale)
+                if offset:
+                    buf = torch.empty(staged.v.numel() + offset,
+                                      dtype=dtype, device=device)
+                    shifted = buf[offset:].view(staged.v.shape)
+                    shifted.copy_(staged.v)
+                    staged = dataclasses.replace(staged, v=shifted)
+                case = f"{label}/{str(dtype)[6:]}/{'compact' if compact else 'dense'}"
+                want = msgs_decode.msgs_decode_plain(
+                    staged.v, *pts, staged.remap, staged.scale, head_pack=g,
+                    dh=dh)
+                err = check_close(f"msgs_decode_layers {case}",
+                                  msgs_decode.msgs_decode_layers(staged, *pts),
+                                  want, tolerance(dtype, scale))
+                results.append({"case": case, "decode_layers_err": err})
+    emit("kernels", checks=sum(k.endswith("_err") for r in results for k in r),
+         results=results,
          tolerance="f32 1e-5; bf16 rtol 2^-7; int8 1e-5*127*max(scale)")
 
 
@@ -448,12 +494,12 @@ def on_grid(gen, pts, share=0.2):
 
 
 def grad_tolerance(name, dtype, scale, want):
-    """K2 backward vs plain. d_vp and d_scale: the kernel sums them with
-    float32 atomics in an order that changes from run to run, so rtol
-    1e-5 (2^-7 for a bf16 d_vp, rounded once from float32 on both sides)
-    and atol 1e-5 of the largest entry. The point gradients: each a sum
-    over one point's corners in the same order on both sides: float32
-    1e-5, int8 1e-5 * 127 * max scale."""
+    """K2 backward vs plain. d_vp and d_scale: the kernels sum them in a
+    fixed order that is not the plain version's, so rtol 1e-5 (2^-7 for
+    a bf16 d_vp, rounded once from float32 on both sides) and atol 1e-5
+    of the largest entry. The point gradients: each a sum over one
+    point's corners in the same order on both sides: float32 1e-5, int8
+    1e-5 * 127 * max scale."""
     import torch
     if name in ("d_vp", "d_scale"):
         return {"rtol": 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
@@ -476,9 +522,21 @@ def check_backward(case, got, want, dtype, scale):
     return errs
 
 
+def check_bitwise(case, first, again):
+    """Two K2 backward calls on the same operands: every output bit for
+    bit the same."""
+    import torch
+    torch.cuda.synchronize()
+    for name, a, b in zip(GRAD_NAMES, first, again):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"msgs_decode_backward {case}: {name} differs "
+                                 "between two calls on the same operands")
+
+
 def phase_decode_grad(device, main_levels):
-    """K2's backward kernel against msgs_decode_backward_plain, and the
-    autograd contract of the three kernels on the card."""
+    """K2's backward kernels against msgs_decode_backward_plain, each case
+    twice and bitwise equal, and the autograd contract of the three
+    kernels on the card."""
     import torch
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -506,6 +564,8 @@ def phase_decode_grad(device, main_levels):
                         case = (f"{label}/{str(dtype)[6:]}/"
                                 f"{'compact' if compact else 'dense'}/G{g}/L{n_layers}")
                         got = msgs_decode.msgs_decode_backward(staged, *pts, g_out)
+                        check_bitwise(case, got, msgs_decode.msgs_decode_backward(
+                            staged, *pts, g_out))
                         want = msgs_decode.msgs_decode_backward_plain(
                             staged.v, *pts, g_out, staged.remap, staged.scale,
                             head_pack=g, dh=dh)
@@ -547,6 +607,7 @@ def phase_decode_grad(device, main_levels):
                 raise
             raise AssertionError(f"{name} ran under autograd")
     emit("decode_grad", checks=len(results), results=results,
+         repeats_bitwise_equal=len(results),
          grad_fn=type(node).__name__, refused_under_autograd=refused,
          tolerance="d_vp, d_scale: rtol 1e-5 (bf16 2^-7), atol 1e-5*max; "
                    "d_x, d_y, d_probs: f32 1e-5, int8 1e-5*127*max(scale)")
@@ -932,7 +993,8 @@ def phase_serve_windowed(device):
                          backend="cuda_windowed", resolutions=(IMG_WINDOWED,),
                          device=device) as engine:
         dec_plan = engine.buckets[0].plan
-        with Recorder(msgs_windowed, "msgs_windowed_msp", 6) as rec_w:
+        with Recorder(msgs_windowed, "msgs_windowed_msp", 6) as rec_w, \
+                Recorder(msgs_decode, "msgs_decode", 1) as rec_d:
             msgs_windowed.LAUNCHES = 0
             msgs_decode.LAUNCHES = 0
             msgs_fused.LAUNCHES = 0
@@ -994,7 +1056,8 @@ def phase_serve_windowed(device):
          launches_per_batch={k: v // batches for k, v in launches.items()},
          blocks_vs_torch_gather_max_abs_err=blocks, windowed_vs=compare)
     return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
-            "batches": batches, "windowed_calls": rec_w.calls}
+            "batches": batches, "windowed_calls": rec_w.calls,
+            "decode_calls": rec_d.calls}
 
 
 def median_rel_diff(a, b):
@@ -1015,10 +1078,11 @@ def leaf_paths(tree, prefix=""):
 
 def bitwise_rerun(params, cfg, batch, backward_call):
     """Whether two identical gradient passes agree bit for bit, and one K2
-    backward call twice on the same operands. K2's backward adds the table
-    and scale gradients with float32 atomics (csrc/msgs_decode_bwd.cu),
-    the encoder's torch_gather backward with index_add_; either may add
-    in another order on every run. Recorded, not required."""
+    backward call twice on the same operands. K2's backward sums in a
+    fixed order (csrc/msgs_decode_bwd.cu): phase_train requires its
+    repeat to be bitwise equal. The encoder's torch_gather backward adds
+    with index_add_, which may add in another order on every run, so the
+    whole step's leaves are recorded, not required."""
     import torch
     from repro_torch.kernels import msgs_decode
     from repro_torch.train.detr import loss_and_grads
@@ -1063,7 +1127,7 @@ def phase_train(device):
                         weight_decay=1e-4, clip_norm=0.1)
     params, opt = params0, adamw_init(params0)
     steps, first_grads = [], None
-    with Recorder(msgs_decode, "_backward", 1) as rec_b:
+    with Recorder(msgs_decode, "_backward", cfg.decoder.n_layers) as rec_b:
         msgs_decode.LAUNCHES = msgs_decode.LAUNCHES_BWD = 0
         msgs_fused.LAUNCHES = msgs_windowed.LAUNCHES = 0
         for i in range(TRAIN_STEPS):
@@ -1106,6 +1170,9 @@ def phase_train(device):
     if dead:
         raise AssertionError(f"decoder leaves without gradient: {dead}")
     rerun = bitwise_rerun(params0, cfg, batch, rec_b.calls[0])
+    if not rerun["k2_backward_bitwise_equal"]:
+        raise AssertionError(f"K2 backward repeated on the same operands is "
+                             f"not bitwise equal: {rerun}")
 
     # the first step again through torch_gather, and torch_gather's own
     # spread when the input images move by one ulp
@@ -1502,11 +1569,107 @@ def serve_profile(serve, backend):
     return forward_profile(forward)
 
 
+def k1_on_k2_operands(staged, pts):
+    """K1 on the operands of one one-layer K2 call: the staged table
+    unstaged to (B, N_rows, H, Dh), the same points, remap and scale."""
+    from repro_torch.kernels import msgs_decode, msgs_fused
+    b, h = pts[0].shape[0], pts[0].shape[2]
+    v = msgs_decode._unstage_layout(staged.v, staged.head_pack,
+                                    staged.dh).contiguous()
+    scale = None if staged.scale is None else \
+        staged.scale.reshape(b, 1, h, staged.dh)
+    return msgs_fused.msgs_fused(v, *pts, remap=staged.remap, scale=scale)
+
+
+def k2_entry(staged, pts, launches):
+    """K2 on one decoder layer's call: the summary row and its detail,
+    with K1's output on the same operands beside it (the gather engine
+    is theirs in common: the design aims at no difference)."""
+    from repro_torch.kernels import msgs_decode
+    out = msgs_decode.msgs_decode(staged, *pts)
+    layered = tuple(t[:, None] for t in pts)
+    plain = lambda: msgs_decode.msgs_decode_plain(
+        staged.v, *layered, staged.remap, staged.scale,
+        head_pack=staged.head_pack, dh=staged.dh)
+    err = check_close("msgs_decode timing operands", out, plain()[:, 0],
+                      tolerance(staged.v.dtype, staged.scale))
+    entry = {"name": "msgs_decode", "route": "cuda",
+             "source": "src/repro_torch/csrc/msgs_decode.cu",
+             "replaces": "src/repro/kernels/msgs_decode.py:231",
+             "launches": launches, "max_abs_err": err,
+             **kernel_times(lambda: msgs_decode.msgs_decode(staged, *pts),
+                            plain, "msgs_decode_kernel"),
+             "library_ms": None}
+    # staged rows are per head group; count (b, head, row) like K1
+    bound = kernel_bound(pts, staged.remap, staged.scale, out, staged.n_rows,
+                         pts[0].shape[2], staged.dh, staged.v.element_size())
+    entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    return entry, dict(bound, shape=list(pts[0].shape),
+                       table=list(staged.v.shape), dtype=str(staged.v.dtype),
+                       max_abs_diff_vs_k1=float(
+                           (out.float() - k1_on_k2_operands(staged, pts).float())
+                           .abs().max()))
+
+
+def table_grad_chain(calls, reps=10):
+    """Device time of one train step's table-gradient chain, replayed on
+    the K2 backward operands of the step's decoder layers (``calls``, as
+    the Recorder kept them): a leaf (B, N_rows, H, Dh) table staged as the
+    decoder stages it, one MsgsDecode node per layer, and one
+    autograd.grad through them. The window holds the layers' K2 backward
+    calls (with any fill they make), autograd's adds of their d_vp and the
+    staging's backward; the forward runs before it. Profiler device time
+    per pass, and the kernels by device time."""
+    import torch
+    from repro_torch.kernels import msgs_decode
+    vp, remap, g, dh = (calls[0][0][i] for i in (0, 8, 10, 11))
+    table = msgs_decode._unstage_layout(vp, g, dh).contiguous()
+    g_outs = [args[7] for args, _ in calls]
+    graphs = []
+    for _ in range(reps + 1):
+        leaf = table.detach().requires_grad_()
+        staged = msgs_decode.stage_decode_table(leaf, remap, head_pack=g)
+        with torch.enable_grad():
+            outs = [msgs_decode.MsgsDecode.apply(staged.v, *args[1:7], remap,
+                                                 None, g, dh)
+                    for args, _ in calls]
+        graphs.append((leaf, outs))
+
+    def backward():
+        leaf, outs = graphs.pop()
+        torch.autograd.grad(outs, leaf, grad_outputs=g_outs)
+    dev, _, wall = profile(backward, reps)
+    top = sorted(dev, key=_device_us, reverse=True)[:8]
+    return {"ms": sum(_device_us(e) for e in dev) / reps / 1e3,
+            "layers": len(calls), "wall_ms_per_pass": wall / reps,
+            "kernels": [{"op": e.key[:90], "count": e.count // reps,
+                         "ms": _device_us(e) / reps / 1e3} for e in top]}
+
+
+def first_step_backward_calls(device):
+    """The K2 backward operands of the train phase's first step (its
+    model, parameters and batch), one per decoder layer."""
+    import torch
+    from repro_torch.core.detector import init_detector
+    from repro_torch.data.detection import synth_detection_batch
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.train.detr import loss_and_grads, train_config
+    cfg = train_config("deformable-detr-defa", IMG)
+    params = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                           device=device)
+    batch = synth_detection_batch(torch.Generator().manual_seed(SEED),
+                                  MAX_BATCH, IMG, cfg.level_shapes,
+                                  cfg.n_classes, device=device)
+    with Recorder(msgs_decode, "_backward", cfg.decoder.n_layers) as rec:
+        loss_and_grads(params, cfg, batch, backend="cuda_decode")
+    return rec.calls
+
+
 def backward_bound(pts, remap, scale, g_out, vp, h, dh):
     """Least time for K2's backward: the points, g_out, the whole remap and
-    the table rows that the valid corners touch read once; the dense
-    float32 d_vp (or d_scale) and the three point gradients written
-    once; the operations of ``FLOPS_PER_CHANNEL_CORNER_*``."""
+    the table rows that the valid corners touch read once; the dense d_vp
+    in the table's dtype (or d_scale) and the three point gradients
+    written once; the operations of ``FLOPS_PER_CHANNEL_CORNER_*``."""
     import torch
     from repro_torch.msda.sampling import corner_data
     x, y, st, wl, hl, p = pts
@@ -1521,7 +1684,7 @@ def backward_bound(pts, remap, scale, g_out, vp, h, dh):
     if remap is not None:
         nbytes += remap.numel() * remap.element_size()
     if scale is None:
-        nbytes += vp.numel() * 4
+        nbytes += vp.numel() * vp.element_size()
     else:
         nbytes += 2 * scale.numel() * scale.element_size()
     ops = dh * (FLOPS_PER_CHANNEL_CORNER_DOT * n_valid
@@ -1779,36 +1942,18 @@ def phase_times(serve, serve_w, train, lm):
                                  **l2_gather(pts, v.shape[3] * v.element_size(),
                                              k1["ms"]))}
 
-    # K2: the first decoder layer's call on the once-staged table
-    args, kw = serve["decode_calls"][0]
-    staged, pts = args[0], args[1:7]
-    out = msgs_decode.msgs_decode(staged, *pts)
-    layered = tuple(t[:, None] for t in pts)
-    plain = msgs_decode.msgs_decode_plain(
-        staged.v, *layered, staged.remap, staged.scale,
-        head_pack=staged.head_pack, dh=staged.dh)[:, 0]
-    err = check_close("msgs_decode main path", out, plain,
-                      tolerance(staged.v.dtype, staged.scale))
-    k2 = {"name": "msgs_decode", "route": "cuda",
-          "source": "src/repro_torch/csrc/msgs_decode.cu",
-          "replaces": "src/repro/kernels/msgs_decode.py:231",
-          "launches": serve["launches"]["msgs_decode"], "max_abs_err": err,
-          **kernel_times(
-              lambda: msgs_decode.msgs_decode(staged, *pts),
-              lambda: msgs_decode.msgs_decode_plain(
-                  staged.v, *layered, staged.remap, staged.scale,
-                  head_pack=staged.head_pack, dh=staged.dh),
-              "msgs_decode_kernel"),
-          "library_ms": None}
-    h = pts[0].shape[2]
-    # staged rows are per head group; count (b, head, row) like K1
-    b2 = kernel_bound(pts, staged.remap, staged.scale, out, staged.n_rows, h,
-                      staged.dh, staged.v.element_size())
-    k2.update(bound_ms=b2["bound_ms"], bound_by=b2["bound_by"])
+    # K2: the first decoder layer's call on the once-staged table, and
+    # the 1024 px path's first (int8 staged table)
+    args, _ = serve["decode_calls"][0]
+    k2, detail["msgs_decode"] = k2_entry(args[0], args[1:7],
+                                         serve["launches"]["msgs_decode"])
     kernels.append(k2)
-    detail["msgs_decode"] = dict(b2, shape=list(pts[0].shape),
-                                 table=list(staged.v.shape),
-                                 dtype=str(staged.v.dtype))
+    args, _ = serve_w["decode_calls"][0]
+    k2w, d2w = k2_entry(args[0], args[1:7], serve_w["launches"]["msgs_decode"])
+    detail["msgs_decode"]["int8_1024"] = dict(
+        d2w, **{k: k2w[k] for k in ("ms", "ms_source", "by_kernel", "call_ms",
+                                     "plain_ms", "max_abs_err", "launches",
+                                     "bound_ms", "bound_by")})
 
     # K3: the last encoder block's call at 1024 px (int8 compact table)
     args, kw = serve_w["windowed_calls"][-1]
@@ -1856,13 +2001,15 @@ def phase_times(serve, serve_w, train, lm):
     call = lambda: msgs_decode.msgs_decode_backward(staged, *pts, g_out)
     plain = lambda: msgs_decode.msgs_decode_backward_plain(
         vp, *pts, g_out, remap, scale, head_pack=g, dh=dh)
-    errs = check_backward("main path", call(), plain(), vp.dtype, scale)
+    first = call()
+    check_bitwise("main path", first, call())
+    errs = check_backward("main path", first, plain(), vp.dtype, scale)
     kb = {"name": "msgs_decode_backward", "route": "cuda",
           "source": "src/repro_torch/csrc/msgs_decode_bwd.cu",
           "replaces": "src/repro/kernels/msgs_decode.py:350",
           "launches": train["launches"]["msgs_decode_backward"],
           "max_abs_err": max(errs.values()),
-          **kernel_times(call, plain, "msgs_decode_backward_kernel"),
+          **kernel_times(call, plain, K2_BWD_KERNELS),
           "library_ms": None}
     h = pts[0].shape[3]
     bb = backward_bound(pts, remap, scale, g_out, vp, h, dh)
@@ -1871,8 +2018,9 @@ def phase_times(serve, serve_w, train, lm):
     dev, _, _ = profile(call, 20)
     detail["msgs_decode_backward"] = dict(
         bb, shape=list(pts[0].shape), table=list(vp.shape), dtype=str(vp.dtype),
-        max_abs_err_by_output=errs,
-        wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3)
+        max_abs_err_by_output=errs, kernels=list(K2_BWD_KERNELS),
+        wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3,
+        table_grad_chain=table_grad_chain(train["backward_calls"]))
 
     lm_kernels, lm_detail, lm_timing = lm_times(lm)
     kernels += lm_kernels
@@ -1921,7 +2069,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
+    chain_src = None
+    if sys.argv[1:2] == ["--table-grad-chain"] and len(sys.argv) == 3:
+        chain_src = Path(sys.argv[2]).resolve()
+    src = chain_src or Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: no port package under {src}; run from a checkout "
               "of the repository", file=sys.stderr)
@@ -1934,6 +2085,10 @@ def main() -> int:
     torch.cuda.set_device(device)
 
     phase_device()
+    if chain_src is not None:
+        emit("table_grad_chain", src=str(chain_src),
+             **table_grad_chain(first_step_backward_calls(device)))
+        return 0
     phase_build()
     from repro_torch.msda.plan import level_shapes_for_resolution
     phase_kernel_checks(device, level_shapes_for_resolution(IMG))

@@ -1,108 +1,124 @@
-// Persistent-cache decode MSGS + aggregation for Hopper (sm_90a), forward.
+// K2: persistent-cache decode MSGS + aggregation for Hopper (sm_90a),
+// forward.
 //
 // Replaces the TPU kernel _decode_pallas_call (src/repro/kernels/
 // msgs_decode.py, body _make_decode_kernel), behind msgs_decode_pallas
 // (one layer) and msgs_decode_layers_pallas (L stacked layers, one
-// launch). It runs the same Eq. 4 device routine as the fused kernel
-// (eq4.cuh) over the once-staged layout vp (B, H/G, N_rows, G*Dh): head h
-// is lane group j = h % G of row group h / G. The grid carries a layer
-// axis: one warp per (b, layer, q, h) item of the stacked
-// (B, L, Nq, H, K) points, so the stacked entry point is one launch too.
-// Its backward is msgs_decode_bwd.cu.
+// launch). It samples the once-staged table vp (B, H/G, N_rows, G*Dh):
+// head h reads lane group h % G of row group h / G. An item is one
+// (b, layer, q, h) of the stacked (B, L, Nq, H, K) points, so the stacked
+// entry point is one launch too. Its backward is msgs_decode_bwd.cu.
 //
 // The TPU kernel keeps the staged table resident in VMEM across its
 // (query-tile x layer) sweep. No explicit staging is needed here: the
-// table is about 13 MB per image compacted and 22 MB dense at 512 px,
-// which fits the H100's 50 MB L2, so every decoder layer re-reads it
-// from L2 without any shared-memory copy.
+// compact table of the 512 px path is 13.4 MB per image (26.7 MB for
+// both) and stays in the H100's 50 MB L2 across the six decoder layers.
 //
 // What bounds it on the H100: a decoder layer at B = 2 (300 queries,
-// 8 heads, K = 4 points, Dh = 32) moves about 3.5 MB at most — about 1 us
-// of memory time — so one launch is bound by launch latency, not by
-// bytes or operations. Making it fast is later work: fusing the six
-// layer launches into a CUDA graph, shared-memory corner reuse,
-// vectorised loads and several (q, h) items per warp.
-#include "eq4.cuh"
+// 8 heads, K = 4 points, Dh = 32) moves about 1.7 MB (0.0005 ms at
+// 3.35 TB/s), but its 4,800 items fill only 1,200 warps: the time is one
+// warp's chain of dependent loads plus the launch. The first design (one
+// warp per item, lane = channel, points walked one after another, each
+// one's remap load and then its 4 row loads) measured 0.0094 ms, about
+// 9 dependent round trips per warp.
+//
+// What the design does: it is the gather engine of msgs_gather.cuh with
+// K1's PointSource, over the staged layout (the engine's table with
+// G = head_pack): point operands -> remap -> all 16 corner rows of an
+// item in flight, 3 round trips per warp, 4 items per warp at f32 Dh 32.
+// Measured (PERF.md, section 6; NVIDIA H100 80GB HBM3, 700 W): 0.0037 ms
+// on the 512 px path's first decoder call, 0.0059 ms on the 1024 px path's
+// (int8 table). Eq. 4 and the sum over k are the engine's, so K2 and K1
+// give bitwise equal outputs on the same points and rows.
+#include "msgs_gather.cuh"
 
 namespace repro_torch {
 
+using DecodeSource = gather::PointSource<>;
+
+template <typename T, typename O, int VEC>
+__global__ void __launch_bounds__(kWarp * gather::kWarps, gather::kMinBlocks)
+msgs_decode_kernel(const DecodeSource src, const T* __restrict__ vp,
+                   const float* __restrict__ scale, O* __restrict__ out,
+                   const gather::Shape sh, int b0, const gather::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gather::gather_items<T, O, VEC>(src, vp, scale, out, sh, b0, plan,
+                                  reinterpret_cast<gather::PointRec*>(smem));
+}
+
+// One launch per kMaxGridY batches (grid y is the batch).
+template <typename T, typename O, int VEC>
+int launch(const DecodeSource& src, const void* vp, const float* scale, void* out, int B,
+           const gather::Shape& sh, const gather::Plan& plan, int group_lanes,
+           cudaStream_t s) {
+  if constexpr (VEC < static_cast<int>(sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    for (int b0 = 0; b0 < B; b0 += gather::kMaxGridY) {
+      const dim3 grid(gather::grid_blocks(sh.per_batch, group_lanes),
+                      static_cast<unsigned>(std::min(B - b0, gather::kMaxGridY)));
+      msgs_decode_kernel<T, O, VEC><<<grid, kWarp * gather::kWarps,
+                                      gather::smem_bytes(group_lanes), s>>>(
+          src, static_cast<const T*>(vp), scale, static_cast<O*>(out), sh, b0, plan);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  }
+}
+
 template <typename T, typename O>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-msgs_decode_kernel(const T* __restrict__ vp, const float* __restrict__ x,
-                   const float* __restrict__ y, const int* __restrict__ st,
-                   const int* __restrict__ wl, const int* __restrict__ hl,
-                   const float* __restrict__ probs, const int* __restrict__ remap,
-                   const float* __restrict__ scale, O* __restrict__ out, int B,
-                   int L, int Nq, int H, int K, int Dh, int G, int64_t n_rows,
-                   int64_t n_pix) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t item = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (item >= static_cast<int64_t>(B) * L * Nq * H) return;   // whole warp
-  const int h = static_cast<int>(item % H);
-  const int b = static_cast<int>(item / H / Nq / L);
-  const int n_groups = H / G;
-  const int gi = h / G;
-  const int j = h % G;
-  const int64_t gdh = static_cast<int64_t>(G) * Dh;
-  const int64_t pt = item * K;
-  const PointRefs pts{x + pt, y + pt, probs + pt, st + pt, wl + pt, hl + pt};
-  const int64_t group = static_cast<int64_t>(b) * n_groups + gi;
-  const T* rows = vp + group * n_rows * gdh + static_cast<int64_t>(j) * Dh;
-  const int* rm = remap != nullptr ? remap + static_cast<int64_t>(b) * n_pix : nullptr;
-  float acc[kMaxChannelsPerLane];
-  eq4_sample_agg<T>(pts, K, rm, rows, gdh, Dh, lane, acc);
-  O* o = out + item * Dh;
-  const float* sc = scale != nullptr ? scale + group * gdh + static_cast<int64_t>(j) * Dh : nullptr;
-#pragma unroll
-  for (int i = 0; i < kMaxChannelsPerLane; ++i) {
-    const int ch = lane + kWarp * i;
-    if (ch < Dh) store_out(o + ch, sc != nullptr ? acc[i] * sc[ch] : acc[i]);
+int launch_vec(int vec, const DecodeSource& src, const void* vp, const float* scale, void* out,
+               int B, const gather::Shape& sh, const gather::Plan& plan, int group_lanes,
+               cudaStream_t s) {
+  switch (vec) {
+    case 16: return launch<T, O, 16>(src, vp, scale, out, B, sh, plan, group_lanes, s);
+    case 8: return launch<T, O, 8>(src, vp, scale, out, B, sh, plan, group_lanes, s);
+    case 4: return launch<T, O, 4>(src, vp, scale, out, B, sh, plan, group_lanes, s);
+    case 2: return launch<T, O, 2>(src, vp, scale, out, B, sh, plan, group_lanes, s);
+    case 1: return launch<T, O, 1>(src, vp, scale, out, B, sh, plan, group_lanes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace repro_torch
 
 // table_dtype: 0 float32 (out float32), 1 bfloat16 (out bfloat16),
-// 2 int8 codes with a (B, H/G, G*Dh) f32 scale (out float32).
-// Returns cudaGetLastError() after the launch.
+// 2 int8 codes with a (B, H/G, G*Dh) f32 scale (out float32). vec_bytes,
+// group_lanes, lanes_per_row and row_chunks are the wrapper's
+// gather_plan(); a plan that does not fit the row, the row group or the
+// table pointer is refused. Returns cudaGetLastError() after the launch.
 extern "C" int msgs_decode_forward(int table_dtype, const void* vp, const void* x,
                                    const void* y, const void* st, const void* wl,
                                    const void* hl, const void* probs,
                                    const void* remap, const void* scale, void* out,
                                    int B, int L, int Nq, int H, int K, int Dh, int G,
-                                   long long n_rows, long long n_pix, void* stream) {
+                                   long long n_rows, long long n_pix, int vec_bytes,
+                                   int group_lanes, int lanes_per_row, int row_chunks,
+                                   void* stream) {
   using namespace repro_torch;
-  const long long items = static_cast<long long>(B) * L * Nq * H;
-  if (items == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((items + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 threads(kWarp * kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* yf = static_cast<const float*>(y);
-  const auto* pf = static_cast<const float*>(probs);
-  const auto* sti = static_cast<const int*>(st);
-  const auto* wli = static_cast<const int*>(wl);
-  const auto* hli = static_cast<const int*>(hl);
-  const auto* rm = static_cast<const int*>(remap);
+  static const int kItemsize[3] = {4, 2, 1};
+  const int64_t per_batch = static_cast<int64_t>(L) * Nq * H;
+  if (table_dtype < 0 || table_dtype > 2 ||
+      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, G, Dh, vp, group_lanes,
+                       lanes_per_row, row_chunks, per_batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (per_batch == 0 || B == 0) return 0;
+  const DecodeSource src{static_cast<const float*>(x), static_cast<const float*>(y),
+                         static_cast<const float*>(probs), static_cast<const int*>(st),
+                         static_cast<const int*>(wl), static_cast<const int*>(hl),
+                         static_cast<const int*>(remap), n_pix};
+  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, G, n_rows};
+  const gather::Plan plan{gather::log2_int(group_lanes), lanes_per_row, row_chunks};
   const auto* sc = static_cast<const float*>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (table_dtype) {
     case 0:
-      msgs_decode_kernel<float, float><<<blocks, threads, 0, s>>>(
-          static_cast<const float*>(vp), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<float*>(out), B, L, Nq, H, K, Dh, G, n_rows, n_pix);
-      break;
+      return launch_vec<float, float>(vec_bytes, src, vp, sc, out, B, sh, plan, group_lanes, s);
     case 1:
-      msgs_decode_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, threads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(vp), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<__nv_bfloat16*>(out), B, L, Nq, H, K, Dh, G, n_rows, n_pix);
-      break;
-    case 2:
-      msgs_decode_kernel<int8_t, float><<<blocks, threads, 0, s>>>(
-          static_cast<const int8_t*>(vp), xf, yf, sti, wli, hli, pf, rm, sc,
-          static_cast<float*>(out), B, L, Nq, H, K, Dh, G, n_rows, n_pix);
-      break;
+      return launch_vec<__nv_bfloat16, __nv_bfloat16>(vec_bytes, src, vp, sc, out, B, sh, plan,
+                                                      group_lanes, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_vec<int8_t, float>(vec_bytes, src, vp, sc, out, B, sh, plan, group_lanes, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -15,60 +15,18 @@
 // (0.030 ms at 3.35 TB/s) but gathers 348,160 items x 16 corner rows of
 // 128 B (626 MB of L2 sectors for the in-level corners).
 //
-// The design is the gather engine of msgs_gather.cuh (shared with K3, so
-// both sum each point's terms in the same order): per point, x, y, the
-// probability and the level's flat start, width and height; the optional
-// remap sends pruned pixels to the zero sentinel row. f32 Dh 32: 8 lanes
-// per 128 B row, 4 items per warp, all 16 corner rows of an item in
-// flight at once.
+// The design is the gather engine of msgs_gather.cuh (shared with K2 and
+// K3, so all three sum each point's terms in the same order) with its
+// PointSource: per point, x, y, the probability and the level's flat
+// start, width and height; the optional remap sends pruned pixels to the
+// zero sentinel row. The table is the engine's layout with one head group
+// (G = H). f32 Dh 32: 8 lanes per 128 B row, 4 items per warp, all 16
+// corner rows of an item in flight at once.
 #include "msgs_gather.cuh"
 
 namespace repro_torch {
 
-struct FusedSource {
-  const float* x;
-  const float* y;
-  const float* p;
-  const int* st;
-  const int* wl;
-  const int* hl;
-  const int* remap;        // (B, n_pix) pixel -> row, or null
-  int64_t n_pix;
-
-  struct Operands {
-    float x, y, p;
-    int st, wl, hl;
-  };
-  struct Info {};          // nothing per item beyond its batch
-
-  static __device__ Operands dead() { return {0.f, 0.f, 0.f, 0, 1, 1}; }
-  static __device__ Info shfl(const Info&, int) { return {}; }
-  __device__ Info info(int) const { return {}; }
-
-  __device__ Operands load(int64_t pt) const {
-    return {gather::load_once(x + pt), gather::load_once(y + pt), gather::load_once(p + pt),
-            gather::load_once(st + pt), gather::load_once(wl + pt), gather::load_once(hl + pt)};
-  }
-
-  // Branch-free: a pruned point (p 0) or a corner outside the level
-  // loads nothing.
-  __device__ gather::PointRec resolve(const Operands& o, int b, const Info&) const {
-    const gather::Corners cr = gather::corners(o.x, o.y, o.st, o.wl, o.hl);
-    const int* rm = remap + b * n_pix;
-    gather::PointRec r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool ok = o.p != 0.f && cr.in[c];
-      const int row = ok && remap != nullptr ? __ldg(rm + cr.pix[c]) : cr.pix[c];
-      r.row[c] = ok ? row : -1;
-    }
-    r.t0 = cr.t0;
-    r.t1 = cr.t1;
-    r.p = o.p;
-    r.pad = 0.f;
-    return r;
-  }
-};
+using FusedSource = gather::PointSource<>;
 
 template <typename T, typename O, int VEC>
 __global__ void __launch_bounds__(kWarp * gather::kWarps, gather::kMinBlocks)
@@ -134,7 +92,7 @@ extern "C" int msgs_fused_forward(int table_dtype, const void* v, const void* x,
   static const int kItemsize[3] = {4, 2, 1};
   const int64_t per_batch = static_cast<int64_t>(Nq) * H;
   if (table_dtype < 0 || table_dtype > 2 ||
-      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, Dh, v, group_lanes,
+      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, H, Dh, v, group_lanes,
                        lanes_per_row, row_chunks, per_batch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (per_batch == 0 || B == 0) return 0;
@@ -142,7 +100,7 @@ extern "C" int msgs_fused_forward(int table_dtype, const void* v, const void* x,
                         static_cast<const float*>(probs), static_cast<const int*>(st),
                         static_cast<const int*>(wl), static_cast<const int*>(hl),
                         static_cast<const int*>(remap), n_pix};
-  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, n_rows};
+  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, H, n_rows};
   const gather::Plan plan{gather::log2_int(group_lanes), lanes_per_row, row_chunks};
   const auto* sc = static_cast<const float*>(scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

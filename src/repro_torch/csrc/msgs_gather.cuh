@@ -1,13 +1,17 @@
-// The gather engine of K1 (msgs_fused.cu) and K3 (msgs_windowed.cu) for
-// Hopper (sm_90a): Eq. 4 bilinear sampling of compacted table rows plus
-// the probability-weighted sum over an item's points.
+// The gather engine of K1 (msgs_fused.cu), K2 (msgs_decode.cu) and K3
+// (msgs_windowed.cu) for Hopper (sm_90a): Eq. 4 bilinear sampling of
+// table rows plus the probability-weighted sum over an item's points.
 //
 // Replaces the body shared by the TPU kernels msgs_fused_pallas,
-// msgs_fused_packed_pallas and msgs_windowed_msp_pallas
-// (src/repro/kernels/msgs_fused.py _eq4_sample_agg, msgs_windowed.py
-// _make_msp_kernel): per (b, q, h) item, sum over its K points of p_k
-// times the factorised bilinear sample of 4 corner rows of v (B, N_rows,
-// H, Dh).
+// msgs_fused_packed_pallas, msgs_windowed_msp_pallas and
+// _decode_pallas_call (src/repro/kernels/msgs_fused.py _eq4_sample_agg,
+// msgs_windowed.py _make_msp_kernel, msgs_decode.py _make_decode_kernel):
+// per item, sum over its K points of p_k times the factorised bilinear
+// sample of 4 corner rows. An item is (b, q, h) for K1 and K3 and
+// (b, layer, q, h) for K2. The table is (B, H/G, N_rows, G*Dh): head h
+// reads the rows of head group h / G at lane offset (h % G) * Dh. K1's
+// and K3's (B, N_rows, H, Dh) is that layout with G = H, K2's staged
+// table that layout with G = head_pack.
 //
 // What bounds it on the H100: not HBM. The tables fit the 50 MB L2 and
 // the unique bytes take 0.03-0.09 ms at 3.35 TB/s, but every item gathers
@@ -16,15 +20,17 @@
 // and combined per channel. Measured on the card (PERF.md, section 6): the
 // time follows the instructions issued per item and the latency of the
 // dependent loads, and L1 reuse of neighbouring queries' rows matters
-// (reading rows past L1 triples the int8 gather).
+// (reading rows past L1 triples the int8 gather). A decoder layer (K2,
+// 4,800 items at B = 2) is too small to fill the card: its time is the
+// length of one warp's chain of dependent loads.
 //
 // What the design does:
-//   * A warp serves 32 / group_lanes consecutive (q, h) items of one
-//     batch (grid y is the batch). A group of group_lanes lanes serves one
-//     item; lane i of a group loads 16-byte vector i of a row (f32 Dh 32:
-//     8 lanes per 128 B row, 4 items per warp; int8 Dh 32: 2 lanes per
-//     32 B row, 16 items per warp). A row whose bytes or table pointer do
-//     not allow 16 B takes a narrower vector (the VEC template parameter;
+//   * A warp serves 32 / group_lanes consecutive items of one batch (grid
+//     y is the batch). A group of group_lanes lanes serves one item; lane
+//     i of a group loads 16-byte vector i of a row (f32 Dh 32: 8 lanes per
+//     128 B row, 4 items per warp; int8 Dh 32: 2 lanes per 32 B row, 16
+//     items per warp). A row whose bytes or table pointer do not allow
+//     16 B takes a narrower vector (the VEC template parameter;
 //     gather_plan() in kernels/msgs_fused.py picks it).
 //   * Phase A resolves kPass points of every item of the warp at once:
 //     the operands of the warp's points are contiguous and load as whole
@@ -41,17 +47,26 @@
 //     int8 codes widened by one byte permute.
 //   * Eq. 4 stays factorised and in f32 per channel, written with explicit
 //     round-to-nearest operations so that no compiler contraction differs
-//     between the two kernels, and the sum over k runs k = 0, 1, ... in
-//     one register per channel. K1 and K3 therefore give bitwise-equal
-//     outputs wherever K3's windows drop no corner.
+//     between the kernels, and the sum over k runs k = 0, 1, ... in one
+//     register per channel. K1, K2 and K3 therefore give bitwise-equal
+//     outputs on the same points and rows (K3 wherever its windows drop
+//     no corner).
 //   * The output is stored as vectors of the lane's channels, the int8
 //     scale multiplied once after the sum; operands and output stream past
 //     L2 (evict-first) so that the table rows stay there.
 #pragma once
 
-#include "eq4.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace repro_torch {
+
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
 namespace gather {
 
 constexpr int kWarps = 4;          // warps per block
@@ -148,16 +163,17 @@ __device__ __forceinline__ float eq4(float f0, float f1, float f2, float f3, flo
   return __fmaf_rn(b, t1, __fmaf_rn(__fsub_rn(f2, f0), t0, n0));
 }
 
-// What the engine needs of the call: the batch's items (Nq * H, counted
-// in 32 bits), H, K, Dh and the table's rows.
+// What the engine needs of the call: the batch's items (Nq * H, or
+// L * Nq * H for K2, counted in 32 bits), H, K, Dh, the heads G of one
+// table row group (H for K1 and K3) and the table's rows.
 struct Shape {
   unsigned per_batch;
-  int H, K, Dh;
+  int H, K, Dh, G;
   int64_t n_rows;
 };
 
 template <int N>
-__device__ __forceinline__ void load_scale(const float* s, float (&out)[N]) {
+__device__ __forceinline__ void load_floats(const float* s, float (&out)[N]) {
   if constexpr (N % 4 == 0) {
     if ((reinterpret_cast<uintptr_t>(s) & 15u) == 0) {
 #pragma unroll
@@ -250,8 +266,66 @@ __device__ __forceinline__ Corners corners(float x, float y, int st, int wl, int
   return cr;
 }
 
-// A source (FusedSource in msgs_fused.cu, WindowedSource in
-// msgs_windowed.cu) supplies its point Operands and dead(); load(point);
+// Element offset of (row 0, channel 0) of head h of batch b in the
+// (B, H/G, N_rows, G*Dh) table; rows follow at G * Dh elements.
+__device__ __forceinline__ int64_t row_base(const Shape& sh, int b, int h) {
+  const int group = h / sh.G;
+  return ((static_cast<int64_t>(b) * (sh.H / sh.G) + group) * sh.n_rows * sh.G + (h - group * sh.G)) *
+         sh.Dh;
+}
+
+// K1's and K2's points: per point x, y, the probability and the level's
+// flat start, width and height; the optional remap sends pruned pixels to
+// the zero sentinel row. Branch-free: a corner outside the level loads
+// nothing, nor does a pruned point (p 0) unless kKeepPruned (K2's
+// backward needs its rows for d_probs).
+template <bool kKeepPruned = false>
+struct PointSource {
+  const float* x;
+  const float* y;
+  const float* p;
+  const int* st;
+  const int* wl;
+  const int* hl;
+  const int* remap;        // (B, n_pix) pixel -> row, or null
+  int64_t n_pix;
+
+  struct Operands {
+    float x, y, p;
+    int st, wl, hl;
+  };
+  struct Info {};          // nothing per item beyond its batch
+
+  // no corner lies in a 0 x 0 level
+  static __device__ Operands dead() { return {0.f, 0.f, 0.f, 0, 0, 0}; }
+  static __device__ Info shfl(const Info&, int) { return {}; }
+  __device__ Info info(int) const { return {}; }
+
+  __device__ Operands load(int64_t pt) const {
+    return {load_once(x + pt), load_once(y + pt), load_once(p + pt),
+            load_once(st + pt), load_once(wl + pt), load_once(hl + pt)};
+  }
+
+  __device__ PointRec resolve(const Operands& o, int b, const Info&) const {
+    const Corners cr = corners(o.x, o.y, o.st, o.wl, o.hl);
+    const int* rm = remap + b * n_pix;
+    PointRec r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool ok = (kKeepPruned || o.p != 0.f) && cr.in[c];
+      const int row = ok && remap != nullptr ? __ldg(rm + cr.pix[c]) : cr.pix[c];
+      r.row[c] = ok ? row : -1;
+    }
+    r.t0 = cr.t0;
+    r.t1 = cr.t1;
+    r.p = o.p;
+    r.pad = 0.f;
+    return r;
+  }
+};
+
+// A source (PointSource above, WindowedSource in msgs_windowed.cu)
+// supplies its point Operands and dead(); load(point);
 // per-item Info with info(q) and shfl(info, lane); and resolve(operands,
 // b, info), which turns one point into its PointRec.
 //
@@ -317,9 +391,8 @@ __device__ __forceinline__ void gather_items(const Src& src, const T* __restrict
   const typename Src::Info info = src.info(static_cast<int>(q));
   const int H = sh.H;
   const int Dh = sh.Dh;
-  const int row_bytes = H * Dh * static_cast<int>(sizeof(T));   // below 2 GB: plan_ok
-  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) +
-                            (static_cast<int64_t>(b) * sh.n_rows * H + h) * Dh * sizeof(T);
+  const int row_bytes = sh.G * Dh * static_cast<int>(sizeof(T));   // below 2 GB: plan_ok
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) + row_base(sh, b, h) * sizeof(T);
   const int n_pass = (sh.K + kPass - 1) / kPass;
   for (int r = 0; r < plan.row_chunks; ++r) {
     const int chunk = i + (r << plan.group_shift);   // vector index within the row
@@ -364,7 +437,7 @@ __device__ __forceinline__ void gather_items(const Src& src, const T* __restrict
     if (act) {
       if (scale != nullptr) {
         float sc[kCh];
-        load_scale<kCh>(scale + (static_cast<int64_t>(b) * H + h) * Dh + chunk * kCh, sc);
+        load_floats<kCh>(scale + (static_cast<int64_t>(b) * H + h) * Dh + chunk * kCh, sc);
 #pragma unroll
         for (int c = 0; c < kCh; ++c) acc[c] = __fmul_rn(acc[c], sc[c]);
       }
@@ -388,20 +461,23 @@ inline unsigned grid_blocks(int64_t per_batch, int group_lanes) {
 constexpr int kMaxGridY = 65535;
 
 // Checks the host plan against the row: a vector width that divides the
-// row and the table pointer, lanes_per_row vectors per row, a power-of-two
-// group of at most 32 lanes and enough chunks to cover the row; and a
-// batch of fewer than 2^31 items and a table row below 2 GB, which the
-// engine counts in 31 bits.
-inline bool plan_ok(int vec, int itemsize, int H, int Dh, const void* v, int group_lanes,
+// head's row, the row group's stride G * Dh and the table pointer (so every
+// row of every head starts on a vector), lanes_per_row vectors per row, a
+// power-of-two group of at most 32 lanes and enough chunks to cover the
+// row; G dividing H; and a batch of fewer than 2^31 items and a row group
+// below 2 GB, which the engine counts in 31 bits.
+inline bool plan_ok(int vec, int itemsize, int H, int G, int Dh, const void* v, int group_lanes,
                     int lanes_per_row, int row_chunks, int64_t per_batch) {
   const int row = Dh * itemsize;
+  if (G < 1 || H % G != 0) return false;
   if (vec < itemsize || vec > 16 || (vec & (vec - 1)) != 0 || row % vec != 0) return false;
+  if ((static_cast<int64_t>(G) * row) % vec != 0) return false;
   if (reinterpret_cast<uintptr_t>(v) % vec != 0) return false;
   if (lanes_per_row != row / vec) return false;
   if (group_lanes < 1 || group_lanes > kWarp || (group_lanes & (group_lanes - 1)) != 0)
     return false;
   if (per_batch + kWarps * kWarp >= (int64_t{1} << 31)) return false;
-  if (static_cast<int64_t>(H) * row >= (int64_t{1} << 31)) return false;
+  if (static_cast<int64_t>(G) * row >= (int64_t{1} << 31)) return false;
   return row_chunks == (lanes_per_row + group_lanes - 1) / group_lanes;
 }
 

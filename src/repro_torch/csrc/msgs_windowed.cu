@@ -187,7 +187,7 @@ extern "C" int msgs_windowed_forward(int table_dtype, const void* v, const void*
   static const int kItemsize[3] = {4, 2, 1};
   const int64_t per_batch = static_cast<int64_t>(Nq) * H;
   if (L < 1 || L > gather::kMaxLevels || table_dtype < 0 || table_dtype > 2 ||
-      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, Dh, v, group_lanes,
+      !gather::plan_ok(vec_bytes, kItemsize[table_dtype], H, H, Dh, v, group_lanes,
                        lanes_per_row, row_chunks, per_batch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (per_batch == 0 || B == 0) return 0;
@@ -203,7 +203,7 @@ extern "C" int msgs_windowed_forward(int table_dtype, const void* v, const void*
                static_cast<const int*>(remap), static_cast<const int*>(qtile),
                static_cast<const int2*>(starts),
                starts_batch, v, static_cast<const float*>(scale), out, B, n_pix};
-  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, n_rows};
+  const gather::Shape sh{static_cast<unsigned>(per_batch), H, K, Dh, H, n_rows};
   const gather::Plan plan{gather::log2_int(group_lanes), lanes_per_row, row_chunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (table_dtype) {

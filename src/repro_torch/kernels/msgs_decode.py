@@ -5,8 +5,15 @@ The CUDA kernels replace the TPU kernel ``_decode_pallas_call``
 (``repro/kernels/msgs_decode.py``), behind ``msgs_decode_pallas`` (one
 layer) and ``msgs_decode_layers_pallas`` (L stacked layers in one
 launch), and its ``jax.custom_vjp`` backward ``_msgs_decode_bwd``, which
-is ``jax.vjp`` of ``msgs_decode_ref``: ``csrc/msgs_decode.cu`` samples,
-``csrc/msgs_decode_bwd.cu`` differentiates.
+is ``jax.vjp`` of ``msgs_decode_ref``: ``csrc/msgs_decode.cu`` samples
+through the gather engine of K1 and K3 (``csrc/msgs_gather.cuh``, with
+the staged table's row stride), ``csrc/msgs_decode_bwd.cu``
+differentiates. The backward is deterministic: per tile of one (b, h)
+plane's items its corners are sorted by row (stable) and each row's
+terms summed in slot order, then the tiles' partials of a row are added
+in tile order and every row of d_vp is written once (no zero fill, no
+atomics); the int8 scale gradient is an ordered sum of per-tile
+partials. Repeated on the same operands it gives bitwise-equal outputs.
 
 :func:`stage_decode_table` lays the (B, N_rows, H, Dh) table out ONCE per
 memory in the decode launch layout (B, H/G, N_rows, G·Dh) — ``G =
@@ -31,10 +38,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
-                                            check_device, check_points,
-                                            check_remap, check_table,
-                                            out_dtype, raise_on_error,
-                                            stream_ptr)
+                                            GatherPlan,
+                                            check_device, check_gather_sizes,
+                                            check_points, check_remap,
+                                            check_table, gather_plan,
+                                            out_dtype, pointer_alignment,
+                                            raise_on_error, stream_ptr)
 
 #: Number of forward kernel launches made by this module's wrappers.
 LAUNCHES = 0
@@ -170,14 +179,23 @@ def msgs_decode_backward_plain(vp, x_px, y_px, start, wl, hl, probs, g_out,
     return None, d_x, d_y, d_p, d_scale.to(scale.dtype)
 
 
-#: argument types of the C entries: table code; pointers; B, L, Nq, H, K,
-#: Dh, G; n_rows, n_pix; the stream. The forward takes 10 pointers
-#: (staged table, 6 point operands, remap, scale, out), the backward 15
-#: (the same 9 inputs, g_out, d_vp, d_scale, d_x, d_y, d_probs).
-ARGTYPES = {name: [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
-            + [ctypes.c_int] * 7 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-            for name, n_ptr in (("msgs_decode_forward", 10),
-                                ("msgs_decode_backward", 15))}
+#: argument types of the C entries. msgs_decode_forward: table code; 10
+#: pointers (staged table, 6 point operands, remap, scale, out); B, L, Nq,
+#: H, K, Dh, G; n_rows, n_pix; the table's gather plan; the stream.
+#: msgs_decode_backward: table code; 16 pointers (the same 9 inputs,
+#: g_out, d_vp, d_scale, d_x, d_y, d_probs, scratch); the same sizes; the
+#: plans of the table's and g_out's rows; the stream.
+#: msgs_decode_backward_scratch: table code, B, L, Nq, H, K, Dh, G;
+#: n_rows; group_lanes, table_grad; the address of the byte count it
+#: writes.
+_SIZES = [ctypes.c_int] * 7 + [ctypes.c_int64] * 2
+ARGTYPES = {
+    "msgs_decode_forward": [ctypes.c_int] + [ctypes.c_void_p] * 10 + _SIZES
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "msgs_decode_backward": [ctypes.c_int] + [ctypes.c_void_p] * 16 + _SIZES
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "msgs_decode_backward_scratch": [ctypes.c_int] * 8 + [ctypes.c_int64]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,6 +235,22 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def plan_args(plan: GatherPlan):
+    """A gather plan as the C entries take it."""
+    return plan.vec_bytes, plan.group_lanes, plan.lanes_per_row, plan.row_chunks
+
+
+def table_plan(vp: torch.Tensor, n_items: int, head_pack: int,
+               dh: int) -> GatherPlan:
+    """The engine's plan for the staged table's rows, whose head h rows
+    follow every ``head_pack * dh`` elements; ``n_items`` (layer, query,
+    head) items per batch."""
+    check_gather_sizes(n_items, head_pack * dh * vp.element_size(),
+                       "msgs_decode")
+    return gather_plan(dh, vp.element_size(), pointer_alignment(vp),
+                       stride=head_pack * dh)
+
+
 def _launch(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack,
             dh) -> torch.Tensor:
     global LAUNCHES
@@ -225,12 +259,13 @@ def _launch(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack,
     out = torch.empty((b, n_layers, nq, h, dh), dtype=out_dtype(vp.dtype),
                       device=vp.device)
     n_pix = 0 if remap is None else remap.shape[1]
+    plan = table_plan(vp, n_layers * nq * h, head_pack, dh)
     with torch.cuda.device(vp.device):
         code = _entry("msgs_decode", "msgs_decode_forward")(
             TABLE_CODES[vp.dtype], ptr(vp), ptr(x_px), ptr(y_px), ptr(start),
             ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(out),
             b, n_layers, nq, h, k, dh, head_pack, n_rows, n_pix,
-            stream_ptr(vp.device))
+            *plan_args(plan), stream_ptr(vp.device))
     LAUNCHES += 1
     raise_on_error(code, "msgs_decode")
     return out
@@ -238,27 +273,38 @@ def _launch(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack,
 
 def _launch_backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap,
                      scale, head_pack, dh, table_grad):
+    """Every output and the scratch are ``torch.empty``, sized from the
+    shapes alone: the kernels write each element once, and nothing waits
+    for the host."""
     global LAUNCHES_BWD
     b, _, n_rows, _ = vp.shape
     _, n_layers, nq, h, k = x_px.shape
+    dev = vp.device
     g = g_out.to(torch.float32).contiguous()
     d_x, d_y, d_p = (torch.empty_like(t) for t in (x_px, y_px, probs))
-    # f32 atomics accumulate into a zeroed buffer; bf16 is cast at the end
-    d_v = torch.zeros(vp.shape, dtype=torch.float32, device=vp.device) \
-        if table_grad and scale is None else None
-    d_s = None if scale is None else torch.zeros_like(scale)
+    plan = table_plan(vp, n_layers * nq * h, head_pack, dh)
+    table_grad = table_grad and scale is None
+    d_v = torch.empty(vp.shape, dtype=vp.dtype, device=dev) if table_grad else None
+    d_s = None if scale is None else torch.empty_like(scale)
+    sizes = (b, n_layers, nq, h, k, dh, head_pack, n_rows)
+    nbytes = ctypes.c_int64(0)
+    code = _entry("msgs_decode_bwd", "msgs_decode_backward_scratch")(
+        TABLE_CODES[vp.dtype], *sizes, plan.group_lanes,
+        int(table_grad), ctypes.addressof(nbytes))
+    raise_on_error(code, "msgs_decode_backward_scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev) \
+        if nbytes.value else None
     n_pix = 0 if remap is None else remap.shape[1]
-    with torch.cuda.device(vp.device):
+    g_plan = gather_plan(dh, 4, pointer_alignment(g))
+    with torch.cuda.device(dev):
         code = _entry("msgs_decode_bwd", "msgs_decode_backward")(
             TABLE_CODES[vp.dtype], ptr(vp), ptr(x_px), ptr(y_px), ptr(start),
             ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(g),
-            ptr(d_v), ptr(d_s), ptr(d_x), ptr(d_y), ptr(d_p),
-            b, n_layers, nq, h, k, dh, head_pack, n_rows, n_pix,
-            stream_ptr(vp.device))
+            ptr(d_v), ptr(d_s), ptr(d_x), ptr(d_y), ptr(d_p), ptr(scratch),
+            *sizes, n_pix, *plan_args(plan), *plan_args(g_plan),
+            stream_ptr(dev))
     LAUNCHES_BWD += 1
     raise_on_error(code, "msgs_decode_backward")
-    if d_v is not None and d_v.dtype != vp.dtype:
-        d_v = d_v.to(vp.dtype)
     return d_v, d_x, d_y, d_p, d_s
 
 
@@ -283,7 +329,7 @@ def msgs_decode_backward(staged: DecodeStagedTable, x_px, y_px, start, wl, hl,
 def _backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap, scale,
               head_pack, dh, table_grad):
     """``table_grad`` False (the staged table needs no gradient) skips the
-    table gradient, and on the card its zero fill and atomics."""
+    table gradient, and on the card its corner keys and table kernel."""
     if vp.device.type == "cpu":
         d_v, *rest = msgs_decode_backward_plain(
             vp, x_px, y_px, start, wl, hl, probs, g_out, remap, scale,

@@ -15,7 +15,7 @@ when the tensors lie on the CPU; for CUDA tensors they launch the kernel
 or raise. ``LAUNCHES`` counts kernel launches.
 
 The kernel is the gather engine of ``csrc/msgs_gather.cuh``, shared with
-K3: :func:`gather_plan` says how the lanes of a warp cover a table row
+K2 and K3: :func:`gather_plan` says how the lanes of a warp cover a table row
 (vector width, lanes per item, items per warp).
 """
 from __future__ import annotations
@@ -183,14 +183,19 @@ class GatherPlan(NamedTuple):
     channels_per_lane: int  # vec_bytes // itemsize, per pass
 
 
-def gather_plan(dh: int, itemsize: int, align: int = 16) -> GatherPlan:
-    """The widest vector (16 B at most) that divides the row's bytes and
-    the table pointer's alignment ``align``; lanes per row; the smallest
-    power-of-two lane group that holds them (at most a warp, the rest in
-    ``row_chunks`` passes)."""
+def gather_plan(dh: int, itemsize: int, align: int = 16,
+                stride: Optional[int] = None) -> GatherPlan:
+    """The widest vector (16 B at most) that divides the row's bytes, the
+    stride between one head's rows (``stride`` elements, default ``dh``;
+    K2's staged table: ``head_pack * dh``) and the table pointer's
+    alignment ``align``, so that every row of every head starts on a
+    vector; lanes per row; the smallest power-of-two lane group that holds
+    them (at most a warp, the rest in ``row_chunks`` passes)."""
     row = dh * itemsize
+    step = (dh if stride is None else stride) * itemsize
     vec = next(w for w in VECTOR_WIDTHS
-               if w >= itemsize and row % w == 0 and align % w == 0)
+               if w >= itemsize and row % w == 0 and step % w == 0
+               and align % w == 0)
     lanes = row // vec
     group = min(WARP, 1 << (lanes - 1).bit_length())
     return GatherPlan(vec, lanes, group, WARP // group, -(-lanes // group),

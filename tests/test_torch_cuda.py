@@ -9,8 +9,9 @@ made inside each test, never at import). On a machine with an H100:
 
 Tolerances as in chip_smoke.py: float32 rtol = atol = 1e-5; int8
 1e-5 * 127 * max scale; the backward's table and scale gradients, which
-the kernel sums with float32 atomics in an order that changes from run to
-run, rtol 1e-5 and atol 1e-5 of their largest entry."""
+the kernels sum in another order than the plain version, rtol 1e-5 and
+atol 1e-5 of their largest entry. Two backward calls on the same operands
+must agree bit for bit."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -443,3 +444,114 @@ def test_flash_decode_kernel_empty_split_and_empty_row(cuda, dtype):
     want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=512)
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+
+
+def _decode_call(g, levels, b, n_layers, nq, h, k, dh, dtype, hp, device,
+                 compact, offset=0):
+    """A staged table (B, H/hp, N_rows, hp * dh) of ``dtype``, ``offset``
+    elements into its storage, and stacked points (B, L, Nq, H, K) that
+    spill past every level edge; some p are 0."""
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.msda.sampling import level_meta
+    shape = (b, n_layers, nq, h, k)
+    lvl = torch.randint(0, len(levels), shape, generator=g)
+    starts, ws, hs, _ = level_meta(levels, device="cpu")
+    st, wl, hl = (t[lvl].to(torch.int32) for t in (starts, ws, hs))
+    x = torch.rand(shape, generator=g) * (wl + 2).float() - 1
+    y = torch.rand(shape, generator=g) * (hl + 2).float() - 1
+    p = torch.softmax(torch.randn(shape, generator=g), -1)
+    p = torch.where(torch.rand(shape, generator=g) < 0.1, 0.0, p)
+    n_pix = sum(a * c for a, c in levels)
+    n_rows = (n_pix * 3) // 5 + 1 if compact else n_pix
+    v = _table(g, (b, h // hp, n_rows, hp * dh), dtype, device, offset)
+    remap = scale = None
+    if compact:
+        v[:, :, -1] = 0
+        remap = torch.randint(0, n_rows, (b, n_pix), generator=g)
+        remap = remap.to(torch.int32).to(device)
+    if dtype == "int8":
+        scale = (torch.rand((b, h // hp, hp * dh), generator=g) * 0.01
+                 + 0.001).to(device)
+    staged = msgs_decode.DecodeStagedTable(v=v, remap=remap, n_rows=n_rows,
+                                           head_pack=hp, dh=dh, table_bytes=0,
+                                           scale=scale)
+    return staged, [t.contiguous().to(device) for t in (x, y, st, wl, hl, p)]
+
+
+def _decode_plain(staged, pts):
+    from repro_torch.kernels import msgs_decode
+    return msgs_decode.msgs_decode_plain(
+        staged.v, *pts, staged.remap, staged.scale,
+        head_pack=staged.head_pack, dh=staged.dh)
+
+
+def test_msgs_decode_kernel_at_the_512px_path_shape(cuda):
+    """K2 at the 512 px decoder layer's shape: points (2, 300, 8, 4), a
+    compact float32 staged table (2, 2, 13057, 128)."""
+    from repro_torch.kernels import msgs_decode
+    g = torch.Generator().manual_seed(7)
+    levels = tuple((512 // s, 512 // s) for s in (4, 8, 16, 32))
+    staged, pts = _decode_call(g, levels, 2, 1, 300, 8, 4, 32, "float32", 4,
+                               cuda, True)
+    assert tuple(staged.v.shape) == (2, 2, 13057, 128)
+    before = msgs_decode.LAUNCHES
+    got = msgs_decode.msgs_decode(staged, *(t[:, 0] for t in pts))
+    torch.cuda.synchronize()
+    assert msgs_decode.LAUNCHES == before + 1
+    torch.testing.assert_close(got, _decode_plain(staged, pts)[:, 0],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hp", [1, 4])
+@pytest.mark.parametrize("dh,offset", [(12, 0), (32, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_msgs_decode_kernel_gather_plan_widths(cuda, dtype, dh, offset, hp):
+    """K2 on rows the 16 B vector does not fit: Dh 12 (rows of 48, 24 and
+    12 B) and a staged table one element off its 16 B alignment, with
+    head groups of 1 and 4 and L = 3 stacked layers."""
+    from repro_torch.kernels import msgs_decode
+    g = torch.Generator().manual_seed(8)
+    staged, pts = _decode_call(g, ((13, 17), (7, 9), (4, 5), (2, 3)), 2, 3,
+                               19, 4, 4, dh, dtype, hp, cuda, True, offset)
+    plan = msgs_decode.table_plan(staged.v, 3 * 19 * 4, hp, dh)
+    assert plan.vec_bytes < 16 or plan.lanes_per_row % 2 == 1
+    got = msgs_decode.msgs_decode_layers(staged, *pts)
+    torch.testing.assert_close(got, _decode_plain(staged, pts),
+                               **_gather_tolerance(got, staged.scale))
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_msgs_decode_backward_is_bitwise_repeatable(cuda, dtype, compact):
+    """Two backward calls on the same operands give bitwise-equal d_vp,
+    d_x, d_y, d_probs and d_scale, and agree with the plain version; a
+    bf16 table gets a bf16 d_vp."""
+    from repro_torch.kernels import msgs_decode
+    g = torch.Generator().manual_seed(9)
+    staged, pts = _decode_call(g, ((16, 20), (8, 10), (4, 5), (2, 3)), 2, 3,
+                               30, 8, 4, 32, dtype, 4, cuda, compact)
+    g_out = torch.randn(pts[0].shape[:4] + (32,), generator=g).to(cuda)
+    first = msgs_decode.msgs_decode_backward(staged, *pts, g_out)
+    again = msgs_decode.msgs_decode_backward(staged, *pts, g_out)
+    torch.cuda.synchronize()
+    assert (first[0] is None) == (dtype == "int8")
+    assert (first[4] is None) == (dtype != "int8")
+    for a, b in zip(first, again):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    if dtype != "int8":
+        assert first[0].dtype == staged.v.dtype
+    want = msgs_decode.msgs_decode_backward_plain(
+        staged.v, *pts, g_out, staged.remap, staged.scale, head_pack=4, dh=32)
+    atol = 1e-5 if staged.scale is None else \
+        1e-5 * 127 * float(staged.scale.max())
+    for i, (a, w) in enumerate(zip(first, want)):
+        if w is None:
+            continue
+        if i in (0, 4):
+            tol = dict(rtol=2 ** -7 if a.dtype == torch.bfloat16 else 1e-5,
+                       atol=1e-5 * float(w.float().abs().max()))
+        else:
+            tol = dict(rtol=1e-5, atol=atol)
+        torch.testing.assert_close(a, w, **tol)

@@ -209,7 +209,8 @@ def test_backward_wrapper_rejects_a_misshapen_gradient():
 
 @pytest.mark.parametrize("source,entry", [
     ("msgs_decode.cu", "msgs_decode_forward"),
-    ("msgs_decode_bwd.cu", "msgs_decode_backward")])
+    ("msgs_decode_bwd.cu", "msgs_decode_backward"),
+    ("msgs_decode_bwd.cu", "msgs_decode_backward_scratch")])
 def test_ctypes_declarations_match_the_c_entries(source, entry):
     """ctypes checks only the argument count against ``argtypes``, not
     against the C function: each declared type must match the C
