@@ -45,12 +45,20 @@ Phases, each printing one JSON line:
                 prefill products must take "wgmma");
   4. serve    — the port's DetrServeEngine on the full-width
                 deformable-DETR-DEFA detector at 512 px (random seeded
-                weights, float32) with backend="auto": 4 requests, launch
-                counters, and the same forward through torch_gather;
+                weights, float32) with backend="auto": the engine warms the
+                bucket up and captures its forward in one CUDA graph at
+                construction, then serves 4 requests by replays; launch
+                counters (the wrappers run at the warm-up and the capture
+                only), compile_count 1 before and after, the engine's JSONL
+                log (REPRO_OBS_JSONL in a temporary directory) through
+                ``python -m repro_torch.obs.validate --require
+                msda_compiles_total serve_requests_total``, and the same
+                forward through torch_gather;
      serve_1024 — the same detector at the 1024 px bucket with an int8
                 value table and backend="cuda_windowed" (K3 in the
-                encoder, K2 in the decoder): 4 requests, launch counters,
-                and the same forward through torch_gather and cuda_fused;
+                encoder, K2 in the decoder), captured the same way: 4
+                requests, launch counters, and the same forward through
+                torch_gather and cuda_fused;
      train    — the full-width deformable-DETR-DEFA detector (512 px,
                 float32, decoder head) trained for 3 AdamW steps at B = 2
                 on one seeded synthetic batch with backend="cuda_decode"
@@ -63,12 +71,30 @@ Phases, each printing one JSON line:
                 step, whose torch_gather encoder adds with index_add_);
      lm_serve — minitron-4b at its published width and depth (bf16,
                 random weights drawn on the card from the seed) served by
-                ServeEngine (max_batch 4, cache_len 4096): 4 prompts of 37,
-                128, 300 and 512 tokens, 16 greedy tokens each; launch
-                counters (32 K5 per decode step, no K4), tokens in range,
-                finite logits, peak memory, the next decode step's logits
+                ServeEngine (max_batch 4, cache_len 4096), whose decode
+                step is one CUDA graph captured at construction: 4 prompts
+                of 37, 128, 300 and 512 tokens, 16 greedy tokens each;
+                launch counters (K5 at the warm-up step and the capture
+                only, no K4), tokens in range, finite logits, peak memory,
+                the next decode step replayed against the eager step and
                 through K5 against the plain attention, and how often the
-                greedy streams agree with a plain-attention run;
+                greedy streams agree with an eager run and with a
+                plain-attention run;
+     capture  — what the graphs do, for the 512 px bucket (and the same
+                detector without the DEFA knobs), the 1024 px int8 bucket
+                and the LM decode step: the replay against the eager
+                forward on the same inputs (DEFA's limits; 1e-4 without
+                the knobs; lm_serve's logit limits) and whether they are
+                bitwise equal; per replay from torch.profiler: K1 6 and K2
+                6 (512 px), K3 6 and K2 6 (1024 px), K5 32 split and 32
+                merge kernels (decode step), one cudaGraphLaunch, no
+                pageable host-to-device copy (the images come from pinned
+                staging buffers); eager against captured wall clock (median, p10,
+                p90 over 50 steps), device busy ms and idle share, peak
+                allocated bytes, and the memory the engine holds after
+                construction (its graphs' pool); one engine with both the
+                512 and the 1024 px buckets serving both sizes and two
+                pad-ups with compile_count 2 throughout;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
@@ -90,11 +116,14 @@ Then the kernel summary line and, last, the contract line
 without a CUDA device, or without the repository beside it, the script
 exits non-zero before printing any result.
 """
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -129,6 +158,7 @@ LM_MAX_BATCH = 4
 LM_CACHE_LEN = 4096              # minitron's context length
 LM_PROMPTS = (37, 128, 300, 512)
 LM_NEW_TOKENS = 16
+CAPTURE_STEPS = 50               # wall-clock samples per path, eager and captured
 OUTPUTS = ("cls_logits", "boxes")
 LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
                 "aggregation (F.grid_sample samples a dense per-level map and "
@@ -911,39 +941,246 @@ def defa_agreement(label, a, g, compare, median=None):
             raise AssertionError(f"{label} {name}: {compare}")
 
 
+@contextlib.contextmanager
+def obs_log_env():
+    """``REPRO_OBS_JSONL`` pointed at a fresh file in a temporary directory
+    for the block: an engine built with ``obs=None`` logs its events
+    there. Yields the path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.jsonl")
+        old = os.environ.get("REPRO_OBS_JSONL")
+        os.environ["REPRO_OBS_JSONL"] = path
+        try:
+            yield path
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_OBS_JSONL", None)
+            else:
+                os.environ["REPRO_OBS_JSONL"] = old
+
+
+def validate_log(path):
+    """The engine's JSONL log through ``python -m repro_torch.obs.validate
+    --require msda_compiles_total serve_requests_total`` (a process of its
+    own), and the log's event counts."""
+    import repro_torch
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    cmd = [sys.executable, "-m", "repro_torch.obs.validate", "--jsonl", path,
+           "--require", "msda_compiles_total", "serve_requests_total"]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": src})
+    if run.returncode != 0:
+        raise AssertionError(f"obs validator rc {run.returncode}: "
+                             f"{run.stdout} {run.stderr}")
+    types = [json.loads(line)["type"] for line in open(path) if line.strip()]
+    return {"validator_rc": run.returncode, "validator": run.stdout.strip(),
+            "events": len(types),
+            "by_type": {t: types.count(t) for t in sorted(set(types))}}
+
+
+def wall_stats(fn, n=CAPTURE_STEPS):
+    """Host-clock ms of ``fn`` ending in a synchronize: ``n`` samples after
+    a warm-up; median, p10 and p90."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    dec = statistics.quantiles(ts, n=10)
+    return {"n": n, "median_ms": statistics.median(ts), "p10_ms": dec[0],
+            "p90_ms": dec[-1]}
+
+
+def replay_counts(fn, kernel_names):
+    """One call of ``fn`` under the profiler (after a warm-up): device
+    launches of each kernel whose name contains one of ``kernel_names``,
+    the host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls, and
+    the host-to-device copies by host memory kind."""
+    dev, cpu, _ = profile(fn)
+    count = lambda evts, frag: sum(e.count for e in evts if frag in e.key)
+    return {"kernels": {n: count(dev, n) for n in kernel_names},
+            "device_kernels": sum(e.count for e in dev),
+            "cudaGraphLaunch": count(cpu, "cudaGraphLaunch"),
+            "cudaLaunchKernel": count(cpu, "cudaLaunchKernel"),
+            "htod_pageable": count(dev, "Memcpy HtoD (Pageable"),
+            "htod_pinned": count(dev, "Memcpy HtoD (Pinned")}
+
+
+def check_replay(label, counts, want_kernels, want_pinned):
+    """One replay: each kernel of the path launched as often as in one
+    forward, one graph launch, no pageable host-to-device copy and at
+    most ``want_pinned`` pinned ones (the profiler has been seen to miss
+    the record of that one copy in some runs; ``detector_capture`` checks
+    that the staging buffers are pinned)."""
+    bad = {k: (counts["kernels"][k], n) for k, n in want_kernels.items()
+           if counts["kernels"][k] != n}
+    if bad or counts["cudaGraphLaunch"] != 1 or counts["htod_pageable"] \
+            or counts["htod_pinned"] > want_pinned:
+        raise AssertionError(f"{label}: one replay {counts}; expected kernels "
+                             f"{want_kernels}, 1 cudaGraphLaunch, 0 pageable "
+                             f"and at most {want_pinned} pinned HtoD copies")
+
+
+def step_timing(fns):
+    """For each labelled step function: wall-clock median, p10 and p90
+    over CAPTURE_STEPS steps; device busy ms and idle share of one
+    profiled step (the profiler slows the host, so that idle share is an
+    upper bound), and 1 - busy / median; the peak allocated bytes over
+    the steps (a graph's pool is reserved, not allocated, during a
+    replay: ``engine_memory`` counts it)."""
+    import torch
+    out = {}
+    for label, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = wall_stats(fn)
+        rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        prof = forward_profile(fn)
+        busy = prof["device_busy_ms"]
+        rec.update(device_busy_ms=busy, idle_share=prof["idle_share"],
+                   profiled_wall_ms=prof["wall_ms"],
+                   idle_share_at_median=max(0.0, 1 - busy / rec["median_ms"]),
+                   device_kernels=prof["n_kernels"])
+        out[label] = rec
+    return out
+
+
+def memory_mark():
+    """Garbage collected, cached blocks released and the peak reset: the
+    (reserved, allocated) bytes before an engine is built."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def engine_memory(before):
+    """Peak allocated bytes over an engine's construction (warm-up and
+    capture); the live bytes it added (static buffers, the graphs' outputs,
+    cached constants and, for the LM, its KV cache); the reserved bytes
+    it added with the cached blocks released (it undercounts where the
+    engine reused blocks that could not be released); and the bytes of
+    the segments in CUDA-graph private pools, the graphs' own memory (only
+    the engine just built holds graphs at that point)."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    return {"construct_peak_allocated_bytes": peak,
+            "allocated_growth_bytes": torch.cuda.memory_allocated() - before[1],
+            "held_bytes": torch.cuda.memory_reserved() - before[0],
+            "graph_pool_bytes": pools}
+
+
+def detector_capture(engine, res, images, kernels, defa, timing=True):
+    """The bucket's captured forward against the engine's eager forward
+    on the same B = 2 images: agreement (held to DEFA's limits, or to
+    1e-4 without the DEFA knobs) and whether they are bitwise equal; one
+    replay's kernel launches, graph launches and copies; and, with
+    ``timing``, eager against captured wall clock, device busy and idle
+    share. Eager takes the images from host memory as the eager engine
+    did (a pageable copy)."""
+    import numpy as np
+    import torch
+    batch = images[:MAX_BATCH]
+
+    def captured():
+        cls_logits, boxes, ready = engine.dispatch(batch, res)
+        ready.synchronize()
+        return cls_logits, boxes
+
+    def eager():
+        x = torch.from_numpy(np.stack(batch)).to(engine.device)
+        return engine.forward(x, res)[:2]
+    got, want = captured(), eager()
+    torch.cuda.synchronize()
+    compare = {}
+    if defa:
+        defa_agreement("captured_vs_eager", got, want, compare)
+    else:
+        compare.update({f"captured_vs_eager/{k}": v
+                        for k, v in abs_errors(got, want).items()})
+        for i, name in enumerate(OUTPUTS):
+            if not torch.allclose(got[i], want[i], rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"captured vs eager {name}: {compare}")
+    rec = {"bucket": res, "agreement": compare,
+           "bitwise_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+           "replay": replay_counts(captured, tuple(kernels)),
+           "staging_pinned": all(buf.is_pinned()
+                                 for buf in engine._graphs[res].pinned)}
+    check_replay(f"{res} px bucket", rec["replay"], kernels, want_pinned=1)
+    if not rec["staging_pinned"]:
+        raise AssertionError(f"{res} px bucket: staging buffers not pinned")
+    if timing:
+        rec["steps"] = step_timing({"eager": eager, "captured": captured})
+    return rec
+
+
 def phase_serve(device):
+    """The 512 px bucket: the engine captures it at construction and
+    serves 4 requests by replays (K1 and K2 inside); the replay against
+    the eager forward, per-replay counts, wall clock, and the engine's
+    telemetry log through the validator."""
     import numpy as np
     import torch
     from repro_torch.core.detector import detector_apply, init_detector
     from repro_torch.kernels import msgs_decode, msgs_fused
+    from repro_torch.obs import Observability
     from repro_torch.serve import DetrServeEngine
 
     cfg = slice_config("deformable-detr-defa")
     params = init_detector(cfg, torch.Generator().manual_seed(SEED),
                            device=device)
     images = seeded_images(N_REQUESTS)
-    with DetrServeEngine(cfg, params, max_batch=MAX_BATCH, backend="auto",
-                         device=device) as engine:
-        plan = engine.buckets[0].plan
-        with Recorder(msgs_fused, "msgs_fused", 6) as rec_f, \
-                Recorder(msgs_decode, "msgs_decode", 6) as rec_d:
-            msgs_fused.LAUNCHES = 0
-            msgs_decode.LAUNCHES = 0
+    n_blocks, n_layers = cfg.encoder.n_blocks, cfg.decoder.n_layers
+    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
+    with obs_log_env() as log:
+        before = memory_mark()
+        msgs_fused.LAUNCHES = 0
+        msgs_decode.LAUNCHES = 0
+        with DetrServeEngine(cfg, params, max_batch=MAX_BATCH, backend="auto",
+                             device=device) as engine:
+            memory = engine_memory(before)
+            compiles = engine.compile_count
+            plan = engine.buckets[0].plan
             reqs, wall = serve_requests(engine, images)
             launches = {"msgs_fused": msgs_fused.LAUNCHES,
                         "msgs_decode": msgs_decode.LAUNCHES}
-        batches = engine.batches_dispatched
+            batches = engine.batches_dispatched
+            capture = detector_capture(
+                engine, IMG, images,
+                {"msgs_fused_kernel": n_blocks, "msgs_decode_kernel": n_layers},
+                defa=True)
+            capture.update(memory=memory, compile_count=[
+                compiles, engine.compile_count])
+            # the eager forward of the first batch: the timing phase's
+            # operands of each kernel
+            with Recorder(msgs_fused, "msgs_fused", n_blocks) as rec_f, \
+                    Recorder(msgs_decode, "msgs_decode", n_layers) as rec_d:
+                engine.forward(x, IMG)
+        obs = validate_log(log)
     check_requests(reqs)
-    n_blocks = cfg.encoder.n_blocks
-    n_layers = cfg.decoder.n_layers
-    if batches != N_REQUESTS // MAX_BATCH \
-            or launches["msgs_fused"] != n_blocks * batches \
-            or launches["msgs_decode"] != n_layers * batches:
-        raise AssertionError(f"launch counts {launches} over {batches} batches; "
-                             f"expected {n_blocks} fused and {n_layers} decode "
-                             "launches per batch")
+    # every request was served by replays: the wrappers ran at the warm-up
+    # forward and at the capture, once per block or layer each
+    if batches != N_REQUESTS // MAX_BATCH or compiles != 1 \
+            or capture["compile_count"] != [1, 1] \
+            or launches != {"msgs_fused": 2 * n_blocks,
+                            "msgs_decode": 2 * n_layers}:
+        raise AssertionError(f"launch counts {launches} over {batches} batches, "
+                             f"compile_count {capture['compile_count']}; "
+                             f"expected {2 * n_blocks} fused and "
+                             f"{2 * n_layers} decode launches (warm-up and "
+                             "capture) and one preparation")
 
-    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
     compare = {}
     # no pruning or quantization: no discrete decision can flip, so the
     # kernels and torch_gather agree up to float32 reassociation carried
@@ -961,6 +1198,15 @@ def phase_serve(device):
         if not torch.allclose(a[i], g[i], rtol=1e-4, atol=1e-4):
             raise AssertionError(f"deformable-detr {label}: auto vs torch_gather "
                                  f"max {float(err.max()):.3e} > 1e-4")
+    # the same detector without the DEFA knobs, captured: within 1e-4 of
+    # its eager forward
+    with DetrServeEngine(plain_cfg, plain_params, max_batch=MAX_BATCH,
+                         backend="auto", obs=Observability.disabled(),
+                         device=device) as plain_engine:
+        plain_capture = detector_capture(
+            plain_engine, IMG, images,
+            {"msgs_fused_kernel": n_blocks, "msgs_decode_kernel": n_layers},
+            defa=False, timing=False)
     with torch.inference_mode():
         a = detector_apply(engine.params, cfg, x, backend="auto")
         g = detector_apply(engine.params, cfg, x, backend="torch_gather")
@@ -968,15 +1214,17 @@ def phase_serve(device):
     emit("serve", model="deformable-detr-defa", img=IMG, n_in=plan.n_in,
          requests=N_REQUESTS, batches=batches, wall_s=round(wall, 4),
          plan=plan.describe(), launches=launches,
-         launches_per_batch={k: v // batches for k, v in launches.items()},
+         launches_per_replay=capture["replay"]["kernels"],
+         compile_count=capture["compile_count"], obs_log=obs,
          auto_vs_torch_gather=compare)
     return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
             "batches": batches, "fused_calls": rec_f.calls,
-            "decode_calls": rec_d.calls}
+            "decode_calls": rec_d.calls, "capture": capture,
+            "plain_capture": plain_capture, "obs_log": obs}
 
 
 def phase_serve_windowed(device):
-    """The 1024 px bucket with an int8 value table through K3."""
+    """The 1024 px bucket with an int8 value table through K3, captured."""
     import numpy as np
     import torch
     from repro_torch.core.detector import detector_apply, init_detector
@@ -989,43 +1237,54 @@ def phase_serve_windowed(device):
                            device=device)
     images = seeded_images(N_REQUESTS, IMG_WINDOWED)
     enc_plan = plan_for(cfg.encoder.attn, cfg.level_shapes, "cuda_windowed")
+    n_blocks, n_layers = cfg.encoder.n_blocks, cfg.decoder.n_layers
+    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
+    before = memory_mark()
+    msgs_windowed.LAUNCHES = 0
+    msgs_decode.LAUNCHES = 0
+    msgs_fused.LAUNCHES = 0
     with DetrServeEngine(cfg, params, max_batch=MAX_BATCH,
                          backend="cuda_windowed", resolutions=(IMG_WINDOWED,),
                          device=device) as engine:
+        memory = engine_memory(before)
+        compiles = engine.compile_count
         dec_plan = engine.buckets[0].plan
-        with Recorder(msgs_windowed, "msgs_windowed_msp", 6) as rec_w, \
-                Recorder(msgs_decode, "msgs_decode", 1) as rec_d:
-            msgs_windowed.LAUNCHES = 0
-            msgs_decode.LAUNCHES = 0
-            msgs_fused.LAUNCHES = 0
-            reqs, wall = serve_requests(engine, images)
-            launches = {"msgs_windowed": msgs_windowed.LAUNCHES,
-                        "msgs_decode": msgs_decode.LAUNCHES,
-                        "msgs_fused": msgs_fused.LAUNCHES}
+        reqs, wall = serve_requests(engine, images)
+        launches = {"msgs_windowed": msgs_windowed.LAUNCHES,
+                    "msgs_decode": msgs_decode.LAUNCHES,
+                    "msgs_fused": msgs_fused.LAUNCHES}
         batches = engine.batches_dispatched
+        capture = detector_capture(
+            engine, IMG_WINDOWED, images,
+            {"msgs_windowed_kernel": n_blocks, "msgs_decode_kernel": n_layers,
+             "msgs_fused_kernel": 0}, defa=True)
+        capture.update(memory=memory,
+                       compile_count=[compiles, engine.compile_count])
+        with Recorder(msgs_windowed, "msgs_windowed_msp", n_blocks) as rec_w, \
+                Recorder(msgs_decode, "msgs_decode", 1) as rec_d:
+            engine.forward(x, IMG_WINDOWED)
     check_requests(reqs)
-    n_blocks, n_layers = cfg.encoder.n_blocks, cfg.decoder.n_layers
-    if batches != N_REQUESTS // MAX_BATCH \
-            or launches != {"msgs_windowed": n_blocks * batches,
-                             "msgs_decode": n_layers * batches,
-                             "msgs_fused": 0}:
-        raise AssertionError(f"launch counts {launches} over {batches} batches; "
-                             f"expected {n_blocks} windowed, {n_layers} decode "
-                             "and 0 fused launches per batch")
+    if batches != N_REQUESTS // MAX_BATCH or capture["compile_count"] != [1, 1] \
+            or launches != {"msgs_windowed": 2 * n_blocks,
+                             "msgs_decode": 2 * n_layers, "msgs_fused": 0}:
+        raise AssertionError(f"launch counts {launches} over {batches} batches, "
+                             f"compile_count {capture['compile_count']}; "
+                             f"expected {2 * n_blocks} windowed, "
+                             f"{2 * n_layers} decode and 0 fused launches "
+                             "(warm-up and capture)")
     if enc_plan.backend != "cuda_windowed" or dec_plan.backend != "cuda_decode" \
             or enc_plan.table_dtype != "int8":
         raise AssertionError(f"plans {enc_plan.describe()} / "
                              f"{dec_plan.describe()}")
 
-    # every served block's K3 output against torch_gather on the same
-    # operands, within the kernel tolerance
+    # every block's K3 output of the eager forward against torch_gather on
+    # the same operands, within the kernel tolerance
     blocks = [check_close(f"msgs_windowed block {i} vs torch_gather",
                           msgs_windowed.msgs_windowed_msp(*args, **kw),
                           gather_on_k3_operands(args, kw),
                           tolerance(args[0].dtype, kw.get("scale")))
               for i, (args, kw) in enumerate(rec_w.calls)]
 
-    x = torch.from_numpy(np.stack(images[:MAX_BATCH])).to(device)
     compare = {}
     with torch.inference_mode():
         w = detector_apply(engine.params, cfg, x, backend="cuda_windowed")
@@ -1052,12 +1311,61 @@ def phase_serve_windowed(device):
          encoder_plan=enc_plan.describe(), decoder_plan=dec_plan.describe(),
          tile_q=enc_plan.tile_q, window_bytes=enc_plan.window_bytes,
          window_bytes_compact=enc_plan.window_bytes_compact,
-         launches=launches,
-         launches_per_batch={k: v // batches for k, v in launches.items()},
+         launches=launches, launches_per_replay=capture["replay"]["kernels"],
+         compile_count=capture["compile_count"],
          blocks_vs_torch_gather_max_abs_err=blocks, windowed_vs=compare)
     return {"params": engine.params, "cfg": cfg, "x": x, "launches": launches,
             "batches": batches, "windowed_calls": rec_w.calls,
-            "decode_calls": rec_d.calls}
+            "decode_calls": rec_d.calls, "capture": capture}
+
+
+def serve_mixed(device):
+    """One engine with the 512 and the 1024 px buckets (float32 table,
+    ``auto``): requests of both sizes and two pad-ups; compile_count is
+    the number of buckets after construction and after the load."""
+    import torch
+    from repro_torch.core.detector import init_detector
+    from repro_torch.obs import Observability
+    from repro_torch.serve import DetrRequest, DetrServeEngine
+
+    cfg = slice_config("deformable-detr-defa")
+    params = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                           device=device)
+    small, large = seeded_images(2), seeded_images(2, IMG_WINDOWED)
+    load = [small[0], large[0], small[1], large[1],
+            large[0][:, :700, :900].copy(), small[0][:, :300, :400].copy()]
+    want = [IMG, IMG_WINDOWED, IMG, IMG_WINDOWED, IMG_WINDOWED, IMG]
+    with DetrServeEngine(cfg, params, max_batch=MAX_BATCH, backend="auto",
+                         resolutions=(IMG, IMG_WINDOWED),
+                         obs=Observability.create(), device=device) as engine:
+        before = engine.compile_count
+        reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(load)]
+        for r in reqs:
+            if not engine.submit(r):
+                raise AssertionError(f"request {r.rid} rejected: {r.error}")
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        m = engine.obs.metrics
+        rec = {"buckets": [b.resolution for b in engine.buckets],
+               "compile_count": [before, engine.compile_count],
+               "compiles_by_bucket": {
+                   str(b.resolution): m.value("msda_compiles_total",
+                                              bucket=str(b.resolution))
+                   for b in engine.buckets},
+               "batches": engine.batches_dispatched,
+               "completed": sum(
+                   m.value("serve_requests_total", bucket=str(b.resolution),
+                           outcome="completed") for b in engine.buckets),
+               "latency_observations": m.get(
+                   "serve_request_latency_seconds").total_count(),
+               "routed": [r.bucket for r in reqs]}
+    check_requests(reqs)
+    if rec["compile_count"] != [2, 2] or rec["routed"] != want \
+            or rec["completed"] != len(load) \
+            or rec["latency_observations"] != len(load) \
+            or set(rec["compiles_by_bucket"].values()) != {1.0}:
+        raise AssertionError(f"mixed buckets: {rec}")
+    return rec
 
 
 def median_rel_diff(a, b):
@@ -1254,39 +1562,78 @@ class PlainAttention:
         ops.flash_decode = self.orig
 
 
-def lm_serve_run(cfg, params, prompts, device):
+def lm_serve_run(cfg, params, prompts, device, eager=False,
+                 serving=contextlib.nullcontext()):
     """One ServeEngine run of the prompts: (engine, requests, decode steps,
-    wall seconds). Each decode step records its K5 launches and whether
-    its logits are finite."""
+    wall seconds, the engine's memory after construction). The engine
+    captures its decode step at construction; ``eager`` drops the graph
+    before serving, so that every step runs ``decode_step`` eagerly (the
+    yardstick of the captured steps). ``serving`` is entered around the
+    run only, after construction's warm-up and capture. Each decode step
+    records whether its logits are finite."""
     import torch
-    from repro_torch.kernels import flash_decode
     from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
+    before = memory_mark()
     engine = ServeEngine(cfg, params, ServeConfig(max_batch=LM_MAX_BATCH,
                                                   cache_len=LM_CACHE_LEN),
                          device=device)
-    inner, steps = engine.api.decode_step, []
+    memory = engine_memory(before)
+    if eager:
+        engine._graph = None
+    inner, steps = engine.decode_logits, []
 
-    def decode_step(*args, **kwargs):
-        before = flash_decode.LAUNCHES
-        logits, cache = inner(*args, **kwargs)
-        steps.append({"flash_decode": flash_decode.LAUNCHES - before,
-                      "finite": bool(torch.isfinite(logits).all())})
-        return logits, cache
-    engine.api = engine.api._replace(decode_step=decode_step)
+    def decode_logits():
+        logits = inner()
+        steps.append({"finite": bool(torch.isfinite(logits).all())})
+        return logits
+    engine.decode_logits = decode_logits
     reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
             for i, p in enumerate(prompts)]
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
-    engine.run_until_drained()
+    with serving:
+        engine.run_until_drained()
     torch.cuda.synchronize()
-    return engine, reqs, steps, time.perf_counter() - t0
+    engine.decode_logits = inner
+    return engine, reqs, steps, time.perf_counter() - t0, memory
+
+
+def stream_agreement(reqs, others):
+    """Per request: how many greedy tokens two runs share, and the first
+    position where they differ (None if nowhere)."""
+    same = [sum(a == b for a, b in zip(r.output, p.output))
+            for r, p in zip(reqs, others)]
+    first = [next((i for i, (a, b) in enumerate(zip(r.output, p.output))
+                   if a != b), None) for r, p in zip(reqs, others)]
+    return same, first
+
+
+def logit_limits(got, want):
+    """bf16 tolerance of one decode step's logits against another's: the
+    two round their attention outputs to bf16 at a float32-ulp distance,
+    so an output may move one bf16 step, and 32 layers carry that on: max
+    |d logit| <= 16 bf16 steps (2^-4) and the median <= one step (2^-8)
+    of the largest |logit|."""
+    import torch
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    cmp = {"max_abs": float(err.max()), "median_abs": float(err.median()),
+           "max_logit": scale, "tol_max": 2 ** -4 * scale,
+           "tol_median": 2 ** -8 * scale,
+           "bitwise_equal": bool(torch.equal(got, want))}
+    cmp["held"] = bool(torch.isfinite(got).all()) \
+        and cmp["max_abs"] <= cmp["tol_max"] \
+        and cmp["median_abs"] <= cmp["tol_median"]
+    return cmp
 
 
 def phase_lm_serve(device):
     """Full-width minitron-4b (bf16, random seeded weights drawn on the
-    card) served through ServeEngine: 4 requests, K5 in every decode
-    layer; the decode-step logits against the plain attention."""
+    card) served through ServeEngine, whose decode step is one captured
+    graph: 4 requests; the replayed step against the eager one and K5
+    against the plain attention; greedy streams against an eager and a
+    plain-attention run; per-replay counts and wall clock."""
     import torch
     from repro_torch.kernels import flash_decode, matmul
     from repro_torch.models.decoder import decode_step, init_decoder
@@ -1297,20 +1644,22 @@ def phase_lm_serve(device):
                           device=device)
     param_bytes = sum(t.numel() * t.element_size() for _, t in leaf_paths(params))
     prompts = seeded_prompts(cfg.vocab_size)
-    with Recorder(flash_decode, "flash_decode", 1) as rec:
-        flash_decode.LAUNCHES = 0
-        matmul.LAUNCHES = 0
-        engine, reqs, steps, wall = lm_serve_run(cfg, params, prompts, device)
-        launches = {"flash_decode": flash_decode.LAUNCHES,
-                    "matmul": matmul.LAUNCHES}
+    flash_decode.LAUNCHES = 0
+    matmul.LAUNCHES = 0
+    engine, reqs, steps, wall, memory = lm_serve_run(cfg, params, prompts,
+                                                     device)
+    launches = {"flash_decode": flash_decode.LAUNCHES,
+                "matmul": matmul.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     n_layers, n_steps = cfg.n_layers, len(steps)
-    if n_steps != LM_NEW_TOKENS - 1 \
-            or any(s["flash_decode"] != n_layers for s in steps) \
-            or launches != {"flash_decode": n_layers * n_steps, "matmul": 0}:
+    # the wrapper ran at the warm-up step and at the capture; every served
+    # step was a replay
+    if n_steps != LM_NEW_TOKENS - 1 or engine.compile_count != 1 \
+            or launches != {"flash_decode": 2 * n_layers, "matmul": 0}:
         raise AssertionError(f"launch counts {launches} over {n_steps} decode "
-                             f"steps {steps}; expected {n_layers} flash_decode "
-                             "launches per step and no matmul")
+                             f"steps, compile_count {engine.compile_count}; "
+                             f"expected {2 * n_layers} flash_decode launches "
+                             "(warm-up and capture), no matmul, one preparation")
     for r in reqs:
         if not (r.done and len(r.output) == LM_NEW_TOKENS
                 and all(0 <= t < cfg.vocab_size for t in r.output)):
@@ -1319,25 +1668,27 @@ def phase_lm_serve(device):
     if not all(s["finite"] for s in steps):
         raise AssertionError(f"non-finite decode logits: {steps}")
 
-    # the next decode step from the served cache, through K5 and through
-    # the plain attention (each writes the same slots before reading them)
+    # the next decode step from the served state: replayed against eager
+    # on a copy of the cache (each writes the same slots before reading)
     tokens, pos = engine.last_tok.clone(), engine.pos.clone()
+    cache_copy = {k: v.clone() for k, v in engine.cache.items()}
+    with torch.inference_mode():
+        eager_logits, _ = decode_step(engine.params, cfg, cache_copy, tokens,
+                                      pos)
+    del cache_copy
+    replayed = engine.decode_logits()
+    torch.cuda.synchronize()
+    captured_cmp = logit_limits(replayed, eager_logits)
+    if not captured_cmp["held"]:
+        raise AssertionError(f"decode logits, captured vs eager: {captured_cmp}")
+    # ... and K5 against the plain attention, both eager
     with torch.inference_mode():
         got, _ = decode_step(engine.params, cfg, engine.cache, tokens, pos)
         with PlainAttention():
             want, _ = decode_step(engine.params, cfg, engine.cache, tokens, pos)
     torch.cuda.synchronize()
-    # bf16 tolerance: the two attentions round their outputs to bf16 at a
-    # float32-ulp distance, so an output may move one bf16 step, and 32
-    # layers carry that on: max |d logit| <= 16 bf16 steps (2^-4) and the
-    # median <= one step (2^-8) of the largest |logit|
-    err = (got - want).abs()
-    scale = float(want.abs().max())
-    logit_cmp = {"max_abs": float(err.max()), "median_abs": float(err.median()),
-                 "max_logit": scale, "tol_max": 2 ** -4 * scale,
-                 "tol_median": 2 ** -8 * scale}
-    if not (torch.isfinite(got).all() and logit_cmp["max_abs"] <= logit_cmp["tol_max"]
-            and logit_cmp["median_abs"] <= logit_cmp["tol_median"]):
+    logit_cmp = logit_limits(got, want)
+    if not logit_cmp["held"]:
         raise AssertionError(f"decode logits, K5 vs plain attention: {logit_cmp}")
     top2 = want.topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
@@ -1346,31 +1697,65 @@ def phase_lm_serve(device):
     if not bool(agree[decided].all()):
         raise AssertionError(f"greedy token differs where the top-2 gap "
                              f"{gap.tolist()} exceeds twice the tolerance")
-    # the whole run again through the plain attention: how often do the
-    # greedy streams agree (random heads have small top-2 gaps)
+
+    # one replay: 32 K5 calls (split and merge kernels), one graph launch
+    replay = replay_counts(engine.decode_logits, (
+        "flash_decode_mma_kernel", "flash_decode_split_kernel",
+        "flash_decode_merge_kernel"))
+    k = replay["kernels"]
+    if k["flash_decode_mma_kernel"] + k["flash_decode_split_kernel"] != n_layers \
+            or k["flash_decode_merge_kernel"] != n_layers:
+        raise AssertionError(f"one decode replay: {replay}; expected "
+                             f"{n_layers} split and {n_layers} merge kernels")
+    check_replay("LM decode step", replay, {}, want_pinned=0)
+
+    def eager_step():
+        with torch.inference_mode():
+            decode_step(engine.params, cfg, engine.cache, tokens, pos)
+    timing = step_timing({"eager": eager_step, "captured": engine.decode_logits})
+    capture = {"agreement": captured_cmp, "replay": replay, "steps": timing,
+               "memory": memory, "compile_count": engine.compile_count}
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in engine.cache.values())
+    lm_state = {"cache": engine.cache, "tokens": tokens, "pos": pos}
+    del engine
+
+    # the whole run again eagerly (its first decode step's first K5 call:
+    # the timing phase's operands), and through the plain attention: how
+    # often do the greedy streams agree with the captured run (random
+    # heads have small top-2 gaps)
+    rec = Recorder(flash_decode, "flash_decode", 1)
+    eager_engine, eager_reqs, _, eager_wall, _ = lm_serve_run(
+        cfg, params, prompts, device, eager=True, serving=rec)
+    del eager_engine
     with PlainAttention():
-        _, plain_reqs, _, plain_wall = lm_serve_run(cfg, params, prompts, device)
-    same = [sum(a == b for a, b in zip(r.output, p.output))
-            for r, p in zip(reqs, plain_reqs)]
-    first_diff = [next((i for i, (a, b) in enumerate(zip(r.output, p.output))
-                        if a != b), None) for r, p in zip(reqs, plain_reqs)]
-    cache_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+        _, plain_reqs, _, plain_wall, _ = lm_serve_run(cfg, params, prompts,
+                                                       device)
+    same, first_diff = stream_agreement(reqs, plain_reqs)
+    e_same, e_first = stream_agreement(reqs, eager_reqs)
+    capture.update(eager_stream_tokens_agree=e_same,
+                   eager_stream_first_difference=e_first,
+                   eager_run_wall_s=eager_wall)
     emit("lm_serve", model=cfg.name, dtype=str(cfg.dtype),
          params=cfg.param_count(), param_bytes=param_bytes,
          cache_bytes=cache_bytes, max_batch=LM_MAX_BATCH,
          cache_len=LM_CACHE_LEN, prompts=list(LM_PROMPTS),
          new_tokens=LM_NEW_TOKENS, decode_steps=n_steps, wall_s=wall,
-         plain_attention_wall_s=plain_wall, launches=launches,
-         launches_per_decode_step={k: v // n_steps for k, v in launches.items()},
+         eager_wall_s=eager_wall, plain_attention_wall_s=plain_wall,
+         launches=launches, launches_per_replay=replay["kernels"],
+         compile_count=capture["compile_count"],
          max_memory_allocated=peak, outputs=[r.output for r in reqs],
+         decode_logits_captured_vs_eager=captured_cmp,
          decode_logits_vs_plain=logit_cmp, top2_gap=gap.tolist(),
          greedy_agree=agree.tolist(), greedy_decided=decided.tolist(),
-         stream_tokens_agree=same, stream_first_difference=first_diff)
+         stream_tokens_agree=same, stream_first_difference=first_diff,
+         eager_stream_tokens_agree=e_same,
+         eager_stream_first_difference=e_first)
     args, kw = rec.calls[0]
-    return {"cfg": cfg, "params": engine.params, "cache": engine.cache,
-            "tokens": tokens, "pos": pos, "launches": launches,
+    return {"cfg": cfg, "params": params, "launches": launches,
             "steps": n_steps, "param_bytes": param_bytes,
-            "k5_call": ([t.clone() for t in args], kw), "prompts": prompts}
+            "k5_call": ([t.clone() for t in args], kw), "prompts": prompts,
+            "capture": capture, **lm_state}
 
 
 # --------------------------------------------------------------------------
@@ -1405,22 +1790,33 @@ def _device_us(evt):
 
 
 def profile(fn, calls=1):
-    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up:
-    (device kernel events, cpu op events, wall ms). Device events are the
-    kernels on the card, with their own durations."""
+    """torch.profiler over ``calls`` calls of ``fn``: (device kernel
+    events, cpu op events, wall ms of those calls). One call runs before
+    the profiler starts and one in its warm-up step, whose events are
+    dropped, so that tracing is already running when the counted calls
+    start. Device events are the kernels on the card, with their own
+    durations."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, schedule
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+        prof.step()
+    # the schedule also marks each step on the device timeline
+    # ("ProfilerStep#N", spanning its kernels): not a kernel
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("ProfilerStep")]
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     return dev, cpu, wall
@@ -1626,7 +2022,7 @@ def table_grad_chain(calls, reps=10):
     table = msgs_decode._unstage_layout(vp, g, dh).contiguous()
     g_outs = [args[7] for args, _ in calls]
     graphs = []
-    for _ in range(reps + 1):
+    for _ in range(reps + 2):            # profile's two warm-up calls, reps
         leaf = table.detach().requires_grad_()
         staged = msgs_decode.stage_decode_table(leaf, remap, head_pack=g)
         with torch.enable_grad():
@@ -2036,10 +2432,16 @@ def phase_times(serve, serve_w, train, lm):
     for k in kernels:
         detail[k["name"]].update(ms_source=k.pop("ms_source"),
                                  call_ms=k.pop("call_ms"), by_kernel=k.pop("by_kernel"))
-    batches = {"msgs_fused": serve["batches"], "msgs_decode": serve["batches"],
-               "msgs_windowed": serve_w["batches"],
-               "msgs_decode_backward": train["steps"],
-               "flash_decode": lm["steps"], "matmul": lm["steps"]}
+    replay = lambda rec, name: rec["capture"]["replay"]["kernels"][name]
+    lm_k5 = lm["capture"]["replay"]["kernels"]
+    per_forward = {
+        "msgs_fused": replay(serve, "msgs_fused_kernel"),
+        "msgs_decode": replay(serve, "msgs_decode_kernel"),
+        "msgs_windowed": replay(serve_w, "msgs_windowed_kernel"),
+        "msgs_decode_backward": train["launches"]["msgs_decode_backward"]
+        // train["steps"],
+        "flash_decode": lm_k5["flash_decode_mma_kernel"]
+        + lm_k5["flash_decode_split_kernel"], "matmul": 0}
     emit("times", kernels=detail,
          library_note={"msgs_*": LIBRARY_NOTE,
                        "flash_decode": "F.scaled_dot_product_attention with "
@@ -2050,8 +2452,7 @@ def phase_times(serve, serve_w, train, lm):
          train_step_profile=forward_profile(step),
          train_launches_per_step={k: v // train["steps"]
                                   for k, v in train["launches"].items()},
-         launches_per_forward={k["name"]: k["launches"] // batches[k["name"]]
-                               for k in kernels},
+         launches_per_forward=per_forward,
          lm=lm_timing,
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                 "f32_flop_per_s": F32_FLOP_PER_S,
@@ -2097,8 +2498,13 @@ def main() -> int:
     phase_lm_kernels(device)
     serve = phase_serve(device)
     serve_w = phase_serve_windowed(device)
+    mixed = serve_mixed(device)
     train = phase_train(device)
     lm = phase_lm_serve(device)
+    emit("capture", detector_512=serve["capture"],
+         detector_512_plain=serve["plain_capture"],
+         detector_1024=serve_w["capture"], mixed_buckets=mixed,
+         lm_decode=lm["capture"], obs_log=serve["obs_log"])
     kernels = phase_times(serve, serve_w, train, lm)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ own ``init_*`` functions draw from a ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -34,6 +35,43 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+#: every function wrapped by :func:`host_constant`, for cache statistics
+HOST_CONSTANTS: List[Callable] = []
+
+
+def host_constant(fn: Callable) -> Callable:
+    """Cache a function that builds a tensor from host values (shapes,
+    bounds, position tables), once per argument tuple, e.g. (shapes,
+    dtype, device).
+
+    Building such a tensor on the card copies it from pageable host
+    memory, which a CUDA graph cannot hold (the copy would read a
+    temporary host array at replay), and which costs a host sync per
+    call. A forward built from these functions makes the copy once, the
+    first time it runs. The tensor is built outside inference mode and
+    autograd, so a model that trains can use it as well as a server;
+    callers only read it."""
+    @functools.lru_cache(maxsize=256)
+    def cached(*args):
+        with torch.inference_mode(False), torch.no_grad():
+            return fn(*args)
+    HOST_CONSTANTS.append(cached)
+    return functools.wraps(fn)(cached)
+
+
+def host_constant_misses() -> int:
+    """Tensors built so far by every :func:`host_constant` function."""
+    return sum(f.cache_info().misses for f in HOST_CONSTANTS)
+
+
+@host_constant
+def scalar_constant(value: float, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A 0-dim tensor holding ``value`` (a fill, cached per dtype and
+    device)."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _leaf_to_tensor(a, device: torch.device) -> torch.Tensor:

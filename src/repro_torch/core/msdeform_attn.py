@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import host_constant
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core import nn
 
@@ -126,6 +127,12 @@ def _bilinear_sample_level(v: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
     return n00 * w00 + n10 * w10 + n01 * w01 + n11 * w11
 
 
+@host_constant
+def _level_norm(wl: int, hl: int, dtype, device) -> torch.Tensor:
+    """(W_l, H_l) of one level, built once per (level, dtype, device)."""
+    return torch.as_tensor([wl, hl], dtype=dtype, device=device)
+
+
 def msdeform_attn_ref(params: dict, cfg: MSDeformAttnConfig,
                       query: torch.Tensor, ref_points: torch.Tensor,
                       x_flat: torch.Tensor,
@@ -142,8 +149,9 @@ def msdeform_attn_ref(params: dict, cfg: MSDeformAttnConfig,
         + params["offs_b"]
     offs = offs.reshape(b, nq, h, l, p, 2)
     if cfg.range_narrow is not None:
-        bounds = torch.as_tensor(cfg.range_narrow, dtype=query.dtype,
-                                 device=query.device).reshape(1, 1, 1, l, 1, 1)
+        from repro_torch.msda.sampling import level_bounds
+        bounds = level_bounds(cfg.range_narrow, query.dtype,
+                              query.device).reshape(1, 1, 1, l, 1, 1)
         offs = nn.clip(offs, -bounds, bounds)
     v = torch.einsum("bnd,dhk->bnhk", x_flat, params["value_w"]) \
         + params["value_b"]
@@ -158,7 +166,7 @@ def msdeform_attn_ref(params: dict, cfg: MSDeformAttnConfig,
     for li, (hl, wl) in enumerate(level_shapes):
         s = int(starts[li])
         v_l = v[:, s:s + hl * wl].reshape(b, hl, wl, h, cfg.head_dim)
-        norm = torch.as_tensor([wl, hl], dtype=query.dtype, device=query.device)
+        norm = _level_norm(int(wl), int(hl), query.dtype, query.device)
         loc = ref_points[:, :, None, None, :] + offs[:, :, :, li] / norm
         sampled = _bilinear_sample_level(v_l, loc)                 # (B,Nq,H,P,Dh)
         out = out + torch.sum(sampled * probs_l[:, :, :, li, :, None], dim=3)

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.bridge import host_constant, scalar_constant
+
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int,
                 dtype=torch.float32, device="cpu") -> dict:
@@ -67,9 +69,13 @@ def conv2d(p: dict, x: torch.Tensor, stride: int = 1,
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip``: min(max(x, lo), hi). Where x lies exactly on a bound
     its gradient is 1/2, as JAX's maximum and minimum share a tie;
-    ``torch.clamp`` would pass all of it."""
-    as_t = lambda a: torch.as_tensor(a, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, as_t(lo)), as_t(hi))
+    ``torch.clamp`` would pass all of it. A Python bound becomes a cached
+    0-dim tensor (:func:`~repro_torch.bridge.scalar_constant`)."""
+    def bound(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dtype=x.dtype, device=x.device)
+        return scalar_constant(float(a), x.dtype, x.device)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -80,7 +86,15 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def sine_pos_embed_2d(h: int, w: int, d: int, temperature: float = 10000.0,
                       device="cpu") -> torch.Tensor:
-    """(H*W, D) 2-D sine position embedding (DETR-style)."""
+    """(H*W, D) 2-D sine position embedding (DETR-style), built once per
+    (h, w, d, temperature, device); callers only read it."""
+    return _sine_pos_embed_2d(int(h), int(w), int(d), float(temperature),
+                              torch.device(device))
+
+
+@host_constant
+def _sine_pos_embed_2d(h: int, w: int, d: int, temperature: float,
+                       device: torch.device) -> torch.Tensor:
     if d % 4:
         raise ValueError(f"d must be a multiple of 4, got {d}")
     d4 = d // 4
@@ -95,7 +109,14 @@ def sine_pos_embed_2d(h: int, w: int, d: int, temperature: float = 10000.0,
 
 
 def reference_points_for_levels(level_shapes, device="cpu") -> torch.Tensor:
-    """Normalized pixel-centre reference points, concatenated: (N_in, 2)."""
+    """Normalized pixel-centre reference points, concatenated: (N_in, 2),
+    built once per (level_shapes, device); callers only read it."""
+    return _reference_points(tuple((int(h), int(w)) for h, w in level_shapes),
+                             torch.device(device))
+
+
+@host_constant
+def _reference_points(level_shapes, device: torch.device) -> torch.Tensor:
     pts = []
     for (h, w) in level_shapes:
         ys, xs = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,

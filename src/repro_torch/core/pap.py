@@ -49,8 +49,8 @@ def pap_topk_select(probs: torch.Tensor, k: int,
         top_p = torch.where(keep, top_p, torch.zeros_like(top_p))
         kept_frac = keep.to(torch.float32).mean() * (k / probs.shape[-1])
     else:
-        kept_frac = torch.tensor(k / probs.shape[-1], dtype=torch.float32,
-                                 device=probs.device)
+        kept_frac = torch.full((), k / probs.shape[-1], dtype=torch.float32,
+                               device=probs.device)
     return PAPSelection(probs=top_p, point_idx=top_i.to(torch.int32),
                         keep_frac=kept_frac)
 
@@ -59,8 +59,8 @@ def pap_select(probs: torch.Tensor, mode: str, *, threshold: float,
                k: int) -> PAPSelection:
     if mode == "off":
         return PAPSelection(probs=probs, point_idx=_all_points(probs),
-                            keep_frac=torch.tensor(1.0, dtype=torch.float32,
-                                                   device=probs.device))
+                            keep_frac=torch.full((), 1.0, dtype=torch.float32,
+                                                 device=probs.device))
     if mode == "threshold":
         return pap_threshold_select(probs, threshold)
     if mode == "topk":

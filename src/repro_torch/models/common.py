@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.bridge import host_constant
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -135,11 +137,17 @@ def rope_freq(dh: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(half, dtype=np.float32) / half))
 
 
+@host_constant
+def _rope_freq_tensor(dh: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_freq` on ``device``, built once per (dh, theta, device)."""
+    return torch.from_numpy(rope_freq(dh, theta)).to(device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: (..., S) int32. cos and sin in
     float32, cast to ``x.dtype`` before they rotate x."""
     half = x.shape[-1] // 2
-    freq = torch.from_numpy(rope_freq(x.shape[-1], theta)).to(x.device)
+    freq = _rope_freq_tensor(x.shape[-1], float(theta), x.device)
     ang = positions[..., None].float() * freq                    # (..., S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)               # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)

@@ -71,7 +71,18 @@ def build_value_cache(params: dict, plan, x_flat: torch.Tensor,
     """Build the shared value cache for one memory ``x_flat``.
 
     ``params`` needs only ``value_w``/``value_b``; ``state``'s FWP link
-    decides the compaction (None / no link => dense table)."""
+    decides the compaction (None / no link => dense table).
+
+    Every call bumps ``msda_cache_build_traces_total`` on the process-wide
+    registry, as the reference's trace-time bump does
+    (repro/msda/cache.py:111-119). This body runs on the host: under
+    CUDA-graph capture it runs once, while the graph is recorded, and a
+    replay never runs it, so the counter stays flat under replay."""
+    from repro_torch.obs.metrics import default_registry
+    default_registry().counter(
+        "msda_cache_build_traces_total",
+        "build_value_cache tracings/eager builds (process-wide)"
+    ).inc(backend=plan.backend, table_dtype=plan.table_dtype)
     cfg = plan.cfg
     fwp_state = getattr(state, "fwp", None)
     v, pix2slot, n_rows = project_values(params, cfg, x_flat, fwp_state)

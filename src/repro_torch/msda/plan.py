@@ -182,14 +182,64 @@ class MSDAPlan:
                                              with_indirection=True)
         return self.table_bytes_for_rows(self.n_in, with_indirection=False)
 
+    @property
+    def value_table_bytes(self) -> int:
+        """The dense n_in-row table per (batch, head-group): what block 1
+        of the encoder, which runs unpruned, samples."""
+        return self.table_bytes_for_rows(self.n_in, with_indirection=False)
+
+    def snapshot(self) -> dict:
+        """Structured twin of :meth:`describe`: every static decision and
+        staged-bytes figure as plain JSON-able values, under the keys of
+        the reference's ``MSDAPlan.snapshot`` (repro/msda/plan.py:402-456)
+        for the fields this plan has. ``decode`` is None unless the plan
+        is decode-shaped; ``stream`` stays None until streaming is
+        ported."""
+        snap = {
+            "backend": self.backend,
+            "tile_q": self.tile_q,
+            "lane_layout": self.lane_layout,
+            "head_pack": self.head_pack,
+            "table_dtype": self.table_dtype,
+            "quantized_table": self.quantized_table,
+            "value_table_bytes": self.value_table_bytes,
+            "window_bytes": self.window_bytes,
+            "window_bytes_compact": self.window_bytes_compact,
+            "query_order": self.query_order,
+            "n_in": self.n_in,
+            "level_shapes": [list(s) for s in self.level_shapes],
+            "decode": None,
+            "stream": None,
+        }
+        if self.decode_shaped:
+            cb = self.cache_table_bytes
+            snap["decode"] = {
+                "n_queries": self.n_queries,
+                "n_consumers": self.n_consumers,
+                "cache_table_bytes": cb,
+                # staging the cache once vs rebuilding it per consumer layer
+                "rebuild_bytes": self.n_consumers * cb,
+            }
+        return snap
+
     def describe(self) -> str:
-        q = "" if not self.decode_shaped \
-            else f", q=decode({self.n_queries})x{self.n_consumers}"
-        return (f"MSDAPlan(backend={self.backend}, "
-                f"lanes={self.lane_layout}x{self.head_pack}, "
-                f"tdtype={self.table_dtype}, "
-                f"cache={self.cache_table_bytes / 1024:.0f}KB{q}, "
-                f"n_in={self.n_in})")
+        """One-line summary: a formatter over :meth:`snapshot`."""
+        s = self.snapshot()
+        win = ""
+        if s["window_bytes"] is not None:
+            win = f", win={s['window_bytes'] / 1024:.0f}KB"
+            if s["window_bytes_compact"] is not None:
+                win += f"(compact {s['window_bytes_compact'] / 1024:.0f}KB)"
+        q = ""
+        if s["decode"] is not None:
+            d = s["decode"]
+            q = (f", q=decode({d['n_queries']})x{d['n_consumers']}, "
+                 f"cache={d['cache_table_bytes'] / 1024:.0f}KB build-once")
+        return (f"MSDAPlan(backend={s['backend']}, "
+                f"lanes={s['lane_layout']}x{s['head_pack']}, "
+                f"tdtype={s['table_dtype']}, "
+                f"table={s['value_table_bytes'] / 1024:.0f}KB{win}{q}, "
+                f"n_in={s['n_in']})")
 
 
 _LEGACY_IMPL = {"jnp": "torch_gather", "pallas": "cuda_fused"}

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import host_constant
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core import nn
 from repro_torch.core import pap as pap_lib
@@ -33,7 +34,14 @@ class SamplingPoints(NamedTuple):
 
 
 def level_meta(level_shapes: Sequence[Tuple[int, int]], device="cpu"):
-    """Per-level int32 tensors: flat starts, widths, heights; total N_in."""
+    """Per-level int32 tensors: flat starts, widths, heights; total N_in.
+    Built once per (level_shapes, device); callers only read them."""
+    return _level_meta(tuple((int(h), int(w)) for h, w in level_shapes),
+                       torch.device(device))
+
+
+@host_constant
+def _level_meta(level_shapes, device: torch.device):
     starts, n_in = fwp_lib.level_starts(level_shapes)
     ws = np.asarray([w for _, w in level_shapes], np.int32)
     hs = np.asarray([h for h, _ in level_shapes], np.int32)
@@ -76,6 +84,19 @@ def flat_gather_heads(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.reshape(b, h, nq, m, dh).permute(0, 2, 1, 3, 4)
 
 
+def level_bounds(range_narrow, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The per-level offset bound ``range_narrow`` as an (L,) tensor,
+    built once per (bounds, dtype, device)."""
+    return _level_bounds(tuple(float(r) for r in range_narrow), dtype,
+                         torch.device(device))
+
+
+@host_constant
+def _level_bounds(range_narrow, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(range_narrow, dtype=dtype, device=device)
+
+
 def select_points(params: dict, cfg, query: torch.Tensor):
     """PAP selection + masked offset generation (pre-geometry).
 
@@ -99,8 +120,8 @@ def select_points(params: dict, cfg, query: torch.Tensor):
     offs_k = torch.gather(offs, 3, pidx[..., None].expand(-1, -1, -1, -1, 2))
     lvl_of_pt = torch.div(pidx, p, rounding_mode="floor")
     if cfg.range_narrow is not None:
-        bounds = torch.as_tensor(cfg.range_narrow, dtype=query.dtype,
-                                 device=query.device)[lvl_of_pt][..., None]
+        bounds = level_bounds(cfg.range_narrow, query.dtype,
+                              query.device)[lvl_of_pt][..., None]
         offs_k = nn.clip(offs_k, -bounds, bounds)      # jnp.clip's gradient
     offs_k = maybe_fake_quant(offs_k, cfg.act_bits)     # INT12 BI datapath input
     return sel, offs_k, lvl_of_pt.to(torch.int32)

@@ -89,3 +89,13 @@ class BucketRouter:
                           f"({self.max_resolution}px); split or downscale "
                           "and resubmit")
         return b, None
+
+    def table(self) -> list:
+        """The bucket table (the reference's ``BucketRouter.table`` for the
+        fields the port's plan has)."""
+        return [{"resolution": b.resolution,
+                 "level_shapes": list(b.level_shapes),
+                 "n_in": b.n_in,
+                 "backend": b.plan.backend,
+                 "table_kb": round(b.plan.value_table_bytes / 1024, 1)}
+                for b in self.buckets]

@@ -6,8 +6,22 @@ layer: a request is admitted into a free slot by a batch-1 prefill
 scattered into the batch cache, and every step decodes one token for all
 active slots (``decode_step``, whose attention runs through the
 flash-decode kernel K5 on the card). The engine runs on ``device`` — the
-card unless the caller passes ``device="cpu"`` — and writes its cache in
-place.
+card unless the caller passes ``device="cpu"``.
+
+The reference jits the decode step and the prefill
+(``repro/serve/lm.py:61-62``). Here the decode step is prepared once, at
+construction: one warm-up step and, on the card, one
+``torch.cuda.CUDAGraph`` capture of ``decode_step`` at the engine's one
+shape (``max_batch``, ``cache_len``); every step then replays it. The
+graph reads fixed addresses, so the cache, ``pos`` and ``last_tok`` are
+only ever written in place, and the logits are copied out of the graph's
+static buffer before the next token is drawn (the Gumbel draw of
+sampling stays outside the graph, on ``gen``). ``compile_count`` counts
+the preparations: 1, whatever the steps and admissions. A capture that
+fails raises; there is no eager fallback on the card.
+
+The prefill stays eager: the reference retraces it for every prompt
+length, so a graph per length would hardly ever replay.
 """
 from __future__ import annotations
 
@@ -61,9 +75,51 @@ class ServeEngine:
         self.pos = torch.zeros((b,), dtype=torch.int32, device=self.device)
         self.last_tok = torch.zeros((b,), dtype=torch.int32, device=self.device)
         self.active = np.zeros((b,), bool)
+        # the same flags on the device, kept in step: no host copy per step
+        self._active_t = torch.zeros((b,), dtype=torch.bool, device=self.device)
         self.slot_req: list[Optional[Request]] = [None] * b
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
+        self.compile_count = 0
+        self._graph = None
+        self._logits = None                  # the graph's static output
+        self._prepare_decode()
+
+    # --- ahead-of-time preparation -------------------------------------------
+    def _decode_eager(self) -> torch.Tensor:
+        logits, _ = self.api.decode_step(self.params, self.cfg, self.cache,
+                                         self.last_tok, self.pos)
+        return logits
+
+    @torch.inference_mode()
+    def _prepare_decode(self) -> None:
+        """One warm-up decode step (every slot still idle: it writes the
+        slot of position 0, which an admission overwrites whole) and, on
+        the card, the capture of the step."""
+        if self.device.type == "cpu":
+            self._decode_eager()
+        else:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._decode_eager()    # builds K5, fills the cached constants
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._logits = self._decode_eager()
+            self._graph = graph
+        self.compile_count += 1
+
+    def decode_logits(self) -> torch.Tensor:
+        """One decode step for every slot from the engine's state (a
+        replay of the captured step on the card): the (B, V) float32
+        logits, in a tensor of their own. Writes the cache at each slot's
+        position; ``pos`` and ``last_tok`` are the caller's to advance."""
+        if self._graph is None:
+            return self._decode_eager()
+        self._graph.replay()
+        return self._logits.clone()
 
     # --- slot management ----------------------------------------------------
     def submit(self, req: Request):
@@ -83,9 +139,10 @@ class ServeEngine:
             c[:, slot] = cache1[name][:, 0]
         first = int(self._next_tokens(logits)[0])
         req.output.append(first)
-        self.last_tok[slot] = first
+        self.last_tok[slot] = first            # in place: the graph reads it
         self.pos[slot] = len(req.prompt)
         self.active[slot] = True
+        self._active_t[slot] = True
         self.slot_req[slot] = req
 
     def _next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
@@ -110,13 +167,10 @@ class ServeEngine:
                 self._admit(slot, self.queue.popleft())
         if not self.active.any():
             return 0
-        logits, self.cache = self.api.decode_step(self.params, self.cfg,
-                                                  self.cache, self.last_tok,
-                                                  self.pos)
-        nxt = self._next_tokens(logits)
-        active = torch.as_tensor(self.active, device=self.device)
-        self.pos = self.pos + active.to(torch.int32)
-        self.last_tok = torch.where(active, nxt, self.last_tok)
+        nxt = self._next_tokens(self.decode_logits())
+        active = self._active_t
+        self.pos.add_(active.to(torch.int32))
+        self.last_tok.copy_(torch.where(active, nxt, self.last_tok))
         nxt_np = nxt.cpu().numpy()
         for slot in range(self.scfg.max_batch):
             req = self.slot_req[slot]
@@ -129,6 +183,7 @@ class ServeEngine:
                 req.done = True
                 self.finished.append(req)
                 self.active[slot] = False
+                self._active_t[slot] = False
                 self.slot_req[slot] = None
         return int(self.active.sum())
 

@@ -1,12 +1,13 @@
 """Pipelined host-side post-processing + serving-loop starvation reports
-(port of repro/serve/postproc.py; the telemetry hooks wait for the
-serving slice).
+(port of repro/serve/postproc.py, with its telemetry).
 
 :class:`PostprocWorker` overlaps the host decode of step N (device ->
 host copy, softmax, top-k, callbacks) with the dispatch of step N+1: a
 daemon thread takes (requests, device tensors) from a queue. With
 ``pipelined=False`` the same function runs in line, so both modes give
-identical results."""
+identical results. It counts the batches handed to it
+(``serve_postproc_items_total``) and keeps ``serve_postproc_backlog``
+current on its ``obs`` bundle."""
 from __future__ import annotations
 
 import queue
@@ -70,13 +71,21 @@ class PostprocWorker:
     joins the thread; a later ``submit`` raises."""
 
     def __init__(self, process: Callable, *, pipelined: bool = True,
-                 name: str = "serve-postproc"):
+                 name: str = "serve-postproc", obs=None):
         self._process = process
         self.pipelined = bool(pipelined)
         self._exc: Optional[BaseException] = None
         self._stopped = False
         self._q: queue.Queue = queue.Queue()
         self._thread: Optional[threading.Thread] = None
+        if obs is None:
+            from repro_torch.obs import Observability
+            obs = Observability.disabled()
+        self.obs = obs
+        self._m_items = obs.metrics.counter(
+            "serve_postproc_items_total", "batches handed to the worker")
+        self._m_backlog = obs.metrics.gauge(
+            "serve_postproc_backlog", "batches queued to the postproc worker")
         if self.pipelined:
             self._thread = threading.Thread(target=self._loop, name=name,
                                             daemon=True)
@@ -88,8 +97,10 @@ class PostprocWorker:
                                "close() would enqueue into a dead queue")
         if self._exc is not None:
             raise self._exc
+        self._m_items.inc()
         if self.pipelined:
             self._q.put(item)
+            self._m_backlog.set(self.backlog)
         else:
             self._process(item)
 
@@ -105,6 +116,12 @@ class PostprocWorker:
                 self._exc = e
             finally:
                 self._q.task_done()
+                self._m_backlog.set(self.backlog)
+
+    @property
+    def backlog(self) -> int:
+        """Items submitted but not yet fully processed."""
+        return int(self._q.unfinished_tasks) if self.pipelined else 0
 
     def drain(self) -> None:
         """Block until every submitted item is processed; re-raise any

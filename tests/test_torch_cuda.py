@@ -555,3 +555,130 @@ def test_msgs_decode_backward_is_bitwise_repeatable(cuda, dtype, compact):
         else:
             tol = dict(rtol=1e-5, atol=atol)
         torch.testing.assert_close(a, w, **tol)
+
+
+# --------------------------------------------------------------------------
+# serving through CUDA graphs (one per detector bucket, one per LM decode
+# shape): replays agree with the eager forward, pipelined batches do not
+# alias the graph's static outputs, and a capture that meets a host sync
+# raises instead of serving eagerly
+# --------------------------------------------------------------------------
+
+def _capture_detector():
+    from repro_torch.core.detector import DetectorConfig, init_detector
+    from repro_torch.core.encoder import EncoderConfig
+    from repro_torch.core.msdeform_attn import MSDeformAttnConfig
+    from repro_torch.msda.decoder import MSDADecoderConfig
+    attn = MSDeformAttnConfig(d_model=64, n_heads=4)
+    cfg = DetectorConfig(encoder=EncoderConfig(attn=attn, n_blocks=2, d_ffn=128),
+                         img_size=64, backbone_width=16,
+                         decoder=MSDADecoderConfig(n_layers=2, n_queries=30,
+                                                   d_ffn=128))
+    return cfg, init_detector(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+
+
+def _capture_images(n, size=64, seed=4):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0, 1, (3, size, size)).astype(np.float32)
+            for _ in range(n)]
+
+
+def test_captured_bucket_forward_matches_eager(cuda):
+    """One replay of the bucket's graph against the engine's eager
+    forward on the same input: the same kernels on the same operands,
+    held to 1e-5."""
+    import numpy as np
+    from repro_torch.serve import DetrServeEngine
+    cfg, params = _capture_detector()
+    with DetrServeEngine(cfg, params, max_batch=2, backend="auto",
+                         device=cuda) as engine:
+        assert engine.compile_count == 1
+        assert all(b.is_pinned() for b in engine._graphs[64].pinned)
+        imgs = _capture_images(2)
+        cls, boxes, ready = engine.dispatch(imgs, 64)
+        ready.synchronize()
+        want = engine.forward(torch.from_numpy(np.stack(imgs)).to(cuda), 64)
+        for got, w in zip((cls, boxes), want[:2]):
+            torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+
+
+def test_pipelined_batches_do_not_alias_the_static_outputs(cuda):
+    """Three batches of different images dispatched back to back with the
+    postproc worker on: each request's outputs equal the eager forward of
+    its own batch (a replay rewriting an earlier batch's outputs, or a
+    pinned buffer refilled under its copy, would give another batch's)."""
+    import numpy as np
+    from repro_torch.serve import DetrRequest, DetrServeEngine
+    cfg, params = _capture_detector()
+    imgs = _capture_images(6)
+    with DetrServeEngine(cfg, params, max_batch=2, backend="auto",
+                         device=cuda) as engine:
+        reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+        for r in reqs:
+            assert engine.submit(r)
+        for _ in range(3):
+            assert engine.step() == 2
+        engine.drain()
+        for k in range(3):
+            x = torch.from_numpy(np.stack(imgs[2 * k:2 * k + 2])).to(cuda)
+            cls, boxes, _ = engine.forward(x, 64)
+            probs = torch.softmax(cls, -1).cpu().numpy()
+            for j in range(2):
+                r = reqs[2 * k + j]
+                np.testing.assert_allclose(r.boxes, boxes[j].cpu().numpy(),
+                                           rtol=1e-5, atol=1e-5)
+                np.testing.assert_allclose(r.cls_probs, probs[j],
+                                           rtol=1e-5, atol=1e-6)
+        assert engine.compile_count == 1
+
+
+def test_captured_lm_decode_step_matches_eager(cuda):
+    """The LM engine's replayed decode step against the eager step on a
+    copy of the same state (float32 toy model, 1e-4)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.decoder import decode_step, init_decoder
+    from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config("minitron-4b"),
+                              dtype=torch.float32)
+    params = init_decoder(cfg, torch.Generator().manual_seed(0), device=cuda)
+    eng = ServeEngine(cfg, params, ServeConfig(max_batch=2, cache_len=64),
+                      device=cuda)
+    assert eng.compile_count == 1 and eng._graph is not None
+    g = torch.Generator().manual_seed(3)
+    for i, n in enumerate((5, 9)):
+        eng.submit(Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (n,), generator=g).numpy(), max_new_tokens=4))
+    eng.step()
+    cache = copy.deepcopy(eng.cache)
+    tok, pos = eng.last_tok.clone(), eng.pos.clone()
+    with torch.inference_mode():
+        got = eng.decode_logits()
+        want, _ = decode_step(eng.params, cfg, cache, tok, pos)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    launches = flash_decode.LAUNCHES
+    eng.run_until_drained()
+    assert eng.compile_count == 1
+    assert flash_decode.LAUNCHES == launches      # replays call no wrapper
+
+
+def test_host_sync_inside_a_captured_forward_raises(cuda, monkeypatch):
+    """A forward that syncs with the host cannot be captured: building the
+    engine raises, and no engine serves it eagerly."""
+    from repro_torch.core import nn
+    from repro_torch.serve import DetrServeEngine
+    cfg, params = _capture_detector()
+    orig = nn.inverse_sigmoid
+
+    def syncing(x, eps=1e-5):
+        float(x.sum())                       # a device-to-host read
+        return orig(x, eps)
+    monkeypatch.setattr(nn, "inverse_sigmoid", syncing)
+    with pytest.raises(RuntimeError):
+        DetrServeEngine(cfg, params, max_batch=2, backend="auto", device=cuda)
+    monkeypatch.undo()
+    torch.cuda.synchronize()

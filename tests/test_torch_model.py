@@ -185,19 +185,22 @@ def test_serve_engine_answers_requests_like_detector_apply(pipelined):
 def test_serve_engine_answers_through_cuda_windowed(monkeypatch):
     """An int8-table engine asked for ``cuda_windowed`` answers like
     ``detector_apply`` through the same backend, each batch sampling the
-    encoder through K3 and the decoder through K2."""
+    encoder through K3 and the decoder through K2. Construction runs one
+    warm-up forward of the bucket through the same kernels."""
     cfg, params, *_ = _case(True, True, "int8", "pallas_windowed")
     rng = np.random.default_rng(2)
     imgs = [rng.normal(size=(3, 64, 64)).astype(np.float32) for _ in range(2)]
     spies = _spies(monkeypatch)
+    per_forward = {"msgs_windowed": 2, "msgs_decode": 2, "msgs_fused": 0}
     with DetrServeEngine(cfg, params_from_numpy(params, "cpu"), max_batch=2,
                          backend="cuda_windowed", device="cpu") as eng:
+        assert {k: s.calls for k, s in spies.items()} == per_forward
         reqs = [DetrRequest(rid=i, image=im) for i, im in enumerate(imgs)]
         assert all(eng.submit(r) for r in reqs)
         eng.run_until_drained()
         assert eng.batches_dispatched == 1
     assert {k: s.calls for k, s in spies.items()} == {
-        "msgs_windowed": 2, "msgs_decode": 2, "msgs_fused": 0}
+        k: 2 * n for k, n in per_forward.items()}
     cls, boxes, _ = det.detector_apply(
         params_from_numpy(params, "cpu"), cfg, torch.from_numpy(np.stack(imgs)),
         backend="cuda_windowed")
