@@ -95,11 +95,31 @@ Phases, each printing one JSON line:
                 construction (its graphs' pool); one engine with both the
                 512 and the 1024 px buckets serving both sizes and two
                 pad-ups with compile_count 2 throughout;
+     stream   — StreamingDetrEngine on the same detector's decoder and
+                heads (full width, 512 px levels, backend cuda_decode): 2
+                video sessions x 8 drifting-scene frames of encoder
+                memories, float32 then int8 table at the config's INT12:
+                per-frame mode and staged against rebuild bytes, wrapper
+                launches (6 K2 per frame, nothing else), K2 per frame from
+                torch.profiler, wall clock per frame by mode (median, p10,
+                p90), device busy and idle share, peak memory, outputs
+                against decoder_apply on a cache built from scratch under
+                the same FWP state (DEFA's limits; 1e-5 with act_bits None),
+                int8 codes that differ from a fresh build; the staged table
+                against a fresh staging and K2 on it against K2 on that
+                staging (bitwise) and against its plain version;
+                delta_threshold 0 (float32: table, staged table and
+                outputs bitwise a rebuild's; int8: reported);
+                reorder_sessions from a layout it moves against an engine
+                that does not reorder (next detections bitwise); the 512 px
+                bucket with query_order "zorder" against "none" (bitwise,
+                eager and captured); the stream log through the validator;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
                 launches; K2 also on the 1024 px path's first decoder
-                call), K1's and K3's L2 gather bytes, K1 on K3's and on
+                call and on the stream path's int8 staged table), K1's and
+                K3's L2 gather bytes, K1 on K3's and on
                 K2's operands, the device time of one train step's
                 table-gradient chain, one serve forward at B = 2 per path,
                 one train step, one LM decode step at B = 4 and one
@@ -159,6 +179,12 @@ LM_CACHE_LEN = 4096              # minitron's context length
 LM_PROMPTS = (37, 128, 300, 512)
 LM_NEW_TOKENS = 16
 CAPTURE_STEPS = 50               # wall-clock samples per path, eager and captured
+STREAM_SESSIONS = 2              # video sessions of the streaming engine
+STREAM_FRAMES = 8                # drifting-scene frames per session
+STREAM_SEED = 17
+STREAM_METRICS = ("stream_frames_total", "staged_bytes_total",
+                  "stream_span_seconds", "stream_frame_latency_seconds",
+                  "msda_traces_total")
 OUTPUTS = ("cls_logits", "boxes")
 LIBRARY_NOTE = ("no single PyTorch call computes the compacted Eq. 4 "
                 "aggregation (F.grid_sample samples a dense per-level map and "
@@ -959,14 +985,15 @@ def obs_log_env():
                 os.environ["REPRO_OBS_JSONL"] = old
 
 
-def validate_log(path):
+def validate_log(path, require=("msda_compiles_total",
+                                "serve_requests_total")):
     """The engine's JSONL log through ``python -m repro_torch.obs.validate
-    --require msda_compiles_total serve_requests_total`` (a process of its
-    own), and the log's event counts."""
+    --require <require>`` (a process of its own), and the log's event
+    counts."""
     import repro_torch
     src = str(Path(repro_torch.__file__).resolve().parents[1])
     cmd = [sys.executable, "-m", "repro_torch.obs.validate", "--jsonl", path,
-           "--require", "msda_compiles_total", "serve_requests_total"]
+           "--require", *require]
     run = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     if run.returncode != 0:
@@ -1759,6 +1786,482 @@ def phase_lm_serve(device):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: streaming video through persistent value caches
+# --------------------------------------------------------------------------
+
+def stream_setup(device):
+    """The streamed detector's decoder and heads at full width (random
+    weights from the seed), its 512 px level shapes, and one drifting
+    scene of STREAM_FRAMES encoder memories per session."""
+    import torch
+    from repro_torch.core.detector import init_detector
+    from repro_torch.msda.plan import level_shapes_for_resolution
+    from repro_torch.stream import drifting_scene
+    cfg = slice_config("deformable-detr-defa")
+    params = init_detector(cfg, torch.Generator().manual_seed(SEED),
+                           device=device)
+    levels = level_shapes_for_resolution(cfg.img_size)
+    d = cfg.encoder.attn.d_model
+    scenes = [[f[0] for f in drifting_scene(STREAM_SEED + i, levels, d,
+                                            STREAM_FRAMES)]
+              for i in range(STREAM_SESSIONS)]
+    return {"attn": cfg.encoder.attn, "dec_cfg": cfg.decoder, "levels": levels,
+            "params": {k: params[k] for k in ("decoder", "cls_head",
+                                              "box_head")},
+            "scenes": scenes}
+
+
+def stream_attn(setup, table_dtype=None, act_bits="config"):
+    import dataclasses
+    attn = setup["attn"]
+    if table_dtype is not None:
+        attn = dataclasses.replace(attn, table_dtype=table_dtype)
+    if act_bits != "config":
+        attn = dataclasses.replace(attn, act_bits=act_bits)
+    return attn
+
+
+def profile_step(fn):
+    """One call of ``fn`` under torch.profiler (a warm-up step first, so
+    that tracing runs when the call starts): wall ms, device busy ms and
+    idle share, K2 launches, device kernels, pageable host-to-device
+    copies."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, schedule
+    warm = torch.zeros(1, device="cuda")
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    busy = sum(_device_us(e) for e in dev) / 1e3
+    count = lambda frag: sum(e.count for e in dev if frag in e.key)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "k2_launches": count("msgs_decode_kernel"),
+            "device_kernels": sum(e.count for e in dev),
+            "htod_pageable": count("Memcpy HtoD (Pageable")}
+
+
+def stream_pass(setup, device, attn, order, *, scfg=None, profiled=False,
+                reorder_before=None, keep_tables=False, obs=None):
+    """One StreamingDetrEngine over the scenes: the session opened k-th
+    (slot k) streams scene ``order[k]``; one engine step per frame. Per
+    frame: the memory, the FWP state the cache was built under, the
+    frame stats, the outputs on the device (and, with ``keep_tables``,
+    copies of the value table, staged table and scale), the host wall
+    clock of the step (or, ``profiled``, one profiler step). The K2 calls
+    of the last frame are kept. With ``reorder_before`` the engine
+    reorders its sessions before that frame."""
+    import torch
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.obs import Observability
+    from repro_torch.serve import StreamingDetrEngine
+    engine = StreamingDetrEngine(
+        attn, setup["dec_cfg"], setup["params"], setup["levels"],
+        max_sessions=STREAM_SESSIONS, backend="cuda_decode",
+        stream_cfg=scfg, obs=obs or Observability.disabled(), device=device)
+    scene_of = {engine.open_session(): scene for scene in order}
+    records, steps, mapping = [], [], None
+    real_forward = engine.forward
+
+    def forward(memory, cache):
+        logits, boxes, freq = real_forward(memory, cache)
+        rec = {"memory": memory, "fwp": engine.mgr.fwp,
+               "act_scale": engine.mgr.act_scale,
+               "stats": dict(engine.mgr.last_stats),
+               "outputs": (logits, boxes)}
+        if keep_tables:
+            rec["tables"] = tuple(None if t is None else t.clone()
+                                  for t in (cache.v, cache.staged.v,
+                                            cache.scale))
+        records.append(rec)
+        return logits, boxes, freq
+    engine.forward = forward
+    n_layers = setup["dec_cfg"].n_layers
+    with Recorder(msgs_decode, "msgs_decode",
+                  STREAM_FRAMES * n_layers) as rec_d:
+        for t in range(STREAM_FRAMES):
+            if t == reorder_before:
+                before = {sid: s.slot for sid, s in engine.sessions.items()}
+                mapping = {"before": before,
+                           "after": engine.reorder_sessions()}
+            for sid, scene in scene_of.items():
+                engine.submit_frame(sid, setup["scenes"][scene][t])
+            if profiled:
+                steps.append(profile_step(engine.step))
+            else:
+                t0 = time.perf_counter()
+                engine.step()
+                torch.cuda.synchronize()
+                steps.append({"wall_ms": (time.perf_counter() - t0) * 1e3})
+    engine.forward = real_forward
+    results = {scene: [(r["cls_probs"], r["boxes"])
+                       for r in engine.sessions[sid].results]
+               for sid, scene in scene_of.items()}
+    return {"engine": engine, "records": records, "steps": steps,
+            "results": results, "mapping": mapping,
+            "k2_calls": rec_d.calls[-n_layers:]}
+
+
+def stream_scratch(run, rec):
+    """The frame's outputs through ``decoder_apply`` on a cache built from
+    scratch from the frame's memory under the FWP state its streamed
+    cache was built with; and that cache."""
+    from repro_torch.msda.cache import build_value_cache
+    from repro_torch.msda.pipeline import MSDAPipelineState
+    engine = run["engine"]
+    cache = build_value_cache(engine.params["decoder"]["value"], engine.plan,
+                              rec["memory"], MSDAPipelineState(fwp=rec["fwp"]))
+    logits, boxes, _ = engine.forward(rec["memory"], cache)
+    return (logits, boxes), cache
+
+
+def wall_split(steps, records):
+    """Median, p10 and p90 of the step wall clock per frame mode."""
+    out = {}
+    for mode in ("rebuild", "partial", "incremental"):
+        ts = [s["wall_ms"] for s, r in zip(steps, records)
+              if r["stats"]["mode"] == mode]
+        if not ts:
+            continue
+        dec = statistics.quantiles(ts, n=10) if len(ts) > 1 else [ts[0]] * 9
+        out[mode] = {"n": len(ts), "median_ms": statistics.median(ts),
+                     "p10_ms": dec[0], "p90_ms": dec[-1]}
+    return out
+
+
+def stream_frames(run):
+    return [{k: r["stats"][k] for k in ("mode", "reason", "n_dirty",
+                                         "tiles_changed", "staged_bytes",
+                                         "rebuild_bytes", "restaged_levels")}
+            for r in run["records"]]
+
+
+def stream_same_grid(run, rec):
+    """The frame's outputs through ``decoder_apply`` on a table whose every
+    slot is re-projected from the frame's memory under the streamed
+    cache's geometry and FROZEN scales (the activation grid and the int8
+    table scale the stream quantizes against); and that table. A
+    streamed table must equal it up to float ulps, wherever its rows
+    were last written."""
+    import torch
+    from repro_torch.core.quant import quantize_table_rows
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.msda.cache import project_cache_rows
+    engine = run["engine"]
+    fwp, scale = rec["fwp"], rec["tables"][2]
+    rows = project_cache_rows(engine.params["decoder"]["value"],
+                              engine.plan.cfg, rec["memory"], fwp.keep_idx,
+                              act_scale=rec["act_scale"])
+    if scale is not None:
+        rows = quantize_table_rows(rows, scale)
+    table = torch.cat([rows, torch.zeros_like(rows[:, :1])], dim=1)
+    staged = msgs_decode.stage_decode_table(
+        table, fwp.pix2slot, head_pack=engine.plan.decode_head_pack,
+        scale=scale)
+    cache = engine.mgr.cache._replace(v=table, pix2slot=fwp.pix2slot,
+                                      keep_idx=fwp.keep_idx, scale=scale,
+                                      staged=staged)
+    logits, boxes, _ = engine.forward(rec["memory"], cache)
+    return (logits, boxes), table
+
+
+def stream_against_scratch(label, run, compare, tol=None, fresh_limits=True):
+    """Each frame's outputs against a scratch build of the frame
+    (``stream_scratch``): within ``tol`` (rtol = atol) when given, else
+    DEFA's limits when ``fresh_limits``, else reported only. With the
+    frames' tables kept, also against the same-grid table
+    (``stream_same_grid``, DEFA's limits always), with the share of table
+    elements that differ from each."""
+    import torch
+    out = {"per_frame": [], "same_grid": [], "fresh_share_differing": [],
+           "same_grid_share_differing": []}
+    for t, rec in enumerate(run["records"]):
+        want, cache = stream_scratch(run, rec)
+        got = rec["outputs"]
+        if tol is not None:
+            for i, name in enumerate(OUTPUTS):
+                if not torch.allclose(got[i], want[i], rtol=tol, atol=tol):
+                    raise AssertionError(
+                        f"{label} frame {t} {name}: streamed vs scratch max "
+                        f"{float((got[i] - want[i]).abs().max()):.3e} > {tol}")
+        elif fresh_limits:
+            defa_agreement(f"{label}/frame{t}", got, want, compare)
+        out["per_frame"].append(abs_errors(got, want))
+        if "tables" not in rec:
+            continue
+        v = rec["tables"][0]
+        out["fresh_share_differing"].append(float((v != cache.v).float()
+                                                  .mean()))
+        same, table = stream_same_grid(run, rec)
+        defa_agreement(f"{label}/same_grid/frame{t}", got, same, compare)
+        out["same_grid"].append(abs_errors(got, same))
+        out["same_grid_share_differing"].append(float((v != table).float()
+                                                      .mean()))
+    return out
+
+
+def stream_threshold0(label, run, bitwise):
+    """``delta_threshold=0, update_frac=1``: every frame's streamed table,
+    staged table and outputs against a rebuild of the frame. ``bitwise``:
+    raise unless equal."""
+    import torch
+    out = []
+    for t, rec in enumerate(run["records"]):
+        want, cache = stream_scratch(run, rec)
+        v, staged, _ = rec["tables"]
+        eq = {"table": torch.equal(v, cache.v),
+              "staged": torch.equal(staged, cache.staged.v),
+              "outputs": all(torch.equal(a, b)
+                             for a, b in zip(rec["outputs"], want))}
+        row = {"mode": rec["stats"]["mode"], "bitwise": eq,
+               "code_share_differing": float((v != cache.v).float().mean()),
+               **{k: e for k, e in abs_errors(rec["outputs"], want).items()}}
+        out.append(row)
+        if bitwise and not all(eq.values()):
+            raise AssertionError(f"{label} frame {t}: threshold-0 stream vs "
+                                 f"rebuild not bitwise: {row}")
+    return out
+
+
+def stream_staged_checks(run):
+    """After the last (incremental) frame: a fresh staging of the updated
+    table equals the staged table bitwise; K2 on the staged table equals
+    K2 on the fresh staging bitwise and its plain version within the
+    kernel tolerance (each decoder layer's call of the last frame)."""
+    import torch
+    from repro_torch.kernels import msgs_decode
+    cache = run["engine"].mgr.cache
+    fresh = msgs_decode.stage_decode_table(
+        cache.v, cache.pix2slot, head_pack=cache.staged.head_pack,
+        scale=cache.scale)
+    if not torch.equal(fresh.v, cache.staged.v):
+        raise AssertionError("stream: the updated staged table differs from "
+                             "a fresh staging of the updated table")
+    errs = []
+    for args, _ in run["k2_calls"]:
+        staged, pts = args[0], args[1:7]
+        if staged.v.data_ptr() != cache.staged.v.data_ptr():
+            raise AssertionError("stream: K2 sampled a copy of the staged "
+                                 "table, not the table the update wrote")
+        out = msgs_decode.msgs_decode(staged, *pts)
+        if not torch.equal(out, msgs_decode.msgs_decode(fresh, *pts)):
+            raise AssertionError("stream: K2 on the updated staged table vs "
+                                 "on a fresh staging: not bitwise equal")
+        plain = msgs_decode.msgs_decode_plain(
+            staged.v, *(t[:, None] for t in pts), staged.remap, staged.scale,
+            head_pack=staged.head_pack, dh=staged.dh)[:, 0]
+        errs.append(check_close("msgs_decode on the streamed table", out,
+                                plain, tolerance(staged.v.dtype,
+                                                 staged.scale)))
+    return {"staged_equals_fresh_staging": True,
+            "k2_updated_equals_fresh": True, "k2_vs_plain_max_abs_err": errs,
+            "last_frame_mode": run["records"][-1]["stats"]["mode"]}
+
+
+def sorted_layout(run, t):
+    """The slot layout (scene per slot) that reorder_sessions would sort
+    the sessions of ``run`` into after frame ``t``: scenes ordered by the
+    raster key of their predicted-box centroid."""
+    import numpy as np
+    import torch
+    from repro_torch.msda import ordering
+    engine = run["engine"]
+    scenes = sorted(run["results"])
+    cents = np.stack([run["results"][s][t][1][:, :2].mean(axis=0)
+                      for s in scenes]).astype(np.float32)
+    keys = ordering.query_sort_keys(torch.from_numpy(cents)[None],
+                                    engine.plan.level_shapes, "raster")[0]
+    return [scenes[int(i)] for i in np.argsort(keys.numpy(), kind="stable")]
+
+
+def stream_table(setup, device, table, obs_log=None):
+    """One table dtype at the config's INT12: a timed pass, a profiled
+    pass, outputs against scratch builds (DEFA's limits), launches, wall
+    clock by mode, busy and idle share, peak memory."""
+    import torch
+    from repro_torch.kernels import (flash_decode, matmul, msgs_decode,
+                                     msgs_fused, msgs_windowed)
+    from repro_torch.obs import Observability
+    attn = stream_attn(setup, table_dtype=table)
+    mods = {"msgs_decode": msgs_decode, "msgs_fused": msgs_fused,
+            "msgs_windowed": msgs_windowed, "flash_decode": flash_decode,
+            "matmul": matmul}
+    for m in mods.values():
+        m.LAUNCHES = 0
+    obs = Observability.default() if obs_log else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timed = stream_pass(setup, device, attn, list(range(STREAM_SESSIONS)),
+                        keep_tables=True, obs=obs)
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    frames = len(timed["records"])
+    if launches != {"msgs_decode": setup["dec_cfg"].n_layers * frames,
+                    "msgs_fused": 0, "msgs_windowed": 0, "flash_decode": 0,
+                    "matmul": 0}:
+        raise AssertionError(f"stream {table}: launches {launches} over "
+                             f"{frames} frames; expected 6 K2 per frame only")
+    log = None
+    if obs_log:
+        timed["engine"].obs.flush_metrics()
+        timed["engine"].obs.close()
+        log = validate_log(obs_log, STREAM_METRICS)
+    profiled = stream_pass(setup, device, attn, list(range(STREAM_SESSIONS)),
+                           profiled=True)
+    modes = [r["stats"]["mode"] for r in timed["records"]]
+    if modes != [r["stats"]["mode"] for r in profiled["records"]]:
+        raise AssertionError(f"stream {table}: the profiled pass took other "
+                             f"modes than the timed one: {modes}")
+    bad = [s["k2_launches"] for s in profiled["steps"]
+           if s["k2_launches"] != setup["dec_cfg"].n_layers]
+    if bad:
+        raise AssertionError(f"stream {table}: K2 launches per frame "
+                             f"{[s['k2_launches'] for s in profiled['steps']]}")
+    compare = {}
+    # an int8 scratch build quantizes against a FRESH per-channel scale,
+    # which a keep transition can move far from the frozen one: its
+    # distance is reported; the same-grid table is what the stream must hold
+    scratch = stream_against_scratch(f"stream_{table}", timed, compare,
+                                     fresh_limits=table != "int8")
+    report = timed["engine"].report()
+    busy = [s["device_busy_ms"] for s in profiled["steps"]]
+    rec = {"table_dtype": table, "frames": stream_frames(timed),
+           "report": report, "launches": launches,
+           "k2_launches_per_frame": [s["k2_launches"]
+                                     for s in profiled["steps"]],
+           "htod_pageable_per_frame": [s["htod_pageable"]
+                                       for s in profiled["steps"]],
+           "wall_ms_by_mode": wall_split(timed["steps"], timed["records"]),
+           "profiled": {"wall_ms": [s["wall_ms"] for s in profiled["steps"]],
+                        "device_busy_ms": busy,
+                        "idle_share": [s["idle_share"]
+                                       for s in profiled["steps"]],
+                        "device_kernels": [s["device_kernels"]
+                                           for s in profiled["steps"]]},
+           "peak_allocated_bytes": peak, "against_scratch": scratch,
+           "defa_limits": compare, "staged": stream_staged_checks(timed),
+           "obs_log": log, "capacity": timed["engine"].capacity_estimate(),
+           "plan": timed["engine"].describe()}
+    return rec, timed
+
+
+def stream_reorder(setup, device, timed):
+    """reorder_sessions against an engine that does not reorder, from the
+    same slot layout, on the same frames: each session's detections of
+    the frame after the move must be bitwise unchanged. The layout is
+    chosen so that the sort moves the sessions."""
+    attn = stream_attn(setup)
+    layout = sorted_layout(timed, STREAM_FRAMES - 2)[::-1]
+    last = STREAM_FRAMES - 1
+    control = stream_pass(setup, device, attn, layout)
+    moved = stream_pass(setup, device, attn, layout, reorder_before=last)
+    equal = {}
+    for scene in control["results"]:
+        a, b = control["results"][scene][last], moved["results"][scene][last]
+        equal[scene] = all((x == y).all() for x, y in zip(a, b))
+    out = {"layout": layout, "mapping": {k: {str(s): v for s, v in m.items()}
+                                         for k, m in moved["mapping"].items()},
+           "moved": moved["mapping"]["before"] != moved["mapping"]["after"],
+           "next_detections_bitwise_equal": equal}
+    if not all(equal.values()):
+        raise AssertionError(f"stream: reorder_sessions changed the next "
+                             f"detections: {out}")
+    return out
+
+
+def query_order_check(serve, device):
+    """The 512 px bucket with query_order="zorder" (encoder and decoder
+    queries sorted by the Morton key of their reference points) against
+    the same detector with "none": the captured forward and the eager one
+    must give bitwise the outputs of "none"."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.detector import detector_apply
+    from repro_torch.obs import Observability
+    from repro_torch.serve import DetrServeEngine
+    cfg = serve["cfg"]
+    enc = cfg.encoder
+    cfg_z = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        enc, attn=dataclasses.replace(enc.attn, query_order="zorder")))
+    images = seeded_images(MAX_BATCH)
+    x = torch.from_numpy(np.stack(images)).to(device)
+    with torch.inference_mode():
+        want = detector_apply(serve["params"], cfg, x, backend="auto")[:2]
+        eager = detector_apply(serve["params"], cfg_z, x, backend="auto")[:2]
+    with DetrServeEngine(cfg_z, serve["params"], max_batch=MAX_BATCH,
+                         backend="auto", obs=Observability.disabled(),
+                         device=device) as engine:
+        plan = engine.buckets[0].plan
+        logits, boxes, ready = engine.dispatch(images, IMG)
+        ready.synchronize()
+    out = {"plan_query_order": plan.query_order,
+           "eager_bitwise": all(torch.equal(a, b) for a, b in zip(eager, want)),
+           "captured_bitwise": all(torch.equal(a, b) for a, b in
+                                   zip((logits, boxes), want)),
+           "eager_vs_none": abs_errors(eager, want),
+           "captured_vs_none": abs_errors((logits, boxes), want)}
+    if plan.query_order != "zorder" or not (out["eager_bitwise"]
+                                            and out["captured_bitwise"]):
+        raise AssertionError(f"query_order zorder vs none: {out}")
+    return out
+
+
+def phase_stream(device, serve):
+    """StreamingDetrEngine at full width: 2 sessions x 8 drifting-scene
+    frames through K2 on persistent staged tables, f32 then int8 (the
+    config's INT12); the same with act_bits None (outputs within 1e-5 of
+    scratch builds); delta_threshold 0 (f32: bitwise a rebuild; int8:
+    what holds is reported); reorder_sessions; query ordering on the
+    512 px bucket; the stream log through the validator."""
+    from repro_torch.stream import StreamConfig
+    t_phase = time.perf_counter()
+    setup = stream_setup(device)
+    with obs_log_env() as log:
+        f32, timed = stream_table(setup, device, "float32", obs_log=log)
+    int8, int8_run = stream_table(setup, device, "int8")
+    reorder = stream_reorder(setup, device, timed)
+    del timed
+    exact = stream_pass(setup, device, stream_attn(setup, act_bits=None),
+                        list(range(STREAM_SESSIONS)))
+    no_int12 = stream_against_scratch("stream_act_none", exact, {}, tol=1e-5)
+    del exact
+    t0 = StreamConfig(delta_threshold=0.0, update_frac=1.0)
+    run = stream_pass(setup, device, stream_attn(setup, act_bits=None),
+                      list(range(STREAM_SESSIONS)), scfg=t0, keep_tables=True)
+    thr0_f32 = stream_threshold0("float32", run, bitwise=True)
+    run = stream_pass(setup, device,
+                      stream_attn(setup, table_dtype="int8", act_bits=None),
+                      list(range(STREAM_SESSIONS)), scfg=t0, keep_tables=True)
+    thr0_int8 = stream_threshold0("int8", run, bitwise=False)
+    del run
+    order = query_order_check(serve, device)
+    emit("stream", model="deformable-detr-defa", img=IMG,
+         seconds=time.perf_counter() - t_phase,
+         n_in=int(setup["scenes"][0][0].shape[0]),
+         sessions=STREAM_SESSIONS, frames=STREAM_FRAMES,
+         float32=f32, int8=int8, act_bits_none_vs_scratch=no_int12,
+         threshold0={"float32": thr0_f32, "int8": thr0_int8},
+         reorder=reorder, query_order=order)
+    return {"int8_k2_calls": int8_run["k2_calls"],
+            "int8_launches": int8["launches"]["msgs_decode"],
+            "f32": f32, "int8": int8}
+
+
+# --------------------------------------------------------------------------
 # phase 5: times and bounds on the main path's own operands
 # --------------------------------------------------------------------------
 
@@ -2308,7 +2811,7 @@ def lm_times(lm):
     return [k4, k5], {"matmul": d4, "flash_decode": d5}, timing
 
 
-def phase_times(serve, serve_w, train, lm):
+def phase_times(serve, serve_w, train, lm, stream):
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
@@ -2348,6 +2851,14 @@ def phase_times(serve, serve_w, train, lm):
     k2w, d2w = k2_entry(args[0], args[1:7], serve_w["launches"]["msgs_decode"])
     detail["msgs_decode"]["int8_1024"] = dict(
         d2w, **{k: k2w[k] for k in ("ms", "ms_source", "by_kernel", "call_ms",
+                                     "plain_ms", "max_abs_err", "launches",
+                                     "bound_ms", "bound_by")})
+    # ... and the stream path's: the first decoder layer of the int8 run's
+    # last frame, on the staged table the frame's update rewrote in place
+    args, _ = stream["int8_k2_calls"][0]
+    k2s, d2s = k2_entry(args[0], args[1:7], stream["int8_launches"])
+    detail["msgs_decode"]["int8_stream"] = dict(
+        d2s, **{k: k2s[k] for k in ("ms", "ms_source", "by_kernel", "call_ms",
                                      "plain_ms", "max_abs_err", "launches",
                                      "bound_ms", "bound_by")})
 
@@ -2501,11 +3012,12 @@ def main() -> int:
     mixed = serve_mixed(device)
     train = phase_train(device)
     lm = phase_lm_serve(device)
+    stream = phase_stream(device, serve)
     emit("capture", detector_512=serve["capture"],
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,
          lm_decode=lm["capture"], obs_log=serve["obs_log"])
-    kernels = phase_times(serve, serve_w, train, lm)
+    kernels = phase_times(serve, serve_w, train, lm, stream)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

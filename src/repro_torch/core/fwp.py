@@ -4,8 +4,10 @@ Block k counts how often bilinear interpolation touched each pixel;
 block k+1 prunes pixels below ``T_l = k_h · mean_l(F)`` (Eq. 2). ``mask``
 mode zeroes them; ``compact`` mode keeps a static-capacity, raster-sorted
 keep-list per level and routes every pruned pixel to a zero sentinel
-slot. The streaming EMA and hysteresis builds wait for the streaming
-slice of the port.
+slot. Streaming video integrates the counts in an EMA
+(:func:`ema_update`) and decides the keep set with hysteresis
+(:func:`build_fwp_state_hysteresis`), so the slot geometry stays stable
+between frames.
 
 The per-level capacity top-k uses the stable sort of
 :func:`repro_torch.core.pap.topk_stable`, so ``keep_idx`` and
@@ -109,6 +111,51 @@ def _compact_from_scores(freq: torch.Tensor, score: torch.Tensor,
     pix2slot.scatter_(1, keep_idx.long(), slot_or_sentinel)
     return FWPState(keep_mask=keep_mask, keep_idx=keep_idx,
                     pix2slot=pix2slot, freq=freq)
+
+
+def ema_update(ema: torch.Tensor, freq: torch.Tensor,
+               alpha: float) -> torch.Tensor:
+    """Streaming frequency score: ``ema' = (1-alpha)·ema + alpha·freq``."""
+    a = float(alpha)
+    return (1.0 - a) * ema + a * freq
+
+
+def build_fwp_state_hysteresis(ema: torch.Tensor, level_shapes, *,
+                               k_enter: float, k_exit: float, mode: str,
+                               capacity: float = 0.6,
+                               prev: Optional[FWPState] = None) -> FWPState:
+    """FWP keep decision with per-pixel hysteresis for streaming reuse.
+
+    A pixel enters the keep set when its EMA score clears ``T_enter =
+    k_enter·mean_l`` and leaves it only below ``T_exit = k_exit·mean_l``;
+    in between the previous decision sticks. Compact mode ranks the
+    capacity fill in tiers (strictly ordered because m > max(ema)):
+    kept incumbent (ema+3m) > kept newcomer (ema+2m) > unkept incumbent
+    (ema+m) > unkept padding (ema), so a kept incumbent keeps its slot
+    and ``keep_idx`` churn follows mask churn. ``m`` is the maximum over
+    the whole batch, as in the reference."""
+    if k_enter < k_exit:
+        raise ValueError(
+            f"hysteresis needs k_enter >= k_exit (got {k_enter} < {k_exit})")
+    t_enter = _per_level_threshold(ema, level_shapes, k_enter)
+    t_exit = _per_level_threshold(ema, level_shapes, k_exit)
+    if prev is None:
+        prev_kept = torch.zeros(ema.shape, dtype=torch.bool, device=ema.device)
+    else:
+        prev_kept = prev.keep_mask
+    keep_mask = (ema >= t_enter) | (prev_kept & (ema >= t_exit))
+    if mode == "mask":
+        return FWPState(keep_mask=keep_mask, keep_idx=None, pix2slot=None,
+                        freq=ema)
+    if mode != "compact":
+        raise ValueError(f"unknown FWP mode {mode!r}")
+    incumbent = torch.zeros(ema.shape, dtype=torch.bool, device=ema.device)
+    if prev is not None and prev.keep_idx is not None:
+        incumbent.scatter_(1, prev.keep_idx.long(), True)
+    m = ema.max() + 1.0
+    score = ema + keep_mask.to(torch.float32) * (2.0 * m) \
+        + incumbent.to(torch.float32) * m
+    return _compact_from_scores(ema, score, keep_mask, level_shapes, capacity)
 
 
 def fwp_sparsity(state: FWPState) -> torch.Tensor:

@@ -41,8 +41,8 @@ class MSDeformAttnConfig:
     dtype: torch.dtype = torch.float32
     table_dtype: Optional[str] = None    # value-table storage dtype; None
     #   resolves via REPRO_MSDA_TABLE_DTYPE, falling back to `dtype`
-    query_order: Optional[str] = None    # only "none" until the ordering
-    #   module is ported
+    query_order: Optional[str] = None    # none | raster | zorder; None
+    #   resolves via REPRO_MSDA_QUERY_ORDER, falling back to "none"
 
     @property
     def head_dim(self) -> int:

@@ -31,6 +31,15 @@ def fake_quant_with_scale(x: torch.Tensor, bits: int,
     return x + (y - x).detach()
 
 
+def maybe_fake_quant_with_scale(x: torch.Tensor, bits: Optional[int],
+                                scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Fake-quant against a FROZEN scale (streaming row updates share the
+    grid of the last full build); identity without bits or scale."""
+    if bits is None or bits <= 0 or scale is None:
+        return x
+    return fake_quant_with_scale(x, bits, scale)
+
+
 def fake_quant(x: torch.Tensor, bits: int = 12,
                axis: Optional[int] = None) -> torch.Tensor:
     """quantize -> dequantize on the tensor's own scale, straight-through."""

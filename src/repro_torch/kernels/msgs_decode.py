@@ -21,10 +21,11 @@ head_pack`` heads side by side per row — bit-identical to the
 reference's staged table; it is a reshape and a transpose, so the staged
 table's gradient flows back into the value projection through autograd.
 Every decoder layer's launch then samples the staged table.
-:func:`msgs_decode` and :func:`msgs_decode_layers` go through
-:class:`MsgsDecode`, a ``torch.autograd.Function``: on CUDA tensors it
-launches the forward kernel and, in the backward pass, the backward
-kernel; on CPU tensors it takes the plain versions
+:func:`update_staged_rows` rewrites rows of a staged table in place (the
+streaming path). :func:`msgs_decode` and :func:`msgs_decode_layers` go
+through :class:`MsgsDecode`, a ``torch.autograd.Function``: on CUDA
+tensors it launches the forward kernel and, in the backward pass, the
+backward kernel; on CPU tensors it takes the plain versions
 :func:`msgs_decode_plain` and :func:`msgs_decode_backward_plain`.
 ``LAUNCHES`` and ``LAUNCHES_BWD`` count the two kernels' launches.
 """
@@ -94,6 +95,35 @@ def stage_decode_table(v: torch.Tensor, remap: Optional[torch.Tensor] = None,
     return DecodeStagedTable(v=_stage_layout(v, g).contiguous(), remap=remap,
                              scale=sp, n_rows=n_rows, head_pack=g, dh=dh,
                              table_bytes=table_bytes)
+
+
+def update_staged_rows(staged: DecodeStagedTable, row_idx: torch.Tensor,
+                       rows: torch.Tensor) -> DecodeStagedTable:
+    """Write re-projected rows (B, U, H, Dh) into the staged table at
+    table rows ``row_idx`` (B, U), IN PLACE, with one ``index_put_``: the
+    streaming path refreshes the changed tiles' slots of one persistent
+    staged table instead of restaging it per frame, and K2 then samples
+    ``staged.v`` at the address it always had. The rows are packed as
+    the full staging packs them, so the result equals a fresh
+    :func:`stage_decode_table` of the updated table bitwise; ``remap`` is
+    untouched (a row update never changes the keep geometry). ``rows``
+    must be in the staged dtype: an int8 table takes only int8 codes
+    quantized against the frozen table scale."""
+    if rows.dtype != staged.v.dtype:
+        raise TypeError(
+            f"update_staged_rows: rows dtype {rows.dtype} does not match "
+            f"the staged table dtype {staged.v.dtype}; quantize rows "
+            f"against the frozen table scale (int8 tables) or rebuild "
+            f"the staging if the table dtype changed")
+    b, u, h, dh = rows.shape
+    g = staged.head_pack
+    n_groups = staged.v.shape[1]
+    packed = rows.reshape(b, u, n_groups, g * dh).permute(0, 2, 1, 3)
+    dev = staged.v.device
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    gidx = torch.arange(n_groups, device=dev)[None, :, None]
+    staged.v.index_put_((bidx, gidx, row_idx.long()[:, None, :]), packed)
+    return staged
 
 
 def _corner_rows(x_px, y_px, start, wl, hl, remap):

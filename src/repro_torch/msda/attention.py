@@ -1,8 +1,9 @@
 """Planned MSDA execution (port of repro/msda/attention.py).
 
-  * :func:`msda_attention_cached` — PAP'd probabilities, point
-    generation, backend-dispatched MSGS + aggregation and (optionally)
-    the FWP frequency count, all against a prebuilt value cache;
+  * :func:`msda_attention_cached` — the plan's query ordering, PAP'd
+    probabilities, point generation, backend-dispatched MSGS +
+    aggregation and (optionally) the FWP frequency count, all against a
+    prebuilt value cache;
   * :func:`msda_attention` — build a fresh cache from ``x_flat`` and
     sample it (encoder blocks, whose memory changes every block).
 """
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core.quant import maybe_fake_quant
 from repro_torch.msda import backends as backend_registry
+from repro_torch.msda import ordering as ordering_lib
 from repro_torch.msda.cache import MSDAValueCache, build_value_cache
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.msda.plan import MSDAPlan
@@ -36,11 +38,27 @@ def msda_attention_cached(
 
     ``update_fwp=False`` (decoder layers) skips the frequency count and
     carries the existing FWP link through. Returns (out (B, Nq, D), next
-    state)."""
+    state).
+
+    With a ``query_order`` the queries are sorted by reference point
+    before sampling and the output is put back in the caller's order;
+    every per-query op is row-independent, so the result equals the
+    unordered pass bitwise. Raster-only backends (``cuda_windowed``)
+    derive their tile windows from raster query position and stay
+    unpermuted. A decoder layer derives its permutation from its own
+    incoming reference points."""
     cfg = plan.cfg
     b = query.shape[0]
     if state is None:
         state = MSDAPipelineState.initial()
+
+    inv_perm = None
+    if plan.query_order != "none" \
+            and not backend_registry.backend_info(plan.backend).raster_only:
+        perm, inv_perm = ordering_lib.query_permutation(
+            ref_points, plan.level_shapes, plan.query_order)
+        query = ordering_lib.permute_queries(query, perm)
+        ref_points = ordering_lib.permute_queries(ref_points, perm)
 
     sel, pts = generate_points(params, cfg, query, ref_points,
                                plan.level_shapes, pix2slot=cache.pix2slot,
@@ -52,6 +70,8 @@ def msda_attention_cached(
     dt = torch.promote_types(out_h.dtype, out_w.dtype)
     out = torch.einsum("bnhk,hkd->bnd", out_h.to(dt), out_w.to(dt)) \
         + params["out_b"]
+    if inv_perm is not None:
+        out = ordering_lib.invert_queries(out, inv_perm)
 
     # ---- FWP frequency counting for the NEXT block ------------------------
     need_freq = update_fwp and cfg.fwp_mode != "off"

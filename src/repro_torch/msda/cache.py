@@ -1,5 +1,5 @@
 """MSDAValueCache — build-once, sample-everywhere value tables (port of
-repro/msda/cache.py; the streaming row updates wait for that slice).
+repro/msda/cache.py).
 
 The cache is the projected, head-laid-out, optionally FWP-compacted value
 table plus what a backend needs to sample it: ``pix2slot`` (pixel ->
@@ -8,16 +8,25 @@ pixel), the int8 ``scale`` when the table holds codes, and — when the
 plan's backend is ``cuda_decode`` — the table staged once in the decode
 launch layout. Every encoder block builds its own cache; the decoder
 builds one from the encoder memory and every layer samples it.
+
+Streaming video keeps one cache alive across frames and refreshes only
+the rows whose pixels changed: :func:`update_value_cache_rows`
+re-projects a row subset (:func:`project_cache_rows`, against the frozen
+activation scale of the last full build, :func:`cache_act_scale`) and
+writes it IN PLACE into the table (:func:`scatter_table_rows`) and its
+decode staging (``kernels/msgs_decode.update_staged_rows``), so the
+tables keep their addresses from frame to frame.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import fwp as fwp_lib
-from repro_torch.core.quant import (maybe_fake_quant, quantize_table_rows,
-                                    table_quant_scale)
+from repro_torch.core.quant import (maybe_fake_quant,
+                                    maybe_fake_quant_with_scale, quant_scale,
+                                    quantize_table_rows, table_quant_scale)
 
 
 class MSDAValueCache(NamedTuple):
@@ -26,6 +35,8 @@ class MSDAValueCache(NamedTuple):
     pix2slot: Optional[torch.Tensor]    # (B, N_in) pixel -> slot (or None)
     keep_idx: Optional[torch.Tensor]    # (B, cap) slot -> pixel, raster-ordered
     n_rows: int                         # row count of ``v``
+    slot_windows: Tuple[int, ...]       # per-level slot-window extents
+    #   (compact mode, the zero sentinel excluded; () when dense)
     table_bytes: int                    # bytes per (batch, head-group) of
     #   this table under the reference's lane layout (+ indirection)
     staged: Optional[object] = None     # DecodeStagedTable for cuda_decode
@@ -96,11 +107,100 @@ def build_value_cache(params: dict, plan, x_flat: torch.Tensor,
 
     table_bytes = plan.table_bytes_for_rows(
         n_rows, with_indirection=pix2slot is not None)
+    slot_windows: Tuple[int, ...] = ()
+    if pix2slot is not None:
+        caps = fwp_lib.level_capacities(plan.level_shapes, cfg.fwp_capacity)
+        slot_windows = tuple(min(int(c), n_rows - 1) for c in caps)
     staged = None
     if plan.backend == "cuda_decode":
         from repro_torch.kernels import msgs_decode
         staged = msgs_decode.stage_decode_table(
             v, pix2slot, head_pack=plan.decode_head_pack, scale=scale)
     return MSDAValueCache(v=v, pix2slot=pix2slot, keep_idx=keep_idx,
-                          n_rows=n_rows, table_bytes=table_bytes,
-                          staged=staged, scale=scale)
+                          n_rows=n_rows, slot_windows=slot_windows,
+                          table_bytes=table_bytes, staged=staged, scale=scale)
+
+
+# --------------------------------------------------------------------------
+# Incremental (streaming) row updates
+# --------------------------------------------------------------------------
+
+def cache_act_scale(cache: MSDAValueCache, cfg) -> Optional[torch.Tensor]:
+    """The frozen per-tensor activation-quant scale of a built cache
+    (None without ``act_bits``): the largest |value| sits on the grid's
+    endpoint, so ``quant_scale`` of the built table reproduces the scale
+    the build used. An int8 table is read through its per-channel scale
+    (the per-channel amax survives quantization exactly)."""
+    if cfg.act_bits is None or cfg.act_bits <= 0:
+        return None
+    v = cache.v
+    if cache.scale is not None:
+        v = v.to(cache.scale.dtype) * cache.scale
+    return quant_scale(v, cfg.act_bits)
+
+
+def project_cache_rows(params: dict, cfg, x_flat: torch.Tensor,
+                       pix_idx: torch.Tensor,
+                       keep_mask: Optional[torch.Tensor] = None,
+                       act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Value-project the pixel rows ``pix_idx`` (B, U) of one memory, as
+    the matching rows of a full :func:`project_values` build: the same
+    weight fake-quant and bias, mask-mode zeroing through ``keep_mask``,
+    and activation fake-quant against the FROZEN ``act_scale``. Returns
+    (B, U, H, Dh)."""
+    d = x_flat.shape[2]
+    x_rows = torch.gather(x_flat, 1, pix_idx.long()[..., None].expand(-1, -1, d))
+    if keep_mask is not None:                        # fwp_mode == "mask"
+        m_rows = torch.gather(keep_mask, 1, pix_idx.long())
+        x_rows = x_rows * m_rows[..., None].to(x_rows.dtype)
+    rows = _project(x_rows, params, cfg)
+    if keep_mask is not None:
+        rows = rows * m_rows[..., None, None].to(rows.dtype)
+    return maybe_fake_quant_with_scale(rows, cfg.act_bits, act_scale)
+
+
+def scatter_table_rows(v: torch.Tensor, slot_idx: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """Write (B, U, H, Dh) rows into the (B, N_rows, H, Dh) table at rows
+    ``slot_idx`` (B, U), in place; returns ``v``. The dtypes must match:
+    an int8 table takes int8 codes (quantized against the cache's frozen
+    scale), never float rows."""
+    if rows.dtype != v.dtype:
+        raise TypeError(
+            f"scatter_table_rows: rows dtype {rows.dtype} != table dtype "
+            f"{v.dtype}; quantize rows against the cache's frozen scale "
+            f"before scattering into an int8 table")
+    b = v.shape[0]
+    bidx = torch.arange(b, device=v.device)[:, None]
+    v[bidx, slot_idx.long()] = rows
+    return v
+
+
+def update_value_cache_rows(params: dict, plan, cache: MSDAValueCache,
+                            x_flat: torch.Tensor, slot_idx: torch.Tensor,
+                            act_scale: Optional[torch.Tensor] = None,
+                            keep_mask: Optional[torch.Tensor] = None,
+                            ) -> Tuple[MSDAValueCache, int]:
+    """Re-project the table rows ``slot_idx`` (B, U) from the new memory
+    ``x_flat`` and write them in place into ``cache.v`` and, when the
+    plan staged the decode layout, into ``cache.staged`` (through
+    ``update_staged_rows``). The keep geometry is untouched: a row update
+    changes which values the slots hold, never which pixels hold slots.
+    Returns ``(cache, staged_bytes_delta)``, the delta being U rows under
+    the plan's lane layout with no pix2slot restage."""
+    if cache.keep_idx is not None:                   # compact: slot -> pixel
+        pix_idx = torch.gather(cache.keep_idx, 1, slot_idx.long())
+    else:                                            # dense/mask: slot == pixel
+        pix_idx = slot_idx
+    rows = project_cache_rows(params, plan.cfg, x_flat, pix_idx,
+                              keep_mask=keep_mask, act_scale=act_scale)
+    if cache.scale is not None:
+        # int8 end to end: the refreshed rows are quantized against the
+        # cache's FROZEN per-channel scale
+        rows = quantize_table_rows(rows, cache.scale)
+    scatter_table_rows(cache.v, slot_idx, rows)
+    if cache.staged is not None:
+        from repro_torch.kernels import msgs_decode
+        msgs_decode.update_staged_rows(cache.staged, slot_idx, rows)
+    return cache, plan.table_bytes_for_rows(slot_idx.shape[1],
+                                            with_indirection=False)

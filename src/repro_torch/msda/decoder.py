@@ -11,7 +11,8 @@ chain's final FWP compaction) and every layer samples it:
 
 With ``cuda_decode`` the table is also staged once per memory
 (``cache.staged``) and every layer's kernel launch samples the staged
-table.
+table. A streaming consumer passes its persistent, incrementally updated
+cache in (``cache=``) instead.
 """
 from __future__ import annotations
 
@@ -94,19 +95,25 @@ def _self_attention(layer: dict, h: torch.Tensor, pos: torch.Tensor,
 def decoder_apply(params: dict, cfg: MSDADecoderConfig, plan: MSDAPlan,
                   memory: torch.Tensor,
                   state: Optional[MSDAPipelineState] = None, *,
-                  collect_stats: bool = False,
+                  collect_stats: bool = False, cache=None,
                   ) -> Tuple[torch.Tensor, torch.Tensor, MSDAPipelineState]:
     """Run the decoder stack against ONE shared value cache.
 
-    ``state`` carries the encoder chain's final FWP link. Returns
-    (h (B, N_q, D), refs (B, N_q, 2), decoder state with one stats entry
-    per layer and the shared cache)."""
+    ``state`` carries the encoder chain's final FWP link; ``cache`` is a
+    prebuilt :class:`~repro_torch.msda.cache.MSDAValueCache` (the
+    streaming engine's persistent one), else one is built here from
+    ``memory``. Returns (h (B, N_q, D), refs (B, N_q, 2), decoder state
+    with one stats entry per layer, the shared cache and the caller's
+    ``state.stream`` accounting)."""
     b = memory.shape[0]
     attn_cfg = plan.cfg
-    cache = build_value_cache(params["value"], plan, memory, state)
+    if cache is None:
+        cache = build_value_cache(params["value"], plan, memory, state)
     if plan.backend == "cuda_decode" and cache.staged is None:
         raise RuntimeError("cuda_decode plan produced an unstaged cache")
-    dstate = MSDAPipelineState(fwp=getattr(state, "fwp", None)).with_cache(cache)
+    dstate = MSDAPipelineState(
+        fwp=getattr(state, "fwp", None),
+        stream=getattr(state, "stream", None)).with_cache(cache)
 
     pos = params["query_pos"][None]                         # (1, Nq, D)
     h = params["tgt_embed"][None].expand((b,) + params["tgt_embed"].shape)

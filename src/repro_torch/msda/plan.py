@@ -21,7 +21,14 @@ The plan decides, once per shape family:
   * **lane layout** — kept from the reference because the decode staging
     layout (``head_pack`` heads side by side per row) is defined by it and
     must stay bit-identical to the reference's staged table;
-  * **query order** — only ``"none"`` until ``msda/ordering.py`` is ported.
+  * **query order** — ``"none"``, ``"raster"`` or ``"zorder"``
+    (:func:`repro_torch.msda.ordering.resolve_query_order`);
+  * **streaming budget** — ``stream_update_rows``, the rows an
+    incremental frame re-projects (``repro_torch/stream/``).
+
+The measured per-tile window of an ordered query set
+(``with_measured_tile_window``) and the autotuned plan table wait for
+the autotune slice: :func:`tuned_stream_params` returns None until then.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import fwp as fwp_lib
+from repro_torch.msda.ordering import resolve_query_order
 
 _LANE_WIDTH = 128
 _BLOCK_Q = 128                   # the reference's default query tile
@@ -72,21 +80,6 @@ def resolve_table_dtype(cfg, override: Optional[str] = None) -> str:
     if choice is None:
         choice = cfg.dtype
     return _dtype_name(choice)
-
-
-def resolve_query_order(cfg, override: Optional[str] = None) -> str:
-    """arg > ``cfg.query_order`` > ``REPRO_MSDA_QUERY_ORDER`` > ``"none"``;
-    any other order needs the (not yet ported) ordering module."""
-    choice = override
-    if choice is None:
-        choice = getattr(cfg, "query_order", None)
-    if choice is None:
-        choice = os.environ.get("REPRO_MSDA_QUERY_ORDER") or "none"
-    if choice != "none":
-        raise NotImplementedError(
-            f"query_order {choice!r} needs msda/ordering.py, which the "
-            "port does not have yet; use 'none'")
-    return choice
 
 
 def next_pow2(n: int) -> int:
@@ -138,6 +131,9 @@ class MSDAPlan:
     n_queries: Optional[int] = None   # decode-shaped launches: learned
     #   query count (None => raster encoder queries, Nq == n_in)
     n_consumers: int = 1         # attention layers sharing one value cache
+    stream_update_rows: Optional[int] = None   # streaming: the static
+    #   per-frame re-projection budget (table rows an incremental frame
+    #   refreshes); None => no streaming consumer
     table_dtype: str = "float32"
     query_order: str = "none"
 
@@ -193,8 +189,8 @@ class MSDAPlan:
         staged-bytes figure as plain JSON-able values, under the keys of
         the reference's ``MSDAPlan.snapshot`` (repro/msda/plan.py:402-456)
         for the fields this plan has. ``decode`` is None unless the plan
-        is decode-shaped; ``stream`` stays None until streaming is
-        ported."""
+        is decode-shaped; ``stream`` is None unless the plan carries a
+        streaming budget."""
         snap = {
             "backend": self.backend,
             "tile_q": self.tile_q,
@@ -220,6 +216,15 @@ class MSDAPlan:
                 # staging the cache once vs rebuilding it per consumer layer
                 "rebuild_bytes": self.n_consumers * cb,
             }
+        if self.stream_update_rows is not None:
+            snap["stream"] = {
+                "update_rows": self.stream_update_rows,
+                # an incremental frame restages at most update_rows rows
+                # (no pix2slot restage) against a full per-frame rebuild
+                "update_bytes": self.table_bytes_for_rows(
+                    self.stream_update_rows, with_indirection=False),
+                "rebuild_bytes": self.cache_table_bytes,
+            }
         return snap
 
     def describe(self) -> str:
@@ -235,6 +240,14 @@ class MSDAPlan:
             d = s["decode"]
             q = (f", q=decode({d['n_queries']})x{d['n_consumers']}, "
                  f"cache={d['cache_table_bytes'] / 1024:.0f}KB build-once")
+        if s["query_order"] != "none":
+            win += f", order={s['query_order']}"
+        if s["stream"] is not None:
+            st = s["stream"]
+            q += (f", stream<={st['update_rows']}rows/frame "
+                  f"({st['update_bytes'] / 1024:.0f}KB vs "
+                  f"{st['rebuild_bytes'] / 1024:.0f}KB rebuild, "
+                  f"{st['rebuild_bytes'] / max(st['update_bytes'], 1):.1f}x)")
         return (f"MSDAPlan(backend={s['backend']}, "
                 f"lanes={s['lane_layout']}x{s['head_pack']}, "
                 f"tdtype={s['table_dtype']}, "
@@ -249,9 +262,14 @@ def make_plan(cfg, level_shapes: Sequence[Tuple[int, int]], *,
               backend: Optional[str] = None,
               n_queries: Optional[int] = None,
               n_consumers: int = 1,
+              stream_update_rows: Optional[int] = None,
               table_dtype: Optional[str] = None,
               query_order: Optional[str] = None) -> MSDAPlan:
-    """Resolve the static plan (see the module docstring for the order)."""
+    """Resolve the static plan (see the module docstring for the order).
+
+    ``stream_update_rows``: the streaming consumer's static per-frame
+    re-projection budget; accounting and capacity only (``describe()``
+    and the ``TemporalCacheManager``'s update cap)."""
     from repro_torch.msda import backends as backend_registry
 
     level_shapes = tuple((int(h), int(w)) for h, w in level_shapes)
@@ -311,8 +329,17 @@ def make_plan(cfg, level_shapes: Sequence[Tuple[int, int]], *,
                     tile_q=tile_q, window_bytes=window_bytes,
                     window_bytes_compact=window_bytes_compact,
                     n_queries=n_queries, n_consumers=n_consumers,
+                    stream_update_rows=stream_update_rows,
                     table_dtype=tdtype,
                     query_order=resolve_query_order(cfg, query_order))
+
+
+def tuned_stream_params() -> Optional[dict]:
+    """The measured streaming crossover ({diff_channel_stride,
+    update_frac}) of an applied autotune entry, consumed by
+    :func:`repro_torch.stream.temporal.resolve_stream_config`. None: the
+    port has no autotune table yet, so the defaults stand."""
+    return None
 
 
 def plan_for(cfg, level_shapes: Tuple[Tuple[int, int], ...],

@@ -33,8 +33,12 @@ ahead of time (port of ``DetrServeEngine`` from repro/serve/engine.py).
 
 Every forward builds ONE shared value cache from the encoder memory and
 all decoder layers sample it. :meth:`DetrServeEngine.forward` is the
-public eager forward (no graph). Left for later slices: the autotuned
-plan table and the streaming engine.
+public eager forward (no graph).
+
+:class:`StreamingDetrEngine` serves video sessions over persistent,
+incrementally updated value caches (``repro_torch/stream/``); its
+decoder forward is eager. Left for later slices: the autotuned plan
+table and a CUDA graph per streaming engine.
 """
 from __future__ import annotations
 
@@ -413,3 +417,295 @@ class DetrServeEngine:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.close()
+
+
+# --------------------------------------------------------------------------
+# Streaming DETR detection: temporal value-cache reuse across video frames
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamSession:
+    """One live video stream occupying a batch slot of the engine.
+
+    Each entry of ``results`` carries the frame's detections and the
+    manager's frame accounting under ``"stream"``, which is BATCH-scoped
+    (``stream["scope"] == "batch"``): all sessions advance in one batched
+    update."""
+    sid: int
+    slot: int
+    queue: deque = dataclasses.field(default_factory=deque)
+    results: list = dataclasses.field(default_factory=list)
+    frames_done: int = 0
+    t_queue: deque = dataclasses.field(default_factory=deque)  # submit
+    #   times (perf_counter) parallel to ``queue``: starvation ages
+
+
+class StreamingDetrEngine:
+    """Streaming detection over persistent, incrementally updated caches
+    (port of the reference's ``StreamingDetrEngine``).
+
+    Up to ``max_sessions`` video sessions each occupy one batch slot of
+    ONE batched :class:`~repro_torch.stream.TemporalCacheManager`, which
+    holds every slot's persistent value cache, diff reference, EMA
+    scores and hysteresis keep state. Per :meth:`step`, each session's
+    next frame memory is stacked into the static batch (idle slots
+    replay their last memory: zero dirty tiles), the manager applies one
+    incremental update (or a partial restage, or a full rebuild), the
+    6-layer decoder and its heads run against the manager's cache
+    (``cuda_decode``: K2 samples the staged table the update rewrote in
+    place), and the sampled frequencies feed back into the EMA.
+
+    Sessions join and leave slots between steps; admission builds only
+    the joining slot's rows. Sessions submit encoder MEMORIES (N_in, D):
+    the backbone and encoder run upstream, per frame. ``params`` holds
+    ``decoder``, ``cls_head`` and ``box_head``; they are moved to
+    ``device``, the card unless the caller passes ``device="cpu"``. The
+    decoder forward is eager."""
+
+    def __init__(self, attn_cfg, decoder_cfg, params: dict,
+                 level_shapes, *, max_sessions: int = 2,
+                 backend: Optional[str] = None, stream_cfg=None,
+                 update_fwp: bool = True,
+                 obs: Optional[Observability] = None, device="cuda"):
+        from repro_torch.msda import backend_info, make_plan
+        from repro_torch.stream import (TemporalCacheManager,
+                                        resolve_stream_config,
+                                        stream_update_cap)
+        self.device = resolve_device(device)
+        self.attn_cfg = attn_cfg
+        self.dec_cfg = decoder_cfg
+        self.params = tree_to(params, self.device)
+        self.max_sessions = int(max_sessions)
+        self._update_fwp = bool(update_fwp) and attn_cfg.fwp_mode != "off"
+        scfg = resolve_stream_config(stream_cfg)
+        if backend is not None and backend != "auto" \
+                and backend_info(backend).raster_only:
+            backend = "auto"             # the decoder's own fallback
+        plan = make_plan(attn_cfg, level_shapes, backend=backend,
+                         n_queries=decoder_cfg.n_queries,
+                         n_consumers=decoder_cfg.n_layers)
+        self.plan = dataclasses.replace(
+            plan, stream_update_rows=stream_update_cap(plan,
+                                                       scfg.update_frac))
+        # engine and manager share ONE bundle: the manager's counters and
+        # the engine's spans land in the same registry and log
+        self.obs = obs if obs is not None else Observability.default()
+        self._m_span = self.obs.metrics.histogram(
+            "stream_span_seconds", "per-stage frame latency (label span=)")
+        self._m_frame_latency = self.obs.metrics.histogram(
+            "stream_frame_latency_seconds", "full step latency per frame")
+        self.obs.tracer.event("plan", engine="StreamingDetrEngine",
+                              plan=self.plan.snapshot())
+        self.mgr = TemporalCacheManager(
+            self.plan, self.params["decoder"]["value"], scfg,
+            batch=self.max_sessions, obs=self.obs)
+        self.sessions: dict = {}
+        self._free_slots = list(range(self.max_sessions))
+        self._next_sid = 0
+        self._last_memory: Optional[torch.Tensor] = None  # (B, N_in, D) on
+        #   the device: idle slots replay their row
+        self._slot_centroid: dict = {}   # slot -> mean predicted (cx, cy)
+        #   of its last frame: what reorder_sessions() sorts by
+
+    def describe(self) -> str:
+        r = self.mgr
+        return (self.plan.describe()
+                + f" [streaming: {self.max_sessions} sessions, "
+                f"tile_rows={r.scfg.tile_rows}, "
+                f"update<={r.update_rows}/{r.n_slots} rows/frame]")
+
+    def capacity_estimate(self, budget_bytes: Optional[int] = None) -> dict:
+        """Sessions per device: how many streams' persistent value tables
+        fit a budget, per table dtype. Each session costs its full table
+        (rows x lanes x itemsize, + the int8 scale row, + the pix2slot
+        indirection when compact), as in the reference. The reference's
+        default budget is its TPU window-staging budget, which has no
+        H100 counterpart: the default here is the device's free memory
+        (``torch.cuda.mem_get_info``, ``budget_source: "device_free"``),
+        or the host's available memory for a CPU engine
+        (``"host_free"``)."""
+        source = "caller"
+        if budget_bytes is None:
+            if self.device.type == "cuda":
+                budget_bytes = int(torch.cuda.mem_get_info(self.device)[0])
+                source = "device_free"
+            else:
+                import os
+                budget_bytes = int(os.sysconf("SC_AVPHYS_PAGES")
+                                   * os.sysconf("SC_PAGE_SIZE"))
+                source = "host_free"
+        per_dtype = {}
+        for d in ("float32", "int8"):
+            p = dataclasses.replace(self.plan, table_dtype=d)
+            per = p.table_bytes_for_rows(self.mgr._n_rows,
+                                         with_indirection=self.mgr._compact)
+            per_dtype[d] = {"bytes_per_session": per,
+                            "sessions": budget_bytes // per}
+        return {"budget_bytes": budget_bytes,
+                "budget_source": source,
+                "table_dtype": self.plan.table_dtype,
+                "rows_per_session": self.mgr._n_rows,
+                "per_dtype": per_dtype}
+
+    # ---- session lifecycle -------------------------------------------------
+    def open_session(self) -> int:
+        if not self._free_slots:
+            raise RuntimeError(
+                f"all {self.max_sessions} streaming slots are busy")
+        slot = self._free_slots.pop(0)
+        sid = self._next_sid
+        self._next_sid += 1
+        self.sessions[sid] = StreamSession(sid=sid, slot=slot)
+        # warm-start the slot and schedule its own build on the next step
+        self.mgr.reset_slot(slot)
+        return sid
+
+    def close_session(self, sid: int) -> StreamSession:
+        sess = self.sessions.pop(sid)
+        self._free_slots.append(sess.slot)
+        self._slot_centroid.pop(sess.slot, None)
+        return sess
+
+    def submit_frame(self, sid: int, memory: np.ndarray) -> None:
+        """Queue one frame's encoder memory (N_in, D) for session sid."""
+        sess = self.sessions[sid]
+        sess.queue.append(np.asarray(memory))
+        sess.t_queue.append(time.perf_counter())
+
+    # ---- forward -------------------------------------------------------------
+    def forward(self, memory: torch.Tensor, cache):
+        """The decoder stack and heads against ``cache`` (no autograd):
+        (cls_logits, boxes, summed sampling frequencies or None)."""
+        from repro_torch.core import nn
+        from repro_torch.msda.decoder import decoder_apply
+        with torch.inference_mode():
+            hs, refs, dstate = decoder_apply(
+                self.params["decoder"], self.dec_cfg, self.plan, memory,
+                collect_stats=self._update_fwp, cache=cache)
+            cls_logits = nn.linear(self.params["cls_head"], hs)
+            raw = nn.linear(self.params["box_head"], hs)
+            cxy = torch.sigmoid(raw[..., :2] + nn.inverse_sigmoid(refs))
+            boxes = torch.cat([cxy, torch.sigmoid(raw[..., 2:])], dim=-1)
+            freq = None
+            if self._update_fwp:
+                freq = sum(s["freq"] for s in dstate.collected_stats())
+        return cls_logits, boxes, freq
+
+    def _frame_memory(self, pending: dict) -> torch.Tensor:
+        """The (max_sessions, N_in, D) batch: each pending session's next
+        frame (one copy of its memory to the device), idle slots their
+        last memory (zeros before the first step)."""
+        if self._last_memory is None:
+            memory = torch.zeros((self.max_sessions, self.plan.n_in,
+                                  self.attn_cfg.d_model),
+                                 dtype=self.attn_cfg.dtype, device=self.device)
+        else:
+            memory = self._last_memory.clone()
+        for slot, sess in pending.items():
+            frame = torch.from_numpy(np.asarray(sess.queue.popleft(),
+                                                np.float32))
+            sess.t_queue.popleft()
+            memory[slot].copy_(frame)
+        return memory
+
+    # ---- one engine step ---------------------------------------------------
+    def step(self) -> int:
+        """Ingest one pending frame per session; returns frames served."""
+        pending = {s.slot: s for s in self.sessions.values() if s.queue}
+        if not pending:
+            return 0
+        t_step0 = time.perf_counter()
+        tr = self.obs.tracer
+        with tr.span("frame_in", n=len(pending)):
+            memory = self._frame_memory(pending)
+        self._last_memory = memory
+        cache, fstats = self.mgr.step(memory)
+        dec_span = tr.start("decode", n=len(pending))
+        cls_logits, boxes, freq = self.forward(memory, cache)
+        if freq is not None:
+            self.mgr.observe(freq)
+        probs = torch.softmax(cls_logits, dim=-1).cpu().numpy()
+        boxes = boxes.cpu().numpy()
+        if dec_span:
+            sp = tr.end(dec_span)    # after the copy: compute included
+            self._m_span.observe(sp.duration_s, span="decode")
+        self._m_frame_latency.observe(time.perf_counter() - t_step0)
+        for slot, sess in pending.items():
+            sess.results.append({
+                "frame": sess.frames_done,
+                "cls_probs": probs[slot], "boxes": boxes[slot],
+                "stream": fstats,
+            })
+            sess.frames_done += 1
+            # the session's reference-point cluster: mean predicted box
+            # center, normalized to [0, 1]^2
+            self._slot_centroid[slot] = boxes[slot][:, :2].mean(axis=0)
+        return len(pending)
+
+    # ---- cache-local session placement -------------------------------------
+    def reorder_sessions(self, method: Optional[str] = None) -> dict:
+        """Move sessions whose reference points cluster onto ADJACENT
+        batch slots, sorted by the session centroid (mean predicted box
+        center of its last frame) through
+        :func:`repro_torch.msda.ordering.query_sort_keys`; ``method``
+        defaults to the plan's ``query_order``, else raster. Free slots
+        are fixed points; each session's state moves with it
+        (``permute_slots``), so its next detections are unchanged.
+        Returns {sid: slot} after the move."""
+        from repro_torch.msda import ordering
+        if method is None:
+            method = self.plan.query_order \
+                if self.plan.query_order != "none" else "raster"
+        sessions = sorted(self.sessions.values(), key=lambda s: s.sid)
+        placed = [s for s in sessions if s.slot in self._slot_centroid]
+        if len(placed) > 1:
+            cents = torch.from_numpy(np.stack(
+                [self._slot_centroid[s.slot] for s in placed]).astype(
+                    np.float32))
+            keys = ordering.query_sort_keys(
+                cents[None], self.plan.level_shapes, method)[0].numpy()
+            order = np.argsort(keys, kind="stable")
+            slots_sorted = sorted(s.slot for s in placed)
+            perm = list(range(self.max_sessions))
+            for i, j in enumerate(order):
+                # key-sorted session i lands in the i-th occupied slot;
+                # gather semantics: new slot takes the state at perm[slot]
+                perm[slots_sorted[i]] = placed[int(j)].slot
+            self.mgr.permute_slots(tuple(perm))
+            if self._last_memory is not None:
+                self._last_memory = self._last_memory[
+                    torch.tensor(perm, device=self.device)]
+            old_cent = dict(self._slot_centroid)
+            old_by_slot = {s.slot: s for s in placed}
+            self._slot_centroid = {
+                new: old_cent[old] for new, old in enumerate(perm)
+                if old in old_cent}
+            for new, old in enumerate(perm):
+                if old in old_by_slot:
+                    old_by_slot[old].slot = new
+        return {s.sid: s.slot for s in self.sessions.values()}
+
+    def run_until_drained(self, max_steps: int = 10000) -> None:
+        steps = 0
+        while any(s.queue for s in self.sessions.values()) \
+                and steps < max_steps:
+            if self.step() == 0:
+                break
+            steps += 1
+        queued = {s.sid: len(s.queue)
+                  for s in self.sessions.values() if s.queue}
+        if queued:
+            now = time.perf_counter()
+            raise StarvationError({
+                "engine": "StreamingDetrEngine", "steps": steps,
+                "queued": queued,
+                "oldest_age_s": {s.sid: round(now - s.t_queue[0], 6)
+                                 for s in self.sessions.values()
+                                 if s.t_queue},
+                "frames_done": sum(s.frames_done
+                                   for s in self.sessions.values())})
+        self.obs.flush_metrics()
+
+    def report(self) -> dict:
+        """The manager's cumulative rebuild-vs-incremental accounting."""
+        return self.mgr.report()

@@ -682,3 +682,86 @@ def test_host_sync_inside_a_captured_forward_raises(cuda, monkeypatch):
         DetrServeEngine(cfg, params, max_batch=2, backend="auto", device=cuda)
     monkeypatch.undo()
     torch.cuda.synchronize()
+
+
+def test_update_staged_rows_writes_the_cards_table_in_place(cuda):
+    """The streaming row update on the card: the staged table keeps its
+    address, equals a fresh staging of the updated table bitwise, and K2
+    on it equals K2 on that fresh staging bitwise."""
+    from repro_torch.kernels import msgs_decode
+    v, pts, remap, _ = _operands(cuda, n_rows=120)
+    staged = msgs_decode.stage_decode_table(v, remap, head_pack=4)
+    where = staged.v.data_ptr()
+    g = torch.Generator().manual_seed(3)
+    idx = torch.stack([torch.randperm(120, generator=g)[:17]
+                       for _ in range(v.shape[0])]).to(cuda)
+    rows = torch.randn((v.shape[0], 17) + tuple(v.shape[2:]),
+                       generator=g).to(cuda)
+    msgs_decode.update_staged_rows(staged, idx, rows)
+    v2 = v.clone()
+    v2[torch.arange(v.shape[0], device=cuda)[:, None], idx.long()] = rows
+    fresh = msgs_decode.stage_decode_table(v2, remap, head_pack=4)
+    assert staged.v.data_ptr() == where
+    assert torch.equal(staged.v, fresh.v)
+    before = msgs_decode.LAUNCHES
+    got = msgs_decode.msgs_decode(staged, *pts)
+    assert torch.equal(got, msgs_decode.msgs_decode(fresh, *pts))
+    assert msgs_decode.LAUNCHES == before + 2
+
+
+def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
+    """A small StreamingDetrEngine through K2 on the card: every frame's
+    outputs within 1e-5 of decoder_apply on a cache built from scratch
+    under the same FWP state (no INT12 grid), one K2 launch per layer per
+    frame, and the tables written in place."""
+    from repro_torch.core.msdeform_attn import MSDeformAttnConfig
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.msda import MSDADecoderConfig, init_decoder
+    from repro_torch.msda.cache import build_value_cache
+    from repro_torch.msda.pipeline import MSDAPipelineState
+    from repro_torch.obs import Observability
+    from repro_torch.serve import StreamingDetrEngine
+    from repro_torch.stream import StreamConfig, drifting_scene
+    levels = ((8, 10), (4, 5), (2, 3))
+    cfg = MSDeformAttnConfig(d_model=32, n_heads=4, n_levels=3,
+                             fwp_mode="compact", fwp_capacity=0.6,
+                             range_narrow=(4.0, 3.0, 2.0), pap_mode="topk")
+    dec = MSDADecoderConfig(n_layers=2, n_queries=8, d_ffn=32)
+    gen = torch.Generator().manual_seed(11)
+    params = {"decoder": init_decoder(dec, cfg, gen),
+              "cls_head": {"w": torch.randn((32, 3), generator=gen) * 0.1,
+                           "b": torch.zeros((3,))},
+              "box_head": {"w": torch.randn((32, 4), generator=gen) * 0.1,
+                           "b": torch.zeros((4,))}}
+    engine = StreamingDetrEngine(
+        cfg, dec, params, levels, max_sessions=2, backend="cuda_decode",
+        stream_cfg=StreamConfig(tile_rows=1, delta_threshold=1e-4,
+                                update_frac=0.5),
+        obs=Observability.disabled(), device=cuda)
+    seen = []
+    real = engine.forward
+
+    def forward(memory, cache):
+        out = real(memory, cache)
+        seen.append((memory, engine.mgr.fwp, out[:2]))
+        return out
+    engine.forward = forward
+    sids = [engine.open_session() for _ in range(2)]
+    scenes = [drifting_scene(s, levels, 32, 5) for s in (1, 2)]
+    before = msgs_decode.LAUNCHES
+    where = None
+    for t in range(5):
+        for sid, scene in zip(sids, scenes):
+            engine.submit_frame(sid, scene[t][0])
+        engine.step()
+        where = where or engine.mgr.cache.staged.v.data_ptr()
+        assert engine.mgr.cache.staged.v.data_ptr() == where
+    assert msgs_decode.LAUNCHES - before == 2 * 5
+    engine.forward = real
+    for memory, fwp, got in seen:
+        cache = build_value_cache(engine.params["decoder"]["value"],
+                                  engine.plan, memory,
+                                  MSDAPipelineState(fwp=fwp))
+        want = engine.forward(memory, cache)[:2]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -215,5 +215,7 @@ def test_plan_resolution_mirrors_reference_order(monkeypatch):
     monkeypatch.setenv("REPRO_MSDA_TABLE_DTYPE", "int8")
     assert msda.plan_for(cfg, LEVELS).table_dtype == "int8"
     monkeypatch.setenv("REPRO_MSDA_QUERY_ORDER", "zorder")
-    with pytest.raises(NotImplementedError):
+    assert msda.make_plan(cfg, LEVELS).query_order == "zorder"
+    monkeypatch.setenv("REPRO_MSDA_QUERY_ORDER", "hilbert")
+    with pytest.raises(ValueError, match="query order"):
         msda.make_plan(cfg, LEVELS)
