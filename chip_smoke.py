@@ -114,6 +114,16 @@ Phases, each printing one JSON line:
                 that does not reorder (next detections bitwise); the 512 px
                 bucket with query_order "zorder" against "none" (bitwise,
                 eager and captured); the stream log through the validator;
+     autotune — the port's plan autotuner (``repro_torch.msda.autotune``)
+                on the card into a temporary table: the L2 knee (K1 over
+                tables from L2/8 to 4 x L2), K2's once-staged sweep
+                against K1 per layer at the 512 px decoder's shape, and
+                the stream crossover; measured provenance, the tuned
+                ``auto`` picks bitwise the same backends planned
+                statically (512 px, encoder and decoder), each served
+                bucket's static and measured ``auto`` pick, the 512 px
+                decoder's measured tile windows (unordered and zorder);
+                results/autotune_torch.json is left unchanged;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
@@ -2262,6 +2272,135 @@ def phase_stream(device, serve):
 
 
 # --------------------------------------------------------------------------
+# phase 4c: the measured plan table on the card
+# --------------------------------------------------------------------------
+
+def served_picks():
+    """``auto``'s pick in the encoder and the decoder of each served bucket
+    under whatever plan-table entry is applied (the 1024 px int8 encoder
+    is served by name through cuda_windowed; the trainer's decoder by
+    name through cuda_decode; the stream engines have no encoder), plus a
+    table over every budget with no range narrowing (1280 px, the window
+    gate closed), where the reference falls back to its gather. Every
+    pick for the card must be a CUDA kernel."""
+    import dataclasses
+    from repro_torch.msda.plan import level_shapes_for_resolution, plan_for
+    from repro_torch.train.detr import train_config
+    cfg = slice_config("deformable-detr-defa")
+    f32 = cfg.encoder.attn
+    int8 = dataclasses.replace(f32, table_dtype="int8")
+    train = train_config("deformable-detr-defa", IMG).encoder.attn
+    buckets = {"512px_float32": (f32, IMG, True),
+               "1024px_int8": (int8, IMG_WINDOWED, True),
+               "1024px_float32_mixed": (f32, IMG_WINDOWED, True),
+               "train_512px": (train, IMG, True),
+               "stream_512px_float32": (f32, IMG, False),
+               "stream_512px_int8": (int8, IMG, False),
+               "1280px_float32_no_narrow": (
+                   dataclasses.replace(f32, range_narrow=None), 1280, True)}
+    out = {}
+    for name, (attn, img, encoder) in buckets.items():
+        levels = level_shapes_for_resolution(img)
+        picks = {"decoder": plan_for(attn, levels, "auto", cfg.decoder.n_queries,
+                                     cfg.decoder.n_layers).backend}
+        if encoder:
+            picks["encoder"] = plan_for(attn, levels, "auto").backend
+        out[name] = picks
+    plain = {k: v for k, v in out.items() if "torch_gather" in v.values()}
+    if plain:
+        raise AssertionError(f"auto picked the plain gather on the card: "
+                             f"{plain}")
+    return out
+
+
+def decoder_tile_windows(serve):
+    """``with_measured_tile_window`` on the 512 px decoder's reference
+    points (the first layer's, from the served weights): per-tile window
+    bytes unordered and under zorder, max and mean."""
+    import dataclasses
+    import torch
+    from repro_torch.core import nn
+    from repro_torch.msda.plan import level_shapes_for_resolution, plan_for
+    cfg = slice_config("deformable-detr-defa")
+    dec = serve["params"]["decoder"]
+    with torch.no_grad():
+        refs = torch.sigmoid(nn.linear(dec["ref_head"], dec["query_pos"]))
+    attn = dataclasses.replace(cfg.encoder.attn, query_order="zorder")
+    plan = plan_for(attn, level_shapes_for_resolution(IMG), "auto",
+                    cfg.decoder.n_queries, cfg.decoder.n_layers)
+    umax, umean, zmax, zmean = plan.with_measured_tile_window(
+        refs.cpu().numpy()).measured_tilewin
+    return {"tile_q": plan.tile_q, "n_queries": int(refs.shape[0]),
+            "unordered": {"max_bytes": umax, "mean_bytes": umean},
+            "zorder": {"max_bytes": zmax, "mean_bytes": zmean},
+            "static_window_bytes": plan_for(cfg.encoder.attn,
+                                            level_shapes_for_resolution(IMG),
+                                            "auto").window_bytes}
+
+
+def phase_autotune(device, smi, serve):
+    """The port's plan autotuner on the card: the three calibrations
+    measured into a temporary table (the committed
+    results/autotune_torch.json must not change), measured provenance,
+    the tuned auto picks bitwise the same backends planned statically at
+    the 512 px shape (encoder and decoder), the probed sizes straddling
+    the L2, each served bucket's static and measured auto picks, and the
+    512 px decoder's measured tile windows. The phase runs in a plan-table
+    scope: every later phase plans statically."""
+    import torch
+    from repro_torch.msda import autotune
+    from repro_torch.msda import plan as plan_lib
+    t_phase = time.perf_counter()
+    committed = Path(autotune.default_table_path())
+    before = committed.read_bytes() if committed.exists() else None
+    l2 = int(torch.cuda.get_device_properties(device).L2_cache_size)
+    with autotune.plan_table_scope():
+        static = served_picks()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "autotune_torch.json")
+            entry = autotune.plan_autotune(device=device, measure=True,
+                                           force=True, cache_path=path)
+            persisted = autotune.load_table(path)["platforms"][
+                autotune.platform_key(device)]
+        if persisted != entry or entry["provenance"] != "measured" \
+                or not autotune.valid_entry(entry):
+            raise AssertionError(f"autotune entry not persisted as measured: "
+                                 f"{entry}")
+        sizes = [mb * 2**20 for mb in
+                 entry["calibration"]["staging_budget"]["sizes_mb"]]
+        if not min(sizes) < l2 < max(sizes):
+            raise AssertionError(f"probed sizes {sizes} do not straddle the "
+                                 f"L2 ({l2} B)")
+        measured = served_picks()
+        cfg, levels, shape = autotune.calibration_shape(device)
+        desc = plan_lib.plan_for(cfg, levels, "auto", shape["n_queries"],
+                                 shape["n_layers"]).describe()
+        if "budget=measured" not in desc:
+            raise AssertionError(f"plan provenance is not measured: {desc}")
+        check = autotune.tuned_vs_static(cfg, levels, device, **shape)
+        if not all(r["bitwise"] for r in check.values()):
+            raise AssertionError(f"tuned auto picks differ from static: {check}")
+        tile = decoder_tile_windows(serve)
+    if plan_lib.tuned_entry(device) is not None:
+        raise AssertionError("a card entry outlived the autotune phase")
+    after = committed.read_bytes() if committed.exists() else None
+    if after != before:
+        raise AssertionError(f"{committed} changed during the autotune phase")
+    torch.cuda.synchronize()
+    emit("autotune", card=smi, l2_bytes=l2, platform=entry["platform"],
+         provenance=entry["provenance"],
+         staging_budget_bytes=entry["staging_budget_bytes"],
+         decode_sweep_beneficial=entry["decode_sweep_beneficial"],
+         decode_persistent_speedup=entry["decode_persistent_speedup"],
+         stream=entry["stream"], check_describe=desc,
+         tuned_vs_static_512px=check,
+         picks={"static": static, "measured": measured},
+         tile_window_512px_decoder=tile,
+         calibration=entry["calibration"], table_unchanged=True,
+         seconds=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 # phase 5: times and bounds on the main path's own operands
 # --------------------------------------------------------------------------
 
@@ -2996,7 +3135,7 @@ def main() -> int:
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
 
-    phase_device()
+    smi = phase_device()
     if chain_src is not None:
         emit("table_grad_chain", src=str(chain_src),
              **table_grad_chain(first_step_backward_calls(device)))
@@ -3017,6 +3156,7 @@ def main() -> int:
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,
          lm_decode=lm["capture"], obs_log=serve["obs_log"])
+    phase_autotune(device, smi, serve)
     kernels = phase_times(serve, serve_w, train, lm, stream)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

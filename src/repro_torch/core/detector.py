@@ -73,9 +73,11 @@ def init_detector(cfg: DetectorConfig, gen: Optional[torch.Generator] = None,
     return params
 
 
-def decoder_plan(cfg: DetectorConfig, backend: Optional[str] = None):
-    """The decode-shaped MSDAPlan of the decoder head. A raster-only
-    backend request degrades to ``auto`` for the decoder."""
+def decoder_plan(cfg: DetectorConfig, backend: Optional[str] = None, *,
+                 device=None):
+    """The decode-shaped MSDAPlan of the decoder head, for ``device``
+    (see :func:`repro_torch.msda.plan.plan_for`). A raster-only backend
+    request degrades to ``auto`` for the decoder."""
     from repro_torch.msda.backends import backend_info
     from repro_torch.msda.plan import plan_for
     if cfg.decoder is None:
@@ -85,7 +87,8 @@ def decoder_plan(cfg: DetectorConfig, backend: Optional[str] = None):
             and backend_info(dec_backend).raster_only:
         dec_backend = "auto"
     return plan_for(cfg.encoder.attn, cfg.level_shapes, dec_backend,
-                    cfg.decoder.n_queries, cfg.decoder.n_layers)
+                    cfg.decoder.n_queries, cfg.decoder.n_layers,
+                    device=device)
 
 
 def encoder_backend(backend: Optional[str],
@@ -146,7 +149,7 @@ def detector_apply(params: dict, cfg: DetectorConfig, images: torch.Tensor,
         boxes = torch.sigmoid(nn.linear(params["box_head"], enc))
         return cls_logits, boxes, aux
 
-    plan = decoder_plan(cfg, backend)
+    plan = decoder_plan(cfg, backend, device=dev)
     hs, dec_refs, dstate = decoder_apply(params["decoder"], cfg.decoder, plan,
                                          enc, state,
                                          collect_stats=collect_stats)

@@ -60,7 +60,7 @@ def encoder_apply(params: dict, cfg: EncoderConfig,
         ref_points = ref_points[None].expand((b,) + ref_points.shape)
     plan = make_plan(cfg.attn, tuple((int(lh), int(lw))
                                      for lh, lw in level_shapes),
-                     backend=backend)
+                     backend=backend, device=x_flat.device)
     h = x_flat
     state = MSDAPipelineState.initial()
     for blk in params["blocks"]:

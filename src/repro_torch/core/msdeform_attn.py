@@ -171,3 +171,40 @@ def msdeform_attn_ref(params: dict, cfg: MSDeformAttnConfig,
         sampled = _bilinear_sample_level(v_l, loc)                 # (B,Nq,H,P,Dh)
         out = out + torch.sum(sampled * probs_l[:, :, :, li, :, None], dim=3)
     return torch.einsum("bnhk,hkd->bnd", out, params["out_w"]) + params["out_b"]
+
+
+# --------------------------------------------------------------------------
+# DEFA dataflow: the reference's compatibility entry point over repro_torch.msda
+# --------------------------------------------------------------------------
+
+def msdeform_attn_apply(
+    params: dict,
+    cfg: MSDeformAttnConfig,
+    query: torch.Tensor,                # (B, Nq, D)
+    ref_points: torch.Tensor,           # (B, Nq, 2) normalized
+    x_flat: torch.Tensor,               # (B, N_in, D) raw fmap features
+    level_shapes: Sequence[Tuple[int, int]],
+    fwp_state: Optional[fwp_lib.FWPState] = None,
+    *,
+    collect_stats: bool = False,
+):
+    """DEFA-optimized MSDeformAttn (port of the reference's shim,
+    repro/core/msdeform_attn.py:198). Resolves a memoized plan through
+    ``plan_for`` (legacy ``cfg.impl`` maps to a backend name, ``"auto"``
+    to the planner's pick) and returns (out (B, Nq, D), aux): aux holds
+    ``fwp_state`` (the link for the NEXT block) when FWP is on, and the
+    block's stats (``pap_keep_frac``, ``fwp_keep_frac``, ...) when
+    ``collect_stats``. New code should use :mod:`repro_torch.msda`."""
+    from repro_torch.msda import MSDAPipelineState, msda_attention, plan_for
+
+    plan = plan_for(cfg, tuple((int(h), int(w)) for h, w in level_shapes),
+                    n_queries=int(query.shape[1]), device=x_flat.device)
+    state = MSDAPipelineState(fwp=fwp_state)
+    out, state = msda_attention(params, plan, query, ref_points, x_flat,
+                                state=state, collect_stats=collect_stats)
+    aux: dict = {}
+    if cfg.fwp_mode != "off":
+        aux["fwp_state"] = state.fwp
+    if collect_stats and state.block_stats:
+        aux.update(state.block_stats[-1])
+    return out, aux

@@ -71,6 +71,16 @@ def available_backends() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def candidate_backends(*, decode_shaped: bool) -> List[str]:
+    """Registered backends eligible for one query geometry (the
+    autotuner's candidate set): decode-shaped launches exclude
+    ``raster_only`` backends, raster launches exclude ``decode_only``
+    ones."""
+    return [name for name in available_backends()
+            if not (_INFO[name].raster_only if decode_shaped
+                    else _INFO[name].decode_only)]
+
+
 @register_backend("torch_gather")
 def torch_gather(plan, v: torch.Tensor, pts: SamplingPoints,
                  probs: torch.Tensor, cache=None) -> torch.Tensor:

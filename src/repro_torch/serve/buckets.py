@@ -34,10 +34,11 @@ class ShapeBucket:
         return h <= self.resolution and w <= self.resolution
 
 
-def derive_buckets(cfg, resolutions, *, backend: Optional[str] = None
-                   ) -> Tuple[ShapeBucket, ...]:
+def derive_buckets(cfg, resolutions, *, backend: Optional[str] = None,
+                   device=None) -> Tuple[ShapeBucket, ...]:
     """Derive the serving buckets from a detector config; each resolution
-    must divide the pyramid strides."""
+    must divide the pyramid strides. ``device``: the device the plans are
+    for (its platform's budgets and measured entry)."""
     from repro_torch.core.detector import decoder_plan
     from repro_torch.msda.plan import level_shapes_for_resolution, plan_for
 
@@ -49,9 +50,10 @@ def derive_buckets(cfg, resolutions, *, backend: Optional[str] = None
         shapes = level_shapes_for_resolution(r, strides=STRIDES)
         bcfg = dataclasses.replace(cfg, img_size=r)
         if getattr(bcfg, "decoder", None) is not None:
-            plan = decoder_plan(bcfg, backend)
+            plan = decoder_plan(bcfg, backend, device=device)
         else:
-            plan = plan_for(bcfg.encoder.attn, shapes, backend)
+            plan = plan_for(bcfg.encoder.attn, shapes, backend,
+                            device=device)
         buckets.append(ShapeBucket(resolution=r, cfg=bcfg, plan=plan))
     return tuple(buckets)
 
@@ -91,11 +93,12 @@ class BucketRouter:
         return b, None
 
     def table(self) -> list:
-        """The bucket table (the reference's ``BucketRouter.table`` for the
-        fields the port's plan has)."""
+        """The bucket table (the reference's ``BucketRouter.table``)."""
         return [{"resolution": b.resolution,
                  "level_shapes": list(b.level_shapes),
                  "n_in": b.n_in,
                  "backend": b.plan.backend,
-                 "table_kb": round(b.plan.value_table_bytes / 1024, 1)}
+                 "table_kb": round(b.plan.value_table_bytes / 1024, 1),
+                 "budget_kb": round(b.plan.staging_budget_bytes / 1024, 1),
+                 "budget_source": b.plan.budget_source}
                 for b in self.buckets]

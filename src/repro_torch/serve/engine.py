@@ -37,12 +37,14 @@ public eager forward (no graph).
 
 :class:`StreamingDetrEngine` serves video sessions over persistent,
 incrementally updated value caches (``repro_torch/stream/``); its
-decoder forward is eager. Left for later slices: the autotuned plan
-table and a CUDA graph per streaming engine.
+decoder forward is eager. Both engines apply their device's measured
+plan table (:func:`repro_torch.msda.autotune.ensure_applied`) before
+they plan. Left for a later slice: a CUDA graph per streaming engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from collections import deque
@@ -147,7 +149,10 @@ class DetrServeEngine:
                  resolutions: Optional[tuple] = None,
                  pipeline_postproc: bool = True, topk: int = 5,
                  obs: Optional[Observability] = None, device="cuda"):
+        from repro_torch.msda.autotune import ensure_applied
         self.device = resolve_device(device)
+        ensure_applied(self.device)   # load-only: the device's measured
+        #   plan table, so the buckets below plan on its budgets
         self.cfg = cfg
         self.params = tree_to(params, self.device)
         self.max_batch = int(max_batch)
@@ -177,7 +182,8 @@ class DetrServeEngine:
             "bytes staged to device per the plan's static accounting")
         if resolutions is None:
             resolutions = (cfg.img_size,)
-        self.buckets = derive_buckets(cfg, resolutions, backend=backend)
+        self.buckets = derive_buckets(cfg, resolutions, backend=backend,
+                                      device=self.device)
         self.router = BucketRouter(self.buckets)
         self._bucket_by_res = {b.resolution: b for b in self.buckets}
         self.queues: dict = {b.resolution: deque() for b in self.buckets}
@@ -468,22 +474,26 @@ class StreamingDetrEngine:
                  update_fwp: bool = True,
                  obs: Optional[Observability] = None, device="cuda"):
         from repro_torch.msda import backend_info, make_plan
+        from repro_torch.msda.autotune import ensure_applied
         from repro_torch.stream import (TemporalCacheManager,
                                         resolve_stream_config,
                                         stream_update_cap)
         self.device = resolve_device(device)
+        ensure_applied(self.device)   # load-only: budgets for the plan
+        #   below, the measured stream crossover for the default config
         self.attn_cfg = attn_cfg
         self.dec_cfg = decoder_cfg
         self.params = tree_to(params, self.device)
         self.max_sessions = int(max_sessions)
         self._update_fwp = bool(update_fwp) and attn_cfg.fwp_mode != "off"
-        scfg = resolve_stream_config(stream_cfg)
+        scfg = resolve_stream_config(stream_cfg, device=self.device)
         if backend is not None and backend != "auto" \
                 and backend_info(backend).raster_only:
             backend = "auto"             # the decoder's own fallback
         plan = make_plan(attn_cfg, level_shapes, backend=backend,
                          n_queries=decoder_cfg.n_queries,
-                         n_consumers=decoder_cfg.n_layers)
+                         n_consumers=decoder_cfg.n_layers,
+                         device=self.device)
         self.plan = dataclasses.replace(
             plan, stream_update_rows=stream_update_cap(plan,
                                                        scfg.update_frac))
@@ -518,19 +528,29 @@ class StreamingDetrEngine:
         """Sessions per device: how many streams' persistent value tables
         fit a budget, per table dtype. Each session costs its full table
         (rows x lanes x itemsize, + the int8 scale row, + the pix2slot
-        indirection when compact), as in the reference. The reference's
-        default budget is its TPU window-staging budget, which has no
-        H100 counterpart: the default here is the device's free memory
-        (``torch.cuda.mem_get_info``, ``budget_source: "device_free"``),
-        or the host's available memory for a CPU engine
-        (``"host_free"``)."""
+        indirection when compact), as in the reference.
+
+        The budget takes the reference's precedence: the caller's
+        (``budget_source: "caller"``), then the ``REPRO_MSDA_VMEM_BUDGET``
+        pin (``"static"``), then an applied autotune entry's measured L2
+        knee (``"measured"``). Where the reference would fall back to its
+        TPU staging constant, which has no H100 counterpart, the budget is
+        the device's free memory (``torch.cuda.mem_get_info``,
+        ``"device_free"``), or the host's available memory for a CPU
+        engine (``"host_free"``)."""
+        from repro_torch.msda.plan import (staging_budget_source,
+                                           window_staging_budget)
         source = "caller"
+        if budget_bytes is None and (
+                os.environ.get("REPRO_MSDA_VMEM_BUDGET")
+                or staging_budget_source(self.device) == "measured"):
+            budget_bytes = window_staging_budget(self.device)
+            source = staging_budget_source(self.device)
         if budget_bytes is None:
             if self.device.type == "cuda":
                 budget_bytes = int(torch.cuda.mem_get_info(self.device)[0])
                 source = "device_free"
             else:
-                import os
                 budget_bytes = int(os.sysconf("SC_AVPHYS_PAGES")
                                    * os.sysconf("SC_PAGE_SIZE"))
                 source = "host_free"

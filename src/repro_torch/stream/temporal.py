@@ -75,13 +75,17 @@ class StreamConfig:
     #   channels, never corrupt a row it updates
 
 
-def resolve_stream_config(scfg: Optional[StreamConfig] = None) -> StreamConfig:
+def resolve_stream_config(scfg: Optional[StreamConfig] = None, *,
+                          device=None) -> StreamConfig:
     """An explicit config wins; else the defaults, overlaid with the
-    autotuned crossover when one is applied (none in the port yet:
-    :func:`repro_torch.msda.plan.tuned_stream_params`)."""
+    measured crossover (``diff_channel_stride``, ``update_frac``) of the
+    autotune entry applied for ``device``'s platform
+    (:func:`repro_torch.msda.plan.tuned_stream_params`, applied by
+    :func:`repro_torch.msda.autotune.ensure_applied` or
+    ``plan_autotune``)."""
     if scfg is not None:
         return scfg
-    tuned = plan_lib.tuned_stream_params()
+    tuned = plan_lib.tuned_stream_params(device)
     if not tuned:
         return StreamConfig()
     return dataclasses.replace(
@@ -157,11 +161,11 @@ class TemporalCacheManager:
     def __init__(self, plan, value_params: dict,
                  scfg: Optional[StreamConfig] = None, *, batch: int = 1,
                  obs: Optional[Observability] = None):
-        scfg = resolve_stream_config(scfg)
+        self.device = value_params["value_w"].device
+        scfg = resolve_stream_config(scfg, device=self.device)
         if scfg.diff_channel_stride < 1:
             raise ValueError("diff_channel_stride must be >= 1")
         self.params = value_params
-        self.device = value_params["value_w"].device
         self.scfg = scfg
         self.batch = int(batch)
         # a standalone manager gets its own enabled registry; the

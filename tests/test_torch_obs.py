@@ -388,10 +388,15 @@ def _plan_pair(backends, n_queries=None, n_consumers=1, table_dtype=None):
               fwp_capacity=0.6, range_narrow=(4.0, 3.0, 2.0),
               table_dtype=table_dtype)
     shapes = ((8, 10), (4, 5), (2, 3))
+    # both planners held to the same budgets (their static defaults are a
+    # TPU's VMEM and an H100's L2)
+    budgets = dict(vmem_budget_bytes=2**20, staging_budget_bytes=2**19,
+                   budget_source="static")
     ref = rmsda.make_plan(RCfg(**kw), shapes, backend=backends[0],
-                          n_queries=n_queries, n_consumers=n_consumers)
+                          n_queries=n_queries, n_consumers=n_consumers,
+                          **budgets)
     port = make_plan(TCfg(**kw), shapes, backend=backends[1],
-                     n_queries=n_queries, n_consumers=n_consumers)
+                     n_queries=n_queries, n_consumers=n_consumers, **budgets)
     return ref, port
 
 
@@ -404,14 +409,14 @@ def _plan_pair(backends, n_queries=None, n_consumers=1, table_dtype=None):
 def test_plan_snapshot_keeps_the_reference_keys(case):
     ref, port = _plan_pair(**case)
     rs, ts = ref.snapshot(), port.snapshot()
-    assert set(ts) <= set(rs)
+    assert set(ts) == set(rs)
     same = set(ts) - {"backend", "decode", "stream"}
     assert {k: ts[k] for k in same} == {k: rs[k] for k in same}
     assert ts["stream"] is None and rs["stream"] is None
     if rs["decode"] is None:
         assert ts["decode"] is None
     else:
-        assert set(ts["decode"]) <= set(rs["decode"])
+        assert set(ts["decode"]) == set(rs["decode"])
         assert {k: rs["decode"][k] for k in ts["decode"]} == ts["decode"]
     json.dumps(ts)
 

@@ -56,6 +56,7 @@ from repro_torch.msda.pipeline import MSDAPipelineState  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.obs.validate import validate_jsonl  # noqa: E402
 from repro_torch.serve import StreamingDetrEngine  # noqa: E402
+from repro_torch.msda.autotune import plan_table_scope  # noqa: E402
 from repro_torch.stream import (StreamConfig, TemporalCacheManager,  # noqa: E402
                                 changed_tiles, drifting_scene, tile_geometry)
 
@@ -856,6 +857,15 @@ def test_capacity_estimate_per_session_bytes_follow_the_reference():
             engine.mgr._n_rows, with_indirection=True)
         assert est["per_dtype"][d]["bytes_per_session"] == want
         assert est["per_dtype"][d]["sessions"] == 10_000_000 // want
+    # the engine applied the committed 'cpu' entry: its measured budget
+    # is the default, as the reference's tuned window budget is; with no
+    # entry applied the host's available memory stands in for the TPU
+    # constant
     default = engine.capacity_estimate()
+    assert default["budget_source"] == "measured"
+    assert default["budget_bytes"] == \
+        msda.tuned_entry()["staging_budget_bytes"]
+    with plan_table_scope():
+        default = engine.capacity_estimate()
     assert default["budget_source"] == "host_free"
     assert default["budget_bytes"] > 0
