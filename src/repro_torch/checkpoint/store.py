@@ -1,0 +1,231 @@
+"""Checkpointing: atomic per-leaf .npy stores with a JSON manifest and an
+async writer thread (port of ``repro/checkpoint/store.py``).
+
+Layout, the reference's byte for byte:
+
+    <dir>/step_<N>.tmp-<pid>/ ... -> atomic rename -> <dir>/step_<N>/
+    <dir>/step_<N>/manifest.json  {"step", "leaves": {key: {file, shape, dtype}}}
+    <dir>/step_<N>/<key with "/" -> "__">.npy, one per flattened leaf
+
+List and tuple items are keyed ``__seq<i>`` and NamedTuples are stored as
+dicts. numpy has no bfloat16: the reference writes an ml_dtypes bfloat16
+leaf as a 2-byte void (``'<V2'`` in the .npy header) with ``"bfloat16"``
+in the manifest. The port writes a bfloat16 tensor the same way and
+reads such a leaf back by its manifest dtype; the reference's own
+``restore_into`` cannot cast that void array back.
+
+Fault-tolerance contract: a crash mid-write never corrupts the latest
+complete checkpoint (the tmp directory is abandoned and
+:func:`latest_step` ignores it).
+
+Deviation from the reference: :meth:`AsyncCheckpointer.wait` returns once
+every queued write has finished (``Queue.join``); the reference polls
+``Queue.empty()``, which is true as soon as the writer takes an item,
+before the item is written. :meth:`AsyncCheckpointer.close` joins the
+writer thread without a timeout, where the reference's 10 s timeout
+could drop a longer write without an error. Elastic re-sharding
+(``reshard``) waits for the distributed port (ROADMAP.md)."""
+from __future__ import annotations
+
+import json
+import os
+import queue
+import shutil
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import flatten_dict, unflatten_dict
+
+#: the .npy header descr the reference's ml_dtypes bfloat16 leaves carry
+BF16_DESCR = "<V2"
+
+
+def _as_dict(tree: Any) -> Any:
+    """NamedTuples -> dicts so flatten/unflatten round-trips through JSON."""
+    if hasattr(tree, "_asdict"):
+        return {k: _as_dict(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, dict):
+        return {k: _as_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {f"__seq{i}": _as_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _host_leaf(v: Any) -> Any:
+    """A host copy of one leaf: a CPU tensor for a tensor (a device tensor
+    is copied synchronously), else a numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", copy=True)
+    return np.asarray(v)
+
+
+def _to_host(tree: Any) -> dict:
+    return {k: _host_leaf(v) for k, v in flatten_dict(_as_dict(tree)).items()}
+
+
+def _fn_safe(key: str) -> str:
+    return key.replace("/", "__")
+
+
+def _write_leaf(path: str, v: Any) -> tuple:
+    """Write one host leaf as .npy; returns (shape, manifest dtype)."""
+    if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+        bits = v.contiguous().view(torch.int16).numpy()
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(
+                f, {"descr": BF16_DESCR, "fortran_order": False,
+                    "shape": tuple(bits.shape)})
+            f.write(bits.tobytes())
+        return list(bits.shape), "bfloat16"
+    arr = v.contiguous().numpy() if isinstance(v, torch.Tensor) else v
+    np.save(path, arr)
+    return list(arr.shape), str(arr.dtype)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + f".tmp-{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    flat = _to_host(tree)
+    manifest = {}
+    for k, v in flat.items():
+        fname = _fn_safe(k) + ".npy"
+        shape, dtype = _write_leaf(os.path.join(tmp, fname), v)
+        manifest[k] = {"file": fname, "shape": shape, "dtype": dtype}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump({"step": step, "leaves": manifest}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)                       # atomic publish
+    return final
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and ".tmp" not in name:
+            if os.path.exists(os.path.join(ckpt_dir, name, "manifest.json")):
+                steps.append(int(name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def _read_leaf(path: str, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == "bfloat16":                     # 2-byte void payload
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def load_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> tuple[int, dict]:
+    """Returns (step, nested dict of CPU tensors), each leaf of its
+    manifest dtype. Use :func:`restore_into` to place them."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = {k: _read_leaf(os.path.join(path, meta["file"]), meta["dtype"])
+            for k, meta in manifest["leaves"].items()}
+    return manifest["step"], unflatten_dict(flat)
+
+
+def restore_into(template: Any, loaded: dict) -> Any:
+    """Map a loaded nested dict back into the structure of ``template``
+    (NamedTuples / tuples restored). A tensor leaf comes back on its
+    template leaf's device and dtype: bitwise the saved values where the
+    dtypes agree."""
+    def rec(tmpl, node):
+        if hasattr(tmpl, "_asdict"):
+            return type(tmpl)(**{k: rec(v, node[k])
+                                 for k, v in tmpl._asdict().items()})
+        if isinstance(tmpl, dict):
+            return {k: rec(v, node[k]) for k, v in tmpl.items()}
+        if isinstance(tmpl, (list, tuple)):
+            vals = [rec(v, node[f"__seq{i}"]) for i, v in enumerate(tmpl)]
+            return type(tmpl)(vals) if isinstance(tmpl, list) else tuple(vals)
+        t = node if isinstance(node, torch.Tensor) else torch.as_tensor(node)
+        if isinstance(tmpl, torch.Tensor):
+            return t.to(device=tmpl.device, dtype=tmpl.dtype)
+        if hasattr(tmpl, "dtype"):
+            return t.numpy().astype(tmpl.dtype)
+        return t
+    return rec(template, loaded)
+
+
+class AsyncCheckpointer:
+    """Background writer: snapshot to the host synchronously, write in a
+    thread (training continues during serialization), keep the newest
+    ``keep`` checkpoints. ``snapshot_s`` and ``write_s`` hold each save's
+    snapshot and write seconds; ``busy`` says whether a write is queued
+    or in flight."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self.snapshot_s: list[float] = []
+        self.write_s: list[float] = []
+        self._q: queue.Queue = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self._t = threading.Thread(target=self._worker, daemon=True)
+        self._t.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                step, host_tree = item
+                t0 = time.perf_counter()
+                try:
+                    save_checkpoint(self.ckpt_dir, step, host_tree)
+                    self._gc()
+                except BaseException as e:      # surfaced on next save/wait
+                    self._err = e
+                self.write_s.append(time.perf_counter() - t0)
+            finally:
+                self._q.task_done()
+
+    def _gc(self):
+        names = sorted(n for n in os.listdir(self.ckpt_dir)
+                       if n.startswith("step_") and ".tmp" not in n)
+        for name in names[:-self.keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, name), ignore_errors=True)
+
+    @property
+    def busy(self) -> bool:
+        return self._q.unfinished_tasks > 0
+
+    def save(self, step: int, tree: Any):
+        if self._err:
+            raise self._err
+        t0 = time.perf_counter()
+        host_tree = _to_host(tree)              # sync snapshot, async write
+        self.snapshot_s.append(time.perf_counter() - t0)
+        self._q.put((step, host_tree))
+
+    def wait(self):
+        """Block until every queued write has finished."""
+        self._q.join()
+        if self._err:
+            raise self._err
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self.wait()
+        finally:
+            self._q.put(None)
+            self._t.join()

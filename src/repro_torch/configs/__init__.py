@@ -22,3 +22,9 @@ def get_config(arch: str):
 
 def get_smoke_config(arch: str):
     return importlib.import_module(_ARCH_MODULES[arch]).SMOKE
+
+
+def get_detr_config(name: str):
+    """A deformable-DETR family config (``configs/detr_family.CONFIGS``)."""
+    from repro_torch.configs.detr_family import CONFIGS
+    return CONFIGS[name]

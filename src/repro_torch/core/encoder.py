@@ -11,6 +11,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.bridge import resolve_device
 from repro_torch.core import nn
 from repro_torch.core.msdeform_attn import MSDeformAttnConfig, init_msdeform_attn
 from repro_torch.msda.attention import msda_attention
@@ -30,7 +31,11 @@ class EncoderConfig:
         return self.attn.d_model
 
 
-def init_encoder(cfg: EncoderConfig, gen: torch.Generator, device="cpu") -> dict:
+def init_encoder(cfg: EncoderConfig, gen: torch.Generator,
+                 device="cuda") -> dict:
+    """Random blocks drawn from ``gen`` on ``device``, the card unless the
+    caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     t = dict(dtype=cfg.dtype, device=device)
     blocks = []
     for _ in range(cfg.n_blocks):

@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import host_constant
+from repro_torch.bridge import host_constant, resolve_device
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core import nn
 
@@ -69,12 +69,14 @@ def offset_ring_bias(cfg: MSDeformAttnConfig) -> np.ndarray:
 
 
 def init_msdeform_attn(cfg: MSDeformAttnConfig, gen: torch.Generator,
-                       device="cpu") -> dict:
+                       device="cuda") -> dict:
     """Same shapes and init rules as the reference: normal(0, 1/sqrt(d))
-    projections, zero offset weights, the ring grid offset bias."""
+    projections, zero offset weights, the ring grid offset bias. Drawn
+    from ``gen`` (a CPU generator) and placed on ``device``, the card
+    unless the caller passes ``device="cpu"``."""
     d, h, lp, dh = cfg.d_model, cfg.n_heads, cfg.n_lp, cfg.head_dim
     scale = 1.0 / math.sqrt(d)
-    t = dict(dtype=cfg.dtype, device=device)
+    t = dict(dtype=cfg.dtype, device=resolve_device(device))
     return {
         "attn_w": (torch.randn((d, h, lp), generator=gen) * scale).to(**t),
         "attn_b": torch.zeros((h, lp), **t),

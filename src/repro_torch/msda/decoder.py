@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.bridge import resolve_device
 from repro_torch.core import nn
 from repro_torch.msda.attention import msda_attention_cached
 from repro_torch.msda.cache import build_value_cache
@@ -39,9 +40,11 @@ class MSDADecoderConfig:
 
 
 def init_decoder(cfg: MSDADecoderConfig, attn_cfg, gen: torch.Generator,
-                 device="cpu") -> dict:
-    """Same shapes and init rules as the reference's ``init_decoder``."""
+                 device="cuda") -> dict:
+    """Same shapes and init rules as the reference's ``init_decoder``, on
+    ``device``: the card unless the caller passes ``device="cpu"``."""
     from repro_torch.core.msdeform_attn import init_msdeform_attn
+    device = resolve_device(device)
     d = attn_cfg.d_model
     t = dict(dtype=cfg.dtype, device=device)
     scale = 1.0 / math.sqrt(float(d))

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterable, List
+from typing import Any, Callable, Iterable, Iterator, List
 
 import torch
 
@@ -38,19 +38,22 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
+def _build(t: Any, it: Iterator) -> Any:
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
+
+
 def tree_unflatten(like: Any, leaves: Iterable) -> Any:
     """A tree shaped like ``like`` holding ``leaves`` in
-    :func:`tree_leaves` order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(like)
+    :func:`tree_leaves` order. (A recursive closure here would form a
+    reference cycle through its own cell and keep every leaf alive until
+    the cyclic garbage collector runs: gigabytes of a train step's
+    gradients and states.)"""
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -94,12 +97,21 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig):
     bc2 = 1.0 - b2 ** step.to(torch.float32)
 
     def upd(p, g, m, v):
+        # m' = b1 m + (1 - b1) g;  v' = b2 v + (1 - b2) g^2;
+        # p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p),
+        # op for op, written in place into the step's own temporaries so
+        # that a leaf of a few GB needs few copies (each in-place op rounds
+        # as its out-of-place form does)
         g = g.to(torch.float32) * scale
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * torch.square(g)
-        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        m_new = torch.mul(m, b1).add_(torch.mul(g, 1 - b1))
+        v_new = torch.mul(v, b2).add_(torch.square(g).mul_(1 - b2))
+        del g
+        den = torch.div(v_new, bc2).sqrt_().add_(cfg.eps)
+        update = torch.div(m_new, bc1).div_(den)
+        del den
         p32 = p.to(torch.float32)
-        p_new = p32 - lr * (update + cfg.weight_decay * p32)
+        update.add_(torch.mul(p32, cfg.weight_decay)).mul_(lr)
+        p_new = update.neg_().add_(p32)                  # p32 - update
         return p_new.to(p.dtype), m_new, v_new
 
     out = [upd(*leaves) for leaves in zip(

@@ -728,7 +728,7 @@ def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
                              range_narrow=(4.0, 3.0, 2.0), pap_mode="topk")
     dec = MSDADecoderConfig(n_layers=2, n_queries=8, d_ffn=32)
     gen = torch.Generator().manual_seed(11)
-    params = {"decoder": init_decoder(dec, cfg, gen),
+    params = {"decoder": init_decoder(dec, cfg, gen, device=cuda),
               "cls_head": {"w": torch.randn((32, 3), generator=gen) * 0.1,
                            "b": torch.zeros((3,))},
               "box_head": {"w": torch.randn((32, 4), generator=gen) * 0.1,
@@ -765,3 +765,63 @@ def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
         want = engine.forward(memory, cache)[:2]
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
+    """A train state on the card (float32, bf16, int32 leaves) through the
+    checkpoint store: restored onto the card's template bitwise."""
+    from repro_torch.checkpoint import store
+    from repro_torch.train.step import TrainState
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn((64, 32), generator=g, device=cuda)
+              .to(torch.bfloat16),
+              "blocks": [torch.randn((5,), generator=g, device=cuda)]}
+    state = TrainState(params, {"step": torch.ones((), dtype=torch.int32,
+                                                   device=cuda)},
+                       torch.full((), 3, dtype=torch.int32, device=cuda))
+    ck = store.AsyncCheckpointer(str(tmp_path), keep=1)
+    ck.save(3, state)
+    ck.save(4, state)
+    ck.close()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000004"]
+    _, loaded = store.load_checkpoint(str(tmp_path))
+    zeros = TrainState({"w": torch.zeros_like(params["w"]),
+                        "blocks": [torch.zeros_like(params["blocks"][0])]},
+                       {"step": torch.zeros_like(state.opt["step"])},
+                       torch.zeros_like(state.step))
+    back = store.restore_into(zeros, loaded)
+    for a, b in ((back.params["w"], params["w"]),
+                 (back.params["blocks"][0], params["blocks"][0]),
+                 (back.opt["step"], state.opt["step"]), (back.step, state.step)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """The LM train step (deepseek-7b SMOKE, float32) on the card against
+    the same step on the CPU from the same weights and tokens: loss rtol
+    1e-5, params rtol = atol = 5e-4 after two steps."""
+    import numpy as np
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenDataConfig, synth_token_batch
+    from repro_torch.optim.adamw import OptConfig, tree_leaves
+    from repro_torch.train.step import TrainState, build_train_step, \
+        make_train_state
+    cfg = get_smoke_config("deepseek-7b")
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                           global_batch=8, seed=1)
+    step = build_train_step(cfg, OptConfig(lr=3e-3, warmup_steps=3,
+                                           total_steps=24))
+    cpu = make_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TrainState(*tree_to(tuple(cpu), cuda))
+    for i in range(2):
+        batch = synth_token_batch(data, i, device="cpu")
+        cpu, m_cpu = step(cpu, batch)
+        card, m_card = step(card, {"tokens": batch["tokens"].to(cuda)})
+        np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]),
+                                   rtol=1e-5)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=5e-4,
+                                   atol=5e-4)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and hides no fallback.
 
-  * No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-    JAX or the JAX package (an AST scan of every import).
+  * No module of ``src/repro_torch/``, no ``examples/torch_*.py`` driver
+    and not ``chip_smoke.py`` imports JAX or the JAX package (an AST scan
+    of every import).
   * Entry points default to the card: without CUDA a default call raises
     instead of running on the CPU.
   * The kernel wrappers (K1 to K5) reject what their kernels do not
@@ -24,7 +25,9 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 6
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):

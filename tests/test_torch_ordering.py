@@ -143,7 +143,7 @@ def _setup(fwp):
         kw.update(fwp_mode=fwp, fwp_k=1.0, fwp_capacity=0.6)
     cfg = MSDeformAttnConfig(**kw)
     gen = torch.Generator().manual_seed(3)
-    params = init_msdeform_attn(cfg, gen)
+    params = init_msdeform_attn(cfg, gen, device="cpu")
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(2, N_IN, D)).astype(np.float32))
     dq = torch.from_numpy(rng.normal(size=(2, N_DEC_Q, D)).astype(np.float32))
@@ -182,7 +182,8 @@ def test_ordering_is_bitwise_identical_through_the_decoder(backend, order):
     (pre-refinement) reference points."""
     cfg, _, x, _, _, state = _setup("compact")
     dcfg = msda.MSDADecoderConfig(n_layers=6, n_queries=N_DEC_Q, d_ffn=64)
-    dparams = msda.init_decoder(dcfg, cfg, torch.Generator().manual_seed(41))
+    dparams = msda.init_decoder(dcfg, cfg, torch.Generator().manual_seed(41),
+                                device="cpu")
     outs = {}
     for qorder in ("none", order):
         plan = msda.make_plan(cfg, LEVELS, backend=backend,

@@ -495,7 +495,7 @@ def _decoder_setup():
     dec_cfg = msda.MSDADecoderConfig(n_layers=2, n_queries=8, d_ffn=32)
     gen = torch.Generator().manual_seed(11)
     params = {
-        "decoder": msda.init_decoder(dec_cfg, cfg, gen),
+        "decoder": msda.init_decoder(dec_cfg, cfg, gen, device="cpu"),
         "cls_head": {"w": torch.randn((D, 3), generator=gen) * 0.1,
                      "b": torch.zeros((3,))},
         "box_head": {"w": torch.randn((D, 4), generator=gen) * 0.1,

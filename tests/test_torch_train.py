@@ -381,9 +381,11 @@ def test_train_step_matches_reference_step_fn(backend):
 
 def test_train_detector_runs_on_the_cpu():
     cfg = train.train_config(img_size=32, n_blocks=1, n_layers=1, n_queries=8)
-    params, history = train.train_detector(
+    state, stats = train.train_detector(
         cfg, 2, 1, torch.Generator().manual_seed(0), device="cpu",
         log=lambda _: None)
+    params, history = state.params, stats["history"]
+    assert int(state.step) == 2
     assert [h["step"] for h in history] == [0, 1]
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in history)
     assert params["decoder"]["layers"][0]["cross"]["offs_w"].abs().sum() > 0
@@ -398,7 +400,8 @@ def test_forward_only_backends_raise_under_autograd(backend):
     from repro_torch import msda
     levels = ((8, 8), (4, 4), (2, 2), (1, 1))
     cfg = attn.MSDeformAttnConfig(**dict(TINY, range_narrow=(3.0, 2.0, 1.5, 1.0)))
-    params = attn.init_msdeform_attn(cfg, torch.Generator().manual_seed(0))
+    params = attn.init_msdeform_attn(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
     n_in = sum(h * w for h, w in levels)
     g = torch.Generator().manual_seed(1)
     x = torch.randn((1, n_in, 32), generator=g)
