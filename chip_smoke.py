@@ -34,6 +34,8 @@ Phases, each printing one JSON line:
      lm_kernels — K5 (flash-decode) and K4 (matmul) against their plain
                 versions: K5 in f32 and bf16 on the reference's sweep, the
                 slice's decode shape (B 4, Hq 24, Hkv 8, Dh 128, W 4096),
+                hymba-1.5b's (B 4, 25 over 5 heads, Dh 64, windowed) and
+                llava-next-34b's (B 1, 56 over 8, Dh 128),
                 a ragged W, Hkv not dividing Hq, MQA, ring-buffer masks,
                 rows with no valid slot and K5's split edges (W not a
                 multiple of the split, splits with no valid slot, one
@@ -114,6 +116,27 @@ Phases, each printing one JSON line:
                 through K5 against the plain attention, and how often the
                 greedy streams agree with an eager run and with a
                 plain-attention run;
+     lm_families — every other LM family at published widths, bf16,
+                random weights drawn on the card, one model at a time:
+                olmoe-1b-7b (MoE, 16 layers), hymba-1.5b (hybrid, 32;
+                prompts 37, 128, 300, 1,536) and mamba2-130m (SSM, 24)
+                whole, grok-1-314b (MoE) cut to 2 of 64 layers, served by
+                the captured ServeEngine (every replayed step's logits
+                bitwise the eager run's, greedy tokens equal, K5 at the
+                warm-up and the capture only, once per attention layer
+                per eager step and per replay from torch.profiler);
+                llava-next-34b (vlm) cut to 8 of 60 layers, over 2,880
+                stub image embeddings, and whisper-tiny (encdec) whole,
+                over stub frames, through api.prefill and 15 eager
+                api.decode_step calls; for each, the next step through K5
+                against the plain attention (lm_serve's logit limits; a
+                token whose set of router picks flipped, first at a
+                k-th to (k+1)-th probability gap under 1e-3, is held to
+                the median),
+                prefill ms per prompt, decode step ms eager and captured,
+                idle share, peak memory and the weight bytes a decode
+                step reads with their bound; then each family's SMOKE
+                config in float32 on the card against the CPU (1e-4);
      capture  — what the graphs do, for the 512 px bucket (and the same
                 detector without the DEFA knobs), the 1024 px int8 bucket
                 and the LM decode step: the replay against the eager
@@ -167,7 +190,8 @@ Phases, each printing one JSON line:
                 K2's operands, the device time of one train step's
                 table-gradient chain, one serve forward at B = 2 per path,
                 one train step, one LM decode step at B = 4 and one
-                512-token prefill, each with its idle share.
+                512-token prefill, each with its idle share; K5 also on
+                hymba-1.5b's first served decode call.
 
     python3 chip_smoke.py --table-grad-chain SRC
 
@@ -813,7 +837,11 @@ def matmul_tolerance(x, w, scale):
 # splits: W not a multiple of the split, splits with no valid slot in rows
 # that have valid slots, a single valid slot at W - 1, B * Hkv = 1, and
 # the LM's shape with K and V two bytes off a 16-byte boundary (the split
-# pass that reads rows element by element, in both dtypes)
+# pass that reads rows element by element, in both dtypes); then the
+# served head maps of hymba-1.5b (25 query heads over 5 KV heads at Dh 64:
+# in bf16 the tensor-core pass with head groups of 4 and 1, a 1,365-slot
+# window) and llava-next-34b (56 over 8 at Dh 128: n_rep 7, groups of 4
+# and 3)
 K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
             ("sweep_b", 1, 4, 4, 64, 513, 64, "sweep"),
             ("sweep_c", 3, 25, 5, 16, 64, 64, "sweep"),
@@ -826,7 +854,9 @@ K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
             ("empty_splits", 4, 24, 8, 128, 4096, 512, "prefix"),
             ("last_slot_only", 4, 24, 8, 128, 1000, 512, "last"),
             ("b1_hkv1", 1, 4, 1, 128, 2048, 512, "ring_window"),
-            ("unaligned_rows", 4, 24, 8, 128, 4000, 512, "ring")]
+            ("unaligned_rows", 4, 24, 8, 128, 4000, 512, "ring"),
+            ("hymba_decode", 4, 25, 5, 64, 4096, 512, "ring_window"),
+            ("llava_decode", 1, 56, 8, 128, 4096, 512, "ring")]
 # (label, M, K, N, kinds): the reference's sweep and int8 shapes,
 # minitron-4b's prefill (2048 tokens) and decode (B = 4) MLP-up products;
 # then the wgmma route's edges: an aligned small shape, M 1 (a split K) and
@@ -2175,10 +2205,10 @@ def lm_config():
     return get_config(LM_ARCH)
 
 
-def seeded_prompts(vocab):
+def seeded_prompts(vocab, lengths=LM_PROMPTS):
     import numpy as np
     rng = np.random.default_rng(SEED)
-    return [rng.integers(0, vocab, n).astype(np.int32) for n in LM_PROMPTS]
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
 
 
 class PlainAttention:
@@ -2199,14 +2229,15 @@ class PlainAttention:
 
 
 def lm_serve_run(cfg, params, prompts, device, eager=False,
-                 serving=contextlib.nullcontext()):
+                 serving=contextlib.nullcontext(), keep_logits=False):
     """One ServeEngine run of the prompts: (engine, requests, decode steps,
     wall seconds, the engine's memory after construction). The engine
     captures its decode step at construction; ``eager`` drops the graph
     before serving, so that every step runs ``decode_step`` eagerly (the
     yardstick of the captured steps). ``serving`` is entered around the
     run only, after construction's warm-up and capture. Each decode step
-    records whether its logits are finite."""
+    records whether its logits are finite (and, with ``keep_logits``, a
+    copy of them)."""
     import torch
     from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
     before = memory_mark()
@@ -2220,7 +2251,8 @@ def lm_serve_run(cfg, params, prompts, device, eager=False,
 
     def decode_logits():
         logits = inner()
-        steps.append({"finite": bool(torch.isfinite(logits).all())})
+        steps.append({"finite": bool(torch.isfinite(logits).all())}
+                     | ({"logits": logits.clone()} if keep_logits else {}))
         return logits
     engine.decode_logits = decode_logits
     reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
@@ -2392,6 +2424,465 @@ def phase_lm_serve(device):
             "steps": n_steps, "param_bytes": param_bytes,
             "k5_call": ([t.clone() for t in args], kw), "prompts": prompts,
             "capture": capture, **lm_state}
+
+
+# --------------------------------------------------------------------------
+# phase 4b: every other LM family on the card
+# --------------------------------------------------------------------------
+
+#: (arch, layers kept (None: the published depth), how it runs, prompt
+#: lengths): the captured ServeEngine for the text-only families, the
+#: family API (prefill, then greedy decode steps, eager) for vlm and
+#: encdec, which the engine does not serve
+LM_FAMILY_RUNS = (
+    ("olmoe-1b-7b", None, "engine", LM_PROMPTS),
+    # a 1,536-token prompt, so that the 1,024-token window masks in the
+    # 29 windowed layers
+    ("hymba-1.5b", None, "engine", (37, 128, 300, 1536)),
+    ("mamba2-130m", None, "engine", LM_PROMPTS),
+    # the whole model (316 B parameters) fits no card
+    ("grok-1-314b", 2, "engine", LM_PROMPTS),
+    # 60 layers (68.8 GB in bf16) would leave no room for a 3,392-token
+    # prefill
+    ("llava-next-34b", 8, "api", LM_PROMPTS),
+    ("whisper-tiny", None, "api", (37,)),
+)
+#: one SMOKE config per family (and grok's), float32, card against CPU
+SMOKE_CARD_ARCHS = ("minitron-4b", "olmoe-1b-7b", "grok-1-314b",
+                    "mamba2-130m", "hymba-1.5b", "llava-next-34b",
+                    "whisper-tiny")
+SMOKE_CARD_TOL = {"rtol": 1e-4, "atol": 1e-4}
+ROUTER_MARGIN = 1e-3             # a router pick may flip under this gap
+
+
+def family_config(arch, depth):
+    """The published config, with its depth cut to ``depth`` layers if
+    given; and the cut as printed in ``reduced``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if depth is None:
+        return cfg, None
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    return cut, {"n_layers": [cfg.n_layers, depth],
+                 "params": [cfg.param_count(), cut.param_count()]}
+
+
+class RouterPicks:
+    """While active, records each MoE layer call's router probabilities,
+    its top-k experts and, per token, the gap between its k-th and
+    (k+1)-th probability (``layers.moe_route`` swapped in this process
+    only)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.orig, self.picks = layers.moe_route, []
+
+        def route(p, cfg, x):
+            probs, top_p, top_e = self.orig(p, cfg, x)
+            k = cfg.n_experts_active
+            top = probs.topk(k + 1, dim=-1).values
+            self.picks.append((probs.clone(), top_e.clone(),
+                               top[..., k - 1] - top[..., k]))
+            return probs, top_p, top_e
+        layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self.orig
+
+
+def routed_limits(got, want, picks_got, picks_want, step):
+    """``logit_limits`` of decode step ``step``'s (B, V) logits against
+    another run's. A token (batch row) whose set of router picks differs
+    between the two runs in some MoE layer is named (step, layer, row, its
+    k-th to (k+1)-th probability gap, and the largest change of a router
+    probability between the runs) and held to the median only. Its first
+    flip must have a gap under ROUTER_MARGIN in one of the runs; later
+    layers route a hidden state that the first flip already changed."""
+    import torch
+    if len(picks_got) != len(picks_want):
+        raise AssertionError(f"{len(picks_got)} vs {len(picks_want)} MoE calls")
+    flipped = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+    flips = []
+    for layer, ((pa, ea, ga), (pb, eb, gb)) in enumerate(
+            zip(picks_got, picks_want)):
+        # a flip changes the set of the k experts; an order change inside
+        # it only reorders the token's float32 sum of its k contributions
+        diff = (ea.sort(-1).values != eb.sort(-1).values).flatten(1).any(1)
+        for row in diff.nonzero().flatten().tolist():
+            gap = min(float(ga[row].min()), float(gb[row].min()))
+            first = not bool(flipped[row])
+            flips.append({"step": step, "layer": layer, "row": row, "gap": gap,
+                          "drift": float((pa[row] - pb[row]).abs().max()),
+                          "first_in_row": first})
+            if first and gap >= ROUTER_MARGIN:
+                raise AssertionError(f"router pick flipped at step {step}, "
+                                     f"layer {layer}, row {row} with a gap of "
+                                     f"{gap}")
+        flipped |= diff
+    cmp = logit_limits(got, want)
+    if flips:
+        keep = ~flipped
+        unflipped = float((got[keep] - want[keep]).abs().max()) \
+            if keep.any() else 0.0
+        cmp.update(flips=flips, max_abs_unflipped=unflipped)
+        cmp["held"] = bool(torch.isfinite(got).all()) \
+            and unflipped <= cmp["tol_max"] \
+            and cmp["median_abs"] <= cmp["tol_median"]
+    return cmp
+
+
+def decode_weight_bytes(cfg, params, batch):
+    """Weight bytes one decode step reads: every weight of the decoder
+    stack (a MoE layer multiplies all its experts), the head and the
+    embedding rows of the batch's tokens; for encdec the decoder's only,
+    without the cross-attention's K and V projections (the memory's K and
+    V are cached)."""
+    size = lambda t: t.numel() * t.element_size()
+    if cfg.family == "encdec":
+        dec = params["dec_layers"]
+        total = sum(size(t) for _, t in leaf_paths(dec)) \
+            - size(dec["xattn"]["wk"]) - size(dec["xattn"]["wv"]) \
+            + size(params["head"]) + size(params["final_norm"])
+    else:
+        total = sum(size(t) for _, t in leaf_paths(params)) \
+            - size(params["embed"])
+    return total + batch * cfg.d_model * params["embed"].element_size()
+
+
+def k5_profiled(fn, n_attn, label, tries=3):
+    """One call of ``fn`` under torch.profiler: ``replay_counts`` with
+    K5's split and merge kernels, which must each launch ``n_attn`` times.
+    The profiler has been seen to drop a kernel's record (PERF.md §7 q3),
+    so a short count is profiled again, up to ``tries`` times; a launch
+    that is really missing is short every time (and in the wrapper's
+    count). Returns the counts and every attempt's kernel counts."""
+    attempts = []
+    for _ in range(tries):
+        counts = replay_counts(fn, K5_KERNELS)
+        k = counts["kernels"]
+        attempts.append(k)
+        if k["flash_decode_mma_kernel"] + k["flash_decode_split_kernel"] \
+                == n_attn and k["flash_decode_merge_kernel"] == n_attn:
+            return counts, attempts
+    raise AssertionError(f"{label}: K5 kernels per call {attempts}; expected "
+                         f"{n_attn} split and {n_attn} merge kernels")
+
+
+def next_step_vs_plain(api, cfg, params, cache, tokens, pos, step):
+    """Decode step ``step`` from a state, through K5 and through its plain
+    version, each on its own copy of the cache (the SSD states advance in
+    place): ``routed_limits``."""
+    import torch
+
+    def run(plain):
+        copy = {k: v.clone() for k, v in cache.items()}
+        with torch.inference_mode(), RouterPicks() as picks, \
+                (PlainAttention() if plain else contextlib.nullcontext()):
+            logits, _ = api.decode_step(params, cfg, copy, tokens, pos)
+        return logits, picks.picks
+    got, picks_got = run(False)
+    want, picks_want = run(True)
+    torch.cuda.synchronize()
+    return routed_limits(got, want, picks_got, picks_want, step)
+
+
+def prefill_ms(api, cfg, params, prompts, device, extras=None):
+    """Host ms of one prefill per prompt (B = 1, a fresh cache), after one
+    warm-up call of the first; the peak memory statistic restarts here."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for i, prompt in enumerate(prompts):
+        batch = {"tokens": torch.as_tensor(prompt, device=device)[None],
+                 **(extras or {})}
+
+        def fill():
+            with torch.inference_mode():
+                api.prefill(params, cfg, api.init_cache(cfg, 1, LM_CACHE_LEN,
+                                                        device=device), batch)
+        if i == 0:
+            fill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fill()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def family_engine(cfg, params, prompts, device, n_attn, record):
+    """One family served by the captured ServeEngine: the run (K5 at the
+    warm-up and the capture only), the same run eagerly (every step's
+    logits bitwise the replay's, the greedy tokens equal, K5 n_attn times
+    a step), the next step through K5 against the plain attention, one
+    replay under the profiler, step timing and prefill times."""
+    import torch
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    flash_decode.LAUNCHES = 0
+    engine, reqs, steps, wall, memory = lm_serve_run(
+        cfg, params, prompts, device, keep_logits=True)
+    launches = flash_decode.LAUNCHES
+    serve_peak = torch.cuda.max_memory_allocated()   # construction + serving
+    n_steps = len(steps)
+    if n_steps != LM_NEW_TOKENS - 1 or engine.compile_count != 1 \
+            or launches != 2 * n_attn:
+        raise AssertionError(f"{cfg.name}: {launches} K5 launches over "
+                             f"{n_steps} steps, compile_count "
+                             f"{engine.compile_count}; expected {2 * n_attn}")
+    for r in reqs:
+        if not (r.done and len(r.output) == LM_NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in r.output)):
+            raise AssertionError(f"{cfg.name} request {r.rid}: {r.output}")
+    if not all(s["finite"] for s in steps):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+
+    rec = Recorder(flash_decode, "flash_decode", 1) if record \
+        else contextlib.nullcontext()
+    flash_decode.LAUNCHES = 0
+    eager_engine, eager_reqs, eager_steps, eager_wall, _ = lm_serve_run(
+        cfg, params, prompts, device, eager=True, serving=rec, keep_logits=True)
+    eager_launches = flash_decode.LAUNCHES - 2 * n_attn    # minus construction
+    del eager_engine
+    bitwise = [bool(torch.equal(a["logits"], b["logits"]))
+               for a, b in zip(steps, eager_steps)]
+    same_tokens = [r.output for r in reqs] == [r.output for r in eager_reqs]
+    if len(eager_steps) != n_steps or not all(bitwise) or not same_tokens \
+            or eager_launches != n_attn * n_steps:
+        raise AssertionError(f"{cfg.name}: replay vs eager bitwise {bitwise}, "
+                             f"tokens equal {same_tokens}, eager K5 launches "
+                             f"{eager_launches} (expected {n_attn * n_steps})")
+    for s in steps + eager_steps:
+        s.pop("logits")
+
+    tokens, pos = engine.last_tok.clone(), engine.pos.clone()
+    vs_plain = next_step_vs_plain(api, cfg, engine.params, engine.cache,
+                                  tokens, pos, n_steps)
+    if not vs_plain["held"]:
+        raise AssertionError(f"{cfg.name}: K5 vs plain attention {vs_plain}")
+    replay, attempts = k5_profiled(engine.decode_logits, n_attn,
+                                   f"{cfg.name} replay")
+    check_replay(f"{cfg.name} decode step", replay, {}, want_pinned=0)
+
+    def eager_step():
+        with torch.inference_mode():
+            api.decode_step(engine.params, cfg, engine.cache, tokens, pos)
+    timing = step_timing({"eager": eager_step, "captured": engine.decode_logits})
+    del engine
+    memory_mark()
+    pre_ms = prefill_ms(api, cfg, params, prompts, device)
+    return {"route": "ServeEngine, captured", "launches": launches,
+            "finite_logits": all(s["finite"] for s in steps + eager_steps),
+            "peaks": [serve_peak, torch.cuda.max_memory_allocated()]
+            + [t["peak_allocated_bytes"] for t in timing.values()],
+            "decode_steps": n_steps, "wall_s": wall, "eager_wall_s": eager_wall,
+            "outputs": [r.output for r in reqs], "memory": memory,
+            "replay_vs_eager_bitwise": all(bitwise),
+            "eager_k5_launches_per_step": eager_launches / n_steps,
+            "replay": replay, "profiled_k5_attempts": attempts,
+            "decode_vs_plain": vs_plain, "steps": timing,
+            "prefill_ms": pre_ms,
+            "k5_call": None if not record else
+            ([t.clone() for t in rec.calls[0][0]], rec.calls[0][1])}
+
+
+def family_api(cfg, params, prompts, device, n_attn):
+    """A family the engine does not serve, through its API: per prompt a
+    prefill of the stub frontend's embeddings plus the text (vlm: B = 1
+    over 2,880 image embeddings; encdec: B = LM_MAX_BATCH over 1,500
+    frames), then LM_NEW_TOKENS - 1 greedy decode steps, eager, K5
+    n_attn times a step; on the last prompt's state the next step through
+    K5 against the plain attention, one step under the profiler, and step
+    timing."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    if cfg.family == "vlm":
+        b, n_ctx = 1, cfg.n_img_tokens
+        extras = {"img_embeds": torch.randn((b, n_ctx, cfg.d_model), generator=gen,
+                                            device=device).to(cfg.dtype)}
+    else:
+        b, n_ctx = LM_MAX_BATCH, 0
+        extras = {"frames": torch.randn((b, cfg.enc_seq_len, cfg.d_model),
+                                        generator=gen, device=device).to(cfg.dtype)}
+    launches, outputs, pre_ms, finite = 0, [], [], True
+    for prompt in prompts:
+        toks = torch.as_tensor(np.stack([prompt] * b), device=device)
+        cache = api.init_cache(cfg, b, LM_CACHE_LEN, device=device)
+        flash_decode.LAUNCHES = 0
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = api.prefill(params, cfg, cache,
+                                        {"tokens": toks, **extras})
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            out = [logits.argmax(-1).to(torch.int32)]
+            for i in range(LM_NEW_TOKENS - 1):
+                pos = torch.full((b,), n_ctx + len(prompt) + i, dtype=torch.int32,
+                                 device=device)
+                logits, cache = api.decode_step(params, cfg, cache, out[-1], pos)
+                finite &= bool(torch.isfinite(logits).all())
+                if not finite:
+                    raise AssertionError(f"{cfg.name}: non-finite logits")
+                out.append(logits.argmax(-1).to(torch.int32))
+        if flash_decode.LAUNCHES != n_attn * (LM_NEW_TOKENS - 1):
+            raise AssertionError(f"{cfg.name}: {flash_decode.LAUNCHES} K5 "
+                                 f"launches over {LM_NEW_TOKENS - 1} steps")
+        launches += flash_decode.LAUNCHES
+        outputs.append(torch.stack(out, 1).tolist())
+    serve_peak = torch.cuda.max_memory_allocated()   # prefills and decodes
+    tokens = out[-1]
+    pos = torch.full((b,), n_ctx + len(prompts[-1]) + LM_NEW_TOKENS - 1,
+                     dtype=torch.int32, device=device)
+    vs_plain = next_step_vs_plain(api, cfg, params, cache, tokens, pos,
+                                  LM_NEW_TOKENS - 1)
+    if not vs_plain["held"]:
+        raise AssertionError(f"{cfg.name}: K5 vs plain attention {vs_plain}")
+
+    def eager_step():
+        with torch.inference_mode():
+            api.decode_step(params, cfg, cache, tokens, pos)
+    _, attempts = k5_profiled(eager_step, n_attn, f"{cfg.name} eager step")
+    timing = step_timing({"eager": eager_step})
+    del cache
+    memory_mark()
+    return {"route": "api.prefill + api.decode_step, eager", "batch": b,
+            "finite_logits": finite,
+            "peaks": [serve_peak] + [t["peak_allocated_bytes"]
+                                     for t in timing.values()],
+            "context_embeddings": n_ctx or cfg.enc_seq_len,
+            "launches": launches, "decode_steps": len(prompts) * (LM_NEW_TOKENS - 1),
+            "eager_k5_launches_per_step": n_attn,
+            "profiled_k5_attempts": attempts,
+            "outputs": outputs, "decode_vs_plain": vs_plain, "steps": timing,
+            "prefill_ms": pre_ms}
+
+
+def smoke_card_vs_cpu(device):
+    """Each family's SMOKE config in float32, the same weights on the card
+    and on the CPU: prefill and three decode steps, logits and every
+    cache leaf within SMOKE_CARD_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_api
+    out = {}
+    for arch in SMOKE_CARD_ARCHS:
+        cfg = get_smoke_config(arch)
+        api = get_api(cfg)
+        cpu_params = api.init(cfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)
+                                             ).astype(np.int32))
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2)
+                                            ).astype(np.int32))
+        extras = {}
+        if cfg.family == "vlm":
+            extras["img_embeds"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.family == "encdec":
+            extras["frames"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32))
+
+        def run(params, dev):
+            cache = api.init_cache(cfg, 2, 32, device=dev)
+            batch = {k: v.to(dev) for k, v in {"tokens": toks, **extras}.items()}
+            with torch.inference_mode():
+                logits, cache = api.prefill(params, cfg, cache, batch)
+                outs = [logits]
+                for i in range(3):
+                    pos = torch.full((2,), 9 + cfg.n_img_tokens + i,
+                                     dtype=torch.int32, device=dev)
+                    logits, cache = api.decode_step(params, cfg, cache,
+                                                    nxt[i].to(dev), pos)
+                    outs.append(logits)
+            return outs, cache
+        want, want_cache = run(cpu_params, "cpu")
+        got, got_cache = run(tree_to(cpu_params, device), device)
+        err = max(check_close(f"{arch} SMOKE card vs CPU step {i}", g.cpu(), w,
+                              SMOKE_CARD_TOL)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        for name, w in want_cache.items():
+            g = got_cache[name].cpu()
+            if name == "kpos":
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{arch} SMOKE kpos card vs CPU")
+            else:
+                err = max(err, check_close(f"{arch} SMOKE cache {name}", g, w,
+                                           SMOKE_CARD_TOL))
+        out[arch] = {"family": cfg.family, "max_abs_err": err,
+                     "cache_leaves": sorted(want_cache)}
+    return out
+
+
+def phase_lm_families(device):
+    """Every LM family besides dense on the card (LM_FAMILY_RUNS; bf16,
+    random weights drawn on the card from the seed, each model freed
+    before the next is drawn), then each family's SMOKE config on the
+    card against the CPU. Returns the K5 launches of the families' main
+    path and hymba's first served K5 call (the timing phase's operands)."""
+    import torch
+    from repro_torch.models.registry import get_api
+    t0 = time.perf_counter()
+    rows, launches, hymba_call = [], 0, None
+    for arch, depth, route, prompt_lens in LM_FAMILY_RUNS:
+        cfg, reduced = family_config(arch, depth)
+        n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
+        memory_mark()
+        # live before the model: what earlier phases still hold
+        before = torch.cuda.memory_allocated()
+        t_model = time.perf_counter()
+        params = get_api(cfg).init(
+            cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for _, t in leaf_paths(params))
+        init_peak = torch.cuda.max_memory_allocated()    # the draw's float32
+        torch.cuda.reset_peak_memory_stats()
+        prompts = seeded_prompts(cfg.vocab_size, prompt_lens)
+        batch = LM_MAX_BATCH if route == "engine" or cfg.family == "encdec" else 1
+        if route == "engine":
+            res = family_engine(cfg, params, prompts, device, n_attn,
+                                record=arch == "hymba-1.5b")
+            if arch == "hymba-1.5b":
+                hymba_call = res["k5_call"]
+            res.pop("k5_call")
+        else:
+            res = family_api(cfg, params, prompts, device, n_attn)
+        weights = decode_weight_bytes(cfg, params, batch)
+        launches += res["launches"]
+        rows.append({"model": cfg.name, "family": cfg.family,
+                     "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+                     "attention_layers": n_attn, "reduced": reduced,
+                     "params": cfg.param_count(), "param_bytes": param_bytes,
+                     "prompts": list(prompt_lens),
+                     "allocated_before_bytes": before,
+                     "init_peak_allocated_bytes": init_peak,
+                     "peak_allocated_bytes": max(res.pop("peaks")),
+                     "decode_weight_bytes": weights,
+                     "decode_weight_bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+                     "seconds": time.perf_counter() - t_model, **res})
+        del params
+    memory_mark()
+    smoke = smoke_card_vs_cpu(device)
+    emit("lm_families", configs=rows, smoke_card_vs_cpu=smoke,
+         tolerance={"decode_vs_plain": "logit_limits (max 2^-4, median 2^-8 "
+                                       "of the largest |logit|); a row whose "
+                                       "router set flipped (first flip's gap "
+                                       "< 1e-3): median only",
+                    "replay_vs_eager": "bitwise",
+                    "smoke_card_vs_cpu": SMOKE_CARD_TOL},
+         k5_launches=launches, seconds=time.perf_counter() - t0)
+    return {"launches": launches, "k5_call": hymba_call}
 
 
 # --------------------------------------------------------------------------
@@ -3483,18 +3974,25 @@ def lm_step_ms(fn, reps=5):
     return statistics.median(ts), torch.cuda.max_memory_allocated()
 
 
-def lm_times(lm):
+def lm_times(lm, families):
     """K5 on the served path's first decode call (and its operands in
-    float32) and on a full cache in bf16 and float32, K4 on minitron-4b's
+    float32), on hymba-1.5b's first served decode call and on a full cache
+    in bf16 and float32, K4 on minitron-4b's
     MLP-up products (prefill and decode, bf16 and int8 + scale, prefill in
     float32), one decode step at B = 4 and one 512-token prefill."""
     import torch
     from repro_torch.models.decoder import decode_step, init_cache, prefill
     cfg, params, dev = lm["cfg"], lm["params"], lm["tokens"].device
-    k5, d5 = k5_entry(*lm["k5_call"], lm["launches"]["flash_decode"])
+    k5, d5 = k5_entry(*lm["k5_call"], lm["launches"]["flash_decode"]
+                      + families["launches"])
     gen = torch.Generator().manual_seed(SEED + 4)
     keep = ("ms", "ms_source", "by_kernel", "call_ms", "plain_ms", "library_ms",
             "max_abs_err")
+    # hymba-1.5b: 25 query heads over 5 KV heads at Dh 64 (the tensor-core
+    # pass, head groups of 4 and 1), window 1,024 in most layers
+    e, bd = k5_entry(*families["k5_call"], families["launches"])
+    d5["hymba_served"] = {k: e[k] for k in keep + ("launches", "bound_ms",
+                                                    "bound_by")} | bd
     for label, dtype in (("full_cache", cfg.dtype), ("full_cache_f32", torch.float32),
                          ("served_f32", torch.float32)):
         if label == "served_f32":
@@ -3551,7 +4049,7 @@ def lm_times(lm):
     return [k4, k5], {"matmul": d4, "flash_decode": d5}, timing
 
 
-def phase_times(serve, serve_w, train, lm, stream):
+def phase_times(serve, serve_w, train, lm, stream, families):
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
@@ -3669,7 +4167,7 @@ def phase_times(serve, serve_w, train, lm, stream):
         wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3,
         table_grad_chain=table_grad_chain(train["backward_calls"]))
 
-    lm_kernels, lm_detail, lm_timing = lm_times(lm)
+    lm_kernels, lm_detail, lm_timing = lm_times(lm, families)
     kernels += lm_kernels
     detail.update(lm_detail)
 
@@ -3759,13 +4257,14 @@ def main() -> int:
     phase_accuracy(device)
     phase_lm_train(device, loop["lm_fault_tolerant"])
     lm = phase_lm_serve(device)
+    families = phase_lm_families(device)
     stream = phase_stream(device, serve)
     emit("capture", detector_512=serve["capture"],
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,
          lm_decode=lm["capture"], obs_log=serve["obs_log"])
     phase_autotune(device, smi, serve)
-    kernels = phase_times(serve, serve_w, train, lm, stream)
+    kernels = phase_times(serve, serve_w, train, lm, stream, families)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

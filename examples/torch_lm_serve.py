@@ -1,8 +1,8 @@
 """Continuous-batching LM serving demo of the PyTorch port (port of
-examples/lm_serve.py): a smoke-scale dense arch with mixed prompt
-lengths; requests enter and leave slots while decode proceeds, each
-decode layer's attention through kernel K5 (its plain version on the
-CPU).
+examples/lm_serve.py): a smoke-scale arch of a text-only family
+(dense, moe, ssm, hybrid) with mixed prompt lengths; requests enter and
+leave slots while decode proceeds, each attention layer's decode through
+kernel K5 (its plain version on the CPU).
 
   PYTHONPATH=src python examples/torch_lm_serve.py --arch granite-20b [--device cpu]
 """
@@ -15,12 +15,18 @@ import torch
 from repro_torch.bridge import resolve_device
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.models.registry import get_api
-from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
+from repro_torch.serve.lm import (SERVED_FAMILIES, Request, ServeConfig,
+                                  ServeEngine)
+
+#: the architectures whose family the engine serves (vlm and encdec need
+#: image embeddings or frames besides the tokens)
+SERVED_ARCHS = [a for a in ARCH_IDS
+                if get_smoke_config(a).family in SERVED_FAMILIES]
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-20b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="granite-20b", choices=SERVED_ARCHS)
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()

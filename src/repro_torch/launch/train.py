@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.bridge import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.data import fold_in
 from repro_torch.data.tokens import TokenDataConfig, synth_token_batch
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.loop import FailureInjector, TrainLoopConfig, train_loop
@@ -48,8 +49,19 @@ def main(argv=None) -> int:
     data_cfg = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=0)
 
+    def stub_inputs(seed: int, step: int, n: int):
+        """The stub frontend's embeddings: (batch, n, d_model) normals
+        keyed by (seed, step), as the reference folds its key."""
+        x = torch.randn((args.batch, n, cfg.d_model), generator=fold_in(seed, step))
+        return x.to(device=dev, dtype=cfg.dtype)
+
     def batch_fn(step: int):
-        return synth_token_batch(data_cfg, step, device=dev)
+        b = synth_token_batch(data_cfg, step, device=dev)
+        if cfg.family == "vlm":
+            b["img_embeds"] = stub_inputs(7, step, cfg.n_img_tokens)
+        if cfg.family == "encdec":
+            b["frames"] = stub_inputs(8, step, cfg.enc_seq_len)
+        return b
 
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps)
     # weights drawn on the device itself: a published-width model on the card

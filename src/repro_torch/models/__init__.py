@@ -1,3 +1,4 @@
-"""The LM substrate of the port (dense decoder family): config and
-primitives (``common``), attention and MLP (``layers``), the stacked
-decoder (``decoder``) and the family API (``registry``)."""
+"""The LM substrate of the port (every family of the reference): config
+and primitives (``common``), attention, MLP, MoE and the SSD mixer
+(``layers``), the stacked decoder (``decoder``), the encoder-decoder
+(``encdec``) and the family API (``registry``)."""

@@ -1,13 +1,14 @@
-"""The decoder stack of the LM families (port of ``repro/models/decoder.py``,
-dense family).
+"""The decoder stack of the decoder-only LM families (port of
+``repro/models/decoder.py``): dense, moe, ssm, hybrid and vlm, the layer
+body chosen by ``cfg.family``.
 
 Params and cache keep the reference's stacked layout, the layer index
 first, and the reference's ``lax.scan`` over layers becomes a Python loop
 over the layer index. ``remat`` and ``comm_barrier`` are XLA memory and
 fusion knobs of the reference's training path and have no effect here.
 The cache is written in place: :func:`prefill` and :func:`decode_step`
-return the tensors they were given. MoE, SSM and hybrid families raise
-``NotImplementedError`` (ROADMAP.md)."""
+return the tensors they were given (the SSD leaves ``ssm`` and ``conv``
+too). The encoder-decoder family is ``models/encdec.py``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -19,15 +20,16 @@ from repro_torch.bridge import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
 
-PORTED_FAMILIES = ("dense",)
+#: the families this stack serves (``encdec`` is ``models/encdec.py``)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+_ATTN = ("dense", "vlm", "moe", "hybrid")        # families with attention
+_SSD = ("ssm", "hybrid")                         # families with the SSD mixer
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port has {PORTED_FAMILIES} (see ROADMAP.md, modules still to "
-            "port: the LM substrate)")
+        raise ValueError(f"{cfg.name}: the decoder stack has no "
+                         f"{cfg.family!r} family; it serves {PORTED_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -51,32 +53,72 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator, lead=(),
                 device=None) -> dict:
     d = cfg.d_model
     ones = lambda: torch.ones(tuple(lead) + (d,), dtype=cfg.dtype, device=device)
-    return {"ln1": ones(), "attn": L.attn_init(cfg, gen, lead, device),
-            "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
+    p: dict = {"ln1": ones()}
+    if cfg.family in _ATTN:
+        p["attn"] = L.attn_init(cfg, gen, lead, device)
+    if cfg.family in _SSD:
+        p["ssd"] = L.ssd_init(cfg, gen, lead, device)
+    if cfg.family == "hybrid":
+        p["norm_attn"] = ones()
+        p["norm_ssm"] = ones()
+    if cfg.family == "moe":
+        p["ln2"] = ones()
+        p["moe"] = L.moe_init(cfg, gen, lead, device)
+    elif cfg.family != "ssm":
+        p["ln2"] = ones()
+        p["mlp"] = L.mlp_init(cfg, gen, lead, device)
+    return p
+
+
+def _hybrid_mix(p, cfg, ya, ym):
+    return 0.5 * (rms_norm(p["norm_attn"], ya, cfg.norm_eps)
+                  + rms_norm(p["norm_ssm"], ym, cfg.norm_eps))
+
+
+def _ffn(p, cfg, x):
+    """The second half of a layer: (x + MLP or MoE of its norm, aux)."""
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = L.moe_apply(p["moe"], cfg, h2)
+        return x + y, aux
+    return x + L.mlp_apply(p["mlp"], h2), None
 
 
 def _layer_forward(p: dict, cfg: ModelConfig, x, positions, window):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + L.attn_forward(p["attn"], cfg, h, positions, window)
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2), aux
+    if cfg.family == "ssm":
+        return x + L.ssd_forward(p["ssd"], cfg, h), None
+    if cfg.family == "hybrid":
+        x = x + _hybrid_mix(p, cfg,
+                            L.attn_forward(p["attn"], cfg, h, positions, window),
+                            L.ssd_forward(p["ssd"], cfg, h))
+    else:
+        x = x + L.attn_forward(p["attn"], cfg, h, positions, window)
+    return _ffn(p, cfg, x)
 
 
 def _layer_prefill(p, cfg, x, positions, cache, window):
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    y, cache = L.attn_prefill(p["attn"], cfg, h, positions, cache, window)
-    x = x + y
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2), cache
+    if cfg.family == "ssm":
+        y, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
+        return x + y, cache
+    ya, cache = L.attn_prefill(p["attn"], cfg, h, positions, cache, window)
+    if cfg.family == "hybrid":
+        ym, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
+        ya = _hybrid_mix(p, cfg, ya, ym)
+    return _ffn(p, cfg, x + ya)[0], cache
 
 
 def _layer_decode(p, cfg, x1, cache, pos, window):
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
-    y, cache = L.attn_decode(p["attn"], cfg, h, cache, pos, window)
-    x1 = x1 + y
-    h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return x1 + L.mlp_apply(p["mlp"], h2), cache
+    if cfg.family == "ssm":
+        y, cache = L.ssd_decode(p["ssd"], cfg, h, cache)
+        return x1 + y, cache
+    ya, cache = L.attn_decode(p["attn"], cfg, h, cache, pos, window)
+    if cfg.family == "hybrid":
+        ym, cache = L.ssd_decode(p["ssd"], cfg, h, cache)
+        ya = _hybrid_mix(p, cfg, ya, ym)
+    return _ffn(p, cfg, x1 + ya)[0], cache
 
 
 def layer_slice(tree: dict, i: int) -> dict:
@@ -114,21 +156,29 @@ def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor] = Non
     check_family(cfg)
     x = params["embed"][tokens.long()] if embeds is None else embeds
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxs = []
     for i, win in enumerate(window_schedule(cfg)):
         x, a = _layer_forward(layer_slice(params["layers"], i), cfg, x,
                               positions, win)
-        aux = aux + a
+        auxs.append(a)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    aux = torch.stack(auxs).sum() if cfg.family == "moe" else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
     return x @ params["head"], aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> dict:
-    """Stacked (n_layers leading axis) cache."""
+    """Stacked (n_layers leading axis) cache: the ring-buffer KV cache of
+    the attention families, the SSD states of ssm and hybrid."""
     check_family(cfg)
-    return L.attn_cache_init(cfg, batch, cache_len, (cfg.n_layers,),
-                             resolve_device(device))
+    dev, lead = resolve_device(device), (cfg.n_layers,)
+    cache: dict = {}
+    if cfg.family in _ATTN:
+        cache.update(L.attn_cache_init(cfg, batch, cache_len, lead, dev))
+    if cfg.family in _SSD:
+        cache.update(L.ssd_cache_init(cfg, batch, lead, dev))
+    return cache
 
 
 def prefill(params: dict, cfg: ModelConfig, cache: dict,

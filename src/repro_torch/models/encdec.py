@@ -1,0 +1,173 @@
+"""Encoder-decoder backbone, Whisper family (port of
+``repro/models/encdec.py``).
+
+The conv/mel frontend is a stub, as in the reference: callers pass
+precomputed frame embeddings (B, enc_seq_len, D). The encoder is a
+non-causal transformer; the decoder adds cross-attention to the encoder
+memory. Stacked params and caches as in ``models/decoder.py``, the
+reference's ``lax.scan`` a loop over the layer index, and the cache
+written in place. The decoder's self-attention decode goes through
+``layers.attn_decode``, so through the flash-decode kernel K5 on the
+card; the cross-attention over the memory stays plain, as in the
+reference."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.bridge import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.common import ModelConfig, init_dense, rms_norm
+from repro_torch.models.decoder import layer_slice
+
+
+# --- encoder ---------------------------------------------------------------
+
+def _enc_layer_init(cfg, gen, lead, device):
+    ones = lambda: torch.ones(tuple(lead) + (cfg.d_model,), dtype=cfg.dtype,
+                              device=device)
+    return {"ln1": ones(), "attn": L.attn_init(cfg, gen, lead, device),
+            "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
+
+
+def _softmax_attn(q, k, v, n_rep, dh):
+    """Unmasked attention: q (B,Sq,Hq,Dh), k/v (B,Sk,Hkv,Dh)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, L._repeat_kv(k, n_rep)
+                          ).float() / math.sqrt(dh)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, L._repeat_kv(v, n_rep))
+
+
+def _enc_layer_fwd(p, cfg, x, positions):
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = L._project_qkv(p["attn"], cfg, h, positions[None])
+    out = _softmax_attn(q, k, v, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
+    x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"])
+    return x + L.mlp_apply(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+
+
+# --- decoder with cross-attention ------------------------------------------
+
+def _dec_layer_init(cfg, gen, lead, device):
+    ones = lambda: torch.ones(tuple(lead) + (cfg.d_model,), dtype=cfg.dtype,
+                              device=device)
+    return {"ln1": ones(), "attn": L.attn_init(cfg, gen, lead, device),
+            "lnx": ones(), "xattn": L.attn_init(cfg, gen, lead, device),
+            "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
+
+
+def _cross_attn(p, cfg, h, mem_k, mem_v):
+    """h (B,Sq,D); mem_k/v (B,Sm,Hkv,Dh) precomputed from the memory."""
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    out = _softmax_attn(q, mem_k, mem_v, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mem_kv(p, mem):
+    return (torch.einsum("bsd,dhk->bshk", mem, p["wk"]),
+            torch.einsum("bsd,dhk->bshk", mem, p["wv"]))
+
+
+def _dec_tail(lp, cfg, h, mem_k, mem_v):
+    """Cross-attention and the MLP after the self-attention."""
+    hx = rms_norm(lp["lnx"], h, cfg.norm_eps)
+    h = h + _cross_attn(lp["xattn"], cfg, hx, mem_k, mem_v)
+    return h + L.mlp_apply(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps))
+
+
+# --- full model --------------------------------------------------------------
+
+def init_encdec(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
+                device="cuda") -> dict:
+    """Random params on ``device`` from ``gen`` (default: a CPU generator
+    seeded 0), as ``decoder.init_decoder`` draws them."""
+    dev = resolve_device(device)
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    d = cfg.d_model
+    return {
+        "embed": init_dense(gen, (cfg.vocab_size, d), d, cfg.dtype, dev),
+        "enc_layers": _enc_layer_init(cfg, gen, (cfg.n_enc_layers,), dev),
+        "enc_norm": torch.ones((d,), dtype=cfg.dtype, device=dev),
+        "dec_layers": _dec_layer_init(cfg, gen, (cfg.n_layers,), dev),
+        "final_norm": torch.ones((d,), dtype=cfg.dtype, device=dev),
+        "head": init_dense(gen, (d, cfg.vocab_size), d, cfg.dtype, dev),
+    }
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, D) stub frontend embeddings -> encoder memory."""
+    positions = torch.arange(frames.shape[1], dtype=torch.int32,
+                             device=frames.device)
+    x = frames
+    for i in range(cfg.n_enc_layers):
+        x = _enc_layer_fwd(layer_slice(params["enc_layers"], i), cfg, x,
+                           positions)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, frames: torch.Tensor,
+            tokens: torch.Tensor):
+    """Teacher-forced training forward. Returns (logits (B,S,V), aux=0)."""
+    mem = encode(params, cfg, frames)
+    h = params["embed"][tokens.long()]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=h.device)
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["dec_layers"], i)
+        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
+        h = h + L.attn_forward(lp["attn"], cfg, hh, positions, 0)
+        h = _dec_tail(lp, cfg, h, *_mem_kv(lp["xattn"], mem))
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return h @ params["head"], torch.zeros((), dtype=torch.float32,
+                                           device=h.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> dict:
+    """Stacked cache: the decoder's self-attention ring buffer and the
+    cross-attention's ``mem_k`` / ``mem_v``."""
+    dev, lead = resolve_device(device), (cfg.n_layers,)
+    cache = L.attn_cache_init(cfg, batch, cache_len, lead, dev)
+    shape = lead + (batch, cfg.enc_seq_len, cfg.n_kv_heads, cfg.dh)
+    cache["mem_k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    cache["mem_v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    return cache
+
+
+def prefill(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
+            tokens: torch.Tensor):
+    """Encode + teacher-force tokens, filling the self- and cross-attention
+    caches in place; returns (last-position logits (B,V) float32, cache)."""
+    mem = encode(params, cfg, frames)
+    h = params["embed"][tokens.long()]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=h.device)
+    for i in range(cfg.n_layers):
+        lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
+        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
+        y, lc = L.attn_prefill(lp["attn"], cfg, hh, positions, lc, 0)
+        h = h + y
+        mk, mv = _mem_kv(lp["xattn"], mem)
+        lc["mem_k"].copy_(mk)
+        lc["mem_v"].copy_(mv)
+        h = _dec_tail(lp, cfg, h, mk, mv)
+    h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return (h @ params["head"])[:, 0].float(), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                pos):
+    """One decoder token; the cross-attention reads the cached mem_k /
+    mem_v. Returns (logits (B,V) float32, cache)."""
+    h = params["embed"][tokens[:, None].long()]                     # (B,1,D)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device).expand(
+        tokens.shape[0]).contiguous()
+    for i in range(cfg.n_layers):
+        lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
+        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
+        y, lc = L.attn_decode(lp["attn"], cfg, hh, lc, pos, 0)
+        h = _dec_tail(lp, cfg, h + y, lc["mem_k"], lc["mem_v"])
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return (h @ params["head"])[:, 0].float(), cache

@@ -1,5 +1,6 @@
-"""GQA attention (full / blockwise / sliding-window / decode) and the MLP
-(port of the attention and MLP parts of ``repro/models/layers.py``).
+"""GQA attention (full / blockwise / sliding-window / decode), the MLP,
+the capacity-based MoE and the Mamba2 SSD mixer (port of
+``repro/models/layers.py``).
 
 Per-layer params are plain dicts, stacked by the decoder on a leading
 layer axis. The reference's sharding hints (``_constrain_attn`` and the
@@ -13,7 +14,18 @@ jnp. K5 masks with -1e30 instead of ``BIG_NEG`` (no effect while the
 token's own slot is valid), keeps the probabilities in float32 where the
 reference rounds them to the model dtype, and sums P.V in float32.
 
-MoE and the Mamba2 SSD mixer are not ported yet (ROADMAP.md)."""
+:func:`moe_apply` is the reference's local path (one device: its expert
+parallel ``moe_apply_ep`` waits for the distributed port, ROADMAP.md).
+It keeps the reference's routing exactly (``lax.top_k``'s tie order,
+the stable sort that decides which assignments a full expert drops) and
+combines without atomics: each token sums its ``k`` contributions in
+float32 in a fixed order and rounds once, so two runs, and a CUDA graph
+replay and the eager step, are bitwise equal. The reference's
+scatter-add rounds after each add in the model dtype.
+
+The SSD mixer's decode writes its ``ssm`` and ``conv`` caches in place,
+as :func:`attn_decode` does its KV cache, where the reference returns
+new ones; a captured decode step reads fixed addresses."""
 from __future__ import annotations
 
 import math
@@ -22,8 +34,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.pap import topk_stable
 from repro_torch.kernels import ops
-from repro_torch.models.common import ModelConfig, gelu, init_dense, rope
+from repro_torch.models.common import (ModelConfig, gelu, init_dense, rms_norm,
+                                       rope)
 
 BIG_NEG = -1e9
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -251,3 +265,257 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = gelu(x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ===========================================================================
+# MoE (token-choice top-k, static capacity, gather/scatter dispatch)
+# ===========================================================================
+
+def moe_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> dict:
+    """The router stays float32 whatever the model dtype."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    lead = tuple(lead)
+    return {
+        "router": init_dense(gen, lead + (d, e), d, torch.float32, device),
+        "w_gate": init_dense(gen, lead + (e, d, f), d, cfg.dtype, device),
+        "w_up": init_dense(gen, lead + (e, d, f), d, cfg.dtype, device),
+        "w_down": init_dense(gen, lead + (e, f, d), f, cfg.dtype, device),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    ideal = n_tokens * cfg.n_experts_active / cfg.n_experts
+    return max(1, int(np.ceil(ideal * cfg.expert_capacity_factor)))
+
+
+def moe_route(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The router: (probs (B,S,E) float32, top_p (B,S,k) renormalized,
+    top_e (B,S,k) int64), the top k in ``lax.top_k``'s order."""
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = topk_stable(probs, cfg.n_experts_active)
+    return probs, top_p / top_p.sum(-1, keepdim=True), top_e
+
+
+def moe_dispatch(cfg: ModelConfig, top_e: torch.Tensor, s: int):
+    """Per-row dispatch of the (B, S*k) assignments, in the reference's
+    sorted order: (order, sorted expert, keep, destination row of the
+    (E*cap + 1)-row buffer, whose last row takes every dropped
+    assignment). The sort is stable, so a full expert drops the last
+    tokens of its run, as ``jnp.argsort`` does."""
+    b, e = top_e.shape[0], cfg.n_experts
+    cap = moe_capacity(cfg, s)
+    sk = s * cfg.n_experts_active
+    flat_e = top_e.reshape(b, sk)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    first_of_run = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos_in_e = torch.arange(sk, device=top_e.device)[None] - first_of_run
+    keep = pos_in_e < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+    return order, keep, dest, cap
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """x (B,S,D) -> (out (B,S,D), aux_loss). Dropped-token capacity MoE,
+    dispatched per batch row; capacity per (row, expert) is
+    ceil(S*k/E * cf)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    probs, top_p, top_e = moe_route(p, cfg, x)
+
+    # load-balance auxiliary loss (Switch-style)
+    me = probs.mean(dim=(0, 1))
+    ce = (top_e[..., :1] == torch.arange(e, device=x.device)).float().mean(
+        dim=(0, 1))                                     # one-hot of the top pick
+    aux_loss = e * torch.sum(me * ce)
+
+    order, keep, dest, cap = moe_dispatch(cfg, top_e, s)
+    token_of = order // k                                           # (B, S*k)
+    src = torch.gather(x, 1, token_of[..., None].expand(-1, -1, d)) \
+        * keep[..., None].to(x.dtype)
+    # kept destinations are distinct; dropped ones all land in the last
+    # row, which is cut off whichever write wins there
+    buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    buf = buf[:, :-1].reshape(b, e, cap, d)
+
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
+        * torch.einsum("becd,edf->becf", buf, p["w_up"])
+    h = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(b, e * cap, d)
+
+    # combine: back to the assignments' own order (token t's are t*k ..
+    # t*k + k - 1), then each token's k contributions summed in float32
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(s * k, device=x.device).expand(b, -1))
+    dest_t = torch.gather(dest, 1, inv).clamp(max=e * cap - 1)     # "clip"
+    keep_t = torch.gather(keep, 1, inv)
+    gathered = torch.gather(h, 1, dest_t[..., None].expand(-1, -1, d))
+    gate = (top_p.reshape(b, s * k) * keep_t).to(x.dtype)
+    contrib = (gathered * gate[..., None]).reshape(b, s, k, d)
+    return contrib.float().sum(2).to(x.dtype), aux_loss
+
+
+# ===========================================================================
+# Mamba2 SSD mixer (state-space duality, chunked)
+# ===========================================================================
+
+def ssd_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> dict:
+    """``a_log``, ``d_skip`` and ``dt_bias`` stay float32 whatever the
+    model dtype."""
+    d, di, n, hs = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * n                                           # x, B, C (G=1)
+    lead = tuple(lead)
+    f32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.from_numpy(np.log(np.linspace(1.0, 16.0, hs)).astype(np.float32))
+    return {
+        "in_z": init_dense(gen, lead + (d, di), d, cfg.dtype, device),
+        "in_xbc": init_dense(gen, lead + (d, conv_dim), d, cfg.dtype, device),
+        "in_dt": init_dense(gen, lead + (d, hs), d, cfg.dtype, device),
+        "conv_w": init_dense(gen, lead + (cfg.ssm_conv, conv_dim), cfg.ssm_conv,
+                             cfg.dtype, device),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=cfg.dtype, device=device),
+        "a_log": a_log.to(device).expand(lead + (hs,)).contiguous(),
+        "d_skip": torch.ones(lead + (hs,), **f32),
+        "dt_bias": torch.zeros(lead + (hs,), **f32),
+        "norm": torch.ones(lead + (di,), dtype=cfg.dtype, device=device),
+        "out_proj": init_dense(gen, lead + (di, d), di, cfg.dtype, device),
+    }
+
+
+def _project_zxbcdt(p, x):
+    return x @ p["in_z"], x @ p["in_xbc"], x @ p["in_dt"]
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d. xbc (B,S,C); w (K,C)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = 0
+    for i in range(k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + b
+
+
+def _ssd_chunked(xs, b_in, c_in, dt, a_log, chunk: int, init_state=None):
+    """SSD core, float32. xs (B,S,H,P); b_in/c_in (B,S,N) (G=1); dt
+    (B,S,H) (post-softplus). Returns (y (B,S,H,P), final_state
+    (B,H,N,P)). Each of the reference's three-operand einsums is two
+    contractions here, and none builds a (Q, K, H, P) tensor."""
+    bsz, s_orig, h, pdim = xs.shape
+    n = b_in.shape[-1]
+    q = min(chunk, s_orig)
+    pad = (-s_orig) % q
+    if pad:        # causal: end-padding never influences the returned prefix
+        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        b_in = F.pad(b_in, (0, 0, 0, pad))
+        c_in = F.pad(c_in, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    s = s_orig + pad
+    nc = s // q
+    a = -torch.exp(a_log)                                           # (H,)
+    da = (a[None, None] * dt).reshape(bsz, nc, q, h)                # log-decay
+    xbar = (xs * dt[..., None]).reshape(bsz, nc, q, h, pdim)
+    bc = b_in.reshape(bsz, nc, q, n)
+    cc = c_in.reshape(bsz, nc, q, n)
+
+    cum = torch.cumsum(da, dim=2)                                   # (B,nc,Q,H)
+    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for j<=i. Mask in LOG space
+    # (before exp): masking after exp leaks NaN into the gradients.
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # (B,nc,Q,K,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
+    l_mat = torch.exp(torch.where(tri[None, None, ..., None], li, -1e30))
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)                    # (B,nc,Q,K)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", cb[..., None] * l_mat, xbar)
+
+    # chunk summary states: S_c = sum_k exp(cum_end - cum_k) * B_k (x) xbar_k
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)               # (B,nc,Q,H)
+    states = torch.einsum("bckn,bckhp->bchnp", bc,
+                          decay_to_end[..., None] * xbar)
+
+    # inter-chunk recurrence: the state BEFORE each chunk
+    chunk_decay = torch.exp(cum[:, :, -1, :])                       # (B,nc,H)
+    r = torch.zeros((bsz, h, n, pdim), dtype=torch.float32, device=xs.device) \
+        if init_state is None else init_state.float()
+    r_prev = []
+    for c in range(nc):
+        r_prev.append(r)
+        r = r * chunk_decay[:, c, :, None, None] + states[:, c]
+    r_prev = torch.stack(r_prev, dim=1)                             # (B,nc,H,N,P)
+
+    y_inter = torch.einsum("bcqn,bchnp->bcqhp", cc, r_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, s, h, pdim)[:, :s_orig]
+    return y, r
+
+
+def ssd_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                init_state=None, return_state: bool = False):
+    """Full-sequence Mamba2 mixer. x (B,S,D) -> (B,S,D); with
+    ``return_state`` also {"ssm": (B,H,N,P), "conv": (B,K-1,C)} float32,
+    the decode caches after the last token."""
+    di, n, hs, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc_raw, dt = _project_zxbcdt(p, x)
+    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+    xs = xbc[..., :di].reshape(*x.shape[:2], hs, pdim)
+    b_in = xbc[..., di:di + n]
+    c_in = xbc[..., di + n:]
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    y, final = _ssd_chunked(xs.float(), b_in.float(), c_in.float(), dt,
+                            p["a_log"], cfg.ssm_chunk, init_state)
+    y = y + p["d_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(*x.shape[:2], di).to(x.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        # the decode conv cache holds the last K-1 PRE-activation xBC inputs
+        kc = cfg.ssm_conv - 1
+        tail = F.pad(xbc_raw, (0, 0, kc, 0))[:, -kc:]
+        return out, {"ssm": final.float(), "conv": tail.float()}
+    return out
+
+
+def ssd_cache_init(cfg: ModelConfig, batch: int, lead=(), device=None) -> dict:
+    di, n = cfg.d_inner, cfg.ssm_state
+    lead = tuple(lead)
+    return {
+        "ssm": torch.zeros(lead + (batch, cfg.ssm_heads, n, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, di + 2 * n),
+                            dtype=torch.float32, device=device),
+    }
+
+
+def ssd_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """:func:`ssd_forward` over the prompt, its end states written into
+    ``cache``'s ``ssm`` and ``conv`` in place; returns (y, cache)."""
+    y, state = ssd_forward(p, cfg, x, return_state=True)
+    cache["ssm"].copy_(state["ssm"])
+    cache["conv"].copy_(state["conv"])
+    return y, cache
+
+
+def ssd_decode(p: dict, cfg: ModelConfig, x1: torch.Tensor, cache: dict):
+    """Single-token recurrent step. x1 (B,1,D); ``cache``'s ``ssm`` and
+    ``conv`` are written in place; returns (y, cache)."""
+    di, n, hs, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt = _project_zxbcdt(p, x1)                             # (B,1,*)
+    window = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    xbc1 = F.silu(conv_out)[:, None]                                # (B,1,C)
+    xs = xbc1[..., :di].reshape(-1, hs, pdim).float()               # (B,H,P)
+    b_in = xbc1[:, 0, di:di + n].float()                            # (B,N)
+    c_in = xbc1[:, 0, di + n:].float()
+    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])               # (B,H)
+    a = -torch.exp(p["a_log"])
+    decay = torch.exp(a[None] * dt1)                                # (B,H)
+    xbar = xs * dt1[..., None]                                      # (B,H,P)
+    state = cache["ssm"] * decay[..., None, None] \
+        + torch.einsum("bn,bhp->bhnp", b_in, xbar)
+    y = torch.einsum("bn,bhnp->bhp", c_in, state) \
+        + p["d_skip"][None, :, None] * xs
+    y = y.reshape(-1, 1, di).to(x1.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    cache["ssm"].copy_(state)
+    cache["conv"].copy_(window[:, 1:].float())
+    return y @ p["out_proj"], cache

@@ -1,16 +1,20 @@
-"""Uniform model API across families (port of ``repro/models/registry.py``,
-decoder-only dense family).
+"""Uniform model API across families (port of ``repro/models/registry.py``):
+dense, moe, ssm and hybrid through the decoder stack, vlm with stub
+patch embeddings prepended to the text, and encdec.
 
 The port's ``init`` takes ``(cfg, gen=None, *, device="cuda")`` and its
 ``init_cache`` ``(cfg, batch, cache_len, device="cuda")``; every other
 entry keeps the reference's signature. The reference's ``axes`` (logical
-sharding axes for a device mesh) has no counterpart on one card. Families other than ``dense``
-raise ``NotImplementedError`` (ROADMAP.md)."""
+sharding axes for a device mesh) and ``rules_overrides`` have no
+counterpart on one card; they come with the distributed port
+(ROADMAP.md)."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import decoder
+import torch
+
+from repro_torch.models import decoder, encdec
 from repro_torch.models.common import ModelConfig, cross_entropy_loss
 
 
@@ -42,15 +46,74 @@ def _dec_prefill(params, cfg, cache, batch):
     return decoder.prefill(params, cfg, cache, tokens=batch["tokens"])
 
 
+# --- vlm: stub patch embeddings prepended to text ----------------------------
+
+def _vlm_embeds(params, cfg, batch):
+    txt = params["embed"][batch["tokens"].long()]
+    return torch.cat([batch["img_embeds"].to(txt.dtype), txt], dim=1)
+
+
+def _vlm_loss(params, cfg: ModelConfig, batch):
+    # predict text tokens only; image positions are context
+    tokens = batch["tokens"]                       # (B, S_text+1)
+    embeds = _vlm_embeds(params, cfg, {"tokens": tokens[:, :-1],
+                                       "img_embeds": batch["img_embeds"]})
+    logits, aux = decoder.forward(params, cfg, embeds=embeds)
+    n_img = batch["img_embeds"].shape[1]
+    loss = cross_entropy_loss(logits[:, n_img:], tokens[:, 1:])
+    return loss + 0.01 * aux, {"ce": loss, "moe_aux": aux}
+
+
+def _vlm_forward(params, cfg, batch):
+    logits, _ = decoder.forward(params, cfg,
+                                embeds=_vlm_embeds(params, cfg, batch))
+    return logits
+
+
+def _vlm_prefill(params, cfg, cache, batch):
+    return decoder.prefill(params, cfg, cache,
+                           embeds=_vlm_embeds(params, cfg, batch))
+
+
+# --- enc-dec ------------------------------------------------------------------
+
+def _encdec_loss(params, cfg: ModelConfig, batch):
+    tokens = batch["tokens"]
+    logits, aux = encdec.forward(params, cfg, batch["frames"], tokens[:, :-1])
+    loss = cross_entropy_loss(logits, tokens[:, 1:])
+    return loss, {"ce": loss, "moe_aux": aux}
+
+
+def _encdec_forward(params, cfg, batch):
+    logits, _ = encdec.forward(params, cfg, batch["frames"], batch["tokens"])
+    return logits
+
+
+def _encdec_prefill(params, cfg, cache, batch):
+    return encdec.prefill(params, cfg, cache, batch["frames"], batch["tokens"])
+
+
 _DEC_API = ModelAPI(
     init=decoder.init_decoder, loss_fn=_dec_loss, forward=_dec_forward,
     init_cache=decoder.init_cache, prefill=_dec_prefill,
     decode_step=decoder.decode_step)
 
-_REGISTRY: dict[str, ModelAPI] = {"dense": _DEC_API}
+_REGISTRY: dict[str, ModelAPI] = {
+    "dense": _DEC_API,
+    "moe": _DEC_API,
+    "ssm": _DEC_API,
+    "hybrid": _DEC_API,
+    "vlm": _DEC_API._replace(loss_fn=_vlm_loss, forward=_vlm_forward,
+                             prefill=_vlm_prefill),
+    "encdec": ModelAPI(
+        init=encdec.init_encdec, loss_fn=_encdec_loss, forward=_encdec_forward,
+        init_cache=encdec.init_cache, prefill=_encdec_prefill,
+        decode_step=encdec.decode_step),
+}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _REGISTRY:
-        decoder.check_family(cfg)          # raises NotImplementedError
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"registry has {sorted(_REGISTRY)}")
     return _REGISTRY[cfg.family]

@@ -21,7 +21,16 @@ the preparations: 1, whatever the steps and admissions. A capture that
 fails raises; there is no eager fallback on the card.
 
 The prefill stays eager: the reference retraces it for every prompt
-length, so a graph per length would hardly ever replay.
+length, so a graph per length would hardly ever replay; it runs at the
+prompt's exact length (a MoE layer's capacity depends on it).
+
+The engine serves the decoder-only text families (dense, moe, ssm,
+hybrid); admission scatters every cache leaf, the SSD states included.
+It refuses vlm and encdec at construction: their prefill needs image
+embeddings or audio frames besides the tokens, which the reference's
+engine does not pass either (its vlm prefill fails, its launcher
+refuses encdec). Those families run through ``api.prefill`` and
+``api.decode_step``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,12 @@ from repro_torch.bridge import resolve_device, tree_to
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import get_api
 from repro_torch.serve.postproc import StarvationError
+
+
+#: the families whose prefill takes tokens only
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+EXTRA_INPUTS = {"vlm": "image embeddings (batch['img_embeds'])",
+                "encdec": "audio frames (batch['frames'])"}
 
 
 @dataclasses.dataclass
@@ -63,6 +78,12 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: Any, serve_cfg: ServeConfig,
                  gen: Optional[torch.Generator] = None, *, device="cuda"):
+        if cfg.family not in SERVED_FAMILIES:
+            raise ValueError(
+                f"ServeEngine serves the text-only families {SERVED_FAMILIES}; "
+                f"{cfg.name} is {cfg.family!r}, whose prefill needs "
+                f"{EXTRA_INPUTS.get(cfg.family, 'other inputs')} besides the "
+                "tokens: run it through get_api(cfg).prefill / decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = get_api(cfg)

@@ -666,6 +666,40 @@ def test_captured_lm_decode_step_matches_eager(cuda):
     assert flash_decode.LAUNCHES == launches      # replays call no wrapper
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b", "mamba2-130m"])
+def test_captured_family_decode_replays_bitwise_eager(cuda, arch):
+    """The MoE, hybrid and SSM SMOKE engines (float32) on the card: every
+    replayed decode step's logits bitwise those of the same engine run
+    eagerly, the greedy tokens equal, and the cache leaves (SSD states
+    included) keep their addresses across the run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.lm import Request, ServeConfig, ServeEngine
+    cfg = get_smoke_config(arch)
+    params = get_api(cfg).init(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    runs = []
+    for eager in (False, True):
+        eng = ServeEngine(cfg, params, ServeConfig(max_batch=2, cache_len=64),
+                          device=cuda)
+        assert eng._graph is not None
+        if eager:
+            eng._graph = None
+        ptrs = {k: v.data_ptr() for k, v in eng.cache.items()}
+        steps, inner = [], eng.decode_logits
+        eng.decode_logits = lambda: steps.append(inner().clone()) or steps[-1]
+        g = torch.Generator().manual_seed(3)
+        for i, n in enumerate((5, 9, 4)):
+            eng.submit(Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=g).numpy(), max_new_tokens=5))
+        done = eng.run_until_drained()
+        assert {k: v.data_ptr() for k, v in eng.cache.items()} == ptrs
+        runs.append((steps, {r.rid: r.output for r in done}))
+    (replayed, tokens), (eager, eager_tokens) = runs
+    assert tokens == eager_tokens and len(replayed) == len(eager) > 0
+    assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+
+
 def test_host_sync_inside_a_captured_forward_raises(cuda, monkeypatch):
     """A forward that syncs with the host cannot be captured: building the
     engine raises, and no engine serves it eagerly."""

@@ -1,6 +1,8 @@
 """The LM substrate of the PyTorch port (dense family) against the JAX
 reference: primitives, attention and MLP layers, the stacked decoder
-(forward, prefill, decode_step), the token server and the ported configs.
+(forward, prefill, decode_step), the token server and the ported configs
+(all ten architectures; the other families' layers and models are
+``test_torch_lm_families.py``'s).
 
 Weights come over from the reference's param tree through
 ``bridge.params_from_numpy``; inputs are made with numpy from a seed.
@@ -71,8 +73,7 @@ def _tcfg(ref_cfg, **kw):
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_ported_config_fields_equal_the_reference(arch):
-    assert set(configs.ARCH_IDS) == {"minitron-4b", "minitron-8b",
-                                     "deepseek-7b", "granite-20b"}
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
     for mine, ref in ((configs.get_config(arch), ref_configs.get_config(arch)),
                       (configs.get_smoke_config(arch),
                        ref_configs.get_smoke_config(arch))):
@@ -288,13 +289,38 @@ def test_decoder_bf16_matches_reference():
         assert float(np.median(np.abs(got.float().numpy() - _np(want)))) < 1e-2
 
 
-def test_other_families_raise():
-    for family in ("moe", "ssm", "hybrid", "vlm", "encdec"):
-        cfg = C.ModelConfig(family=family, dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_api(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            D.init_decoder(cfg, device="cpu")
+def test_every_reference_family_has_an_api():
+    """get_api and the family's init (init_decoder, or init_encdec for
+    encdec) work for all six families on the CPU, with the reference's
+    param tree layout; an unknown family still raises."""
+    from repro_torch.models import encdec as E
+    for family in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
+        rcfg = RC.ModelConfig(family=family, n_layers=2, n_enc_layers=1,
+                              d_model=32, n_heads=4, n_kv_heads=2, d_ff=48,
+                              vocab_size=64, n_experts=4, n_experts_active=2,
+                              ssm_state=8, ssm_head_dim=8, enc_seq_len=8,
+                              n_img_tokens=4, dtype=jnp.float32)
+        cfg = _tcfg(rcfg)
+        init = E.init_encdec if family == "encdec" else D.init_decoder
+        params = init(cfg, device="cpu")
+        api = registry.get_api(cfg)
+        assert api.init is init
+        ref = jax.eval_shape(lambda k: RR.get_api(rcfg).init(k, rcfg),
+                             jax.random.PRNGKey(0))
+        assert [tuple(t.shape) for t in jax.tree.leaves(
+            jax.tree.map(np.asarray, _torch_tree_as_numpy(params)))] == \
+            [tuple(t.shape) for t in jax.tree.leaves(ref)]
+    cfg = C.ModelConfig(family="rnn", dtype=torch.float32)
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.get_api(cfg)
+    with pytest.raises(ValueError, match="no 'rnn' family"):
+        D.init_decoder(cfg, device="cpu")
+
+
+def _torch_tree_as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree_as_numpy(v) for k, v in tree.items()}
+    return tree.float().numpy()
 
 
 # --------------------------------------------------------------------------
