@@ -181,6 +181,30 @@ Phases, each printing one JSON line:
                 bucket's static and measured ``auto`` pick, the 512 px
                 decoder's measured tile windows (unordered and zorder);
                 results/autotune_torch.json is left unchanged;
+     distributed — the distributed port on this card through in-process
+                ranks (``distributed.collectives.run_in_process``) at full
+                width: deformable-DETR-DEFA's band-sharded encoder (800 x
+                1333 pyramid, B = 2) at 2 and 4 bands, one float32 block
+                against ``encoder_apply`` (torch_gather, FWP off; 2e-4)
+                and the six-block bf16 stack with and without INT12
+                against ``encoder_apply`` on the same padded pyramid
+                (median in bf16 steps and max |error| against stated
+                limits), the bytes a rank
+                hands the collectives per block and image against the
+                reference's formula (exact), the banded and one-band
+                stacks' wall time; olmoe-1b-7b's MoE layer under expert
+                parallelism at tp 2 and 4 against the local moe_apply;
+                the compressed psum over 4 ranks. Then a world of one NCCL
+                rank (``chip_smoke.py --dist-rank`` in a child) and, with
+                2 or more cards, one rank per card up to 4: the banded
+                layer against one card, the sharded minitron-4b train
+                step (2 layers, bf16) against the single-card step and
+                the time of its first and second call, the
+                trained state resharded onto another mesh and a state
+                through the checkpoint store (bitwise), the compressed
+                psum against the same ranks in-process (bitwise) and, on
+                2 or more ranks, EP over the wire; K1-K5 are not on this
+                path (their launch counts are recorded, 0);
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
@@ -198,6 +222,12 @@ Phases, each printing one JSON line:
 times only the table-gradient chain of the train step's first backward
 pass, with the port package under ``SRC`` (for example an unpacked
 parent commit's ``src``), and prints it as one JSON line.
+
+    python3 chip_smoke.py --dist-world N
+
+runs only the distributed phase's NCCL world of ``N`` ranks, one per
+card (to time the sharded step of another tree's package, copy this
+script beside that tree's ``src``).
 
 Then the kernel summary line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4209,6 +4239,515 @@ def phase_times(serve, serve_w, train, lm, stream, families):
     return kernels
 
 
+# --------------------------------------------------------------------------
+# distributed: the band-sharded encoder, EP, the compressed all-reduce, and
+# a world of NCCL ranks (the sharded train step, reshard)
+# --------------------------------------------------------------------------
+
+DIST_ARCH = "deformable-detr-defa"
+DIST_BATCH = 2                   # images through the banded stack
+DIST_BANDS = (2, 4)
+DIST_FP32_TOL = 2e-4             # one float32 block against one card
+DIST_EP_ARCH = "olmoe-1b-7b"
+DIST_EP_TP = (2, 4)
+DIST_EP_TOKENS = (4, 512)        # (B, S): rows split over data 2
+DIST_PSUM_RANKS = 4
+DIST_PSUM_NUMEL = 1 << 20
+DIST_TRAIN_BATCH = 4             # the sharded step: minitron-4b, 2 layers
+DIST_TRAIN_SEQ = 128
+DIST_MAX_WORLD = 4
+DIST_RANK_TIMEOUT_S = 600
+# The six-block bf16 stacks against one card (``encoder_apply``, whose
+# blocks promote to float32 after the first attention, as the
+# reference's do with float32 reference points): the two round in other
+# places, and with INT12 each band quantizes on its own amax (the
+# reference's band-local scales) where one card quantizes on the
+# image's. Either moves roundings and PAP picks, and six blocks amplify
+# that: a CPU rehearsal at a 40 x 60 pyramid gave a median of 3.2-3.5
+# bf16 steps of the output with and without INT12, and a max of
+# 0.28-0.34 (outputs are LayerNorm'd, |out| up to ~5). Limits: the median
+# at most 8 bf16 steps (2^-7 relative, each element against its own
+# value), and the max under 1.0, far below a run-away block (errors of
+# the outputs' own size).
+DIST_STACK_MEDIAN_ULPS = 8
+DIST_STACK_MAX = 1.0
+
+
+def dist_geometry(n_bands, batch, device, gen):
+    """The full-width padded pyramid at ``n_bands``: band-major inputs of
+    the banded stack and level-major ones of the single card."""
+    import torch
+    from repro_torch.configs.detr_family import CONFIGS
+    from repro_torch.core.distributed_msdeform import (band_reorder,
+                                                       pad_levels_to_bands)
+    from repro_torch.launch.detr_cells import band_major_refs, padded_geometry
+    acfg = CONFIGS[DIST_ARCH]
+    n_in = sum(h * w for h, w in acfg.level_shapes)
+    x = torch.randn((batch, n_in, 256), generator=gen).to(device)
+    xp, padded = pad_levels_to_bands(x, acfg.level_shapes, n_bands)
+    assert padded == padded_geometry(acfg.level_shapes, n_bands,
+                                     acfg.encoder.attn.range_narrow)[0]
+    n_pad = xp.shape[1]
+    pos = (torch.randn((n_pad, 256), generator=gen) * 0.1).to(device)
+    refs = band_major_refs(padded, n_bands, batch, device)
+    xb, _, inv = band_reorder(xp, padded, n_bands)
+    inv_t = torch.as_tensor(inv, device=device)
+    return dict(padded=padded, xb=xb, pos=pos, refs=refs, xp=xp,
+                pos_lm=pos[inv_t], refs_lm=refs[:, inv_t], inv=inv_t)
+
+
+def dist_encoder(enc, gen, device):
+    """Random encoder params with offset weights drawn too (the init
+    zeroes them, which would leave every offset on its ring)."""
+    import torch
+    from repro_torch.core.encoder import init_encoder
+    params = init_encoder(enc, gen, device)
+    for blk in params["blocks"]:
+        a = blk["attn"]
+        a["offs_w"] = (torch.randn(a["offs_w"].shape, generator=gen)
+                       * 0.05).to(device=device, dtype=a["offs_w"].dtype)
+    return params
+
+
+def dist_stack_check(device, n_bands, enc, label, gen, fp32):
+    """The banded stack on ``n_bands`` in-process bands against the
+    single-card encoder (``encoder_apply``, torch_gather, FWP off) on the
+    same padded pyramid. In bf16 the reference points stay float32, as
+    the reference's banded cell takes them, so the single card's blocks
+    promote to float32 after the first attention where the banded stack
+    stays in bf16; with INT12 each band quantizes on its own amax."""
+    import dataclasses
+    import torch
+    from repro_torch.core.encoder import encoder_apply
+    from repro_torch.distributed.collectives import CommStats, InProcessMesh
+    from repro_torch.launch.detr_cells import build_banded_detr_stack
+    mesh = InProcessMesh((1, n_bands), ("data", "model"))
+    stack = build_banded_detr_stack(DIST_ARCH, mesh, DIST_BATCH, enc_cfg=enc)
+    params = dist_encoder(enc, gen, device)
+    geo = dist_geometry(n_bands, DIST_BATCH, device, gen)
+    xb, xp = geo["xb"].to(enc.dtype), geo["xp"].to(enc.dtype)
+    pos, pos_lm = geo["pos"].to(enc.dtype), geo["pos_lm"].to(enc.dtype)
+    single_cfg = dataclasses.replace(enc, attn=stack.attn_cfg)
+    single = lambda: encoder_apply(params, single_cfg, xp, pos_lm,
+                                   geo["refs_lm"], geo["padded"],
+                                   backend="torch_gather")[0]
+    stats = CommStats()
+    with torch.no_grad():
+        banded = lambda st=None: stack.fn(params, xb, pos, geo["refs"], st)
+        got = banded(stats)[:, geo["inv"]]
+        want = single()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"distributed {label}: banded output not finite")
+        rec = {"bands": n_bands, "blocks": enc.n_blocks,
+               "dtype": str(enc.dtype).replace("torch.", ""),
+               "act_bits": enc.attn.act_bits,
+               "against": "encoder_apply",
+               "max_abs_err": float(err.max()),
+               "median_abs_err": float(err.median())}
+        if fp32:
+            rec["limit"] = {"rtol": DIST_FP32_TOL, "atol": DIST_FP32_TOL}
+            check_close(f"distributed {label}", got, want,
+                        {"rtol": DIST_FP32_TOL, "atol": DIST_FP32_TOL})
+        else:
+            w = want.float().abs()
+            ulps = err / torch.exp2(torch.floor(torch.log2(
+                w.clamp(min=2 ** -100))) - 7)          # bf16: 8 significant bits
+            rec["median_bf16_steps"] = float(ulps.median())
+            rec["p90_bf16_steps"] = float(torch.quantile(
+                ulps.flatten()[::max(1, ulps.numel() // (1 << 22))], 0.9))
+            rec["differing_share"] = float((err > 0).float().mean())
+            rec["max_abs_out"] = float(w.max())
+            rec["limit"] = {"median_bf16_steps": DIST_STACK_MEDIAN_ULPS,
+                            "max_abs_err": DIST_STACK_MAX}
+            if not (rec["median_bf16_steps"] <= DIST_STACK_MEDIAN_ULPS
+                    and rec["max_abs_err"] <= DIST_STACK_MAX):
+                raise AssertionError(f"distributed {label}: {rec}")
+            rec["banded_ms"] = wall_stats(banded, n=5)["median_ms"]
+            rec["single_card_ms"] = wall_stats(single, n=5)["median_ms"]
+    # bytes one rank handed to the collectives, per block and image
+    item = torch.empty((), dtype=enc.dtype).element_size()
+    rec["sent_bytes_per_block_image"] = stats.rank_bytes(0) / enc.n_blocks / DIST_BATCH
+    rec["sent_by_op"] = stats.sent.get(0, {})
+    return rec, geo, stack, item
+
+
+def dist_comm_formula(padded, n_bands, ranges, item):
+    from repro_torch.core.distributed_msdeform import band_comm_pixels, halo_levels
+    px = band_comm_pixels(padded, n_bands, ranges)
+    return {"halo_levels": halo_levels(padded, n_bands, ranges),
+            "pixels": px, "formula_bytes": px * 256 * item,
+            "all_gather_pyramid_bytes": sum(hp * w for hp, w in padded) * 256 * item}
+
+
+def dist_ep_check(device, tp, gen):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import act_sharding as acts
+    from repro_torch.distributed.collectives import InProcessMesh
+    from repro_torch.models import layers as L
+    cfg = get_config(DIST_EP_ARCH)
+    p = L.moe_init(cfg, gen, device=device)
+    b, s = DIST_EP_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device).to(cfg.dtype)
+    mesh = InProcessMesh((2, tp), ("data", "model"))
+    with torch.no_grad():
+        with acts.activation_policy(mesh, "data"):
+            out, aux = L.moe_apply(p, cfg, x)
+        want, _ = L.moe_apply(p, cfg, x)
+        halves = [L.moe_apply(p, cfg, xx)[1] for xx in x.chunk(2)]
+    tol = tolerance(torch.bfloat16, None)
+    err = check_close(f"distributed EP tp {tp}", out, want, tol)
+    aux_want = (halves[0] + halves[1]) / 2
+    aux_err = abs(float(aux) - float(aux_want))
+    if aux_err > 1e-6 * abs(float(aux_want)):
+        raise AssertionError(f"distributed EP tp {tp}: aux {float(aux)} vs "
+                             f"{float(aux_want)}")
+    return {"tp": tp, "mesh": [2, tp], "experts": cfg.n_experts,
+            "d_model": cfg.d_model, "tokens": [b, s], "max_abs_err": err,
+            "limit": tol, "aux": float(aux), "aux_abs_err": aux_err,
+            "aux_limit": "rtol 1e-6 against the mean of each data shard's"}
+
+
+def dist_psum_run(mesh_factory, g_rows):
+    """The compressed psum of rows ``g_rows`` (one per rank) over a "pod"
+    axis of that many in-process ranks, two rounds."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.optim.compress import compressed_psum_body
+    mesh = mesh_factory(len(g_rows))
+
+    def make(rank, ctx):
+        def body():
+            g = g_rows[rank]
+            o1, r1, q1 = yield from compressed_psum_body(ctx, g, "pod", 8,
+                                                         torch.zeros_like(g))
+            o2, r2, q2 = yield from compressed_psum_body(ctx, g, "pod", 8, r1)
+            return o1, r1, q1, o2, q2
+        return body()
+    return C.run_in_process(make, mesh)
+
+
+def dist_psum_check(outs, g_rows):
+    import torch
+    exact = torch.stack(g_rows).mean(0)
+    scale = max(float(g.abs().max()) for g in g_rows) / 127.0
+    o1, r1, q1, o2, q2 = outs[0]
+    err1 = float((o1 - exact).abs().max())
+    e1 = float((o1 - exact).abs().mean())
+    e2 = float(((o1 + o2) / 2 - exact).abs().mean())
+    agree = all(torch.equal(o[0], o1) and torch.equal(o[3], o2) for o in outs)
+    if not (err1 <= 1.1 * scale and e2 <= e1 + 1e-7 and agree):
+        raise AssertionError(f"distributed compressed psum: max err {err1} vs "
+                             f"1.1 x {scale}; mean err {e1} -> {e2}; ranks "
+                             f"agree {agree}")
+    return {"ranks": len(g_rows), "numel": g_rows[0].numel(),
+            "max_abs_err": err1, "limit": 1.1 * scale,
+            "ef_mean_err": [e1, e2], "ranks_agree": agree,
+            "codes_sum": int(sum(int(o[2].sum()) for o in outs))}
+
+
+def dist_free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_nccl_world(world, scratch):
+    """Spawn ``world`` NCCL ranks (``chip_smoke.py --dist-rank``), one per
+    card; relays rank 0's lines and returns its result line."""
+    port = dist_free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   LOCAL_RANK=str(r), CHIP_SMOKE_SCRATCH=str(scratch))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-rank"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_RANK_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result = None
+    for line in outs[0][0].splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase": "distributed_nccl"'):
+            result = json.loads(line)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad or result is None:
+        for r in bad or [0]:
+            sys.stderr.write(f"--- rank {r} ---\n{outs[r][1][-4000:]}\n")
+        raise AssertionError(f"NCCL world of {world}: ranks {bad} failed")
+    return result
+
+
+def dist_rank_device(rank):
+    """A rank's card and backend: card ``rank``, NCCL."""
+    import torch
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    return device, "nccl"
+
+
+def dist_rank_main():
+    """One NCCL rank (``--dist-rank``): the banded layer, the sharded train
+    step, reshard (in memory and through the checkpoint store), the
+    compressed psum and (world > 1) EP on the wire, each against its
+    single-card counterpart on rank 0; rank 0 prints the result line."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.store import (load_checkpoint, reshard,
+                                              restore_into, save_checkpoint)
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.detr_family import CONFIGS
+    from repro_torch.core.distributed_msdeform import msdeform_attn_banded
+    from repro_torch.core.msdeform_attn import msdeform_attn_apply
+    from repro_torch.data.tokens import TokenDataConfig, synth_token_batch
+    from repro_torch.distributed import act_sharding as acts
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (named_sharding_tree,
+                                                  spec_placements)
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import OptConfig, tree_leaves, tree_unflatten
+    from repro_torch.optim.compress import compressed_psum_body
+    from repro_torch.train.step import (
+        build_sharded_train_step, build_train_step, local_batch,
+        make_train_state, place_train_state, spec_leaves,
+        train_state_shardings)
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device, backend = dist_rank_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=world, timeout=datetime.timedelta(minutes=5),
+        **({"device_id": device} if device.type == "cuda" else {}))
+    res = {"world": world, "backend": dist.get_backend()}
+    mesh_of = lambda shape, names=("data", "model"): init_device_mesh(
+        device.type, shape, mesh_dim_names=names)
+
+    # --- the banded layer: one float32 block, one band per rank ------------
+    enc = CONFIGS[DIST_ARCH].encoder
+    attn = dataclasses.replace(enc.attn, act_bits=None, weight_bits=None,
+                               dtype=torch.float32, fwp_mode="off")
+    enc = dataclasses.replace(enc, attn=attn, n_blocks=1, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    params = dist_encoder(enc, gen, device)["blocks"][0]["attn"]
+    geo = dist_geometry(world, DIST_BATCH, device, gen)
+    mesh = mesh_of((1, world))
+    spec = (None, "model", None)
+    ctx = C.rank_context(mesh)
+    mine = lambda t: t[C.local_slices(spec, t.shape, ctx.size, ctx.index)]
+    q = geo["xb"] + geo["pos"][None]
+    stats = C.CommStats()
+    with torch.no_grad():
+        out = msdeform_attn_banded(params, attn, mine(q), mine(geo["refs"]),
+                                   mine(geo["xb"]), geo["padded"], mesh,
+                                   stats=stats)
+        parts = [torch.empty_like(out) for _ in range(world)]
+        dist.all_gather(parts, out.contiguous())
+        got = torch.cat(parts, dim=1)[:, geo["inv"]]
+        want, _ = msdeform_attn_apply(
+            params, dataclasses.replace(attn, backend="torch_gather"),
+            q[:, geo["inv"]], geo["refs_lm"], geo["xp"], geo["padded"])
+    err = check_close("distributed NCCL banded", got, want,
+                      {"rtol": DIST_FP32_TOL, "atol": DIST_FP32_TOL})
+    res["banded"] = {"bands": world, "max_abs_err": err,
+                     "limit": DIST_FP32_TOL,
+                     "sent_bytes_per_image": stats.rank_bytes(rank) / DIST_BATCH,
+                     **dist_comm_formula(geo["padded"], world,
+                                         attn.range_narrow, 4)}
+    del params, geo, q, out, parts, got, want
+
+    # --- the sharded train step: minitron-4b's widths, 2 layers ------------
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_TRAIN_LAYERS)
+    opt = OptConfig(lr=LM_TRAIN_LR, warmup_steps=0, total_steps=10)
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=DIST_TRAIN_SEQ,
+                           global_batch=DIST_TRAIN_BATCH, seed=0)
+    batch = synth_token_batch(data, 0, device=device)
+    state = make_train_state(cfg, torch.Generator(device=device).manual_seed(SEED),
+                             device=device)
+    single = build_train_step(cfg, opt)(state, batch)
+    p_single, loss_single = single[0].params, float(single[1]["loss"])
+    del single
+    tshape = {1: (1, 1), 2: (2, 1)}.get(world, (2, world // 2))
+    mesh_a = mesh_of(tshape)
+    specs = train_state_shardings(cfg, mesh_a, state)
+    placed = place_train_state(state, specs, mesh_a)
+    del state
+    step = build_sharded_train_step(cfg, opt, mesh_a, specs)
+    lbatch = local_batch(batch, mesh_a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = step(placed, lbatch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del placed
+    full = tree_unflatten(p_single, [b.full_tensor()
+                                     for b in tree_leaves(new.params)])
+    agree = accum_agreement(full, p_single, LM_TRAIN_LR)
+    loss = float(metrics["loss"])
+    loss_rel = abs(loss - loss_single) / abs(loss_single)
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(full),
+                                                   tree_leaves(p_single)))
+    del full, p_single
+    placements_ok = all(
+        tuple(x.placements) == spec_placements(sp, mesh_a)
+        for x, sp in zip(tree_leaves(new), spec_leaves(specs)))
+    # a second step from the first's state: the first call's one-time
+    # costs (communicators, DTensor dispatch caches) are behind it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = step(new, lbatch)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    del second
+    res["train_step"] = {"arch": LM_ARCH, "layers": cfg.n_layers,
+                         "mesh": list(tshape), "batch": [DIST_TRAIN_BATCH,
+                                                         DIST_TRAIN_SEQ],
+                         "loss": loss, "loss_single_card": loss_single,
+                         "loss_rel_err": loss_rel,
+                         "loss_limit": LM_ACCUM_LOSS_RTOL,
+                         "params": agree, "bitwise_single_card": bitwise,
+                         "placements_as_specs": placements_ok,
+                         "step_ms": step_ms, "second_step_ms": second_ms}
+    if not (agree["held"] and loss_rel <= LM_ACCUM_LOSS_RTOL and placements_ok):
+        raise AssertionError(f"distributed sharded step: {res['train_step']}")
+
+    # --- reshard the trained state onto another mesh (in memory) ----------
+    rshape = {1: (1, 1), 2: (1, 2)}.get(world, (world, 1))
+    mesh_b = mesh_of(rshape)
+    specs_b = train_state_shardings(cfg, mesh_b, new)
+    moved = reshard(new, named_sharding_tree(specs_b, mesh_b))
+    same = all(torch.equal(a.full_tensor(), b.full_tensor())
+               for a, b in zip(tree_leaves(new), tree_leaves(moved)))
+    del moved, new
+    # ... and through the checkpoint store (minitron-4b's SMOKE config)
+    scfg = get_smoke_config(LM_ARCH)
+    sstate = make_train_state(scfg, torch.Generator(device=device).manual_seed(1),
+                              device=device)
+    sspecs = train_state_shardings(scfg, mesh_a, sstate)
+    ckpt = os.path.join(os.environ["CHIP_SMOKE_SCRATCH"], f"ckpt_w{world}")
+    save_checkpoint(ckpt, 1, place_train_state(sstate, sspecs, mesh_a))
+    _, loaded = load_checkpoint(ckpt)
+    restored = reshard(restore_into(sstate, loaded), named_sharding_tree(
+        train_state_shardings(scfg, mesh_b, sstate), mesh_b))
+    stored = all(torch.equal(a.full_tensor(), b)
+                 for a, b in zip(tree_leaves(restored), tree_leaves(sstate)))
+    res["reshard"] = {"from": list(tshape), "to": list(rshape),
+                      "trained_state_bitwise": same,
+                      "checkpoint_bitwise": stored}
+    if not (same and stored):
+        raise AssertionError(f"distributed reshard: {res['reshard']}")
+
+    # --- the compressed psum on the wire, against the same ranks in-process
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    g_rows = [torch.randn(DIST_PSUM_NUMEL, generator=gen, device=device)
+              for _ in range(world)]
+    pmesh = mesh_of((world,), ("pod",))
+    pctx = C.rank_context(pmesh)
+    g = g_rows[rank]
+    o1, r1, q1 = C.run_spmd(compressed_psum_body(pctx, g, "pod", 8,
+                                                 torch.zeros_like(g)), pmesh)
+    local = dist_psum_run(lambda n: C.InProcessMesh((n,), ("pod",)), g_rows)
+    res["compressed_psum"] = {
+        "ranks": world, "bitwise_in_process": bool(
+            torch.equal(o1, local[rank][0]) and torch.equal(q1, local[rank][2])
+            and torch.equal(r1, local[rank][1]))}
+    if not res["compressed_psum"]["bitwise_in_process"]:
+        raise AssertionError(f"distributed NCCL psum: {res['compressed_psum']}")
+
+    # --- EP on the wire: one olmoe layer, the experts over every rank -----
+    if world > 1:
+        ecfg = get_config(DIST_EP_ARCH)
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        p = L.moe_init(ecfg, gen, device=device)
+        b, s = DIST_EP_TOKENS
+        x = torch.randn((b, s, ecfg.d_model), generator=gen,
+                        device=device).to(ecfg.dtype)
+        emesh = mesh_of((1, world))
+        with torch.no_grad():
+            with acts.activation_policy(emesh, None):
+                out, aux = L.moe_apply(p, ecfg, x)
+            want, aux_want = L.moe_apply(p, ecfg, x)
+        tol = tolerance(torch.bfloat16, None)
+        res["ep"] = {"tp": world, "max_abs_err": check_close(
+            "distributed NCCL EP", out, want, tol), "limit": tol,
+            "aux_equal": bool(torch.equal(aux, aux_want))}
+    dist.barrier()
+    if rank == 0:
+        emit("distributed_nccl", **res)
+    dist.destroy_process_group()
+
+
+def phase_distributed(device):
+    """In-process ranks on this card at full width (the banded encoder at
+    2 and 4 bands, EP at tp 2 and 4, the compressed psum over 4 ranks),
+    then a world of one NCCL rank and, with 2 or more cards, one rank per
+    card up to 4."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.detr_family import CONFIGS
+    from repro_torch.distributed.collectives import InProcessMesh
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = kernel_counts()
+    enc = CONFIGS[DIST_ARCH].encoder
+    enc32 = dataclasses.replace(
+        enc, n_blocks=1, dtype=torch.float32,
+        attn=dataclasses.replace(enc.attn, act_bits=None, weight_bits=None,
+                                 dtype=torch.float32))
+    enc16 = dataclasses.replace(enc, attn=dataclasses.replace(
+        enc.attn, act_bits=None, weight_bits=None))
+    stacks, blocks = [], []
+    for n_bands in DIST_BANDS:
+        gen = torch.Generator().manual_seed(SEED + n_bands)
+        rec, _, _, _ = dist_stack_check(device, n_bands, enc32,
+                                        f"1 block f32 {n_bands} bands", gen, True)
+        blocks.append(rec)
+        rec, geo, stack, item = dist_stack_check(
+            device, n_bands, enc, f"6-block bf16 INT12 {n_bands} bands", gen, False)
+        rec.update(dist_comm_formula(geo["padded"], n_bands,
+                                     stack.attn_cfg.range_narrow, item))
+        if rec["sent_bytes_per_block_image"] != rec["formula_bytes"]:
+            raise AssertionError(f"distributed bytes: {rec}")
+        del geo, stack
+        rec["control_no_int12"], _, _, _ = dist_stack_check(
+            device, n_bands, enc16, f"6-block bf16 {n_bands} bands", gen, False)
+        stacks.append(rec)
+    ep = [dist_ep_check(device, tp, torch.Generator(device=device).manual_seed(SEED + tp))
+          for tp in DIST_EP_TP]
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    g_rows = [torch.randn(DIST_PSUM_NUMEL, generator=gen, device=device)
+              for _ in range(DIST_PSUM_RANKS)]
+    psum = dist_psum_check(dist_psum_run(
+        lambda n: InProcessMesh((n,), ("pod",)), g_rows), g_rows)
+    del g_rows
+    torch.cuda.empty_cache()
+    counts = counts_since(before)
+    worlds = [1] + ([min(torch.cuda.device_count(), DIST_MAX_WORLD)]
+                    if torch.cuda.device_count() > 1 else [])
+    with tempfile.TemporaryDirectory() as scratch:
+        nccl = [dist_nccl_world(w, scratch) for w in worlds]
+    emit("distributed", world=max(worlds), modes=["in_process", "nccl"],
+         worlds=worlds, banded_block=blocks, banded_stack=stacks, ep=ep,
+         compressed_psum=psum, nccl=nccl, kernel_launches=counts,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     try:
         import torch
@@ -4232,6 +4771,9 @@ def main() -> int:
     # parity and timing run in full float32: no TF32 in matmul or conv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--dist-rank"]:
+        dist_rank_main()
+        return 0
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
     if child:
@@ -4239,6 +4781,11 @@ def main() -> int:
         return 0
 
     smi = phase_device()
+    if sys.argv[1:2] == ["--dist-world"] and len(sys.argv) == 3:
+        # only the NCCL world of that many ranks, one per card
+        with tempfile.TemporaryDirectory() as scratch:
+            dist_nccl_world(int(sys.argv[2]), scratch)
+        return 0
     if chain_src is not None:
         emit("table_grad_chain", src=str(chain_src),
              **table_grad_chain(first_step_backward_calls(device)))
@@ -4259,6 +4806,7 @@ def main() -> int:
     lm = phase_lm_serve(device)
     families = phase_lm_families(device)
     stream = phase_stream(device, serve)
+    phase_distributed(device)
     emit("capture", detector_512=serve["capture"],
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,

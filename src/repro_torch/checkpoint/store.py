@@ -23,8 +23,14 @@ every queued write has finished (``Queue.join``); the reference polls
 ``Queue.empty()``, which is true as soon as the writer takes an item,
 before the item is written. :meth:`AsyncCheckpointer.close` joins the
 writer thread without a timeout, where the reference's 10 s timeout
-could drop a longer write without an error. Elastic re-sharding
-(``reshard``) waits for the distributed port (ROADMAP.md)."""
+could drop a longer write without an error.
+
+Sharded trees: a DTensor leaf is gathered whole on every rank (a
+collective: every rank saves), rank 0 writes, and :func:`save_checkpoint`
+holds the other ranks at a barrier until the store is published.
+:func:`restore_into` lays a DTensor template leaf out as the template
+is, and :func:`reshard` places a tree on another mesh (elastic restore
+onto a different mesh shape)."""
 from __future__ import annotations
 
 import json
@@ -55,16 +61,43 @@ def _as_dict(tree: Any) -> Any:
     return tree
 
 
+def _is_dtensor(v: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(v, DTensor)
+
+
 def _host_leaf(v: Any) -> Any:
     """A host copy of one leaf: a CPU tensor for a tensor (a device tensor
-    is copied synchronously), else a numpy array."""
+    is copied synchronously; a DTensor is gathered whole first), else a
+    numpy array."""
+    if _is_dtensor(v):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         return v.detach().to("cpu", copy=True)
     return np.asarray(v)
 
 
-def _to_host(tree: Any) -> dict:
-    return {k: _host_leaf(v) for k, v in flatten_dict(_as_dict(tree)).items()}
+def _sharded(tree: Any) -> bool:
+    """Whether any leaf is a DTensor (then every rank of its mesh saves)."""
+    return any(_is_dtensor(v) for v in flatten_dict(_as_dict(tree)).values())
+
+
+def _writer() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _to_host(tree: Any, keep: bool = True) -> Optional[dict]:
+    """Host copies of the tree's leaves. Every DTensor is gathered whole
+    (a collective each rank of its mesh joins); a rank that does not
+    write passes ``keep=False`` and copies nothing to the host."""
+    flat = flatten_dict(_as_dict(tree))
+    if not keep:
+        for v in flat.values():
+            if _is_dtensor(v):
+                v.full_tensor()
+        return None
+    return {k: _host_leaf(v) for k, v in flat.items()}
 
 
 def _fn_safe(key: str) -> str:
@@ -87,11 +120,21 @@ def _write_leaf(path: str, v: Any) -> tuple:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _sharded(tree):                # every rank gathers; rank 0 writes
+        import torch.distributed as dist
+        flat = _to_host(tree, keep=_writer())
+        if flat is not None:
+            _write_store(ckpt_dir, final, step, flat)
+        dist.barrier()
+        return final
+    return _write_store(ckpt_dir, final, step, _to_host(tree))
+
+
+def _write_store(ckpt_dir: str, final: str, step: int, flat: dict) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + f".tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    flat = _to_host(tree)
     manifest = {}
     for k, v in flat.items():
         fname = _fn_safe(k) + ".npy"
@@ -142,7 +185,8 @@ def restore_into(template: Any, loaded: dict) -> Any:
     """Map a loaded nested dict back into the structure of ``template``
     (NamedTuples / tuples restored). A tensor leaf comes back on its
     template leaf's device and dtype: bitwise the saved values where the
-    dtypes agree."""
+    dtypes agree. A DTensor template leaf gives a DTensor on its mesh,
+    laid out as the template is."""
     def rec(tmpl, node):
         if hasattr(tmpl, "_asdict"):
             return type(tmpl)(**{k: rec(v, node[k])
@@ -153,12 +197,39 @@ def restore_into(template: Any, loaded: dict) -> Any:
             vals = [rec(v, node[f"__seq{i}"]) for i, v in enumerate(tmpl)]
             return type(tmpl)(vals) if isinstance(tmpl, list) else tuple(vals)
         t = node if isinstance(node, torch.Tensor) else torch.as_tensor(node)
+        if _is_dtensor(tmpl):
+            return _place(t.to(tmpl.dtype), tmpl.device_mesh, tmpl.placements)
         if isinstance(tmpl, torch.Tensor):
             return t.to(device=tmpl.device, dtype=tmpl.dtype)
         if hasattr(tmpl, "dtype"):
             return t.numpy().astype(tmpl.dtype)
         return t
     return rec(template, loaded)
+
+
+def _place(full: torch.Tensor, mesh, placements):
+    """A full tensor laid out on ``mesh`` with ``placements``: each rank
+    keeps its own slice (no communication), bitwise the full values."""
+    from torch.distributed.tensor import distribute_tensor
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    return distribute_tensor(full.to(dev), mesh, placements,
+                             src_data_rank=None)
+
+
+def reshard(tree: Any, shardings: Any) -> Any:
+    """Elastic placement: lay each leaf out with its sharding (a
+    ``distributed.sharding.NamedSharding``, the tree of them from
+    ``named_sharding_tree``); works across meshes other than the one the
+    tree was saved or placed on. A DTensor leaf is gathered whole first
+    (every rank of its mesh must call)."""
+    from repro_torch.distributed.sharding import tree_map
+
+    def one(leaf, sh):
+        full = leaf.full_tensor() if _is_dtensor(leaf) else leaf
+        return _place(full, sh.mesh, sh.placements)
+    return tree_map(one, tree, shardings,
+                    is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
 class AsyncCheckpointer:
@@ -210,9 +281,11 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         t0 = time.perf_counter()
-        host_tree = _to_host(tree)              # sync snapshot, async write
+        # sync snapshot, async write; of a sharded tree rank 0 writes
+        host_tree = _to_host(tree, keep=_writer())
         self.snapshot_s.append(time.perf_counter() - t0)
-        self._q.put((step, host_tree))
+        if host_tree is not None:
+            self._q.put((step, host_tree))
 
     def wait(self):
         """Block until every queued write has finished."""

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.bridge import resolve_device
 from repro_torch.core import nn
-from repro_torch.core.encoder import EncoderConfig, encoder_apply, init_encoder
+from repro_torch.core.encoder import (EncoderConfig, encoder_apply,
+                                      encoder_logical_axes, init_encoder)
 from repro_torch.msda.decoder import (MSDADecoderConfig, decoder_apply,
                                       init_decoder)
 
@@ -71,6 +72,22 @@ def init_detector(cfg: DetectorConfig, gen: Optional[torch.Generator] = None,
     if cfg.decoder is not None:
         params["decoder"] = init_decoder(cfg.decoder, cfg.encoder.attn, gen, dev)
     return params
+
+
+def detector_logical_axes(cfg: DetectorConfig) -> dict:
+    """Logical sharding axes per parameter (see distributed/sharding.py)."""
+    from repro_torch.msda.decoder import decoder_logical_axes
+    conv_ax = {"w": (None, None, None, None), "b": (None,)}
+    lin_ax = {"w": ("embed", None), "b": (None,)}
+    axes = {
+        "stem": conv_ax, "c1": conv_ax, "c2": conv_ax, "c3": conv_ax, "c4": conv_ax,
+        "proj": [{"w": (None, "embed"), "b": (None,)} for _ in range(4)],
+        "encoder": encoder_logical_axes(cfg.encoder),
+        "cls_head": lin_ax, "box_head": lin_ax,
+    }
+    if cfg.decoder is not None:
+        axes["decoder"] = decoder_logical_axes(cfg.decoder)
+    return axes
 
 
 def decoder_plan(cfg: DetectorConfig, backend: Optional[str] = None, *,

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.bridge import resolve_device
 from repro_torch.core import nn
-from repro_torch.core.msdeform_attn import MSDeformAttnConfig, init_msdeform_attn
+from repro_torch.core.msdeform_attn import (MSDeformAttnConfig,
+                                            init_msdeform_attn, logical_axes)
 from repro_torch.msda.attention import msda_attention
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.msda.plan import make_plan
@@ -47,6 +48,17 @@ def init_encoder(cfg: EncoderConfig, gen: torch.Generator,
             "ffn2": nn.linear_init(gen, cfg.d_ffn, cfg.d_model, **t),
         })
     return {"blocks": blocks}
+
+
+def encoder_logical_axes(cfg: EncoderConfig) -> dict:
+    blk = {
+        "attn": logical_axes(cfg.attn),
+        "ln1": {"scale": (None,), "bias": (None,)},
+        "ln2": {"scale": (None,), "bias": (None,)},
+        "ffn1": {"w": ("embed", "mlp"), "b": ("mlp",)},
+        "ffn2": {"w": ("mlp", "embed"), "b": (None,)},
+    }
+    return {"blocks": [blk for _ in range(cfg.n_blocks)]}
 
 
 def encoder_apply(params: dict, cfg: EncoderConfig,

@@ -89,6 +89,20 @@ def init_msdeform_attn(cfg: MSDeformAttnConfig, gen: torch.Generator,
     }
 
 
+def logical_axes(cfg: MSDeformAttnConfig) -> dict:
+    """Logical sharding axes per parameter (see distributed/sharding.py)."""
+    return {
+        "attn_w": ("embed", "heads", None),
+        "attn_b": ("heads", None),
+        "offs_w": ("embed", "heads", None),
+        "offs_b": ("heads", None),
+        "value_w": ("embed", "heads", None),
+        "value_b": ("heads", None),
+        "out_w": ("heads", None, "embed"),
+        "out_b": (None,),
+    }
+
+
 # --------------------------------------------------------------------------
 # Reference oracle — independent per-level implementation (no flat tricks)
 # --------------------------------------------------------------------------

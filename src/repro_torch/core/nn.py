@@ -20,8 +20,19 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int,
             "b": torch.zeros((d_out,), dtype=dtype, device=device)}
 
 
+def promoted(x: torch.Tensor, *ts: torch.Tensor):
+    """``x`` and ``ts`` cast to their common dtype, as ``jnp`` promotes a
+    bf16 and a float32 operand to float32 (torch's matmul and layer norm
+    take no mixed dtypes)."""
+    dt = x.dtype
+    for t in ts:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t if t.dtype == dt else t.to(dt) for t in (x,) + ts]
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+    x, w, b = promoted(x, p["w"], p["b"])
+    return x @ w + b
 
 
 def layer_norm_init(d: int, dtype=torch.float32, device="cpu") -> dict:
@@ -31,7 +42,8 @@ def layer_norm_init(d: int, dtype=torch.float32, device="cpu") -> dict:
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Population variance (not torch.var's unbiased default), eps 1e-5."""
-    return F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"], eps)
+    x, scale, bias = promoted(x, p["scale"], p["bias"])
+    return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
 
 
 def conv_init(gen: torch.Generator, k: int, c_in: int, c_out: int,

@@ -24,6 +24,18 @@ def quant_scale(x: torch.Tensor, bits: int,
     return torch.clamp(amax, min=1e-8) / qmax(bits)
 
 
+def quantize(x: torch.Tensor, bits: int, axis: Optional[int] = None):
+    """Returns (int32 codes, scale)."""
+    s = quant_scale(x, bits, axis)
+    q = torch.clamp(torch.round(x / s), -qmax(bits) - 1, qmax(bits)).to(torch.int32)
+    return q, s
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * s.to(dtype)
+
+
 def fake_quant_with_scale(x: torch.Tensor, bits: int,
                           scale: torch.Tensor) -> torch.Tensor:
     """quantize -> dequantize against a given scale, straight-through."""
@@ -69,3 +81,16 @@ def fake_table_quant(v: torch.Tensor) -> torch.Tensor:
     """quantize -> dequantize a value table on the int8 table grid."""
     s = table_quant_scale(v)
     return quantize_table_rows(v, s).to(v.dtype) * s.to(v.dtype)
+
+
+def pack_int8(x: torch.Tensor):
+    """Real int8 storage (the bandwidth variant): per-channel over the
+    last dim; returns (int8 codes, float32 scale)."""
+    s = quant_scale(x, 8, axis=-1)
+    q = torch.clamp(torch.round(x / s), -128, 127).to(torch.int8)
+    return q, s.to(torch.float32)
+
+
+def unpack_int8(q: torch.Tensor, s: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * s.to(dtype)

@@ -1,0 +1,384 @@
+"""The collectives of the port's sharded bodies, and the two ways to run
+those bodies (the port's counterpart of the reference's ``shard_map``).
+
+A reference ``shard_map`` body becomes a *rank body*: a Python generator
+``body(ctx, *rank_tensors)`` that computes on its rank's tensors and
+``yield``s a :class:`Collective` wherever the reference calls a
+``jax.lax`` collective; the runner sends the result back and the body
+``return``s its output. ``ctx`` is a :class:`RankContext` (the rank's
+index and size along each mesh axis: ``axis_index`` and the axis size).
+
+Two runners run a body, and the caller names which:
+
+* :func:`run_spmd` runs one body per process, the collectives going over
+  ``torch.distributed`` process groups of a ``DeviceMesh`` (NCCL for
+  CUDA tensors, gloo for CPU tensors);
+* :func:`run_in_process` runs the bodies of every rank of an
+  :class:`InProcessMesh` in one process, in turn, each up to its next
+  collective, which it then computes over the list of the ranks'
+  tensors. This runs an N-rank axis on one card or on the CPU, as the
+  reference's tests run N virtual devices.
+
+Both compute every collective with the same operations in the same
+order, so they agree bitwise. A floating-point SUM is an all-gather and
+a sum in rank order (each rank adds the same operands in the same
+order), where a ring all-reduce would add in an order that depends on
+the rank and the chunk; integer sums and MAX, which are exact in any
+order, go through ``all_reduce``. That costs a rank (n-1) times its
+tensor's bytes, so only rank bodies held bitwise to the in-process run
+use it; a data-parallel gradient mean calls ``all_reduce`` itself
+(``train.step``).
+
+On a process group a floating-point SUM or mean carries gradient: each
+rank's input receives the group's sum of the output's gradients, as
+every rank's output depends on it. The other collectives are forward
+only, and :func:`run_spmd` raises if one is handed a tensor that
+requires grad while grad mode is on."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Generator, List, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+AxisNames = Tuple[str, ...]
+
+
+class Collective(NamedTuple):
+    """One collective a rank body asks for (see the module docstring)."""
+    op: str                    # exchange | all_gather | sum | max | mean
+    axis: AxisNames
+    tensors: Tuple[torch.Tensor, ...]
+    dim: int = 0
+
+
+def _axes(axis) -> AxisNames:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def ring_exchange(axis: str, bottom: torch.Tensor,
+                  top: torch.Tensor) -> Collective:
+    """Send ``bottom`` to rank i+1 and ``top`` to rank i-1 (mod n) of the
+    axis; the result is (from_above, from_below): rank i-1's bottom and
+    rank i+1's top (the reference's two ``ppermute``s)."""
+    return Collective("exchange", _axes(axis), (bottom, top))
+
+
+def all_gather(axis: str, x: torch.Tensor, dim: int) -> Collective:
+    """The axis's tensors concatenated along ``dim`` in rank order
+    (``all_gather(..., tiled=True)``)."""
+    return Collective("all_gather", _axes(axis), (x,), dim)
+
+
+def psum(axis, x: torch.Tensor) -> Collective:
+    return Collective("sum", _axes(axis), (x,))
+
+
+def pmax(axis, x: torch.Tensor) -> Collective:
+    return Collective("max", _axes(axis), (x,))
+
+
+def pmean(axis, x: torch.Tensor) -> Collective:
+    return Collective("mean", _axes(axis), (x,))
+
+
+@dataclasses.dataclass(frozen=True)
+class RankContext:
+    index: Dict[str, int]      # the rank's coordinate along each mesh axis
+    size: Dict[str, int]       # each mesh axis's size
+
+
+@dataclasses.dataclass
+class CommStats:
+    """Bytes each rank handed to the collectives, by op (what it sends)."""
+    sent: Dict[int, Dict[str, int]] = dataclasses.field(default_factory=dict)
+
+    def record(self, rank: int, op: str, nbytes: int) -> None:
+        per = self.sent.setdefault(rank, {})
+        per[op] = per.get(op, 0) + int(nbytes)
+
+    def rank_bytes(self, rank: int = 0) -> int:
+        return sum(self.sent.get(rank, {}).values())
+
+
+class InProcessMesh:
+    """A device mesh whose ranks all run in this process, in turn, on one
+    device: rank r sits at the row-major coordinate of r in ``shape``,
+    as a ``DeviceMesh`` over ``arange(n).reshape(shape)`` places it."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} and axis names "
+                             f"{tuple(axis_names)} differ in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.size = 1
+        for s in self.shape.values():
+            self.size *= s
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        out, rem = {}, rank
+        for a in reversed(self.axis_names):
+            out[a] = rem % self.shape[a]
+            rem //= self.shape[a]
+        return {a: out[a] for a in self.axis_names}
+
+    def __repr__(self) -> str:
+        return f"InProcessMesh({self.shape})"
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size, for an :class:`InProcessMesh` or a ``DeviceMesh``
+    with named dims."""
+    if isinstance(mesh, InProcessMesh):
+        return dict(mesh.shape)
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("a DeviceMesh needs mesh_dim_names")
+    return dict(zip(names, (int(s) for s in mesh.shape)))
+
+
+def rank_context(mesh) -> RankContext:
+    """This process's context on a ``DeviceMesh``."""
+    sizes = mesh_shape(mesh)
+    return RankContext({a: int(mesh.get_local_rank(a)) for a in sizes}, sizes)
+
+
+# --------------------------------------------------------------------------
+# the collectives over a list of the ranks' tensors (in-process)
+# --------------------------------------------------------------------------
+
+def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def _ordered_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = torch.maximum(acc, p)
+    return acc
+
+
+def _local_group(op: str, xs: List[Tuple[torch.Tensor, ...]], dim: int):
+    """One single-axis collective over the group's ranks, in axis order;
+    returns each rank's result."""
+    n = len(xs)
+    if op == "exchange":
+        return [(xs[(i - 1) % n][0], xs[(i + 1) % n][1]) for i in range(n)]
+    if op == "all_gather":
+        out = torch.cat([x[0] for x in xs], dim=dim)
+        return [out] * n
+    if op == "sum":
+        out = _ordered_sum([x[0] for x in xs])
+    elif op == "max":
+        out = _ordered_max([x[0] for x in xs])
+    else:
+        raise ValueError(f"unknown collective {op!r}")
+    return [out] * n
+
+
+# --------------------------------------------------------------------------
+# the same collectives over a process group (one rank per process)
+# --------------------------------------------------------------------------
+
+def _all_gather_flat(out, x, group):
+    """``all_gather_single`` where torch has it (newer releases deprecate
+    its old name ``all_gather_into_tensor``)."""
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+class _WireSum(torch.autograd.Function):
+    """The group's tensors summed in rank order (all-gather, then add);
+    backward, the group's sum of the output's gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group = group
+        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+        _all_gather_flat(out, x.reshape(-1), group=group)
+        return _ordered_sum(list(out.view((n,) + tuple(x.shape)).unbind(0)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None, None
+
+
+def _wire_group(op: str, tensors: Tuple[torch.Tensor, ...], dim: int,
+                group, index: int, n: int):
+    if op == "exchange":
+        bottom, top = (t.contiguous() for t in tensors)
+        if n == 1:                    # the pair (0, 0): a local copy
+            return bottom.clone(), top.clone()
+        from_above = torch.empty_like(bottom)
+        from_below = torch.empty_like(top)
+        down = dist.get_global_rank(group, (index + 1) % n)
+        up = dist.get_global_rank(group, (index - 1) % n)
+        # both directions in one batch: posted one by one, a ring of
+        # blocking sends would deadlock
+        ops = [dist.P2POp(dist.isend, bottom, down, group),
+               dist.P2POp(dist.isend, top, up, group),
+               dist.P2POp(dist.irecv, from_above, up, group),
+               dist.P2POp(dist.irecv, from_below, down, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return from_above, from_below
+    (x,) = tensors
+    x = x.contiguous()
+    if op == "sum" and x.is_floating_point():
+        return _WireSum.apply(x, group, n)
+    if op == "all_gather":
+        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+        _all_gather_flat(out, x.reshape(-1), group=group)
+        return torch.cat(list(out.view((n,) + tuple(x.shape)).unbind(0)),
+                         dim=dim)
+    if op in ("sum", "max"):
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
+        return out
+    raise ValueError(f"unknown collective {op!r}")
+
+
+def _steps(req: Collective):
+    """A request as single-axis steps: a reduction over several axes runs
+    axis by axis in the order given; ``mean`` is a sum divided by the
+    group's size."""
+    if req.op in ("exchange", "all_gather") and len(req.axis) != 1:
+        raise ValueError(f"{req.op} runs over one axis, got {req.axis}")
+    op = "sum" if req.op == "mean" else req.op
+    return [(op, a) for a in req.axis]
+
+
+def _nbytes(req: Collective) -> int:
+    return sum(t.numel() * t.element_size() for t in req.tensors)
+
+
+def _finish(req: Collective, out, sizes: Dict[str, int]):
+    if req.op != "mean":
+        return out
+    n = 1
+    for a in req.axis:
+        n *= sizes[a]
+    return out / n
+
+
+def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
+    """Drive this process's rank body over ``mesh`` (a ``DeviceMesh``);
+    returns what the body returns."""
+    sizes = mesh_shape(mesh)
+    index = {a: int(mesh.get_local_rank(a)) for a in sizes}
+    me = dist.get_rank()
+    try:
+        req = next(body)
+        while True:
+            if req.op not in ("sum", "mean") and torch.is_grad_enabled() \
+                    and any(t.requires_grad for t in req.tensors):
+                raise NotImplementedError(
+                    f"{req.op} over a process group carries no gradient")
+            if stats is not None:
+                stats.record(me, req.op, _nbytes(req))
+            cur = req.tensors
+            for op, a in _steps(req):
+                out = _wire_group(op, cur, req.dim, mesh.get_group(a),
+                                  index[a], sizes[a])
+                cur = out if isinstance(out, tuple) else (out,)
+            res = cur if req.op == "exchange" else _finish(req, cur[0], sizes)
+            req = body.send(res)
+    except StopIteration as stop:
+        return stop.value
+
+
+def run_in_process(make_body: Callable[[int, RankContext], Generator],
+                   mesh: InProcessMesh, stats: CommStats | None = None) -> list:
+    """Run the rank bodies of every rank of ``mesh`` in this process:
+    ``make_body(rank, ctx)`` makes rank ``rank``'s body. Each runs up to
+    its next collective; once all have asked, the collective runs over
+    the list of their tensors. Returns the ranks' outputs in rank order."""
+    sizes = mesh_shape(mesh)
+    bodies = [make_body(r, RankContext(mesh.coords(r), sizes))
+              for r in range(mesh.size)]
+    reqs = [next(b) for b in bodies]
+    results: list = [None] * mesh.size
+    while True:
+        if any(r is None for r in reqs):
+            if not all(r is None for r in reqs):
+                raise RuntimeError("rank bodies ended at different steps")
+            return results
+        ops = {(r.op, r.axis, r.dim) for r in reqs}
+        if len(ops) != 1:
+            raise RuntimeError(f"ranks asked for different collectives: {ops}")
+        req0 = reqs[0]
+        if stats is not None:
+            for rank, r in enumerate(reqs):
+                stats.record(rank, r.op, _nbytes(r))
+        cur = [r.tensors for r in reqs]
+        for op, a in _steps(req0):
+            nxt: list = [None] * mesh.size
+            groups: Dict[tuple, list] = {}
+            for rank in range(mesh.size):
+                c = mesh.coords(rank)
+                key = tuple(v for k, v in c.items() if k != a)
+                groups.setdefault(key, []).append((c[a], rank))
+            for members in groups.values():
+                members.sort()
+                outs = _local_group(op, [cur[rk] for _, rk in members], req0.dim)
+                for (_, rk), o in zip(members, outs):
+                    nxt[rk] = o if isinstance(o, tuple) else (o,)
+            cur = nxt
+        for rank, b in enumerate(bodies):
+            res = cur[rank] if req0.op == "exchange" \
+                else _finish(req0, cur[rank][0], sizes)
+            try:
+                reqs[rank] = b.send(res)
+            except StopIteration as stop:
+                reqs[rank] = None
+                results[rank] = stop.value
+
+
+def local_slices(spec: Sequence[Any], shape: Sequence[int],
+                 sizes: Dict[str, int], index: Dict[str, int]) -> tuple:
+    """The slice of a tensor of ``shape`` that the rank at ``index`` holds
+    under ``spec`` (a PartitionSpec: per dim ``None``, an axis name or a
+    tuple of names). A dim split over several axes splits major to minor
+    in the order named, as JAX's ``NamedSharding`` does."""
+    out = []
+    for d, n_d in enumerate(shape):
+        s = spec[d] if d < len(spec) else None
+        if s is None:
+            out.append(slice(None))
+            continue
+        idx, n = 0, 1
+        for a in _axes(s):
+            idx = idx * sizes[a] + index[a]
+            n *= sizes[a]
+        if n_d % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"{n} ways ({s})")
+        c = n_d // n
+        out.append(slice(idx * c, (idx + 1) * c))
+    return tuple(out)
+
+
+def assemble(parts: Dict[int, torch.Tensor], spec: Sequence[Any],
+             shape: Sequence[int], mesh: InProcessMesh) -> torch.Tensor:
+    """The full tensor from the in-process ranks' shards (ranks that hold
+    the same slice must agree; the lowest rank's is taken)."""
+    sizes = mesh_shape(mesh)
+    first = next(iter(parts.values()))
+    out = torch.empty(tuple(shape), dtype=first.dtype, device=first.device)
+    seen = set()
+    for rank in sorted(parts):
+        sl = local_slices(spec, shape, sizes, mesh.coords(rank))
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in seen:
+            seen.add(key)
+            out[sl] = parts[rank]
+    return out
+

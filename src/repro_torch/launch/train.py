@@ -1,18 +1,27 @@
-"""Training launcher (port of ``repro/launch/train.py``, local mode).
+"""Training launcher (port of ``repro/launch/train.py``).
 
-One device, real optimizer steps, checkpoint/restart, straggler monitor:
-the reference's control plane on one card, or on the CPU with
-``--device cpu``. The reference's fleet mode (``--production-mesh``)
-waits for the distributed port and raises.
+Real optimizer steps, checkpoint/restart, straggler monitor: the
+reference's control plane on one card, or on the CPU with ``--device
+cpu``. Under ``torchrun`` (one rank per card, NCCL; gloo with ``--device
+cpu``) it trains over the world: the local mesh ``(world, 1)`` named
+("data", "model"), or with ``--production-mesh`` the reference's 16x16
+mesh, which needs 256 ranks. The state is laid out by
+``train_state_shardings`` and each rank trains on its rows of the batch
+(``train.step.build_sharded_train_step``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --device cpu --steps 30 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch minitron-4b --smoke --steps 30
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
@@ -20,7 +29,22 @@ from repro_torch.data import fold_in
 from repro_torch.data.tokens import TokenDataConfig, synth_token_batch
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.loop import FailureInjector, TrainLoopConfig, train_loop
-from repro_torch.train.step import build_train_step, make_train_state
+from repro_torch.train.step import (
+    build_sharded_train_step, build_train_step, local_batch, make_train_state,
+    place_train_state, train_state_shardings)
+
+
+def _join_world(device: str) -> torch.device:
+    """Join the process group torchrun describes (its env:// variables);
+    returns this rank's device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                timeout=datetime.timedelta(minutes=5))
+    return resolve_device(dev)
 
 
 def main(argv=None) -> int:
@@ -39,12 +63,17 @@ def main(argv=None) -> int:
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs the distributed port (ROADMAP.md "
-            "section 1, item 'Distributed'); this launcher runs on one device")
 
-    dev = resolve_device(args.device)
+    in_world = "WORLD_SIZE" in os.environ or dist.is_initialized()
+    dev = _join_world(args.device) if in_world else resolve_device(args.device)
+    mesh = None
+    if args.production_mesh or in_world:
+        from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+        # the production mesh raises, as the reference's does, on a world
+        # smaller than its 256 ranks (a process outside torchrun is a world
+        # of one)
+        mesh = make_production_mesh() if args.production_mesh \
+            else make_local_mesh()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     data_cfg = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=0)
@@ -61,20 +90,28 @@ def main(argv=None) -> int:
             b["img_embeds"] = stub_inputs(7, step, cfg.n_img_tokens)
         if cfg.family == "encdec":
             b["frames"] = stub_inputs(8, step, cfg.enc_seq_len)
-        return b
+        return b if mesh is None else local_batch(b, mesh)
 
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps)
     # weights drawn on the device itself: a published-width model on the card
     state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
+    if mesh is None:
+        step_fn = build_train_step(cfg, opt_cfg)
+    else:
+        specs = train_state_shardings(cfg, mesh, state)
+        state = place_train_state(state, specs, mesh)
+        step_fn = build_sharded_train_step(cfg, opt_cfg, mesh, specs)
     injector = FailureInjector(args.fail_at) if args.fail_at else None
     loop_cfg = TrainLoopConfig(total_steps=args.steps,
                                ckpt_every=args.ckpt_every, log_every=5)
-    state, stats = train_loop(state, build_train_step(cfg, opt_cfg), batch_fn,
-                              loop_cfg, ckpt_dir=args.ckpt_dir,
-                              injector=injector)
-    print(f"[train] done: final loss {stats['losses'][-1]:.4f}, "
-          f"stragglers={stats['straggler_events']}")
+    state, stats = train_loop(state, step_fn, batch_fn, loop_cfg,
+                              ckpt_dir=args.ckpt_dir, injector=injector)
+    if mesh is not None:
+        dist.barrier()              # rank 0 has written its checkpoints
+    if mesh is None or dist.get_rank() == 0:
+        print(f"[train] done: final loss {stats['losses'][-1]:.4f}, "
+              f"stragglers={stats['straggler_events']}")
     return 0
 
 

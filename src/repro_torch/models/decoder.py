@@ -4,8 +4,10 @@ body chosen by ``cfg.family``.
 
 Params and cache keep the reference's stacked layout, the layer index
 first, and the reference's ``lax.scan`` over layers becomes a Python loop
-over the layer index. ``remat`` and ``comm_barrier`` are XLA memory and
-fusion knobs of the reference's training path and have no effect here.
+over the layer index. ``remat`` (with ``_remat_policy``) and
+``comm_barrier`` are XLA memory and fusion knobs of the reference's
+training path and have no effect here: activation checkpointing through
+``torch.utils.checkpoint`` is a later item of ROADMAP.md section 1.
 The cache is written in place: :func:`prefill` and :func:`decode_step`
 return the tensors they were given (the SSD leaves ``ssm`` and ``conv``
 too). The encoder-decoder family is ``models/encdec.py``."""
@@ -68,6 +70,31 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator, lead=(),
         p["ln2"] = ones()
         p["mlp"] = L.mlp_init(cfg, gen, lead, device)
     return p
+
+
+def _layer_axes(cfg: ModelConfig) -> dict:
+    ax: dict = {"ln1": (None,)}
+    if cfg.family in _ATTN:
+        ax["attn"] = L.attn_axes(cfg)
+    if cfg.family in _SSD:
+        ax["ssd"] = L.ssd_axes(cfg)
+    if cfg.family == "hybrid":
+        ax["norm_attn"] = (None,)
+        ax["norm_ssm"] = (None,)
+    if cfg.family in ("dense", "vlm", "hybrid"):
+        ax["ln2"] = (None,)
+        ax["mlp"] = L.mlp_axes(cfg)
+    elif cfg.family == "moe":
+        ax["ln2"] = (None,)
+        ax["moe"] = L.moe_axes(cfg)
+    return ax
+
+
+def _stack_axes(tree):
+    """Prepend the (unsharded) layer-stack axis to every leaf."""
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
 
 
 def _hybrid_mix(p, cfg, ya, ym):
@@ -146,6 +173,16 @@ def init_decoder(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
         "layers": _layer_init(cfg, gen, (cfg.n_layers,), dev),
         "final_norm": torch.ones((d,), dtype=cfg.dtype, device=dev),
         "head": init_dense(gen, (d, cfg.vocab_size), d, cfg.dtype, dev),
+    }
+
+
+def decoder_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of :func:`init_decoder`'s params."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": _stack_axes(_layer_axes(cfg)),
+        "final_norm": (None,),
+        "head": ("embed", "vocab"),
     }
 
 

@@ -32,6 +32,11 @@ def _enc_layer_init(cfg, gen, lead, device):
             "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
 
 
+def _enc_layer_axes(cfg):
+    return {"ln1": (None,), "attn": L.attn_axes(cfg),
+            "ln2": (None,), "mlp": L.mlp_axes(cfg)}
+
+
 def _softmax_attn(q, k, v, n_rep, dh):
     """Unmasked attention: q (B,Sq,Hq,Dh), k/v (B,Sk,Hkv,Dh)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, L._repeat_kv(k, n_rep)
@@ -56,6 +61,12 @@ def _dec_layer_init(cfg, gen, lead, device):
     return {"ln1": ones(), "attn": L.attn_init(cfg, gen, lead, device),
             "lnx": ones(), "xattn": L.attn_init(cfg, gen, lead, device),
             "ln2": ones(), "mlp": L.mlp_init(cfg, gen, lead, device)}
+
+
+def _dec_layer_axes(cfg):
+    return {"ln1": (None,), "attn": L.attn_axes(cfg),
+            "lnx": (None,), "xattn": L.attn_axes(cfg),
+            "ln2": (None,), "mlp": L.mlp_axes(cfg)}
 
 
 def _cross_attn(p, cfg, h, mem_k, mem_v):
@@ -93,6 +104,19 @@ def init_encdec(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
         "dec_layers": _dec_layer_init(cfg, gen, (cfg.n_layers,), dev),
         "final_norm": torch.ones((d,), dtype=cfg.dtype, device=dev),
         "head": init_dense(gen, (d, cfg.vocab_size), d, cfg.dtype, dev),
+    }
+
+
+def encdec_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of :func:`init_encdec`'s params."""
+    from repro_torch.models.decoder import _stack_axes
+    return {
+        "embed": ("vocab", "embed"),
+        "enc_layers": _stack_axes(_enc_layer_axes(cfg)),
+        "enc_norm": (None,),
+        "dec_layers": _stack_axes(_dec_layer_axes(cfg)),
+        "final_norm": (None,),
+        "head": ("embed", "vocab"),
     }
 
 

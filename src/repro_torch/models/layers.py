@@ -4,8 +4,9 @@ the capacity-based MoE and the Mamba2 SSD mixer (port of
 
 Per-layer params are plain dicts, stacked by the decoder on a leading
 layer axis. The reference's sharding hints (``_constrain_attn`` and the
-``acts.constrain_*`` calls) pin activation shardings on a device mesh and
-are no-ops on one device; they are dropped here.
+``acts.constrain_*`` calls) pin activation shardings on a device mesh;
+the port computes on plain tensors, where they would be no-ops, and has
+none.
 
 One deviation from the reference: :func:`attn_decode` computes its
 attention through ``kernels.ops.flash_decode`` (kernel K5 on the card,
@@ -14,14 +15,15 @@ jnp. K5 masks with -1e30 instead of ``BIG_NEG`` (no effect while the
 token's own slot is valid), keeps the probabilities in float32 where the
 reference rounds them to the model dtype, and sums P.V in float32.
 
-:func:`moe_apply` is the reference's local path (one device: its expert
-parallel ``moe_apply_ep`` waits for the distributed port, ROADMAP.md).
-It keeps the reference's routing exactly (``lax.top_k``'s tie order,
-the stable sort that decides which assignments a full expert drops) and
-combines without atomics: each token sums its ``k`` contributions in
-float32 in a fixed order and rounds once, so two runs, and a CUDA graph
-replay and the eager step, are bitwise equal. The reference's
-scatter-add rounds after each add in the model dtype.
+:func:`moe_apply` keeps the reference's routing exactly (``lax.top_k``'s
+tie order, the stable sort that decides which assignments a full expert
+drops) and combines without atomics: each token sums its ``k``
+contributions in float32 in a fixed order and rounds once, so two runs,
+and a CUDA graph replay and the eager step, are bitwise equal. The
+reference's scatter-add rounds after each add in the model dtype. Under
+an activation policy whose model axis divides the experts it takes the
+expert-parallel path, :func:`moe_apply_ep`: each rank's partial sum
+stays in float32 through the all-reduce and is rounded once.
 
 The SSD mixer's decode writes its ``ssm`` and ``conv`` caches in place,
 as :func:`attn_decode` does its KV cache, where the reference returns
@@ -35,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pap import topk_stable
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.common import (ModelConfig, gelu, init_dense, rms_norm,
                                        rope)
@@ -60,6 +64,15 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> d
         "wk": init_dense(gen, lead + (d, hkv, dh), d, cfg.dtype, device),
         "wv": init_dense(gen, lead + (d, hkv, dh), d, cfg.dtype, device),
         "wo": init_dense(gen, lead + (hq, dh, d), hq * dh, cfg.dtype, device),
+    }
+
+
+def attn_axes(cfg: ModelConfig) -> dict:
+    return {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
     }
 
 
@@ -259,6 +272,13 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> di
     return p
 
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    ax = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.mlp_gated:
+        ax["w_gate"] = ("embed", "mlp")
+    return ax
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -281,6 +301,13 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> di
         "w_up": init_dense(gen, lead + (e, d, f), d, cfg.dtype, device),
         "w_down": init_dense(gen, lead + (e, f, d), f, cfg.dtype, device),
     }
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    return {"router": ("embed", None),
+            "w_gate": ("expert", "embed", "expert_mlp"),
+            "w_up": ("expert", "embed", "expert_mlp"),
+            "w_down": ("expert", "expert_mlp", "embed")}
 
 
 def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -316,19 +343,143 @@ def moe_dispatch(cfg: ModelConfig, top_e: torch.Tensor, s: int):
     return order, keep, dest, cap
 
 
+def _moe_combine_f32(h, dest, keep, order, top_p, x_dtype, n_slots, s, k):
+    """Each token's k contributions gathered back from the expert rows in
+    the assignments' own order (token t's are t*k .. t*k + k - 1) and
+    summed in float32 in that order: (B, S, D) float32."""
+    b, sk = order.shape
+    d = h.shape[-1]
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(sk, device=order.device).expand(b, -1))
+    dest_t = torch.gather(dest, 1, inv).clamp(max=n_slots - 1)     # "clip"
+    keep_t = torch.gather(keep, 1, inv)
+    gathered = torch.gather(h, 1, dest_t[..., None].expand(-1, -1, d))
+    gate = (top_p.reshape(b, sk) * keep_t).to(x_dtype)
+    return (gathered * gate[..., None]).reshape(b, s, k, d).float().sum(2)
+
+
+def _expert_ffn(buf, w_gate, w_up, w_down):
+    h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate)) \
+        * torch.einsum("becd,edf->becf", buf, w_up)
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def _balance_aux(probs, top_e, e):
+    """Switch-style load-balance loss of the rows given."""
+    me = probs.mean(dim=(0, 1))
+    ce = (top_e[..., :1] == torch.arange(e, device=probs.device)).float().mean(
+        dim=(0, 1))                                     # one-hot of the top pick
+    return e * torch.sum(me * ce)
+
+
+def moe_ep_body(ctx: C.RankContext, cfg: ModelConfig, router, w_gate, w_up,
+                w_down, xl, tp_axis: str, batch_axes: tuple):
+    """One rank of the expert-parallel MoE (the reference's ``shard_map``
+    body): every rank routes all of its rows' tokens, fills capacity only
+    from its own E/TP experts (non-local assignments sort to the end and
+    never enter capacity), runs those experts' FFN, and ONE sum over the
+    model axis combines the float32 partial outputs. ``aux`` is this
+    shard's balance loss averaged over the batch axes."""
+    rank = ctx.index[tp_axis]
+    e, k = cfg.n_experts, cfg.n_experts_active
+    e_loc = e // ctx.size[tp_axis]
+    b, s, d = xl.shape
+    cap = moe_capacity(cfg, s)
+    sk = s * k
+    probs, top_p, top_e = moe_route({"router": router}, cfg, xl)
+    aux = _balance_aux(probs, top_e, e)
+
+    flat_e = top_e.reshape(b, sk)
+    is_local = torch.div(flat_e, e_loc, rounding_mode="floor") == rank
+    sort_key = torch.where(is_local, flat_e, e)
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    sorted_e = torch.gather(sort_key, 1, order)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos_in_e = torch.arange(sk, device=xl.device)[None] - first
+    keep = (pos_in_e < cap) & (sorted_e < e)
+    e_rel = torch.where(keep, sorted_e - rank * e_loc, 0)
+    # dropped / non-local assignments go to a TRASH row, never to slot 0
+    dest = torch.where(keep, e_rel * cap + pos_in_e, e_loc * cap)
+    token_of = order // k
+    src = torch.gather(xl, 1, token_of[..., None].expand(-1, -1, d)) \
+        * keep[..., None].to(xl.dtype)
+    buf = torch.zeros((b, e_loc * cap + 1, d), dtype=xl.dtype, device=xl.device)
+    buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    h = _expert_ffn(buf[:, :-1].reshape(b, e_loc, cap, d), w_gate, w_up,
+                    w_down).reshape(b, e_loc * cap, d)
+    partial = _moe_combine_f32(h, dest, keep, order, top_p, xl.dtype,
+                               e_loc * cap, s, k)
+    out = yield C.psum(tp_axis, partial)
+    if batch_axes:
+        # per-shard balance loss, averaged — the standard EP choice (a
+        # global mean would need an extra reduction of the full probs)
+        aux = yield C.pmean(batch_axes, aux)
+    return out.to(xl.dtype), aux
+
+
+def moe_apply_ep(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Expert parallelism over the active policy's model axis.
+
+    On an ``InProcessMesh`` ``x`` is the global (B, S, D) batch: its rows
+    split over the batch axes (replicated when they do not divide B), the
+    experts over the model axis, every rank runs in turn and the global
+    (out, aux) returns. On a ``DeviceMesh`` ``x`` is this rank's rows and
+    the weights are full or this rank's expert shards (DTensors laid out
+    on the expert dim); this rank's (out, aux) returns. Both carry
+    gradient: the combine's sum over the model axis passes each rank the
+    axis's sum of the output's gradients."""
+    pol = acts.current_policy()
+    mesh, tp_axis = pol["mesh"], pol["model"]
+    sizes = C.mesh_shape(mesh)
+    batch = pol["batch"]
+    batch_axes = () if batch is None else (
+        tuple(batch) if isinstance(batch, (tuple, list)) else (batch,))
+    e = cfg.n_experts
+    e_loc = e // sizes[tp_axis]
+    weights = [p["w_gate"], p["w_up"], p["w_down"]]
+    if isinstance(mesh, C.InProcessMesh):
+        n_dp = 1
+        for a in batch_axes:
+            n_dp *= sizes[a]
+        if x.shape[0] % n_dp != 0:
+            batch_axes = ()                           # replicate odd batches
+        bspec = (batch_axes if len(batch_axes) != 1 else batch_axes[0]) \
+            if batch_axes else None
+        x_spec = (bspec, None, None)
+
+        def make(rank, ctx):
+            r = ctx.index[tp_axis]
+            mine = [w[r * e_loc:(r + 1) * e_loc] for w in weights]
+            xl = x[C.local_slices(x_spec, x.shape, sizes, ctx.index)]
+            return moe_ep_body(ctx, cfg, p["router"], *mine, xl, tp_axis,
+                               batch_axes)
+
+        outs = C.run_in_process(make, mesh)
+        out = C.assemble({r: o[0] for r, o in enumerate(outs)}, x_spec,
+                         x.shape, mesh)
+        return out, outs[0][1]
+    from torch.distributed.tensor import DTensor
+    ctx = C.rank_context(mesh)
+    r = ctx.index[tp_axis]
+    mine = [w.to_local() if isinstance(w, DTensor)
+            else w[r * e_loc:(r + 1) * e_loc] for w in weights]
+    router = p["router"].full_tensor() if isinstance(p["router"], DTensor) \
+        else p["router"]
+    return C.run_spmd(moe_ep_body(ctx, cfg, router, *mine, x, tp_axis,
+                                  batch_axes), mesh)
+
+
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x (B,S,D) -> (out (B,S,D), aux_loss). Dropped-token capacity MoE,
     dispatched per batch row; capacity per (row, expert) is
     ceil(S*k/E * cf)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
+    tp = acts.model_axis_size()
+    if tp > 1 and e % tp == 0:
+        return moe_apply_ep(p, cfg, x)                   # explicit EP
     probs, top_p, top_e = moe_route(p, cfg, x)
-
-    # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(dim=(0, 1))
-    ce = (top_e[..., :1] == torch.arange(e, device=x.device)).float().mean(
-        dim=(0, 1))                                     # one-hot of the top pick
-    aux_loss = e * torch.sum(me * ce)
+    aux_loss = _balance_aux(probs, top_e, e)
 
     order, keep, dest, cap = moe_dispatch(cfg, top_e, s)
     token_of = order // k                                           # (B, S*k)
@@ -338,22 +489,10 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     # row, which is cut off whichever write wins there
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
-    buf = buf[:, :-1].reshape(b, e, cap, d)
-
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
-        * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    h = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(b, e * cap, d)
-
-    # combine: back to the assignments' own order (token t's are t*k ..
-    # t*k + k - 1), then each token's k contributions summed in float32
-    inv = torch.empty_like(order).scatter_(
-        1, order, torch.arange(s * k, device=x.device).expand(b, -1))
-    dest_t = torch.gather(dest, 1, inv).clamp(max=e * cap - 1)     # "clip"
-    keep_t = torch.gather(keep, 1, inv)
-    gathered = torch.gather(h, 1, dest_t[..., None].expand(-1, -1, d))
-    gate = (top_p.reshape(b, s * k) * keep_t).to(x.dtype)
-    contrib = (gathered * gate[..., None]).reshape(b, s, k, d)
-    return contrib.float().sum(2).to(x.dtype), aux_loss
+    h = _expert_ffn(buf[:, :-1].reshape(b, e, cap, d), p["w_gate"], p["w_up"],
+                    p["w_down"]).reshape(b, e * cap, d)
+    out = _moe_combine_f32(h, dest, keep, order, top_p, x.dtype, e * cap, s, k)
+    return out.to(x.dtype), aux_loss
 
 
 # ===========================================================================
@@ -381,6 +520,13 @@ def ssd_init(cfg: ModelConfig, gen: torch.Generator, lead=(), device=None) -> di
         "norm": torch.ones(lead + (di,), dtype=cfg.dtype, device=device),
         "out_proj": init_dense(gen, lead + (di, d), di, cfg.dtype, device),
     }
+
+
+def ssd_axes(cfg: ModelConfig) -> dict:
+    return {"in_z": ("embed", "mlp"), "in_xbc": ("embed", "mlp"),
+            "in_dt": ("embed", None), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "a_log": (None,), "d_skip": (None,),
+            "dt_bias": (None,), "norm": ("mlp",), "out_proj": ("mlp", "embed")}
 
 
 def _project_zxbcdt(p, x):

@@ -4,13 +4,12 @@ patch embeddings prepended to the text, and encdec.
 
 The port's ``init`` takes ``(cfg, gen=None, *, device="cuda")`` and its
 ``init_cache`` ``(cfg, batch, cache_len, device="cuda")``; every other
-entry keeps the reference's signature. The reference's ``axes`` (logical
-sharding axes for a device mesh) and ``rules_overrides`` have no
-counterpart on one card; they come with the distributed port
-(ROADMAP.md)."""
+entry keeps the reference's signature. ``axes`` gives the params' logical
+sharding axes and :func:`rules_overrides` the per-arch rule adjustments
+that ``train/step.py``'s sharding rules apply on a device mesh."""
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -25,6 +24,7 @@ class ModelAPI(NamedTuple):
     init_cache: Callable           # (cfg, batch, cache_len) -> cache
     prefill: Callable              # (params, cfg, cache, batch) -> (logits, cache)
     decode_step: Callable          # (params, cfg, cache, tokens, pos) -> (logits, cache)
+    axes: Optional[Callable] = None  # cfg -> logical axes tree of the params
 
 
 # --- decoder-only families ---------------------------------------------------
@@ -96,7 +96,7 @@ def _encdec_prefill(params, cfg, cache, batch):
 _DEC_API = ModelAPI(
     init=decoder.init_decoder, loss_fn=_dec_loss, forward=_dec_forward,
     init_cache=decoder.init_cache, prefill=_dec_prefill,
-    decode_step=decoder.decode_step)
+    decode_step=decoder.decode_step, axes=decoder.decoder_axes)
 
 _REGISTRY: dict[str, ModelAPI] = {
     "dense": _DEC_API,
@@ -108,7 +108,7 @@ _REGISTRY: dict[str, ModelAPI] = {
     "encdec": ModelAPI(
         init=encdec.init_encdec, loss_fn=_encdec_loss, forward=_encdec_forward,
         init_cache=encdec.init_cache, prefill=_encdec_prefill,
-        decode_step=encdec.decode_step),
+        decode_step=encdec.decode_step, axes=encdec.encdec_axes),
 }
 
 
@@ -117,3 +117,28 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
                          f"registry has {sorted(_REGISTRY)}")
     return _REGISTRY[cfg.family]
+
+
+def rules_overrides(cfg: ModelConfig, model_axis_size: int) -> dict:
+    """Per-arch logical-axis adjustments for divisibility on the mesh.
+
+    * kv heads replicate when they don't divide the model axis (MQA/GQA);
+    * MoE: shard the expert dim when divisible, else the per-expert ffn dim;
+    * heads fall back to unsharded for tiny head counts (smoke configs)."""
+    over: dict[str, Any] = {}
+    if cfg.n_kv_heads % model_axis_size != 0:
+        over["kv_heads"] = None
+    if cfg.n_heads % model_axis_size != 0:
+        over["heads"] = None
+    if cfg.d_ff and cfg.d_ff % model_axis_size != 0:
+        over["mlp"] = None
+    if cfg.n_experts:
+        if cfg.n_experts % model_axis_size == 0:
+            over["expert"] = "model"
+            over["expert_mlp"] = None
+        else:
+            over["expert"] = None
+            over["expert_mlp"] = "model" if cfg.d_ff % model_axis_size == 0 else None
+    if cfg.vocab_size % model_axis_size != 0:
+        over["vocab"] = None
+    return over

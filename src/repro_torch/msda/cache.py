@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import fwp as fwp_lib
+from repro_torch.core import nn
 from repro_torch.core.quant import (maybe_fake_quant,
                                     maybe_fake_quant_with_scale, quant_scale,
                                     quantize_table_rows, table_quant_scale)
@@ -46,7 +47,8 @@ class MSDAValueCache(NamedTuple):
 
 def _project(x: torch.Tensor, params: dict, cfg) -> torch.Tensor:
     w = maybe_fake_quant(params["value_w"], cfg.weight_bits)
-    return torch.einsum("bnd,dhk->bnhk", x, w) + params["value_b"]
+    return torch.einsum("bnd,dhk->bnhk", *nn.promoted(x, w)) \
+        + params["value_b"]
 
 
 def project_values(params: dict, cfg, x_flat: torch.Tensor,

@@ -79,6 +79,28 @@ def init_decoder(cfg: MSDADecoderConfig, attn_cfg, gen: torch.Generator,
     return params
 
 
+def decoder_logical_axes(cfg: MSDADecoderConfig) -> dict:
+    """Logical sharding axes per parameter (see distributed/sharding.py)."""
+    lin = {"w": ("embed", None), "b": (None,)}
+    ln = {"scale": (None,), "bias": (None,)}
+    layer = {
+        "self_q": lin, "self_k": lin, "self_v": lin, "self_o": lin,
+        "ln_sa": ln,
+        "cross": {"attn_w": ("embed", "heads", None), "attn_b": ("heads", None),
+                  "offs_w": ("embed", "heads", None), "offs_b": ("heads", None),
+                  "out_w": ("heads", None, "embed"), "out_b": (None,)},
+        "ln1": ln, "ffn1": {"w": ("embed", "mlp"), "b": ("mlp",)},
+        "ffn2": {"w": ("mlp", "embed"), "b": (None,)}, "ln2": ln,
+        "ref_delta": lin,
+    }
+    return {
+        "query_pos": (None, "embed"), "tgt_embed": (None, "embed"),
+        "ref_head": lin,
+        "value": {"value_w": ("embed", "heads", None), "value_b": ("heads", None)},
+        "layers": [layer for _ in range(cfg.n_layers)],
+    }
+
+
 def _self_attention(layer: dict, h: torch.Tensor, pos: torch.Tensor,
                     n_heads: int) -> torch.Tensor:
     """Standard MHA over the N_q queries (pos added to q/k, not v); plain

@@ -106,14 +106,16 @@ def select_points(params: dict, cfg, query: torch.Tensor):
     h, p, lp = cfg.n_heads, cfg.n_points, cfg.n_lp
     wq = lambda w: maybe_fake_quant(w, cfg.weight_bits)
 
-    logits = torch.einsum("bnd,dhk->bnhk", query, wq(params["attn_w"])) \
+    logits = torch.einsum("bnd,dhk->bnhk",
+                          *nn.promoted(query, wq(params["attn_w"]))) \
         + params["attn_b"]
     probs = torch.softmax(logits, dim=-1)
     probs = maybe_fake_quant(probs, cfg.act_bits)
     sel = pap_lib.pap_select(probs, cfg.pap_mode,
                              threshold=cfg.pap_threshold, k=cfg.pap_keep)
 
-    offs = torch.einsum("bnd,dhk->bnhk", query, wq(params["offs_w"])) \
+    offs = torch.einsum("bnd,dhk->bnhk",
+                        *nn.promoted(query, wq(params["offs_w"]))) \
         + params["offs_b"]
     offs = offs.reshape(b, nq, h, lp, 2)
     pidx = sel.point_idx.long()

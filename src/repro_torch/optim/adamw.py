@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterable, Iterator, List
+from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -86,9 +86,13 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig):
-    """Returns (new_params, new_state, metrics {grad_norm, lr})."""
-    gnorm = global_norm(grads)
+def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
+    """Returns (new_params, new_state, metrics {grad_norm, lr}).
+    ``grad_norm`` is the global norm that clips the gradients, given
+    where ``grads`` are one shard of them (a ZeRO update); by default
+    the norm of ``grads``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     lr = lr_at(cfg, step)

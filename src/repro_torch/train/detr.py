@@ -35,7 +35,7 @@ from repro_torch.checkpoint.store import (latest_step, load_checkpoint,
                                           restore_into, save_checkpoint)
 from repro_torch.core.detector import (DetectorConfig, decoder_detection_loss,
                                        detection_loss, detector_apply,
-                                       init_detector)
+                                       detector_logical_axes, init_detector)
 from repro_torch.core.encoder import EncoderConfig
 from repro_torch.core.msdeform_attn import MSDeformAttnConfig
 from repro_torch.data import fold_in
@@ -140,7 +140,8 @@ def detector_api(backend: Optional[str] = "cuda_decode") -> ModelAPI:
         init=init_detector,
         loss_fn=lambda params, cfg, batch: _detection_loss(params, cfg, batch,
                                                            backend),
-        forward=None, init_cache=None, prefill=None, decode_step=None)
+        forward=None, init_cache=None, prefill=None, decode_step=None,
+        axes=detector_logical_axes)
 
 
 def detection_batches(cfg: DetectorConfig, batch: int, seed: int = 0,

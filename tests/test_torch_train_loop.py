@@ -313,7 +313,8 @@ def test_launcher_crashes_and_resumes(tmp_path, capsys):
     assert launch.main(argv) == 0
     out = capsys.readouterr().out
     assert "restored checkpoint step=2" in out and "[train] done" in out
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 "
+                       "devices, found 1"):
         launch.main(argv + ["--production-mesh"])
     if not torch.cuda.is_available():           # the default is the card
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
