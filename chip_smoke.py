@@ -98,7 +98,10 @@ Phases, each printing one JSON line:
                 and through torch_gather, DEFA also served by a
                 DetrServeEngine; auto within 0.02 of torch_gather, served
                 within 0.02 of detector_apply, exact AP above 0.1; beside
-                the reference's 0.271 / 0.228;
+                the reference's 0.271 / 0.228; run in a child process
+                (``chip_smoke.py --accuracy``) under deterministic
+                algorithms and CUBLAS_WORKSPACE_CONFIG=:4096:8, so that
+                the AP is one number per tree;
      lm_train — minitron-4b at its published widths with the depth cut to 2
                 layers (bf16): the train step at grad_accum 1 and 2 on one
                 data/tokens batch (B 4 x 256), the accum-2 params within a
@@ -205,6 +208,26 @@ Phases, each printing one JSON line:
                 psum against the same ranks in-process (bitwise) and, on
                 2 or more ranks, EP over the wire; K1-K5 are not on this
                 path (their launch counts are recorded, 0);
+     dryrun   — the port's dry run (``repro_torch.launch.dryrun``): (a)
+                fake traces (FakeTensorMode, a fake process group of 256
+                ranks, the 16 x 16 mesh) of minitron-4b train_4k,
+                olmoe-1b-7b decode_32k under --opt (expert parallel),
+                hymba-1.5b long_500k (length-sharded cache),
+                deformable-detr-defa serve at auto and its banded cell:
+                peak per rank, fits, the three roofline terms, the kernel
+                operators called; (b) the DETR serve cell (B = 64, full
+                width, auto: K1 6 times) and minitron-4b decode_32k (full
+                widths, 2 layers, B = 8: K5) traced fake and run for real
+                on a world of one NCCL rank: argument bytes and FLOPs
+                equal, the card's peak within 1 % below and 5 % + 256 MiB
+                above the fake run's, the median step at or above the
+                roofline, the launches the fake run's operator calls; (c)
+                the banded cell at 2 bands: bytes per bf16 block and image
+                equal the distributed phase's CommStats and the halo
+                formula; (d) lm_train's config with remat off, "nothing"
+                and "save_comm" (and off again): loss bitwise, gradient
+                leaves differing only where the second off run differs,
+                the step's peak and ms;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
@@ -222,6 +245,12 @@ Phases, each printing one JSON line:
 times only the table-gradient chain of the train step's first backward
 pass, with the port package under ``SRC`` (for example an unpacked
 parent commit's ``src``), and prints it as one JSON line.
+
+    python3 chip_smoke.py --host-cost SRC
+
+times, with the port package under ``SRC``, one eager minitron-4b decode
+step at B = 4 and one eager 512 px forward at ``auto``, and the host time
+per wrapper call of K5 and K1 (run it for two trees in turns).
 
     python3 chip_smoke.py --dist-world N
 
@@ -3589,15 +3618,18 @@ def profile(fn, calls=1):
 def kernel_device_split(fn, kernel_names, calls=20):
     """Device time per call of ``fn`` in each kernel whose name contains
     one of ``kernel_names`` (a name or a tuple of names: every kernel one
-    wrapper call launches), keyed by that name; profiler, CUPTI. Empty
-    when the profiler records no device time on this machine."""
+    wrapper call launches, once each), keyed by that name; profiler,
+    CUPTI. Each kernel's time is the mean over the launches the profiler
+    recorded: it may drop records (it kept 1 of 20 once), so dividing
+    its total by ``calls`` would undercount. Empty when the profiler
+    records no device time on this machine."""
     names = (kernel_names,) if isinstance(kernel_names, str) else kernel_names
     dev, _, _ = profile(fn, calls)
     split = {}
     for e in dev:
         for n in names:
             if n in e.key and _device_us(e) > 0:
-                split[n] = split.get(n, 0.0) + _device_us(e) / calls / 1e3
+                split[n] = split.get(n, 0.0) + _device_us(e) / e.count / 1e3
     return split
 
 
@@ -4610,10 +4642,12 @@ def dist_rank_main():
     # a second step from the first's state: the first call's one-time
     # costs (communicators, DTensor dispatch caches) are behind it
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     second = step(new, lbatch)
     torch.cuda.synchronize()
     second_ms = (time.perf_counter() - t0) * 1e3
+    second_peak = torch.cuda.max_memory_allocated()
     del second
     res["train_step"] = {"arch": LM_ARCH, "layers": cfg.n_layers,
                          "mesh": list(tshape), "batch": [DIST_TRAIN_BATCH,
@@ -4623,7 +4657,8 @@ def dist_rank_main():
                          "loss_limit": LM_ACCUM_LOSS_RTOL,
                          "params": agree, "bitwise_single_card": bitwise,
                          "placements_as_specs": placements_ok,
-                         "step_ms": step_ms, "second_step_ms": second_ms}
+                         "step_ms": step_ms, "second_step_ms": second_ms,
+                         "second_step_peak_bytes": second_peak}
     if not (agree["held"] and loss_rel <= LM_ACCUM_LOSS_RTOL and placements_ok):
         raise AssertionError(f"distributed sharded step: {res['train_step']}")
 
@@ -4746,6 +4781,408 @@ def phase_distributed(device):
          worlds=worlds, banded_block=blocks, banded_stack=stacks, ep=ep,
          compressed_psum=psum, nccl=nccl, kernel_launches=counts,
          seconds=time.perf_counter() - t0)
+    return stacks
+
+
+
+# --------------------------------------------------------------------------
+# dryrun: the dry run's fake traces, and two cells held against the card
+# --------------------------------------------------------------------------
+
+# (a) fake traces on the single-pod mesh (16 x 16): (arch, shape, --opt)
+DRYRUN_LM_CELLS = (("minitron-4b", "train_4k", False),
+                   ("olmoe-1b-7b", "decode_32k", True),   # EP under --opt
+                   ("hymba-1.5b", "long_500k", False))
+DRYRUN_DETR = "deformable-detr-defa"
+# (b) against the card on a mesh of one rank: minitron-4b decode_32k at
+# full widths, depth and batch cut
+DRYRUN_LM_LAYERS = 2
+DRYRUN_LM_BATCH = 8
+DRYRUN_REPS = 5
+# the card's peak against the fake run's: it may not fall more than 1 %
+# below (every tensor the fake run counts is allocated for real), and may
+# rise 5 % + 256 MiB above it: the fake run does not see what an op
+# allocates inside itself (cuBLAS and sort workspaces, K5's split
+# partials) nor the allocator's rounding of each block to 512 B
+DRYRUN_PEAK_BELOW = 0.01
+DRYRUN_PEAK_ABOVE = 0.05
+DRYRUN_PEAK_SLACK = 256 * 2 ** 20
+DRYRUN_BANDS = 2
+REMAT_POLICIES = (("off", {"remat": False}),
+                  ("nothing", {"remat": True, "remat_policy": "nothing"}),
+                  ("save_comm", {"remat": True, "remat_policy": "save_comm"}))
+REMAT_STEPS = 3
+
+
+def dryrun_summary(res):
+    rf, mem = res["roofline"], res["memory"]
+    return {"meta": res["meta"], "flops": res["cost"]["flops"],
+            "argument_bytes": mem["argument_bytes"],
+            "output_bytes": mem["output_bytes"], "temp_bytes": mem["temp_bytes"],
+            "peak_bytes_per_chip": mem["peak_bytes_per_chip"],
+            "fits": res["fits"]["fits"],
+            "collective_bytes": res["collectives"]["total_bytes"],
+            "handed_bytes": res["collectives"]["handed_bytes"],
+            "by_kind": res["collectives"]["by_kind"],
+            **{k: rf[k] for k in ("t_compute_s", "t_memory_s",
+                                  "t_collective_s", "roofline_step_s",
+                                  "dominant", "useful_flops_ratio")},
+            "kernels": res["trace"]["kernels"],
+            "planned_for": res["trace"]["planned_for"],
+            "trace_s": res["timings"]["trace_s"]}
+
+
+def dryrun_fake_cells():
+    """(a): each cell traced once on fake tensors on the card, in a fake
+    world of 256 ranks."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape, opt in DRYRUN_LM_CELLS:
+        res = dryrun.run_fake(dryrun.lm_cell(arch, shape, opt), "single")
+        out[f"{arch}/{shape}" + ("/opt" if opt else "")] = dryrun_summary(res)
+    for kind, kw in (("serve", {"backend": "auto"}), ("banded", {})):
+        res = dryrun.run_fake(dryrun.detr_cell(DRYRUN_DETR, kind, **kw),
+                                 "single")
+        out[f"{DRYRUN_DETR}/{kind}"] = dryrun_summary(res)
+    moe = out["olmoe-1b-7b/decode_32k/opt"]
+    if out[f"{DRYRUN_DETR}/serve"]["kernels"] != {"msgs_fused": 6} \
+            or moe["kernels"] != {"flash_decode": 16}:
+        raise AssertionError(f"dryrun: kernel operators {out}")
+    return out
+
+
+def dryrun_against_card(device):
+    """(b): two cells traced fake and run for real on a mesh of one rank:
+    argument bytes and FLOPs equal, the card's peak within the stated
+    band of the fake run's, the median step at or above the roofline, and
+    the kernels the fake run called launched once each per call."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    one = ((1, 1), ("data", "model"))
+    shape = dataclasses.replace(SHAPES["decode_32k"],
+                                global_batch=DRYRUN_LM_BATCH)
+    SHAPES_DECODE_BATCH = SHAPES["decode_32k"].global_batch
+    cells = {f"{DRYRUN_DETR}/serve": dryrun.detr_cell(
+                 DRYRUN_DETR, "serve", backend="auto"),
+             "minitron-4b/decode_32k": dryrun.lm_cell(
+                 "minitron-4b", shape, n_layers=DRYRUN_LM_LAYERS)}
+    out = {}
+    for name, make_cell in cells.items():
+        fake = dryrun.run_fake(make_cell, None, mesh_shape=one)
+        torch.cuda.empty_cache()
+        before = kernel_counts()
+        real = dryrun.run_real(make_cell, device, reps=DRYRUN_REPS,
+                               mesh_shape=one)
+        launched = {k: v / real["calls"] for k, v in counts_since(before).items()
+                    if v}
+        torch.cuda.empty_cache()
+        want = fake["memory"]["peak_bytes_per_chip"]
+        lo = want * (1 - DRYRUN_PEAK_BELOW)
+        hi = want * (1 + DRYRUN_PEAK_ABOVE) + DRYRUN_PEAK_SLACK
+        median_ms = statistics.median(real["step_ms"])
+        rec = {"fake": dryrun_summary(fake),
+               "reduced": {"n_layers": [lm_config().n_layers, DRYRUN_LM_LAYERS],
+                           "global_batch": [SHAPES_DECODE_BATCH, DRYRUN_LM_BATCH]}
+               if "minitron" in name else {},
+               "real_flops": real["flops"],
+               "real_argument_bytes": real["argument_bytes"],
+               "real_peak_bytes": real["peak_bytes"],
+               "peak_ratio": real["peak_bytes"] / want,
+               "peak_limits": [lo, hi], "step_ms": real["step_ms"],
+               "median_ms": median_ms,
+               "roofline_step_ms": fake["roofline"]["roofline_step_s"] * 1e3,
+               "launches_per_call": launched}
+        rec["held"] = {
+            "argument_bytes": real["argument_bytes"]
+            == fake["memory"]["argument_bytes"],
+            "flops": real["flops"] == int(fake["cost"]["flops"]),
+            "peak": lo <= real["peak_bytes"] <= hi,
+            "roofline": median_ms >= rec["roofline_step_ms"],
+            "launches": launched == {k: float(v) for k, v in
+                                     fake["trace"]["kernels"].items()}}
+        out[name] = rec
+        if not all(rec["held"].values()):
+            raise AssertionError(f"dryrun against the card, {name}: {rec}")
+    return out
+
+
+def dryrun_banded(stacks):
+    """(c): the banded cell's fake trace at 2 bands against the bytes the
+    in-process ranks handed the collectives (the distributed phase's
+    CommStats) and the halo formula, per bf16 block and image."""
+    from repro_torch.configs.detr_family import CONFIGS
+    from repro_torch.launch import dryrun
+    res = dryrun.run_fake(
+        dryrun.detr_cell(DRYRUN_DETR, "banded", batch=DIST_BATCH), None,
+        mesh_shape=((1, DRYRUN_BANDS), ("data", "model")))
+    per = CONFIGS[DRYRUN_DETR].encoder.n_blocks * DIST_BATCH
+    sent = res["collectives"]["by_kind"]["collective-permute"]["handed_bytes"]
+    stack = next(r for r in stacks if r["bands"] == DRYRUN_BANDS)
+    rec = {"bands": DRYRUN_BANDS, "batch": DIST_BATCH,
+           "fake_bytes_per_block_image": sent / per,
+           "comm_stats_bytes_per_block_image": stack["sent_bytes_per_block_image"],
+           "formula_bytes": stack["formula_bytes"],
+           "param_gather_bytes": res["collectives"]["by_kind"]
+           .get("all-gather", {}).get("handed_bytes", 0)}
+    if not rec["fake_bytes_per_block_image"] \
+            == rec["comm_stats_bytes_per_block_image"] == rec["formula_bytes"]:
+        raise AssertionError(f"dryrun banded bytes: {rec}")
+    return rec
+
+
+def remat_grads(cfg, state, batch):
+    """(loss, gradient leaves) of one forward and backward."""
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import value_and_grad
+    (loss, _), grads = value_and_grad(get_api(cfg).loss_fn, state.params,
+                                      cfg, batch)
+    return loss, tree_leaves(grads)
+
+
+def remat_fake_peak(cfg, batch):
+    """Bytes a fake trace of ``remat_grads`` (the dry run's memory
+    tracker) holds at its peak above its parameters and batch: the
+    forward and backward's prediction of the card's."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.library import card_stand_in
+    from repro_torch.launch.hlo_stats import TraceStats
+    from repro_torch.train.step import make_train_state
+    with FakeTensorMode(allow_non_fake_inputs=True), card_stand_in():
+        fake_batch = {k: torch.empty(v.shape, dtype=v.dtype)
+                      for k, v in batch.items()}
+        state = make_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu")
+        stats = TraceStats()
+        stats.arguments((state.params, fake_batch))
+        with stats:
+            remat_grads(cfg, state, fake_batch)
+    return int(stats.peak - stats.argument_bytes)
+
+
+def dryrun_remat(device):
+    """(d): lm_train's config (minitron-4b widths, 2 layers, bf16, B 4 x
+    256) with remat off, "nothing" and "save_comm", and off once more:
+    loss and gradients against the first off run (a leaf may differ only
+    where the second off run differs too: the embedding's backward adds
+    with atomics); the forward and backward's peak above what was
+    allocated before it (each remat policy's below off's, as a fake
+    trace predicts), the train step's peak and ms."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenDataConfig, synth_token_batch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import build_train_step, make_train_state
+    base = lm_train_config()
+    data = TokenDataConfig(vocab_size=base.vocab_size, seq_len=LM_TRAIN_SEQ,
+                           global_batch=LM_TRAIN_BATCH, seed=SEED)
+    batch = synth_token_batch(data, 0, device=device)
+    opt = OptConfig(lr=LM_TRAIN_LR, warmup_steps=0, total_steps=10)
+    ref_loss = ref_grads = None
+    out = {}
+    for name, kw in REMAT_POLICIES + (("off_again", {"remat": False}),):
+        cfg = dataclasses.replace(base, **kw)
+        torch.cuda.empty_cache()
+        state = make_train_state(
+            cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loss, grads = remat_grads(cfg, state, batch)
+        torch.cuda.synchronize()
+        fwd_bwd_peak = torch.cuda.max_memory_allocated()
+        if ref_grads is None:
+            ref_loss, ref_grads = loss, [g.clone() for g in grads]
+        differ = [i for i, (g, w) in enumerate(zip(grads, ref_grads))
+                  if not torch.equal(g, w)]
+        worst = max((float((g.float() - w.float()).abs().max())
+                     for g, w in zip(grads, ref_grads)), default=0.0)
+        del grads
+        step = build_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(REMAT_STEPS + 1):
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"loss": float(loss),
+                     "loss_bitwise": bool(torch.equal(loss, ref_loss)),
+                     "grad_leaves_differing": differ,
+                     "grad_max_abs_diff": worst,
+                     "fwd_bwd_peak_bytes": fwd_bwd_peak,
+                     "fwd_bwd_peak_above_start_bytes": fwd_bwd_peak - start,
+                     "fwd_bwd_fake_peak_above_start_bytes":
+                         remat_fake_peak(cfg, batch),
+                     "step_peak_bytes": torch.cuda.max_memory_allocated(),
+                     "step_ms": ms[1:],
+                     "step_ms_median": statistics.median(ms[1:])}
+        del state, step
+    noise = set(out["off_again"]["grad_leaves_differing"])
+    for name in ("nothing", "save_comm"):
+        rec = out[name]
+        rec["held"] = rec["loss_bitwise"] and set(
+            rec["grad_leaves_differing"]) <= noise and (
+            rec["fwd_bwd_peak_above_start_bytes"]
+            < out["off"]["fwd_bwd_peak_above_start_bytes"])
+        if not rec["held"]:
+            raise AssertionError(f"dryrun remat {name}: {out}")
+    out["rule"] = ("loss bitwise the off run's; a gradient leaf differs only "
+                   "where a second off run differs too; the forward and "
+                   "backward's peak above its start below off's")
+    return out
+
+
+def phase_dryrun(device, stacks):
+    """The dry run (``repro_torch.launch.dryrun``) on the card: (a) fake
+    traces on the single-pod mesh, (b) two cells fake and for real on a
+    mesh of one rank, (c) the banded cell's bytes against the in-process
+    ranks', (d) remat off / nothing / save_comm on lm_train's config."""
+    import torch
+    t0 = time.perf_counter()
+    # in a fresh interpreter: importing the dry run's modules loads neither
+    # JAX nor the fake process group (only a dry run's functions do)
+    probe = ("import sys; import repro_torch.launch.dryrun, "
+             "repro_torch.launch.hlo_stats, repro_torch.launch.input_specs, "
+             "repro_torch.launch.detr_cells; print(sorted(m for m in "
+             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro') "
+             "or m.endswith('distributed.fake_pg')))")
+    src = str(Path(__file__).resolve().parent / "src")
+    loaded = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                            text=True, timeout=120,
+                            env=dict(os.environ, PYTHONPATH=src))
+    if loaded.returncode != 0 or loaded.stdout.strip() != "[]":
+        raise AssertionError(f"dryrun: importing repro_torch.launch loaded "
+                             f"{loaded.stdout.strip()} {loaded.stderr[-2000:]}")
+    fake = dryrun_fake_cells()
+    t_fake = time.perf_counter() - t0
+    against = dryrun_against_card(device)
+    banded = dryrun_banded(stacks)
+    remat = dryrun_remat(device)
+    torch.cuda.empty_cache()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if loaded:
+        raise AssertionError(f"dryrun: the port loaded {loaded}")
+    emit("dryrun", fake_single_pod=fake, against_card=against,
+         banded=banded, remat=remat, fake_seconds=t_fake,
+         seconds=time.perf_counter() - t0)
+
+
+
+# --------------------------------------------------------------------------
+# host cost of the kernels' wrappers (``--host-cost SRC``)
+# --------------------------------------------------------------------------
+
+HOST_COST_STEPS = 50             # eager steps per path (after a warm-up)
+HOST_COST_CALLS = 200            # back-to-back wrapper calls, no synchronize
+
+
+def enqueue_us(fn, calls=HOST_COST_CALLS):
+    """Host microseconds per call of ``calls`` back-to-back calls of
+    ``fn`` (no synchronize between them: the wrapper's and the
+    dispatcher's host work, the device running behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def host_cost(device, src):
+    """Eager wall clock of one minitron-4b decode step at B = 4 (full
+    width, random bf16 weights, a 4096-slot cache; 32 K5 calls) and of
+    one 512 px forward at ``auto`` (B = 2; 6 K1 and 6 K2 calls), and the
+    host time per wrapper call of K5 and K1 on those paths' operands,
+    with the port package under ``src`` (run it for two trees in turns)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.detector import detector_apply, init_detector
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_api
+    cfg = lm_config()
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                      device=device)
+    cache = api.init_cache(cfg, LM_MAX_BATCH, LM_CACHE_LEN, device=device)
+    tokens = torch.zeros(LM_MAX_BATCH, dtype=torch.int32, device=device)
+    pos = torch.tensor(LM_PROMPTS, dtype=torch.int32, device=device)
+
+    def decode():
+        with torch.inference_mode():
+            api.decode_step(params, cfg, cache, tokens, pos)
+    lm = wall_stats(decode, n=HOST_COST_STEPS)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((LM_MAX_BATCH, cfg.n_heads, cfg.dh), generator=gen,
+                    device=device).to(cfg.dtype)
+    kv = torch.randn((LM_MAX_BATCH, LM_CACHE_LEN, cfg.n_kv_heads, cfg.dh),
+                     generator=gen, device=device).to(cfg.dtype)
+    valid = torch.ones((LM_MAX_BATCH, LM_CACHE_LEN), dtype=torch.bool,
+                       device=device)
+    k5_us = enqueue_us(lambda: ops.flash_decode(q, kv, kv, valid))
+    del params, cache, q, kv
+    torch.cuda.empty_cache()
+    dcfg = slice_config("deformable-detr-defa")
+    dparams = init_detector(dcfg, torch.Generator().manual_seed(SEED),
+                            device=device)
+    x = torch.from_numpy(np.stack(seeded_images(MAX_BATCH))).to(device)
+
+    def forward():
+        with torch.inference_mode():
+            detector_apply(dparams, dcfg, x, backend="auto")
+    det = wall_stats(forward, n=HOST_COST_STEPS)
+    from repro_torch.msda.plan import level_shapes_for_resolution
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    pts, n_pix = synthetic_points(cpu_gen, (MAX_BATCH, 21760, 8, 4),
+                                  level_shapes_for_resolution(IMG), device)
+    v = torch.randn((MAX_BATCH, n_pix, 8, 32), generator=cpu_gen).to(device)
+    k1_us = enqueue_us(lambda: ops.msgs_fused(v, *pts))
+    emit("host_cost", src=str(src), lm_decode_step_b4=lm,
+         detector_512_forward_b2=det, k5_wrapper_host_us=k5_us,
+         k1_wrapper_host_us=k1_us, calls=HOST_COST_CALLS,
+         custom_ops=hasattr(torch.ops, "repro_torch")
+         and hasattr(torch.ops.repro_torch, "flash_decode"))
+
+
+# --------------------------------------------------------------------------
+# the accuracy phase in a child (``--accuracy``): deterministic algorithms
+# --------------------------------------------------------------------------
+
+def accuracy_child(device):
+    """``chip_smoke.py --accuracy``: the accuracy phase under
+    torch.use_deterministic_algorithms(True), in a child process run with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (the flag reaches no other phase)."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    phase_accuracy(device)
+
+
+def phase_accuracy_deterministic():
+    """The accuracy phase in a child process (``--accuracy``) under
+    deterministic algorithms, its lines relayed: every such training
+    gives one AP, where default algorithms draw it from the encoder's
+    scatter-add order."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--accuracy"], env=env, capture_output=True,
+                          text=True, timeout=900)
+    rec = None
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase": "accuracy"'):
+            rec = json.loads(line)
+    if proc.returncode != 0 or rec is None:
+        sys.stderr.write(proc.stderr[-6000:])
+        raise AssertionError(f"--accuracy child exited {proc.returncode}")
+    return rec
 
 
 def main() -> int:
@@ -4760,7 +5197,8 @@ def main() -> int:
         return 2
     chain_src = None
     child = sys.argv[1:] == ["--train-loop"]
-    if sys.argv[1:2] == ["--table-grad-chain"] and len(sys.argv) == 3:
+    if sys.argv[1:2] in (["--table-grad-chain"], ["--host-cost"]) \
+            and len(sys.argv) == 3:
         chain_src = Path(sys.argv[2]).resolve()
     src = chain_src or Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -4779,12 +5217,19 @@ def main() -> int:
     if child:
         train_loop_child(device)
         return 0
+    if sys.argv[1:] == ["--accuracy"]:
+        accuracy_child(device)
+        return 0
 
     smi = phase_device()
     if sys.argv[1:2] == ["--dist-world"] and len(sys.argv) == 3:
         # only the NCCL world of that many ranks, one per card
         with tempfile.TemporaryDirectory() as scratch:
             dist_nccl_world(int(sys.argv[2]), scratch)
+        return 0
+    if sys.argv[1:2] == ["--host-cost"] and chain_src is not None:
+        phase_build()
+        host_cost(device, chain_src)
         return 0
     if chain_src is not None:
         emit("table_grad_chain", src=str(chain_src),
@@ -4801,12 +5246,13 @@ def main() -> int:
     mixed = serve_mixed(device)
     train = phase_train(device)
     loop = phase_train_loop()
-    phase_accuracy(device)
+    phase_accuracy_deterministic()
     phase_lm_train(device, loop["lm_fault_tolerant"])
     lm = phase_lm_serve(device)
     families = phase_lm_families(device)
     stream = phase_stream(device, serve)
-    phase_distributed(device)
+    stacks = phase_distributed(device)
+    phase_dryrun(device, stacks)
     emit("capture", detector_512=serve["capture"],
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,

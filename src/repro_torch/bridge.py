@@ -19,6 +19,7 @@ from typing import Any, Callable, List
 
 import numpy as np
 import torch
+from torch._guards import active_fake_mode
 
 
 def resolve_device(device) -> torch.device:
@@ -52,13 +53,27 @@ def host_constant(fn: Callable) -> Callable:
     call. A forward built from these functions makes the copy once, the
     first time it runs. The tensor is built outside inference mode and
     autograd, so a model that trains can use it as well as a server;
-    callers only read it."""
-    @functools.lru_cache(maxsize=256)
-    def cached(*args):
+    callers only read it. Under a fake mode (a shape-only trace) it is
+    built anew and not cached: a fake tensor must never reach a real
+    run."""
+    def build(*args):
         with torch.inference_mode(False), torch.no_grad():
             return fn(*args)
+    cached = functools.lru_cache(maxsize=256)(build)
     HOST_CONSTANTS.append(cached)
-    return functools.wraps(fn)(cached)
+
+    @functools.wraps(fn)
+    def get(*args):
+        return build(*args) if fake_mode_active() else cached(*args)
+    get.cache_info = cached.cache_info
+    get.cache_clear = cached.cache_clear
+    return get
+
+
+def fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is tracing (tensors made now are
+    shape-only)."""
+    return active_fake_mode() is not None
 
 
 def host_constant_misses() -> int:

@@ -2,10 +2,16 @@
 ``repro/distributed/act_sharding.py``).
 
 Models are mesh-agnostic, so the policy rides a context variable set by
-the launch layer. The MoE reads :func:`model_axis_size` to take its
-expert-parallel path. The reference's ``constrain_*`` hints are not
-ported: the port's model paths compute on plain tensors, where each
-would be a no-op (ROADMAP.md)."""
+the launch layer (the dry run's ``--opt`` cells, through
+``launch.input_specs._maybe_policy``). The MoE reads
+:func:`model_axis_size` to take its expert-parallel path. The
+reference's ``constrain_*`` hints (and ``layers._constrain_attn``) are
+not ported: they pin the sharding of activations that XLA's SPMD
+partitioner computes on, where the port's model paths compute on plain
+tensors, gathered whole on each rank, so each would be an identity. They
+wait for tensor-parallel compute (ROADMAP.md section 1), and with them
+the reference's ``seq_shard`` flag (the pure-DP strategy's sequence
+sharding, which only those hints read) and ``policy_active``."""
 from __future__ import annotations
 
 import contextlib

@@ -19,7 +19,8 @@ version :func:`flash_decode_plain` only when the tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernel splits W
 over blocks (:func:`decode_splits`), reads the K and V rows of the valid
 slots only, and merges the splits in a second pass; ``LAUNCHES`` counts
-wrapper calls that launched.
+wrapper calls that launched. The launch is the operator
+``repro_torch::flash_decode`` (:mod:`repro_torch.kernels.library`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.library import kernel_op, on_card
 from repro_torch.kernels.msgs_fused import (check_device, raise_on_error,
                                             sm_count, stream_ptr)
 
@@ -161,7 +163,20 @@ def _entry():
     return fn
 
 
-def _launch(q, k, v, valid, chunk) -> torch.Tensor:
+def _fake(q, k, v, valid, chunk):
+    return torch.empty_like(q)
+
+
+def _flops(q, k, *_, out_shape=None, **__) -> int:
+    """4 operations per channel, query head and slot (the score's
+    multiply-add and P.V's), every slot valid."""
+    b, hq, dh = q
+    return 4 * dh * hq * b * k[1]
+
+
+@kernel_op("flash_decode", fake=_fake, flops=_flops)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: torch.Tensor, chunk: int) -> torch.Tensor:
     global LAUNCHES
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
@@ -194,6 +209,6 @@ def flash_decode(q, k, v, valid, *, chunk: int = 512) -> torch.Tensor:
     ``q.dtype``. CUDA tensors launch the kernel; CPU tensors run the
     plain version."""
     _check(q, k, v, valid, chunk)
-    if q.device.type == "cpu":
+    if not on_card(q):
         return flash_decode_plain(q, k, v, valid, chunk=chunk)
     return _launch(q, k, v, valid, chunk)

@@ -16,7 +16,9 @@ element before a float32 product, as the TPU kernel's ``_mm_q_kernel``).
 :func:`matmul` checks its operands and takes the plain PyTorch version
 :func:`matmul_plain` only when the tensors lie on the CPU; for CUDA
 tensors it launches a kernel or raises. ``LAUNCHES`` counts wrapper
-calls that launched, ``LAUNCHES_BY_ROUTE`` the same by route.
+calls that launched, ``LAUNCHES_BY_ROUTE`` the same by route. The
+launch is the operator ``repro_torch::matmul``
+(:mod:`repro_torch.kernels.library`).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_decode import refuse_autograd
+from repro_torch.kernels.library import kernel_op, on_card
 from repro_torch.kernels.msgs_fused import (check_device, raise_on_error,
                                             sm_count, stream_ptr)
 
@@ -163,7 +166,17 @@ def _wgmma_entry():
     return fn
 
 
-def _launch(x, w, w_scale) -> torch.Tensor:
+def _fake(x, w, w_scale=None):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _flops(x, w, *_, out_shape=None, **__) -> int:
+    return 2 * x[0] * x[1] * w[1]
+
+
+@kernel_op("matmul", fake=_fake, flops=_flops)
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            w_scale: Optional[torch.Tensor]) -> torch.Tensor:
     global LAUNCHES
     m, k = x.shape
     n = w.shape[1]
@@ -198,6 +211,6 @@ def matmul(x, w, w_scale: Optional[torch.Tensor] = None, *, bm: int = 128,
     their own fixed tiles). CUDA tensors launch the kernel of
     :func:`matmul_route`'s route; CPU tensors run the plain version."""
     _check(x, w, w_scale, bm, bn, bk)
-    if x.device.type == "cpu":
+    if not on_card(x):
         return matmul_plain(x, w, w_scale, bm=bm, bn=bn, bk=bk)
     return _launch(x, w, w_scale)

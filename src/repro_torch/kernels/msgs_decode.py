@@ -27,19 +27,23 @@ through :class:`MsgsDecode`, a ``torch.autograd.Function``: on CUDA
 tensors it launches the forward kernel and, in the backward pass, the
 backward kernel; on CPU tensors it takes the plain versions
 :func:`msgs_decode_plain` and :func:`msgs_decode_backward_plain`.
-``LAUNCHES`` and ``LAUNCHES_BWD`` count the two kernels' launches.
+``LAUNCHES`` and ``LAUNCHES_BWD`` count the two kernels' launches. The
+launches are the operators ``repro_torch::msgs_decode`` and
+``repro_torch::msgs_decode_backward`` (:mod:`repro_torch.kernels.library`);
+the staging is a reshape and a copy, traced as it is.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.library import kernel_op, no_tensor, numel, on_card
 from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
-                                            GatherPlan,
+                                            GatherPlan, point_flops,
                                             check_device, check_gather_sizes,
                                             check_points, check_remap,
                                             check_table, gather_plan,
@@ -50,6 +54,12 @@ from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
 LAUNCHES = 0
 #: Number of backward kernel launches made by this module's wrappers.
 LAUNCHES_BWD = 0
+
+#: K2 backward per channel: <v_c, g> (multiply, add) for every valid corner
+#: of every point, and p w_c g (multiply) plus its add into the row's sum
+#: for every valid corner of a live point.
+FLOPS_PER_CHANNEL_CORNER_DOT = 2
+FLOPS_PER_CHANNEL_CORNER_SCATTER = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,8 +291,21 @@ def table_plan(vp: torch.Tensor, n_items: int, head_pack: int,
                        stride=head_pack * dh)
 
 
-def _launch(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack,
-            dh) -> torch.Tensor:
+def _fake(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack, dh):
+    b, n_layers, nq, h, _ = x_px.shape
+    return vp.new_empty((b, n_layers, nq, h, dh), dtype=out_dtype(vp.dtype))
+
+
+def _flops(vp, x_px, *_, out_shape=None, **__) -> int:
+    return point_flops(x_px, out_shape[-1])
+
+
+@kernel_op("msgs_decode", fake=_fake, flops=_flops)
+def _launch(vp: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
+            start: torch.Tensor, wl: torch.Tensor, hl: torch.Tensor,
+            probs: torch.Tensor, remap: Optional[torch.Tensor],
+            scale: Optional[torch.Tensor], head_pack: int,
+            dh: int) -> torch.Tensor:
     global LAUNCHES
     b, _, n_rows, _ = vp.shape
     _, n_layers, nq, h, k = x_px.shape
@@ -301,16 +324,42 @@ def _launch(vp, x_px, y_px, start, wl, hl, probs, remap, scale, head_pack,
     return out
 
 
-def _launch_backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap,
-                     scale, head_pack, dh, table_grad):
+def _fake_backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap, scale,
+                   head_pack, dh, table_grad):
+    dev = vp.device
+    d_v = torch.empty_like(vp) if table_grad and scale is None \
+        else no_tensor(dev)
+    d_s = no_tensor(dev) if scale is None else torch.empty_like(scale)
+    return (d_v, torch.empty_like(x_px), torch.empty_like(y_px),
+            torch.empty_like(probs), d_s)
+
+
+def _flops_backward(vp, x_px, y_px, start, wl, hl, probs, g_out, *_,
+                    out_shape=None, **__) -> int:
+    """Every corner of every point valid and live: ``<v_c, g>`` and the
+    scatter of ``p w_c g`` for each of the 4 corners."""
+    return g_out[-1] * 4 * numel(x_px) * (FLOPS_PER_CHANNEL_CORNER_DOT
+                                          + FLOPS_PER_CHANNEL_CORNER_SCATTER)
+
+
+@kernel_op("msgs_decode_backward", fake=_fake_backward, flops=_flops_backward)
+def _launch_backward(vp: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
+                     start: torch.Tensor, wl: torch.Tensor, hl: torch.Tensor,
+                     probs: torch.Tensor, g_out: torch.Tensor,
+                     remap: Optional[torch.Tensor],
+                     scale: Optional[torch.Tensor], head_pack: int, dh: int,
+                     table_grad: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
     """Every output and the scratch are ``torch.empty``, sized from the
     shapes alone: the kernels write each element once, and nothing waits
-    for the host."""
+    for the host. ``g_out`` is float32 and contiguous; an output not
+    computed (d_v without ``table_grad`` or of int8 codes, d_s of a float
+    table) is an empty placeholder."""
     global LAUNCHES_BWD
     b, _, n_rows, _ = vp.shape
     _, n_layers, nq, h, k = x_px.shape
     dev = vp.device
-    g = g_out.to(torch.float32).contiguous()
     d_x, d_y, d_p = (torch.empty_like(t) for t in (x_px, y_px, probs))
     plan = table_plan(vp, n_layers * nq * h, head_pack, dh)
     table_grad = table_grad and scale is None
@@ -325,17 +374,18 @@ def _launch_backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap,
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev) \
         if nbytes.value else None
     n_pix = 0 if remap is None else remap.shape[1]
-    g_plan = gather_plan(dh, 4, pointer_alignment(g))
+    g_plan = gather_plan(dh, 4, pointer_alignment(g_out))
     with torch.cuda.device(dev):
         code = _entry("msgs_decode_bwd", "msgs_decode_backward")(
             TABLE_CODES[vp.dtype], ptr(vp), ptr(x_px), ptr(y_px), ptr(start),
-            ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(g),
+            ptr(wl), ptr(hl), ptr(probs), ptr(remap), ptr(scale), ptr(g_out),
             ptr(d_v), ptr(d_s), ptr(d_x), ptr(d_y), ptr(d_p), ptr(scratch),
             *sizes, n_pix, *plan_args(plan), *plan_args(g_plan),
             stream_ptr(dev))
     LAUNCHES_BWD += 1
     raise_on_error(code, "msgs_decode_backward")
-    return d_v, d_x, d_y, d_p, d_s
+    return (no_tensor(dev) if d_v is None else d_v, d_x, d_y, d_p,
+            no_tensor(dev) if d_s is None else d_s)
 
 
 def msgs_decode_backward(staged: DecodeStagedTable, x_px, y_px, start, wl, hl,
@@ -360,13 +410,17 @@ def _backward(vp, x_px, y_px, start, wl, hl, probs, g_out, remap, scale,
               head_pack, dh, table_grad):
     """``table_grad`` False (the staged table needs no gradient) skips the
     table gradient, and on the card its corner keys and table kernel."""
-    if vp.device.type == "cpu":
+    if not on_card(vp):
         d_v, *rest = msgs_decode_backward_plain(
             vp, x_px, y_px, start, wl, hl, probs, g_out, remap, scale,
             head_pack=head_pack, dh=dh)
         return (d_v if table_grad else None, *rest)
-    return _launch_backward(vp, x_px, y_px, start, wl, hl, probs, g_out,
-                            remap, scale, head_pack, dh, table_grad)
+    d_v, d_x, d_y, d_p, d_s = _launch_backward(
+        vp, x_px, y_px, start, wl, hl, probs,
+        g_out.to(torch.float32).contiguous(), remap, scale, head_pack, dh,
+        table_grad)
+    return (d_v if d_v.numel() else None, d_x, d_y, d_p,
+            None if scale is None else d_s)
 
 
 class MsgsDecode(torch.autograd.Function):
@@ -383,7 +437,7 @@ class MsgsDecode(torch.autograd.Function):
     def forward(ctx, vp, x_px, y_px, start, wl, hl, probs, remap, scale,
                 head_pack, dh):
         pts = (x_px, y_px, start, wl, hl, probs)
-        if vp.device.type == "cpu":
+        if not on_card(vp):
             out = msgs_decode_plain(vp, *pts, remap, scale,
                                     head_pack=head_pack, dh=dh)
         else:

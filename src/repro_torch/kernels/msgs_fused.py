@@ -12,7 +12,8 @@ after aggregation.
 :func:`msgs_fused` and :func:`msgs_fused_packed` check their operands
 and then take the plain PyTorch version :func:`msgs_fused_plain` only
 when the tensors lie on the CPU; for CUDA tensors they launch the kernel
-or raise. ``LAUNCHES`` counts kernel launches.
+or raise. ``LAUNCHES`` counts kernel launches. The launch is the
+operator ``repro_torch::msgs_fused`` (:mod:`repro_torch.kernels.library`).
 
 The kernel is the gather engine of ``csrc/msgs_gather.cuh``, shared with
 K2 and K3: :func:`gather_plan` says how the lanes of a warp cover a table row
@@ -26,8 +27,14 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.library import kernel_op, on_card, numel
+
 #: Number of CUDA kernel launches made by this module's wrappers.
 LAUNCHES = 0
+
+#: Eq. 4 per channel per live point: 5 add/sub + 3 mul inside the corner
+#: differences, 3 add/mul to combine them, then p * S + acc (K1, K2, K3).
+FLOPS_PER_CHANNEL_POINT = 13
 
 #: table dtype -> the C entry's ``table_dtype`` code
 TABLE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -253,7 +260,25 @@ def _entry():
     return fn
 
 
-def _launch(v, x_px, y_px, start, wl, hl, probs, remap, scale) -> torch.Tensor:
+def _fake(v, x_px, y_px, start, wl, hl, probs, remap=None, scale=None):
+    b, _, h, dh = v.shape
+    return v.new_empty((b, x_px.shape[1], h, dh), dtype=out_dtype(v.dtype))
+
+
+def point_flops(points_shape, dh: int) -> int:
+    """Eq. 4's operations for every point of ``points_shape`` live."""
+    return numel(points_shape) * dh * FLOPS_PER_CHANNEL_POINT
+
+
+def _flops(v, x_px, *_, out_shape=None, **__) -> int:
+    return point_flops(x_px, v[3])
+
+
+@kernel_op("msgs_fused", fake=_fake, flops=_flops)
+def _launch(v: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
+            start: torch.Tensor, wl: torch.Tensor, hl: torch.Tensor,
+            probs: torch.Tensor, remap: Optional[torch.Tensor],
+            scale: Optional[torch.Tensor]) -> torch.Tensor:
     global LAUNCHES
     b, n_rows, h, dh = v.shape
     _, nq, _, k = x_px.shape
@@ -288,7 +313,7 @@ def msgs_fused(v, x_px, y_px, start, wl, hl, probs,
     pts = (x_px, y_px, start, wl, hl, probs)
     refuse_autograd("msgs_fused", v, x_px, y_px, probs, scale)
     _check(v, pts, remap, scale)
-    if v.device.type == "cpu":
+    if not on_card(v):
         return msgs_fused_plain(v, *pts, remap=remap, scale=scale)
     return _launch(v, *pts, remap, scale)
 

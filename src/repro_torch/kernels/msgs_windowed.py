@@ -19,23 +19,27 @@ its tile in the table :func:`query_tiles` builds with the geometry.
 :func:`msgs_windowed_msp` checks its operands and takes the plain
 PyTorch version :func:`msgs_windowed_msp_plain` only when the tensors
 lie on the CPU; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches. The launch is the operator
+``repro_torch::msgs_windowed`` (:mod:`repro_torch.kernels.library`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.bridge import host_constant
+from repro_torch.kernels.library import kernel_op, on_card
 from repro_torch.kernels.msgs_fused import (MAX_HEAD_DIM, TABLE_CODES,
                                             check_device, check_gather_sizes,
                                             check_remap, check_table,
                                             gather_plan,
-                                            out_dtype, pointer_alignment,
+                                            out_dtype, point_flops,
+                                            pointer_alignment,
                                             raise_on_error, refuse_autograd,
                                             stream_ptr)
 
@@ -204,7 +208,7 @@ class _DeviceGeometry(NamedTuple):
     qtile: torch.Tensor        # (N_in,) int32: the tile of each raster query
 
 
-@functools.lru_cache(maxsize=64)
+@host_constant
 def _device_geometry(level_shapes, ranges, tile_q: int,
                      device: str) -> _DeviceGeometry:
     """The geometry's arrays on ``device``, copied there once."""
@@ -217,7 +221,7 @@ def _device_geometry(level_shapes, ranges, tile_q: int,
                            as_t(query_tiles(geo)))
 
 
-@functools.lru_cache(maxsize=64)
+@host_constant
 def _row_limits(w_rows_v: Tuple[int, ...], n_rows: int,
                 device: str) -> torch.Tensor:
     return torch.tensor([n_rows - w for w in w_rows_v], dtype=torch.int32,
@@ -418,19 +422,29 @@ def _entry():
     return fn
 
 
-def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v,
-            starts) -> torch.Tensor:
+def _fake(v, x_px, y_px, lvl_of_pt, probs, remap, scale, qtile, starts,
+          levels, starts_stride):
+    b, _, h, dh = v.shape
+    return v.new_empty((b, x_px.shape[1], h, dh), dtype=out_dtype(v.dtype))
+
+
+def _flops(v, x_px, *_, out_shape=None, **__) -> int:
+    return point_flops(x_px, v[3])
+
+
+@kernel_op("msgs_windowed", fake=_fake, flops=_flops)
+def _launch_op(v: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
+               lvl_of_pt: torch.Tensor, probs: torch.Tensor,
+               remap: Optional[torch.Tensor], scale: Optional[torch.Tensor],
+               qtile: torch.Tensor, starts: torch.Tensor, levels: List[int],
+               starts_stride: int) -> torch.Tensor:
+    """``levels``: per level its height, width, flat start, pixel window
+    and row window (5 L ints, field by field); ``starts_stride``: the
+    starts' batch stride (0 for a dense table's shared starts)."""
     global LAUNCHES
     b, n_rows, h, dh = v.shape
-    x, y, lvl, probs = pts
-    _, nq, _, k = x.shape
-    n_l = len(geo.level_shapes)
-    if n_l > MAX_LEVELS:
-        raise ValueError(f"msgs_windowed: {n_l} levels > {MAX_LEVELS}")
-    # per level: height, width, flat start, pixel window, row window
-    levels = (ctypes.c_int * (5 * n_l))(
-        *[hh for hh, _ in geo.level_shapes], *[ww for _, ww in geo.level_shapes],
-        *geo.level_starts, *geo.w_pix_levels, *w_rows_v)
+    _, nq, _, k = x_px.shape
+    n_l = len(levels) // 5
     out = torch.empty((b, nq, h, dh), dtype=out_dtype(v.dtype), device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     n_pix = 0 if remap is None else remap.shape[1]
@@ -438,15 +452,28 @@ def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v,
     plan = gather_plan(dh, v.element_size(), pointer_alignment(v))
     with torch.cuda.device(v.device):
         code = _entry()(
-            TABLE_CODES[v.dtype], ptr(v), ptr(x), ptr(y), ptr(lvl), ptr(probs),
-            ptr(remap), ptr(dgeo.qtile), ptr(starts), ptr(scale), ptr(out),
-            b, nq, h, k, dh, n_l, n_rows, n_pix,
-            0 if starts.shape[0] == 1 else geo.n_tiles * n_l, levels,
+            TABLE_CODES[v.dtype], ptr(v), ptr(x_px), ptr(y_px), ptr(lvl_of_pt),
+            ptr(probs), ptr(remap), ptr(qtile), ptr(starts), ptr(scale),
+            ptr(out), b, nq, h, k, dh, n_l, n_rows, n_pix, starts_stride,
+            (ctypes.c_int * len(levels))(*levels),
             plan.vec_bytes, plan.group_lanes, plan.lanes_per_row,
             plan.row_chunks, stream_ptr(v.device))
     LAUNCHES += 1
     raise_on_error(code, "msgs_windowed")
     return out
+
+
+def _launch(v, pts, remap, scale, geo, dgeo, w_rows_v,
+            starts) -> torch.Tensor:
+    n_l = len(geo.level_shapes)
+    if n_l > MAX_LEVELS:
+        raise ValueError(f"msgs_windowed: {n_l} levels > {MAX_LEVELS}")
+    levels = [*[hh for hh, _ in geo.level_shapes],
+              *[ww for _, ww in geo.level_shapes],
+              *geo.level_starts, *geo.w_pix_levels, *w_rows_v]
+    return _launch_op(v, *pts, remap, scale, dgeo.qtile, starts,
+                      [int(x) for x in levels],
+                      0 if starts.shape[0] == 1 else geo.n_tiles * n_l)
 
 
 def msgs_windowed_msp(v, x_px, y_px, lvl_of_pt, probs,
@@ -471,7 +498,7 @@ def msgs_windowed_msp(v, x_px, y_px, lvl_of_pt, probs,
     shapes, rngs = _shapes_key(level_shapes), _ranges_key(ranges)
     geo = window_geometry(shapes, rngs, int(tile_q))
     _check(v, pts, remap, keep_idx, scale, geo, head_pack, caps)
-    if v.device.type == "cpu":
+    if not on_card(v):
         return msgs_windowed_msp_plain(
             v, *pts, remap=remap, keep_idx=keep_idx, scale=scale,
             level_shapes=shapes, ranges=rngs, tile_q=tile_q,

@@ -1,17 +1,24 @@
-"""The paper's own workload distributed: the band-sharded DEFA encoder
-serve stack (port of the torch-meaningful part of
-``repro/launch/detr_cells.py``).
+"""Dry-run cells for the paper's own workload: DETR-family encoders built
+on MSDeformAttn (baseline and DEFA-optimized variants); port of
+``repro/launch/detr_cells.py``.
 
-The reference builds AOT-compiled ``Cell``s (sharded input specs for
-``jax.jit(...).lower().compile()``) for its dry runs; those wait for the
-port of the XLA tools. What has a meaning here is the rule table
-(:func:`_detr_rules`) and the banded 6-block serve stack of
-``build_banded_detr_cell``: the DEFA encoder with band-sharded queries
-and values and a range-narrowing-bounded halo exchange over the model
-axis, as a function over a mesh (:func:`build_banded_detr_stack`)."""
+serve: batched encoder inference (the paper's Fig. 9 comparison workload);
+train: encoder fwd+bwd+AdamW with a denoising proxy objective (the same
+sharding and collective structure as full DETR training without hauling
+a conv backbone through the dry run); banded: the DEFA encoder with
+band-sharded queries and values and a range-narrowing-bounded halo
+exchange over the model axis (:func:`build_banded_detr_stack`, the
+function over a mesh, and :func:`build_banded_detr_cell`, its cell).
+
+Each cell's program stores the parameters as the rule table
+(:func:`_detr_rules`) shards them and gathers them whole to compute, as
+the LM cells of ``launch.input_specs`` do. The train cell's encoder
+samples through ``torch_gather``: the kernels K1 and K3 are forward-only
+(the reference's ``pallas_call`` has no autodiff rule either)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -21,11 +28,22 @@ from repro_torch.configs.detr_family import CONFIGS as DETR_CONFIGS
 from repro_torch.core import nn as core_nn
 from repro_torch.core.distributed_msdeform import (band_layout,
                                                    msdeform_attn_banded)
-from repro_torch.core.encoder import EncoderConfig, encoder_logical_axes
+from repro_torch.core.encoder import (EncoderConfig, encoder_apply,
+                                      encoder_logical_axes, init_encoder)
 from repro_torch.core.msdeform_attn import MSDeformAttnConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import CommStats, mesh_shape
-from repro_torch.distributed.sharding import (AxisRules, _BASE, is_logical_axes,
+from repro_torch.distributed.sharding import (AxisRules, P, _BASE, is_spec,
+                                              is_logical_axes,
                                               logical_to_spec, tree_map)
+from repro_torch.launch.input_specs import (Cell, _batch_spec, _meta,
+                                            as_dtensors, gather_tree,
+                                            spmd_program,
+                                            traced_shapes)
+from repro_torch.models.registry import ModelAPI
+from repro_torch.optim.adamw import OptConfig, adamw_init
+from repro_torch.train.step import TrainState, build_sharded_train_step, zero_spec
+from repro_torch.utils.tree import tree_size
 
 
 def _detr_rules(mesh) -> AxisRules:
@@ -119,3 +137,126 @@ def build_banded_detr_stack(name: str, mesh, batch: Optional[int] = None,
 
     return BandedStack(serve_fn, enc_cfg, attn_cfg, level_shapes,
                        padded_shapes, n_pad, param_specs, b_axes)
+
+
+def _param_specs(enc_cfg: EncoderConfig, mesh) -> dict:
+    rules = _detr_rules(mesh)
+    return tree_map(lambda a: logical_to_spec(a, rules),
+                    encoder_logical_axes(enc_cfg), is_leaf=is_logical_axes)
+
+
+def _params_sds(enc_cfg: EncoderConfig) -> dict:
+    return traced_shapes(lambda: init_encoder(
+        enc_cfg, torch.Generator().manual_seed(0), device="cpu"))
+
+
+def _meta_of(arch: str, kind: str, n: int, b: int, mesh, params_sds) -> dict:
+    sizes = mesh_shape(mesh)
+    n_params = tree_size(params_sds)
+    return {"arch": arch, "shape": f"detr_{kind}_b{b}", "kind": kind,
+            "seq_len": n, "global_batch": b, "mesh": dict(sizes),
+            "n_chips": math.prod(sizes.values()), "params": n_params,
+            "active_params": n_params}
+
+
+def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
+                    backend: Optional[str] = None) -> Cell:
+    """serve: ``encoder_apply`` on this rank's images; train: the
+    rolled-target MSE,
+    its gradient and AdamW on ``zero_spec`` moments (``train.step``'s
+    sharded step over a loss-only ``ModelAPI``). ``backend`` is the serve
+    encoder's sampling backend (default: the config's, ``torch_gather``
+    for the family's ``impl="jnp"``, as the reference's cells sample with
+    ``jnp_gather``; ``"auto"`` plans for the card, K1 there)."""
+    acfg = DETR_CONFIGS[name]
+    enc_cfg = acfg.encoder
+    level_shapes = acfg.level_shapes
+    n_in = sum(h * w for h, w in level_shapes)
+    d = enc_cfg.d_model
+    b = batch or (acfg.train_batch if kind == "train" else acfg.serve_batch)
+    dtype = enc_cfg.dtype
+
+    param_specs = _param_specs(enc_cfg, mesh)
+    params_sds = _params_sds(enc_cfg)
+    bspec = _batch_spec(mesh, b)
+    x_sds = _meta((b, n_in, d), dtype)
+    x_sh = P(*bspec, None, None)
+    pos_sds = _meta((n_in, d), dtype)
+    ref_sds = _meta((n_in, 2), torch.float32)
+    rep = P(None, None)
+    meta = _meta_of(name, kind, n_in, b, mesh, params_sds)
+
+    if kind == "serve":
+        def body(ctx, params, x_flat, pos, refs):
+            full = yield from gather_tree(params, param_specs, ctx.size)
+            out, _ = encoder_apply(full, enc_cfg, x_flat, pos, refs,
+                                   level_shapes, backend=backend)
+            return out
+
+        return Cell(name=f"{name}/serve", fn=spmd_program(body, mesh),
+                    in_specs=(params_sds, x_sds, pos_sds, ref_sds),
+                    in_shardings=(param_specs, x_sh, rep, rep),
+                    out_shardings=x_sh, meta=meta, body=body)
+
+    assert kind == "train"
+    opt_cfg = OptConfig()
+    opt_sds = traced_shapes(lambda: adamw_init(params_sds))
+    m_specs = tree_map(lambda sp, p: zero_spec(sp, tuple(p.shape), mesh),
+                       param_specs, params_sds, is_leaf=is_spec)
+    opt_sh = {"m": m_specs, "v": m_specs, "step": P()}
+
+    def loss_fn(p, _cfg, batch):
+        out, _ = encoder_apply(p, enc_cfg, batch["x"], batch["pos"],
+                               batch["refs"], level_shapes,
+                               backend="torch_gather")
+        tgt = torch.roll(batch["x"], 1, dims=1).detach()
+        return torch.mean(torch.square(out - tgt).float()), {}
+
+    api = ModelAPI(*(None,) * len(ModelAPI._fields))._replace(loss_fn=loss_fn)
+    specs = TrainState(param_specs, opt_sh, P())
+    step = build_sharded_train_step(enc_cfg, opt_cfg, mesh, specs, api)
+
+    def train_fn(params, opt, x_flat, pos, refs):
+        state = as_dtensors(TrainState(params, opt, opt["step"]), specs, mesh)
+        new, metrics = step(state, {"x": x_flat, "pos": pos, "refs": refs})
+        return new.params, new.opt, metrics["loss"]
+
+    return Cell(name=f"{name}/train", fn=train_fn,
+                in_specs=(params_sds, opt_sds, x_sds, pos_sds, ref_sds),
+                in_shardings=(param_specs, opt_sh, x_sh, rep, rep),
+                out_shardings=(param_specs, opt_sh, None), meta=meta,
+                donate=(0, 1))
+
+
+def build_banded_detr_cell(name: str, mesh, batch: Optional[int] = None
+                           ) -> Cell:
+    """The banded serve stack (:func:`build_banded_detr_stack`) as a cell:
+    the rank gathers the parameters, then runs its band of its images."""
+    acfg = DETR_CONFIGS[name]
+    enc_cfg = acfg.encoder
+    b = batch or acfg.serve_batch
+    stack = build_banded_detr_stack(name, mesh, batch=b)
+    d = enc_cfg.d_model
+    dtype = enc_cfg.dtype
+    params_sds = _params_sds(enc_cfg)
+    param_specs = stack.param_specs
+    bspec = _batch_spec(mesh, b)
+    x_sh = P(*bspec, "model", None)
+    x_sds = _meta((b, stack.n_pad, d), dtype)
+    pos_sds = _meta((stack.n_pad, d), dtype)
+    ref_sds = _meta((b, stack.n_pad, 2), torch.float32)
+    pos_sh = P("model", None)
+    meta = _meta_of(name + "-banded", "serve", stack.n_pad, b, mesh,
+                    params_sds)
+
+    def gather_params(ctx, params):
+        return (yield from gather_tree(params, param_specs, ctx.size))
+
+    def fn(params, x_flat, pos, refs):
+        full = C.run_spmd(gather_params(C.rank_context(mesh), params), mesh)
+        return stack.fn(full, x_flat, pos, refs)
+
+    return Cell(name=f"{name}-banded/serve", fn=fn,
+                in_specs=(params_sds, x_sds, pos_sds, ref_sds),
+                in_shardings=(param_specs, x_sh, pos_sh, x_sh),
+                out_shardings=x_sh, meta=meta)

@@ -1,0 +1,327 @@
+"""Per-(arch × shape) dry-run cells (port of
+``repro/launch/input_specs.py``).
+
+:func:`build_cell` returns what a dry run needs to trace one cell on a
+mesh: the rank program, shape-only inputs (``meta`` tensors of the global
+shapes, the counterpart of ``jax.ShapeDtypeStruct``: nothing is
+allocated), their PartitionSpecs, and the reference's ``meta``. Kinds:
+
+  train    -> train_step(state, batch)             (fwd+bwd+AdamW update)
+  prefill  -> prefill(params, cache, batch)        (forward + cache write)
+  decode   -> decode_step(params, cache, tok, pos) (one token vs seq_len cache)
+
+The specs are the reference's: parameters and moments by the port's own
+rule table (``train.step.rules_for``, ``train_state_shardings``), the
+batch over the data axes, the cache by :func:`_cache_specs`. Where the
+port departs from the reference is the compute. Under ``jax.jit`` GSPMD
+partitions the compute by those specs; the port's rank program stores
+its shards and GATHERS to compute, as the sharded train step does:
+
+  * ``train``: ``train.step.build_sharded_train_step`` (parameters
+    gathered whole, this rank's rows of the batch, gradients averaged
+    over the data axes, AdamW on this rank's moment shards);
+  * ``prefill`` / ``decode``: a rank body (:func:`_serve_body`, a
+    generator of ``distributed.collectives``) that all-gathers the
+    parameters, and the cache leaves its batch rows need across the
+    model axis and, at ``long_500k`` (the cache's length sharded, the
+    reference's ``shard_len``), the data axis; it runs ``api.prefill``
+    or ``api.decode_step`` on its rows and keeps its own shard of the
+    new cache.
+
+So every rank of a data group computes the whole model for its rows:
+the model axis stores, it does not split the work.
+
+``Cell.fn`` takes this rank's tensors (plain tensors: the slices
+``distributed.collectives.local_slices`` gives of each global leaf) and
+runs on a named ``DeviceMesh``; ``Cell.body``, where the program is one
+rank body, also runs every rank of an ``InProcessMesh`` in one process
+(``collectives.run_in_process``). A cell built on an ``InProcessMesh``
+has its specs and ``meta``; its ``fn`` needs a ``DeviceMesh``."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (P, sanitize_specs_tree,
+                                              spec_placements, specs_for_tree)
+from repro_torch.distributed.sharding import tree_map as spec_tree_map
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.registry import get_api
+from repro_torch.optim.adamw import OptConfig, tree_leaves, tree_unflatten
+from repro_torch.train.step import (TrainState, build_sharded_train_step,
+                                    make_train_state, rules_for, spec_leaves,
+                                    train_state_shardings)
+from repro_torch.utils.tree import tree_map_with_path_str
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    fn: Callable                      # the rank program: fn(*rank_inputs)
+    in_specs: Tuple[Any, ...]         # meta tensors of the global shapes
+    in_shardings: Tuple[Any, ...]     # PartitionSpec trees
+    out_shardings: Any
+    meta: dict
+    donate: Tuple[int, ...] = ()      # donated args (state / cache): in-place
+                                      # updates, as the real launchers run them
+    body: Optional[Callable] = None   # the rank body body(ctx, *rank_inputs),
+                                      # where the program is one
+
+
+def shape_only(tree: Any) -> Any:
+    """A tree's tensors as ``meta`` tensors of the same shape and dtype."""
+    return spec_tree_map(
+        lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+        if isinstance(t, torch.Tensor) else t, tree,
+        is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def traced_shapes(make: Callable[[], Any]) -> Any:
+    """What ``make()`` builds, as meta tensors, without allocating it
+    (built under a ``FakeTensorMode`` on the CPU: the counterpart of
+    ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return shape_only(make())
+
+
+def _batch_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in C.mesh_shape(mesh))
+
+
+def _nshard(mesh, axes: tuple) -> int:
+    sizes = C.mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _batch_spec(mesh, b: int) -> P:
+    axes = _batch_axes(mesh)
+    if b % _nshard(mesh, axes) == 0:
+        return P(axes if len(axes) > 1 else axes[0])
+    return P(None)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _batch_sds(cfg: ModelConfig, b: int, seq: int, mesh, train: bool):
+    """Shape-only tensors + specs for one input batch."""
+    bspec = _batch_spec(mesh, b)
+    s_tok = seq + 1 if train else seq
+    sds = {"tokens": _meta((b, s_tok), torch.int32)}
+    sh = {"tokens": bspec}
+    if cfg.family == "vlm":
+        n_txt = s_tok - cfg.n_img_tokens
+        sds["tokens"] = _meta((b, n_txt), torch.int32)
+        sds["img_embeds"] = _meta((b, cfg.n_img_tokens, cfg.d_model),
+                                  cfg.dtype)
+        sh["img_embeds"] = P(*bspec, None, None)
+    if cfg.family == "encdec":
+        sds["frames"] = _meta((b, cfg.enc_seq_len, cfg.d_model), cfg.dtype)
+        sh["frames"] = P(*bspec, None, None)
+    return sds, sh
+
+
+def _cache_specs(cfg: ModelConfig, mesh, b: int, shard_len: bool) -> Callable:
+    """PartitionSpec per cache leaf, keyed by leaf name."""
+    sizes = C.mesh_shape(mesh)
+    bspec = _batch_spec(mesh, b)
+    b_axes = bspec[0] if len(bspec) else None
+    model_ok = cfg.n_kv_heads % sizes.get("model", 1) == 0
+    kv_ax = "model" if model_ok and sizes.get("model", 1) > 1 else None
+    len_ax = "data" if shard_len and "data" in sizes else None
+
+    def spec_for(path: str, leaf) -> P:
+        name = path.split("/")[-1]
+        if name in ("k", "v"):
+            return P(None, b_axes, len_ax, kv_ax, None)
+        if name == "kpos":
+            return P(None, b_axes, len_ax)
+        if name in ("mem_k", "mem_v"):
+            return P(None, b_axes, None, kv_ax, None)
+        if name == "ssm":
+            return P(None, b_axes, None, None, None)
+        if name == "conv":
+            return P(None, b_axes, None, None)
+        return P(*([None] * leaf.dim()))
+    return spec_for
+
+
+def _cache_sds_and_shardings(cfg: ModelConfig, mesh, b: int, cache_len: int,
+                             shard_len: bool):
+    api = get_api(cfg)
+    sds = traced_shapes(lambda: api.init_cache(cfg, b, cache_len, device="cpu"))
+    specs = tree_map_with_path_str(_cache_specs(cfg, mesh, b, shard_len), sds)
+    return sds, specs
+
+
+def _maybe_policy(fn: Callable, mesh, policy: bool) -> Callable:
+    """O1-O4: wrap a cell fn so it runs under the activation-sharding
+    policy when ``policy`` is set (the --opt dry run's cells); baseline
+    runs stay without. In the port the policy moves only the MoE (onto
+    its expert-parallel path, where the model axis divides the experts);
+    the ``constrain_*`` hints are not ported
+    (``distributed.act_sharding``)."""
+    if not policy:
+        return fn
+    from repro_torch.distributed.act_sharding import activation_policy
+    baxes = _batch_axes(mesh)
+    baxes = baxes if len(baxes) > 1 else baxes[0]
+
+    def wrapped(*args, **kw):
+        with activation_policy(mesh, baxes):
+            return fn(*args, **kw)
+    return wrapped
+
+
+# --------------------------------------------------------------------------
+# rank programs
+# --------------------------------------------------------------------------
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def gather_dims(x: torch.Tensor, spec, sizes, dims=None):
+    """Rank body step: ``x``'s shards gathered along ``dims`` (default:
+    every sharded dim), each dim over its axes minor to major, so the
+    shards land in the order ``local_slices`` cut them; an axis of one
+    rank (``sizes``) holds the whole dim already."""
+    for d in range(len(spec)) if dims is None else dims:
+        if d >= len(spec):
+            continue
+        for a in reversed(_axes_of(spec[d])):
+            if sizes[a] > 1:
+                x = yield C.all_gather(a, x, d)
+    return x
+
+
+def gather_tree(tree: Any, specs: Any, sizes, dims=None):
+    """Rank body step: :func:`gather_dims` over every leaf of ``tree``
+    (leaves in ``tree_leaves`` order)."""
+    out = []
+    for x, sp in zip(tree_leaves(tree), spec_leaves(specs)):
+        out.append((yield from gather_dims(x, sp, sizes, dims)))
+    return tree_unflatten(tree, out)
+
+
+#: cache dims a serving rank gathers: the length (dim 2, sharded at
+#: long_500k) and the heads (dim 3); the batch (dim 1) stays its own
+CACHE_GATHER_DIMS = (2, 3)
+
+
+def _serve_body(api, cfg: ModelConfig, kind: str, param_specs, cache_specs):
+    """The rank body of a prefill or decode cell: args (params, cache,
+    batch dict) for prefill, (params, cache, tokens, pos) for decode."""
+    def body(ctx: C.RankContext, params, cache, *rest):
+        full = yield from gather_tree(params, param_specs, ctx.size)
+        need = yield from gather_tree(cache, cache_specs, ctx.size,
+                                      CACHE_GATHER_DIMS)
+        if kind == "prefill":
+            logits, need = api.prefill(full, cfg, need, rest[0])
+        else:
+            logits, need = api.decode_step(full, cfg, need, *rest)
+        for mine, new, sp in zip(tree_leaves(cache), tree_leaves(need),
+                                 spec_leaves(cache_specs)):
+            if mine is not new:           # the gathered dims cut back
+                cut = [s if d in CACHE_GATHER_DIMS else None
+                       for d, s in enumerate(sp)]
+                mine.copy_(new[C.local_slices(cut, new.shape, ctx.size,
+                                              ctx.index)])
+        return logits, cache
+    return body
+
+
+def spmd_program(body: Callable, mesh) -> Callable:
+    """``fn(*rank_inputs)``: ``body`` run on this process's rank of
+    ``mesh`` (a ``DeviceMesh``) by ``collectives.run_spmd``."""
+    def fn(*args):
+        return C.run_spmd(body(C.rank_context(mesh), *args), mesh)
+    return fn
+
+
+def as_dtensors(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's slices of a tree, as DTensors laid out by ``specs``."""
+    from torch.distributed.tensor import DTensor
+    return spec_tree_map(
+        lambda t, sp: DTensor.from_local(t, mesh, spec_placements(sp, mesh),
+                                         run_check=False),
+        tree, specs, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def _train_program(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
+                   specs: TrainState, api=None) -> Callable:
+    """``fn(state, batch)`` on this rank's slices: the state laid out as
+    DTensors, then ``build_sharded_train_step``."""
+    step = build_sharded_train_step(cfg, opt_cfg, mesh, specs, api)
+
+    def fn(state: TrainState, batch: dict):
+        return step(as_dtensors(state, specs, mesh), batch)
+    return fn
+
+
+def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
+               opt_cfg: Optional[OptConfig] = None,
+               policy: bool = False) -> Cell:
+    api = get_api(cfg)
+    sizes = C.mesh_shape(mesh)
+    b, seq = shape.global_batch, shape.seq_len
+    meta = {"arch": arch, "shape": shape.name, "kind": shape.kind,
+            "seq_len": seq, "global_batch": b,
+            "mesh": dict(sizes), "n_chips": _nshard(mesh, tuple(sizes)),
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count()}
+
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or OptConfig()
+        state_sds = traced_shapes(lambda: make_train_state(cfg, device="cpu"))
+        state_specs = train_state_shardings(cfg, mesh, state_sds)
+        batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=True)
+        fn = _maybe_policy(_train_program(cfg, opt_cfg, mesh, state_specs),
+                           mesh, policy)
+        return Cell(name=f"{arch}/{shape.name}", fn=fn,
+                    in_specs=(state_sds, batch_sds),
+                    in_shardings=(state_specs, batch_sh),
+                    out_shardings=(state_specs, None), meta=meta, donate=(0,))
+
+    # serving cells share param shardings (no optimizer)
+    params_sds = traced_shapes(lambda: api.init(cfg, device="cpu"))
+    param_specs = sanitize_specs_tree(
+        specs_for_tree(api.axes(cfg), rules_for(cfg, mesh)), params_sds, mesh)
+
+    if shape.kind == "prefill":
+        cache_sds, cache_sh = _cache_sds_and_shardings(
+            cfg, mesh, b, cache_len=seq, shard_len=False)
+        batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=False)
+        body = _serve_body(api, cfg, "prefill", param_specs, cache_sh)
+        return Cell(name=f"{arch}/{shape.name}",
+                    fn=_maybe_policy(spmd_program(body, mesh), mesh, policy),
+                    in_specs=(params_sds, cache_sds, batch_sds),
+                    in_shardings=(param_specs, cache_sh, batch_sh),
+                    out_shardings=(None, cache_sh), meta=meta, donate=(1,),
+                    body=body)
+
+    assert shape.kind == "decode"
+    shard_len = b == 1                    # SP: long-context shards the cache
+    cache_sds, cache_sh = _cache_sds_and_shardings(
+        cfg, mesh, b, cache_len=seq, shard_len=shard_len)
+    bspec = _batch_spec(mesh, b)
+    tok_sds = _meta((b,), torch.int32)
+    pos_sds = _meta((b,), torch.int32)
+    body = _serve_body(api, cfg, "decode", param_specs, cache_sh)
+    return Cell(name=f"{arch}/{shape.name}",
+                fn=_maybe_policy(spmd_program(body, mesh), mesh, policy),
+                in_specs=(params_sds, cache_sds, tok_sds, pos_sds),
+                in_shardings=(param_specs, cache_sh, bspec, bspec),
+                out_shardings=(None, cache_sh), meta=meta, donate=(1,),
+                body=body)

@@ -4,19 +4,29 @@ body chosen by ``cfg.family``.
 
 Params and cache keep the reference's stacked layout, the layer index
 first, and the reference's ``lax.scan`` over layers becomes a Python loop
-over the layer index. ``remat`` (with ``_remat_policy``) and
-``comm_barrier`` are XLA memory and fusion knobs of the reference's
-training path and have no effect here: activation checkpointing through
-``torch.utils.checkpoint`` is a later item of ROADMAP.md section 1.
-The cache is written in place: :func:`prefill` and :func:`decode_step`
-return the tensors they were given (the SSD leaves ``ssm`` and ``conv``
-too). The encoder-decoder family is ``models/encdec.py``."""
+over the layer index. ``cfg.remat`` is the reference's
+``jax.checkpoint`` of the layer body: when it is set and grad is on,
+:func:`forward` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), so backward recomputes what it needs. With
+``remat_policy="nothing"`` a layer is one region (only its input is
+kept); ``"save_comm"`` makes the mixer and the MLP / MoE each a region
+of its own, so their outputs (the reference's tagged ``attn_out``,
+``ssd_out``, ``mlp_out`` and ``moe_out``) stay as the boundary between
+them and backward recomputes one sublayer at a time. Under ``no_grad``
+nothing changes, as ``jax.checkpoint`` changes nothing in inference, so
+serving and the captured graphs are untouched. ``comm_barrier`` is an
+XLA fusion knob (``optimization_barrier``) with no counterpart in eager
+PyTorch and no effect here. The cache is written in place:
+:func:`prefill` and :func:`decode_step` return the tensors they were
+given (the SSD leaves ``ssm`` and ``conv`` too). The encoder-decoder
+family is ``models/encdec.py``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import resolve_device
 from repro_torch.models import layers as L
@@ -102,26 +112,60 @@ def _hybrid_mix(p, cfg, ya, ym):
                   + rms_norm(p["norm_ssm"], ym, cfg.norm_eps))
 
 
-def _ffn(p, cfg, x):
-    """The second half of a layer: (x + MLP or MoE of its norm, aux)."""
+def _ffn_out(p, cfg, x):
+    """The MLP or MoE of the second half's norm: (mlp_out / moe_out, aux)."""
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = L.moe_apply(p["moe"], cfg, h2)
-        return x + y, aux
-    return x + L.mlp_apply(p["mlp"], h2), None
+        return L.moe_apply(p["moe"], cfg, h2)
+    return L.mlp_apply(p["mlp"], h2), None
+
+
+def _ffn(p, cfg, x):
+    """The second half of a layer: (x + MLP or MoE of its norm, aux)."""
+    y, aux = _ffn_out(p, cfg, x)
+    return x + y, aux
+
+
+def _mixer_out(p, cfg, x, positions, window):
+    """The first half's sublayer on the norm of x: attn_out, ssd_out or
+    the hybrid's mix of both."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    if cfg.family == "ssm":
+        return L.ssd_forward(p["ssd"], cfg, h)
+    if cfg.family == "hybrid":
+        return _hybrid_mix(p, cfg,
+                           L.attn_forward(p["attn"], cfg, h, positions, window),
+                           L.ssd_forward(p["ssd"], cfg, h))
+    return L.attn_forward(p["attn"], cfg, h, positions, window)
 
 
 def _layer_forward(p: dict, cfg: ModelConfig, x, positions, window):
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + _mixer_out(p, cfg, x, positions, window)
     if cfg.family == "ssm":
-        return x + L.ssd_forward(p["ssd"], cfg, h), None
-    if cfg.family == "hybrid":
-        x = x + _hybrid_mix(p, cfg,
-                            L.attn_forward(p["attn"], cfg, h, positions, window),
-                            L.ssd_forward(p["ssd"], cfg, h))
-    else:
-        x = x + L.attn_forward(p["attn"], cfg, h, positions, window)
+        return x, None
     return _ffn(p, cfg, x)
+
+
+def remat_active(cfg) -> bool:
+    """Whether a training forward recomputes its layers in backward."""
+    return bool(cfg.remat) and torch.is_grad_enabled()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` as a checkpointed region: only its inputs are kept
+    for backward, which runs it again."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layer_remat(p: dict, cfg: ModelConfig, x, positions, window):
+    """:func:`_layer_forward` under ``cfg.remat_policy``."""
+    if cfg.remat_policy != "save_comm":
+        return remat(_layer_forward, p, cfg, x, positions, window)
+    x = x + remat(_mixer_out, p, cfg, x, positions, window)
+    if cfg.family == "ssm":
+        return x, None
+    y, aux = remat(_ffn_out, p, cfg, x)
+    return x + y, aux
 
 
 def _layer_prefill(p, cfg, x, positions, cache, window):
@@ -194,9 +238,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor] = Non
     x = params["embed"][tokens.long()] if embeds is None else embeds
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     auxs = []
+    layer = _layer_remat if remat_active(cfg) else _layer_forward
     for i, win in enumerate(window_schedule(cfg)):
-        x, a = _layer_forward(layer_slice(params["layers"], i), cfg, x,
-                              positions, win)
+        x, a = layer(layer_slice(params["layers"], i), cfg, x, positions, win)
         auxs.append(a)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.stack(auxs).sum() if cfg.family == "moe" else \

@@ -6,7 +6,10 @@ precomputed frame embeddings (B, enc_seq_len, D). The encoder is a
 non-causal transformer; the decoder adds cross-attention to the encoder
 memory. Stacked params and caches as in ``models/decoder.py``, the
 reference's ``lax.scan`` a loop over the layer index, and the cache
-written in place. The decoder's self-attention decode goes through
+written in place. With ``cfg.remat`` and grad on, each encoder and
+decoder layer of the training forward is one checkpointed region (the
+reference's ``nothing_saveable`` policy, whatever ``remat_policy``
+says). The decoder's self-attention decode goes through
 ``layers.attn_decode``, so through the flash-decode kernel K5 on the
 card; the cross-attention over the memory stays plain, as in the
 reference."""
@@ -20,7 +23,7 @@ import torch
 from repro_torch.bridge import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
-from repro_torch.models.decoder import layer_slice
+from repro_torch.models.decoder import layer_slice, remat, remat_active
 
 
 # --- encoder ---------------------------------------------------------------
@@ -88,6 +91,13 @@ def _dec_tail(lp, cfg, h, mem_k, mem_v):
     return h + L.mlp_apply(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps))
 
 
+def _dec_layer_fwd(lp, cfg, h, positions, mem):
+    """One decoder layer of the teacher-forced forward."""
+    hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
+    h = h + L.attn_forward(lp["attn"], cfg, hh, positions, 0)
+    return _dec_tail(lp, cfg, h, *_mem_kv(lp["xattn"], mem))
+
+
 # --- full model --------------------------------------------------------------
 
 def init_encdec(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
@@ -125,9 +135,10 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)
     x = frames
+    run = (lambda *a: remat(_enc_layer_fwd, *a)) if remat_active(cfg) \
+        else _enc_layer_fwd
     for i in range(cfg.n_enc_layers):
-        x = _enc_layer_fwd(layer_slice(params["enc_layers"], i), cfg, x,
-                           positions)
+        x = run(layer_slice(params["enc_layers"], i), cfg, x, positions)
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -138,11 +149,10 @@ def forward(params, cfg: ModelConfig, frames: torch.Tensor,
     h = params["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=h.device)
+    run = (lambda *a: remat(_dec_layer_fwd, *a)) if remat_active(cfg) \
+        else _dec_layer_fwd
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["dec_layers"], i)
-        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
-        h = h + L.attn_forward(lp["attn"], cfg, hh, positions, 0)
-        h = _dec_tail(lp, cfg, h, *_mem_kv(lp["xattn"], mem))
+        h = run(layer_slice(params["dec_layers"], i), cfg, h, positions, mem)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return h @ params["head"], torch.zeros((), dtype=torch.float32,
                                            device=h.device)

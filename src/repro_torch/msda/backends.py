@@ -102,9 +102,15 @@ def torch_gather(plan, v: torch.Tensor, pts: SamplingPoints,
     return out
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A point operand as the kernels take it: float32 (a bf16 model's
+    coordinates and probabilities widen exactly), contiguous."""
+    return t.to(torch.float32).contiguous()
+
+
 def _point_operands(pts: SamplingPoints, probs: torch.Tensor):
-    return tuple(t.contiguous() for t in
-                 (pts.x_px, pts.y_px, pts.start, pts.wl, pts.hl, probs))
+    return (_f32(pts.x_px), _f32(pts.y_px), pts.start.contiguous(),
+            pts.wl.contiguous(), pts.hl.contiguous(), _f32(probs))
 
 
 @register_backend("cuda_fused")
@@ -152,8 +158,8 @@ def cuda_windowed(plan, v: torch.Tensor, pts: SamplingPoints,
         # per head group, as the kernel's (batch, group) blocks read it
         scale = scale.reshape(b, h // g, g, v.shape[3])
     return msgs_windowed.msgs_windowed_msp(
-        v.contiguous(), *(t.contiguous() for t in
-                          (pts.x_px, pts.y_px, pts.lvl_of_pt, probs)),
+        v.contiguous(), _f32(pts.x_px), _f32(pts.y_px),
+        pts.lvl_of_pt.contiguous(), _f32(probs),
         remap=pts.pix2slot, keep_idx=pts.keep_idx, scale=scale,
         level_shapes=plan.level_shapes, ranges=cfg.range_narrow,
         tile_q=plan.tile_q, head_pack=g, caps=caps)

@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.bridge import resolve_device
 from repro_torch.core import fwp as fwp_lib
+from repro_torch.kernels.library import stood_in_card
 from repro_torch.msda.ordering import resolve_query_order
 
 #: The static default of both budgets when the plan is for the CPU: the
@@ -111,11 +112,15 @@ def platform_of(device=None) -> Tuple[str, Optional[int]]:
     """(platform key, L2 bytes) of the device a plan is for: ``("cpu",
     None)``, or ``("cuda:" + the card's name, its L2_cache_size)``. A
     ``"cuda"`` device raises without a GPU; ``None`` is the card when one
-    is present, else the CPU."""
+    is present, else the CPU. Inside a fake trace that stands for a card
+    (``kernels.library.card_stand_in``) the CPU is that card."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     dev = resolve_device(device)
     if dev.type == "cpu":
+        card = stood_in_card()
+        if card is not None:
+            return "cuda:" + card.name, card.l2_bytes
         return "cpu", None
     return _card(dev.index if dev.index is not None
                  else torch.cuda.current_device())

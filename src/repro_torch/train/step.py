@@ -264,12 +264,12 @@ def build_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
     api = api or get_api(cfg)
     grads_of = _loss_and_grads(cfg, api)
     axes = data_axes(mesh)
-    ctx = C.rank_context(mesh)
     m_specs = spec_leaves(specs.opt["m"])
     p_place = [spec_placements(sp, mesh) for sp in spec_leaves(specs.params)]
     m_place = [spec_placements(sp, mesh) for sp in m_specs]
 
     def mine(full, spec):
+        ctx = C.rank_context(mesh)
         return full[C.local_slices(spec, full.shape, ctx.size, ctx.index)]
 
     def train_step(state: TrainState, batch: dict):

@@ -49,6 +49,36 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert not bad, bad
 
 
+def _module_level_imports(path: Path):
+    """Imports outside every function body of a module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def test_scan_covers_the_dry_run_and_keeps_the_fake_world_lazy():
+    """The dry run's modules are scanned, and no port module imports
+    PyTorch's internal testing package (the fake process group) when it
+    is imported: only the dry-run functions that make a fake world do."""
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for mod in ("dryrun", "hlo_stats", "input_specs", "detr_cells"):
+        assert f"src/repro_torch/launch/{mod}.py" in names
+    lazy = [f"{f.relative_to(ROOT)} imports {m}" for f in _port_files()
+            for m in _module_level_imports(f) if m.startswith("torch.testing")]
+    assert not lazy, lazy
+    probe = ROOT / "src" / "repro_torch" / "launch" / "dryrun.py"
+    assert "torch.testing._internal.distributed.fake_pg" in probe.read_text()
+
+
 def test_scan_detects_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import repro_torch\nfrom repro.core import nn\n"
