@@ -4036,7 +4036,7 @@ def lm_step_ms(fn, reps=5):
     return statistics.median(ts), torch.cuda.max_memory_allocated()
 
 
-def lm_times(lm, families):
+def lm_times(lm, families, tp):
     """K5 on the served path's first decode call (and its operands in
     float32), on hymba-1.5b's first served decode call and on a full cache
     in bf16 and float32, K4 on minitron-4b's
@@ -4046,7 +4046,7 @@ def lm_times(lm, families):
     from repro_torch.models.decoder import decode_step, init_cache, prefill
     cfg, params, dev = lm["cfg"], lm["params"], lm["tokens"].device
     k5, d5 = k5_entry(*lm["k5_call"], lm["launches"]["flash_decode"]
-                      + families["launches"])
+                      + families["launches"] + tp["launches"])
     gen = torch.Generator().manual_seed(SEED + 4)
     keep = ("ms", "ms_source", "by_kernel", "call_ms", "plain_ms", "library_ms",
             "max_abs_err")
@@ -4055,6 +4055,11 @@ def lm_times(lm, families):
     e, bd = k5_entry(*families["k5_call"], families["launches"])
     d5["hymba_served"] = {k: e[k] for k in keep + ("launches", "bound_ms",
                                                     "bound_by")} | bd
+    # minitron-8b at tp 16: rank 1's first decode call, its 2 query heads
+    # over the one KV head they read (copied out of its whole cache)
+    e, bd = k5_entry(*tp["k5_call"], tp["launches"])
+    d5["tp_rank"] = {k: e[k] for k in keep + ("launches", "bound_ms",
+                                               "bound_by")} | bd
     for label, dtype in (("full_cache", cfg.dtype), ("full_cache_f32", torch.float32),
                          ("served_f32", torch.float32)):
         if label == "served_f32":
@@ -4111,7 +4116,7 @@ def lm_times(lm, families):
     return [k4, k5], {"matmul": d4, "flash_decode": d5}, timing
 
 
-def phase_times(serve, serve_w, train, lm, stream, families):
+def phase_times(serve, serve_w, train, lm, stream, families, tp):
     from repro_torch.kernels import msgs_decode, msgs_fused, msgs_windowed
     kernels = []
     # K1: the last encoder block's call (compact table, pix2slot remap)
@@ -4229,7 +4234,7 @@ def phase_times(serve, serve_w, train, lm, stream, families):
         wrapper_device_ms=sum(_device_us(e) for e in dev) / 20 / 1e3,
         table_grad_chain=table_grad_chain(train["backward_calls"]))
 
-    lm_kernels, lm_detail, lm_timing = lm_times(lm, families)
+    lm_kernels, lm_detail, lm_timing = lm_times(lm, families, tp)
     kernels += lm_kernels
     detail.update(lm_detail)
 
@@ -4722,10 +4727,75 @@ def dist_rank_main():
         res["ep"] = {"tp": world, "max_abs_err": check_close(
             "distributed NCCL EP", out, want, tol), "limit": tol,
             "aux_equal": bool(torch.equal(aux, aux_want))}
+    # --- TP serving on the wire: deepseek-7b's rank bodies, one per card --
+    if world > 1:
+        res["tp"] = dist_tp_serve(device, world, mesh_of)
     dist.barrier()
     if rank == 0:
         emit("distributed_nccl", **res)
     dist.destroy_process_group()
+
+
+def dist_tp_serve(device, world, mesh_of):
+    """One NCCL rank of deepseek-7b served on a (1, world) mesh: the
+    serving rank bodies on this card's parameter and cache shards
+    (``collectives.run_spmd``), fed the one card's greedy tokens; the
+    gathered logits of each prefill and step against this card's one-card
+    path (``logit_limits``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.input_specs import serving_program
+    from repro_torch.models.registry import get_api
+    cfg = get_config(TP_RUNS[0][0])
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                      device=device)
+    prompts = seeded_prompts(cfg.vocab_size, TP_NCCL_PROMPTS)
+    single = tp_single(cfg, params, prompts, TP_NCCL_STEPS, device)
+    mesh = mesh_of((1, world))
+    cache = api.init_cache(cfg, len(prompts), TP_CACHE_LEN, device=device)
+    pre, pspecs, cspecs = serving_program(cfg, mesh, "prefill", params, cache)
+    dec, _, _ = serving_program(cfg, mesh, "decode", params, cache)
+    ctx = C.rank_context(mesh)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    mine = lambda t, sp: t[C.local_slices(sp, t.shape, ctx.size, ctx.index)]
+    rank_params = spec_map(mine, params, pspecs, is_leaf=is_t)
+    rank_cache = spec_map(lambda t, sp: mine(t, sp).clone(), cache, cspecs,
+                          is_leaf=is_t)
+    del cache
+
+    def gathered(logits):
+        parts = [torch.empty_like(logits) for _ in range(world)]
+        dist.all_gather(parts, logits.contiguous())
+        return torch.cat(parts, dim=-1)
+    cmps, step_ms = [], []
+    with torch.inference_mode():
+        for r, prompt in enumerate(prompts):
+            toks = torch.as_tensor(prompt[None], device=device)
+            logits, _ = C.run_spmd(pre(ctx, rank_params, tp_rows(rank_cache, r),
+                                       {"tokens": toks}), mesh)
+            cmps.append(logit_limits(gathered(logits)[0], single["prefill"][r]))
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=device)
+        for i, tok in enumerate(single["tokens"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = C.run_spmd(dec(ctx, rank_params, rank_cache, tok,
+                                       pos + i), mesh)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            cmps.append(logit_limits(gathered(logits), single["decode"][i]))
+    bad = [c for c in cmps if not c["held"]]
+    if bad:
+        raise AssertionError(f"distributed NCCL tp {world}: {bad[0]}")
+    return {"model": cfg.name, "tp": world, "prompts": list(TP_NCCL_PROMPTS),
+            "decode_steps": TP_NCCL_STEPS,
+            "worst_max_abs": max(c["max_abs"] for c in cmps),
+            "worst_median_abs": max(c["median_abs"] for c in cmps),
+            "tp_step_ms": step_ms, "single_step_ms": single["ms"]}
 
 
 def phase_distributed(device):
@@ -5075,6 +5145,247 @@ def phase_dryrun(device, stacks):
 
 
 # --------------------------------------------------------------------------
+# tp: serving on model-axis shards (the dry run's serving rank bodies)
+# --------------------------------------------------------------------------
+
+# (arch, depth cut or None, model-axis sizes, prompt lengths, decode steps)
+TP_RUNS = (("deepseek-7b", None, (2, 4), LM_PROMPTS, 8),
+           # 32 query heads over 8 KV heads on 16: KV heads replicate and
+           # each rank hands K5 the one KV head its 2 query heads read
+           ("minitron-8b", None, (16,), (37, 128), 3),
+           # 8 experts on 16: every expert on each rank's 2,048 FFN columns
+           ("grok-1-314b", 2, (16,), (37, 128), 3))
+TP_CACHE_LEN = 1024
+TP_NCCL_PROMPTS = (37, 128)
+TP_NCCL_STEPS = 2
+
+
+def tp_rows(cache, r):
+    """Row ``r`` of a stacked cache (views: writes reach the cache)."""
+    return {k: v[:, r:r + 1] for k, v in cache.items()}
+
+
+class K5Calls:
+    """While active, records the (q, K) shapes of every ``ops.flash_decode``
+    call (the wrapper itself still launches and counts) and keeps a copy
+    of call ``keep``'s operands."""
+
+    def __init__(self, keep=None):
+        self.keep, self.kept = keep, None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.orig, self.shapes = ops.flash_decode, []
+
+        def k5(q, k, v, valid, **kw):
+            if len(self.shapes) == self.keep:
+                self.kept = ([t.clone() for t in (q, k, v, valid)], dict(kw))
+            self.shapes.append((tuple(q.shape), tuple(k.shape)))
+            return self.orig(q, k, v, valid, **kw)
+        ops.flash_decode = k5
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_decode = self.orig
+
+
+def tp_single(cfg, params, prompts, steps, device):
+    """The one-card path: each prompt prefilled into its row of the cache,
+    then ``steps`` greedy decode steps of all rows together; the prefill
+    and step logits, the fed tokens and the step times."""
+    import torch
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    cache = api.init_cache(cfg, len(prompts), TP_CACHE_LEN, device=device)
+    out = {"prefill": [], "decode": [], "tokens": [], "ms": []}
+    with torch.inference_mode():
+        for r, prompt in enumerate(prompts):
+            toks = torch.as_tensor(prompt[None], device=device)
+            logits, _ = api.prefill(params, cfg, tp_rows(cache, r),
+                                    {"tokens": toks})
+            out["prefill"].append(logits[0])
+        tok = torch.stack(out["prefill"]).argmax(-1).to(torch.int32)
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=device)
+        for i in range(steps):
+            out["tokens"].append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = api.decode_step(params, cfg, cache, tok, pos + i)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["decode"].append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+    del cache
+    return out
+
+
+def tp_in_process(cfg, params, prompts, steps, tp, device, tokens):
+    """The serving rank bodies (``launch.input_specs.serving_program``) of
+    every rank of a (1, tp) mesh in turn on this card, each on its views
+    of the parameters and its own cache shard, fed ``tokens`` (the one
+    card's greedy tokens): the assembled prefill and step logits, K5's
+    calls and launches over the decode steps, times and the peak."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.input_specs import serving_program
+    from repro_torch.models.registry import get_api
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    api = get_api(cfg)
+    mesh = C.InProcessMesh((1, tp), ("data", "model"))
+    full_cache = api.init_cache(cfg, len(prompts), TP_CACHE_LEN, device=device)
+    pre, pspecs, cspecs = serving_program(cfg, mesh, "prefill", params,
+                                          full_cache)
+    dec, _, _ = serving_program(cfg, mesh, "decode", params, full_cache)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    ctxs = [C.RankContext(mesh.coords(r), C.mesh_shape(mesh))
+            for r in range(tp)]
+    # parameters: views of the one card's; caches: each rank's own shard
+    rank_params = [spec_map(lambda t, sp: t[C.local_slices(
+        sp, t.shape, c.size, c.index)], params, pspecs, is_leaf=is_t)
+        for c in ctxs]
+    rank_cache = [spec_map(lambda t, sp: t[C.local_slices(
+        sp, t.shape, c.size, c.index)].clone(), full_cache, cspecs,
+        is_leaf=is_t) for c in ctxs]
+    del full_cache
+
+    def logits_of(outs):
+        return torch.cat([o[0] for o in outs], dim=-1)
+    out = {"prefill": [], "decode": [], "ms": [], "prefill_ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        for r, prompt in enumerate(prompts):
+            toks = torch.as_tensor(prompt[None], device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = C.run_in_process(lambda rank, ctx: pre(
+                ctx, rank_params[rank], tp_rows(rank_cache[rank], r),
+                {"tokens": toks}), mesh)
+            torch.cuda.synchronize()
+            out["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["prefill"].append(logits_of(outs)[0])
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=device)
+        before = kernel_counts()
+        with K5Calls(keep=1) as k5:          # rank 1's first call
+            for i, tok in enumerate(tokens[:steps]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = C.run_in_process(lambda rank, ctx: dec(
+                    ctx, rank_params[rank], rank_cache[rank], tok, pos + i),
+                    mesh)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["decode"].append(logits_of(outs))
+        out["launches"] = counts_since(before)
+    out["peak_above_params_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["k5_shapes"] = sorted({s for s in k5.shapes})
+    out["k5_calls"] = len(k5.shapes)
+    out["k5_kept"] = k5.kept
+    del rank_cache
+    return out
+
+
+def tp_check(cfg, single, got, tp, steps, picks=None):
+    """The in-process ranks' logits against the one card's: each prefill
+    and decode step within ``logit_limits`` (MoE: ``routed_limits``, the
+    ranks' router picks those of rank 0); K5 launched layers x ranks
+    times a step, each call on n_heads / tp query heads."""
+    n_attn = cfg.n_layers
+    if got["launches"]["flash_decode"] != n_attn * tp * steps:
+        raise AssertionError(f"tp {cfg.name} x{tp}: {got['launches']} K5 "
+                             f"launches over {steps} steps")
+    heads = {q[1] for q, _ in got["k5_shapes"]}
+    if heads != {cfg.n_heads // tp if cfg.n_heads % tp == 0 else cfg.n_heads}:
+        raise AssertionError(f"tp {cfg.name} x{tp}: K5 query heads {heads}")
+    cmps = [logit_limits(g, w) for g, w in zip(got["prefill"],
+                                                single["prefill"])]
+    for i, (g, w) in enumerate(zip(got["decode"], single["decode"])):
+        if picks is None:
+            cmps.append(logit_limits(g, w))
+        else:
+            n = len(picks["single"][i])
+            cmps.append(routed_limits(g, w, picks["tp"][i][::tp][:n],
+                                      picks["single"][i], i))
+    bad = [c for c in cmps if not c["held"]]
+    if bad:
+        raise AssertionError(f"tp {cfg.name} x{tp}: {bad[0]}")
+    return {"worst_max_abs": max(c["max_abs"] for c in cmps),
+            "worst_median_abs": max(c["median_abs"] for c in cmps),
+            "tol_max_min": min(c["tol_max"] for c in cmps),
+            "tol_median_min": min(c["tol_median"] for c in cmps),
+            "flips": [f for c in cmps for f in c.get("flips", [])],
+            "compared": len(cmps)}
+
+
+def phase_tp(device):
+    """Serving on model-axis shards on this card: TP_RUNS through the
+    serving rank bodies on in-process ranks, each against the one-card
+    path on the same weights and tokens; K5 launched on each rank's heads;
+    the per-step and prefill times of both. With 2 or more cards the NCCL
+    world of ``phase_distributed`` ran the same bodies one rank per card
+    (``distributed_nccl``'s ``tp``)."""
+    import torch
+    from repro_torch.models.registry import get_api
+    t0 = time.perf_counter()
+    rows, launches, first_call = [], 0, None
+    for arch, depth, tps, prompt_lens, steps in TP_RUNS:
+        cfg, reduced = family_config(arch, depth)
+        memory_mark()
+        params = get_api(cfg).init(
+            cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for _, t in leaf_paths(params))
+        prompts = seeded_prompts(cfg.vocab_size, prompt_lens)
+        moe = cfg.family == "moe"
+        with RouterPicks() as sp:
+            single = tp_single(cfg, params, prompts, steps, device)
+        picks_single = tp_split_picks(sp.picks, len(prompts), steps, cfg)
+        for tp in tps:
+            with RouterPicks() as rp:
+                got = tp_in_process(cfg, params, prompts, steps, tp, device,
+                                    single["tokens"])
+            picks = {"single": picks_single, "tp": tp_split_picks(
+                rp.picks, len(prompts), steps, cfg, tp)} if moe else None
+            cmp = tp_check(cfg, single, got, tp, steps, picks)
+            launches += got["launches"]["flash_decode"]
+            if first_call is None and cfg.n_kv_heads % tp:
+                first_call = got["k5_kept"]         # a replicated-KV block
+            rows.append({"model": cfg.name, "tp": tp, "mesh": [1, tp],
+                         "reduced": reduced, "dtype": str(cfg.dtype),
+                         "param_bytes": param_bytes, "prompts": list(prompt_lens),
+                         "decode_steps": steps, "agreement": cmp,
+                         "k5_launches": got["launches"]["flash_decode"],
+                         "k5_calls_shapes": [list(map(list, s))
+                                             for s in got["k5_shapes"]],
+                         "launches": got["launches"],
+                         "tp_step_ms": got["ms"], "single_step_ms": single["ms"],
+                         "tp_prefill_ms": got["prefill_ms"],
+                         "peak_above_params_bytes": got["peak_above_params_bytes"]})
+        del params, single
+    memory_mark()
+    emit("tp", runs=rows, k5_launches=launches,
+         tolerance="logit_limits (max 2^-4, median 2^-8 of the largest "
+                   "|logit|) per prefill and decode step; MoE rows whose "
+                   "router set flipped (first flip's gap < 1e-3): median only",
+         seconds=time.perf_counter() - t0)
+    return {"launches": launches, "k5_call": first_call}
+
+
+def tp_split_picks(picks, n_prompts, steps, cfg, tp=1):
+    """The router records of the decode steps (after the prompts'
+    prefills), one list per step."""
+    if cfg.family != "moe":
+        return None
+    per_call = cfg.n_layers * tp
+    decode = picks[n_prompts * per_call:]
+    return [decode[i * per_call:(i + 1) * per_call] for i in range(steps)]
+
+
+# --------------------------------------------------------------------------
 # host cost of the kernels' wrappers (``--host-cost SRC``)
 # --------------------------------------------------------------------------
 
@@ -5253,12 +5564,13 @@ def main() -> int:
     stream = phase_stream(device, serve)
     stacks = phase_distributed(device)
     phase_dryrun(device, stacks)
+    tp = phase_tp(device)
     emit("capture", detector_512=serve["capture"],
          detector_512_plain=serve["plain_capture"],
          detector_1024=serve_w["capture"], mixed_buckets=mixed,
          lm_decode=lm["capture"], obs_log=serve["obs_log"])
     phase_autotune(device, smi, serve)
-    kernels = phase_times(serve, serve_w, train, lm, stream, families)
+    kernels = phase_times(serve, serve_w, train, lm, stream, families, tp)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

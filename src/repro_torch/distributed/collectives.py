@@ -17,16 +17,23 @@ Two runners run a body, and the caller names which:
   :class:`InProcessMesh` in one process, in turn, each up to its next
   collective, which it then computes over the list of the ranks'
   tensors. This runs an N-rank axis on one card or on the CPU, as the
-  reference's tests run N virtual devices.
+  reference's tests run N virtual devices. Each rank's steps run in a
+  ``contextvars.Context`` of its own, so a context variable a body sets
+  (the tensor-parallel context of ``distributed.act_sharding``) is that
+  rank's alone while the ranks take turns.
+
+:func:`run_local` runs a body that asks for no collective (a model path
+off any mesh) and returns its output.
 
 Both compute every collective with the same operations in the same
-order, so they agree bitwise. A floating-point SUM is an all-gather and
-a sum in rank order (each rank adds the same operands in the same
-order), where a ring all-reduce would add in an order that depends on
-the rank and the chunk; integer sums and MAX, which are exact in any
-order, go through ``all_reduce``. That costs a rank (n-1) times its
-tensor's bytes, so only rank bodies held bitwise to the in-process run
-use it; a data-parallel gradient mean calls ``all_reduce`` itself
+order, so they agree bitwise. A floating-point SUM adds each element's
+operands in rank order, where a ring all-reduce would add in an order
+that depends on the rank and the chunk: on a process group it is an
+all-to-all of the tensors' n chunks, the sum in rank order of the chunk
+each rank receives, and an all-gather of the summed chunks, which costs
+a rank twice its tensor's bytes, as a ring all-reduce does. Integer
+sums and MAX, which are exact in any order, go through ``all_reduce``.
+A data-parallel gradient mean calls ``all_reduce`` itself
 (``train.step``).
 
 On a process group a floating-point SUM or mean carries gradient: each
@@ -36,6 +43,8 @@ only, and :func:`run_spmd` raises if one is handed a tensor that
 requires grad while grad mode is on."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Callable, Dict, Generator, List, NamedTuple, Sequence, Tuple
 
@@ -91,15 +100,38 @@ class RankContext:
 
 @dataclasses.dataclass
 class CommStats:
-    """Bytes each rank handed to the collectives, by op (what it sends)."""
+    """Bytes each rank handed to the collectives, by op (what it sends),
+    and by op and mesh axis (``by_axis[rank][op]["pod/data"]``)."""
     sent: Dict[int, Dict[str, int]] = dataclasses.field(default_factory=dict)
+    by_axis: Dict[int, Dict[str, Dict[str, int]]] = dataclasses.field(
+        default_factory=dict)
 
-    def record(self, rank: int, op: str, nbytes: int) -> None:
+    def record(self, rank: int, req: "Collective") -> None:
+        nbytes = _nbytes(req)
         per = self.sent.setdefault(rank, {})
-        per[op] = per.get(op, 0) + int(nbytes)
+        per[req.op] = per.get(req.op, 0) + nbytes
+        axes = self.by_axis.setdefault(rank, {}).setdefault(req.op, {})
+        key = "/".join(req.axis)
+        axes[key] = axes.get(key, 0) + nbytes
 
     def rank_bytes(self, rank: int = 0) -> int:
         return sum(self.sent.get(rank, {}).values())
+
+
+_RECORDING: contextvars.ContextVar = contextvars.ContextVar(
+    "collective_recording", default=None)
+
+
+@contextlib.contextmanager
+def recording(stats: CommStats):
+    """Inside the block :func:`run_spmd` records into ``stats`` the
+    collectives its rank bodies ask for, where its caller passes none
+    (the dry run's trace of a cell's rank program)."""
+    token = _RECORDING.set(stats)
+    try:
+        yield stats
+    finally:
+        _RECORDING.reset(token)
 
 
 class InProcessMesh:
@@ -193,15 +225,23 @@ def _all_gather_flat(out, x, group):
 
 
 class _WireSum(torch.autograd.Function):
-    """The group's tensors summed in rank order (all-gather, then add);
-    backward, the group's sum of the output's gradients."""
+    """The group's tensors summed in rank order: rank i receives chunk i
+    of every rank's tensor (all-to-all), adds them in rank order, and the
+    summed chunks are gathered; backward, the group's sum of the output's
+    gradients."""
 
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.group = group
-        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-        _all_gather_flat(out, x.reshape(-1), group=group)
-        return _ordered_sum(list(out.view((n,) + tuple(x.shape)).unbind(0)))
+        flat = x.reshape(-1)
+        chunk = -(-flat.numel() // n)
+        send = torch.nn.functional.pad(flat, (0, n * chunk - flat.numel()))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        mine = _ordered_sum(list(recv.view(n, chunk).unbind(0)))
+        out = torch.empty_like(send)
+        _all_gather_flat(out, mine, group=group)
+        return out[:flat.numel()].view(x.shape)
 
     @staticmethod
     def backward(ctx, grad):
@@ -272,6 +312,7 @@ def _finish(req: Collective, out, sizes: Dict[str, int]):
 def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
     """Drive this process's rank body over ``mesh`` (a ``DeviceMesh``);
     returns what the body returns."""
+    stats = stats if stats is not None else _RECORDING.get()
     sizes = mesh_shape(mesh)
     index = {a: int(mesh.get_local_rank(a)) for a in sizes}
     me = dist.get_rank()
@@ -283,7 +324,7 @@ def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
                 raise NotImplementedError(
                     f"{req.op} over a process group carries no gradient")
             if stats is not None:
-                stats.record(me, req.op, _nbytes(req))
+                stats.record(me, req)
             cur = req.tensors
             for op, a in _steps(req):
                 out = _wire_group(op, cur, req.dim, mesh.get_group(a),
@@ -295,16 +336,38 @@ def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
         return stop.value
 
 
+def run_local(body: Generator):
+    """Drive a rank body that asks for no collective; returns its output."""
+    try:
+        req = next(body)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError(f"a {req.op} over {req.axis} asked outside a mesh")
+
+
 def run_in_process(make_body: Callable[[int, RankContext], Generator],
                    mesh: InProcessMesh, stats: CommStats | None = None) -> list:
     """Run the rank bodies of every rank of ``mesh`` in this process:
     ``make_body(rank, ctx)`` makes rank ``rank``'s body. Each runs up to
-    its next collective; once all have asked, the collective runs over
-    the list of their tensors. Returns the ranks' outputs in rank order."""
+    its next collective, in a context of its own; once all have asked,
+    the collective runs over the list of their tensors. Returns the
+    ranks' outputs in rank order."""
     sizes = mesh_shape(mesh)
     bodies = [make_body(r, RankContext(mesh.coords(r), sizes))
               for r in range(mesh.size)]
-    reqs = [next(b) for b in bodies]
+    contexts = [contextvars.copy_context() for _ in bodies]
+    try:
+        return _take_turns(bodies, contexts, mesh, sizes, stats)
+    except BaseException:
+        # a rank failed: close every body in its own context (a body's
+        # context managers reset their variables there)
+        for c, b in zip(contexts, bodies):
+            c.run(b.close)
+        raise
+
+
+def _take_turns(bodies, contexts, mesh, sizes, stats) -> list:
+    reqs = [c.run(next, b) for c, b in zip(contexts, bodies)]
     results: list = [None] * mesh.size
     while True:
         if any(r is None for r in reqs):
@@ -317,7 +380,7 @@ def run_in_process(make_body: Callable[[int, RankContext], Generator],
         req0 = reqs[0]
         if stats is not None:
             for rank, r in enumerate(reqs):
-                stats.record(rank, r.op, _nbytes(r))
+                stats.record(rank, r)
         cur = [r.tensors for r in reqs]
         for op, a in _steps(req0):
             nxt: list = [None] * mesh.size
@@ -336,7 +399,7 @@ def run_in_process(make_body: Callable[[int, RankContext], Generator],
             res = cur[rank] if req0.op == "exchange" \
                 else _finish(req0, cur[rank][0], sizes)
             try:
-                reqs[rank] = b.send(res)
+                reqs[rank] = contexts[rank].run(b.send, res)
             except StopIteration as stop:
                 reqs[rank] = None
                 results[rank] = stop.value

@@ -16,7 +16,12 @@ reference's top-level keys (``meta``, ``cost``, ``memory``,
 ``raw_cost_uncorrected`` and ``collectives_corrected``) plus ``fits``
 (the predicted peak against the card's memory) and ``trace`` (the
 device the trace stood for, what the DETR plans were made for, the
-kernel operators called, the world). Existing results are skipped
+kernel operators called, the world; a serving cell's parameter leaves
+computed whole on every rank, ``input_specs.computed_whole``).
+``collectives["requested"]`` holds the bytes the rank's bodies asked of
+each collective by mesh axis (``collectives.CommStats``), where the
+other counts follow the operators on the wire: a float sum there is an
+all-gather (the rank-order rule of ``distributed.collectives``). Existing results are skipped
 (``--force`` redoes them). The output goes to ``results/dryrun_torch``,
 never to the reference's ``results/dryrun``.
 
@@ -36,8 +41,8 @@ counts a while loop's body once whatever its trip count. The port's
 layers are a Python loop, so one trace counts every layer once each;
 ``raw_cost_uncorrected`` and ``collectives_corrected`` hold that single
 count. A cell that does not fit the card is a result (``fits``), not a
-failure: the port gathers parameters whole, so the largest models do not
-fit. A cell that raises is a failure; failures are collected and the
+failure: the train step gathers parameters whole, and the largest
+models do not fit even split. A cell that raises is a failure; failures are collected and the
 exit code is non-zero, as in the reference."""
 from __future__ import annotations
 
@@ -201,15 +206,19 @@ def trace(cell, mesh, device: Optional[str] = None) -> FakeRun:
         inputs = rank_inputs(cell, mesh, device)
         stats = TraceStats(axis_of_groups(mesh), C.mesh_shape(mesh))
         stats.arguments(inputs)
-        with FlopCounterMode(display=False) as fc, stats:
+        requested = C.CommStats()
+        with FlopCounterMode(display=False) as fc, stats, \
+                C.recording(requested):
             out = cell.fn(*inputs)
         out_bytes = stats.new_bytes(out)
         memory = {"argument_bytes": int(stats.argument_bytes),
                   "output_bytes": int(out_bytes),
                   "temp_bytes": int(max(0, stats.peak - stats.argument_bytes
                                         - out_bytes))}
+    collectives = stats.collectives()
+    collectives["requested"] = requested.by_axis.get(dist.get_rank(), {})
     return FakeRun(int(fc.get_total_flops()), _flops_by_op(fc), memory,
-                   stats.collectives(), dict(stats.kernels), planned_for,
+                   collectives, dict(stats.kernels), planned_for,
                    time.perf_counter() - t0)
 
 
@@ -299,6 +308,8 @@ def result_of(run: FakeRun, cell, world: int, device: str) -> dict:
         "world": world, "planned_for": run.planned_for,
         "kernels": run.kernels, "flops_by_op": run.flops_by_op,
         "torch": torch.__version__}
+    if cell.computed_whole is not None:
+        result["trace"]["computed_whole"] = cell.computed_whole
     result["timings"] = {"trace_s": run.seconds}
     return result
 

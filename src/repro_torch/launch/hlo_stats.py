@@ -22,7 +22,9 @@ Collective bytes keep the reference's ring convention per chip:
 all-gather, reduce-scatter, all-to-all and collective-permute (a
 ``send``) count their result bytes once, all-reduce twice (reduce and
 broadcast phases). ``handed_bytes`` is what the rank hands the
-collectives (their inputs: ``collectives.CommStats``'s convention).
+operators on the wire (their inputs); what a rank body asked of each
+collective (``collectives.CommStats``'s convention) is the dry run's
+``collectives["requested"]``.
 
 Keys the port cannot count are present and ``None`` (listed under
 ``absent``): ``cost["bytes accessed"]`` and ``cost["transcendentals"]``

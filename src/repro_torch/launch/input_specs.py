@@ -12,24 +12,31 @@ allocated), their PartitionSpecs, and the reference's ``meta``. Kinds:
 
 The specs are the reference's: parameters and moments by the port's own
 rule table (``train.step.rules_for``, ``train_state_shardings``), the
-batch over the data axes, the cache by :func:`_cache_specs`. Where the
-port departs from the reference is the compute. Under ``jax.jit`` GSPMD
-partitions the compute by those specs; the port's rank program stores
-its shards and GATHERS to compute, as the sharded train step does:
+batch over the data axes, the cache by :func:`_cache_specs`. Under
+``jax.jit`` GSPMD partitions the compute by those specs; the port's rank
+programs are:
 
-  * ``train``: ``train.step.build_sharded_train_step`` (parameters
-    gathered whole, this rank's rows of the batch, gradients averaged
-    over the data axes, AdamW on this rank's moment shards);
+  * ``train``: ``train.step.build_sharded_train_step``, which still
+    GATHERS (parameters whole, this rank's rows of the batch, gradients
+    averaged over the data axes, AdamW on this rank's moment shards):
+    every rank of a data group computes the whole model for its rows;
   * ``prefill`` / ``decode``: a rank body (:func:`_serve_body`, a
-    generator of ``distributed.collectives``) that all-gathers the
-    parameters, and the cache leaves its batch rows need across the
-    model axis and, at ``long_500k`` (the cache's length sharded, the
-    reference's ``shard_len``), the data axis; it runs ``api.prefill``
-    or ``api.decode_step`` on its rows and keeps its own shard of the
-    new cache.
-
-So every rank of a data group computes the whole model for its rows:
-the model axis stores, it does not split the work.
+    generator of ``distributed.collectives``) that computes on its
+    shards, as the partitioner splits the reference's: it all-gathers
+    only the dims FSDP puts on the data axes (and, at ``long_500k``,
+    the cache's length, which the reference's ``shard_len`` puts on the
+    data axis), then runs ``api.prefill_body`` or ``api.decode_body`` on
+    its rows under ``act_sharding.tensor_parallel``: its heads, KV
+    heads, FFN slice, experts and vocabulary rows, with the model axis's
+    sums where the reference's partitioner reduces
+    (``models/layers.py``). It returns its columns of the logits (the
+    vocabulary split over the model axis where the rules split it) and
+    keeps its own shard of the new cache. Two kinds of leaf are
+    gathered over the model axis too, each named in
+    :func:`model_gathered`: the SSD mixer's (its ``in_xbc`` concatenates
+    x, B and C along the split dim, so no rank's slice is a block of
+    heads it could compute on) and every leaf of a ``pure_dp`` config
+    (ZeRO splits the embed dim over every axis).
 
 ``Cell.fn`` takes this rank's tensors (plain tensors: the slices
 ``distributed.collectives.local_slices`` gives of each global leaf) and
@@ -45,6 +52,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (P, sanitize_specs_tree,
                                               spec_placements, specs_for_tree)
@@ -70,6 +78,9 @@ class Cell:
                                       # updates, as the real launchers run them
     body: Optional[Callable] = None   # the rank body body(ctx, *rank_inputs),
                                       # where the program is one
+    computed_whole: Optional[dict] = None  # serving: the parameter leaves
+                                      # every rank computes whole (see
+                                      # computed_whole())
 
 
 def shape_only(tree: Any) -> Any:
@@ -163,12 +174,37 @@ def _cache_sds_and_shardings(cfg: ModelConfig, mesh, b: int, cache_len: int,
     return sds, specs
 
 
+def _param_specs(cfg: ModelConfig, mesh, params) -> Any:
+    """The serving cells' parameter specs (``params``: any tree of the
+    params' shapes)."""
+    return sanitize_specs_tree(
+        specs_for_tree(get_api(cfg).axes(cfg), rules_for(cfg, mesh)), params,
+        mesh)
+
+
+def serving_program(cfg: ModelConfig, mesh, kind: str, params, cache,
+                    shard_len: bool = False):
+    """(rank body, parameter specs, cache specs) of a serving cell's rank
+    program for a cache of any length: ``params`` and ``cache`` are the
+    global trees (or their shapes), ``kind`` "prefill" or "decode"; the
+    body takes this rank's slices (``collectives.local_slices``) of the
+    params, the cache and the batch (prefill: a batch dict; decode:
+    tokens and positions)."""
+    b = tree_leaves(cache)[0].shape[1]
+    param_specs = _param_specs(cfg, mesh, params)
+    cache_specs = tree_map_with_path_str(_cache_specs(cfg, mesh, b, shard_len),
+                                         cache)
+    body = _serve_body(get_api(cfg), cfg, kind, param_specs, cache_specs)
+    return body, param_specs, cache_specs
+
+
 def _maybe_policy(fn: Callable, mesh, policy: bool) -> Callable:
     """O1-O4: wrap a cell fn so it runs under the activation-sharding
     policy when ``policy`` is set (the --opt dry run's cells); baseline
-    runs stay without. In the port the policy moves only the MoE (onto
-    its expert-parallel path, where the model axis divides the experts);
-    the ``constrain_*`` hints are not ported
+    runs stay without. In the port the policy moves only a train cell's
+    MoE (onto its expert-parallel path, where the model axis divides the
+    experts): a serving cell's rank body takes that path whenever the
+    rules split the experts. The ``constrain_*`` hints are not ported
     (``distributed.act_sharding``)."""
     if not policy:
         return fn
@@ -194,9 +230,9 @@ def _axes_of(entry) -> tuple:
 
 def gather_dims(x: torch.Tensor, spec, sizes, dims=None):
     """Rank body step: ``x``'s shards gathered along ``dims`` (default:
-    every sharded dim), each dim over its axes minor to major, so the
-    shards land in the order ``local_slices`` cut them; an axis of one
-    rank (``sizes``) holds the whole dim already."""
+    every sharded dim), each dim over the axes ``spec`` names for it,
+    minor to major, so the shards land in the order ``local_slices`` cut
+    them; an axis of one rank (``sizes``) holds the whole dim already."""
     for d in range(len(spec)) if dims is None else dims:
         if d >= len(spec):
             continue
@@ -215,31 +251,107 @@ def gather_tree(tree: Any, specs: Any, sizes, dims=None):
     return tree_unflatten(tree, out)
 
 
-#: cache dims a serving rank gathers: the length (dim 2, sharded at
-#: long_500k) and the heads (dim 3); the batch (dim 1) stays its own
-CACHE_GATHER_DIMS = (2, 3)
+#: cache dims a serving rank gathers: the length (dim 2, split over the
+#: data axis at long_500k); the batch (dim 1) and the KV heads (dim 3)
+#: stay its own
+CACHE_GATHER_DIMS = (2,)
+#: the axes a serving rank gathers every parameter leaf over (FSDP's)
+DATA_AXES = ("pod", "data")
+
+
+def _map_specs(fn: Callable, specs, prefix: str = ""):
+    """``fn(path, spec)`` over every leaf of a (dict) spec tree."""
+    if isinstance(specs, P):
+        return fn(prefix, specs)
+    return {k: _map_specs(fn, v, f"{prefix}/{k}" if prefix else k)
+            for k, v in specs.items()}
+
+
+def model_gathered(cfg: ModelConfig, path: str) -> Optional[str]:
+    """Why a serving rank gathers the parameter leaf at ``path`` over the
+    model axis too (None: it computes on its shard)."""
+    if cfg.pure_dp:
+        return "pure_dp: ZeRO splits the embed dim over every axis"
+    if "/ssd/" in f"/{path}/":
+        return ("SSD mixer: in_xbc concatenates x, B and C along the split "
+                "dim, so a rank's slice is no block of heads")
+    return None
+
+
+#: the logical axes the rules may put on the model axis
+MODEL_SPLIT_AXES = ("heads", "kv_heads", "mlp", "expert", "expert_mlp",
+                    "vocab")
+
+
+def computed_whole(cfg: ModelConfig, param_specs, axes, sizes) -> dict:
+    """The parameter leaves every serving rank computes whole on a mesh
+    whose model axis has ``sizes["model"]`` > 1 ranks: ``gathered`` (path
+    -> why, :func:`model_gathered`: split by the rules, gathered by the
+    rank body) and ``replicated`` (leaves with a dim of
+    ``MODEL_SPLIT_AXES`` that the rules leave whole on the model axis,
+    computed whole on every rank, as XLA computes them). ``axes`` is the
+    params' logical-axes tree."""
+    out = {"gathered": {}, "replicated": []}
+
+    def see(path, sp):
+        logical = axes
+        for k in path.split("/"):
+            logical = logical[k]
+        on_model = any("model" in _axes_of(e) for e in sp)
+        why = model_gathered(cfg, path)
+        if on_model and why:
+            out["gathered"][path] = why
+        elif not on_model and set(logical) & set(MODEL_SPLIT_AXES):
+            out["replicated"].append(path)
+    if sizes.get("model", 1) > 1:
+        _map_specs(see, param_specs)
+    return out
+
+
+def _gather_specs(cfg: ModelConfig, param_specs) -> Any:
+    """Each leaf's spec cut to the axes the serving rank gathers it over:
+    the data axes, and the model axis where :func:`model_gathered` says
+    so."""
+    def cut(path, sp):
+        keep = DATA_AXES + (("model",) if model_gathered(cfg, path) else ())
+        return P(*[tuple(a for a in _axes_of(e) if a in keep) or None
+                   for e in sp])
+    return _map_specs(cut, param_specs)
 
 
 def _serve_body(api, cfg: ModelConfig, kind: str, param_specs, cache_specs):
     """The rank body of a prefill or decode cell: args (params, cache,
-    batch dict) for prefill, (params, cache, tokens, pos) for decode."""
+    batch dict) for prefill, (params, cache, tokens, pos) for decode.
+    Returns (this rank's logits, its cache shard)."""
+    gather_specs = _gather_specs(cfg, param_specs)
+
     def body(ctx: C.RankContext, params, cache, *rest):
-        full = yield from gather_tree(params, param_specs, ctx.size)
+        mine = yield from gather_tree(params, gather_specs, ctx.size)
         need = yield from gather_tree(cache, cache_specs, ctx.size,
                                       CACHE_GATHER_DIMS)
-        if kind == "prefill":
-            logits, need = api.prefill(full, cfg, need, rest[0])
-        else:
-            logits, need = api.decode_step(full, cfg, need, *rest)
-        for mine, new, sp in zip(tree_leaves(cache), tree_leaves(need),
-                                 spec_leaves(cache_specs)):
-            if mine is not new:           # the gathered dims cut back
+        with acts.tensor_parallel(ctx):
+            if kind == "prefill":
+                logits, need = yield from api.prefill_body(mine, cfg, need,
+                                                           rest[0])
+            else:
+                logits, need = yield from api.decode_body(mine, cfg, need,
+                                                          *rest)
+        for shard, new, sp in zip(tree_leaves(cache), tree_leaves(need),
+                                  spec_leaves(cache_specs)):
+            if shard is not new:          # the gathered dims cut back
                 cut = [s if d in CACHE_GATHER_DIMS else None
                        for d, s in enumerate(sp)]
-                mine.copy_(new[C.local_slices(cut, new.shape, ctx.size,
-                                              ctx.index)])
+                shard.copy_(new[C.local_slices(cut, new.shape, ctx.size,
+                                               ctx.index)])
         return logits, cache
     return body
+
+
+def logits_spec(cfg: ModelConfig, mesh, b: int) -> P:
+    """How a serving cell's ranks hold the (B, V) logits they return:
+    rows as the batch, columns as the rules split the vocabulary (the
+    head's columns)."""
+    return P(*_batch_spec(mesh, b), rules_for(cfg, mesh).physical("vocab"))
 
 
 def spmd_program(body: Callable, mesh) -> Callable:
@@ -296,8 +408,8 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
 
     # serving cells share param shardings (no optimizer)
     params_sds = traced_shapes(lambda: api.init(cfg, device="cpu"))
-    param_specs = sanitize_specs_tree(
-        specs_for_tree(api.axes(cfg), rules_for(cfg, mesh)), params_sds, mesh)
+    param_specs = _param_specs(cfg, mesh, params_sds)
+    whole = computed_whole(cfg, param_specs, api.axes(cfg), sizes)
 
     if shape.kind == "prefill":
         cache_sds, cache_sh = _cache_sds_and_shardings(
@@ -309,7 +421,7 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
                     in_specs=(params_sds, cache_sds, batch_sds),
                     in_shardings=(param_specs, cache_sh, batch_sh),
                     out_shardings=(None, cache_sh), meta=meta, donate=(1,),
-                    body=body)
+                    body=body, computed_whole=whole)
 
     assert shape.kind == "decode"
     shard_len = b == 1                    # SP: long-context shards the cache
@@ -324,4 +436,4 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
                 in_specs=(params_sds, cache_sds, tok_sds, pos_sds),
                 in_shardings=(param_specs, cache_sh, bspec, bspec),
                 out_shardings=(None, cache_sh), meta=meta, donate=(1,),
-                body=body)
+                body=body, computed_whole=whole)

@@ -19,7 +19,17 @@ XLA fusion knob (``optimization_barrier``) with no counterpart in eager
 PyTorch and no effect here. The cache is written in place:
 :func:`prefill` and :func:`decode_step` return the tensors they were
 given (the SSD leaves ``ssm`` and ``conv`` too). The encoder-decoder
-family is ``models/encdec.py``."""
+family is ``models/encdec.py``.
+
+:func:`prefill_body` and :func:`decode_body` are the serving paths as
+rank bodies (generators of ``distributed.collectives``); :func:`prefill`
+and :func:`decode_step` run them off any mesh, where they ask for no
+collective. Under ``act_sharding.tensor_parallel`` they compute on the
+rank's shards (``models/layers.py``): the embedding looks up the rank's
+rows of the vocabulary and sums over the model axis
+(:func:`embed_lookup`), and the head returns the rank's columns of the
+logits, sharded over the vocabulary as the reference's
+``constrain_batch_model(x @ head, 2)`` leaves them."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -29,6 +39,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
 
@@ -112,12 +124,17 @@ def _hybrid_mix(p, cfg, ya, ym):
                   + rms_norm(p["norm_ssm"], ym, cfg.norm_eps))
 
 
-def _ffn_out(p, cfg, x):
-    """The MLP or MoE of the second half's norm: (mlp_out / moe_out, aux)."""
+def _ffn_out_body(p, cfg, x):
+    """Rank body step: the MLP or MoE of the second half's norm
+    (mlp_out / moe_out, aux)."""
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
-        return L.moe_apply(p["moe"], cfg, h2)
-    return L.mlp_apply(p["mlp"], h2), None
+        return (yield from L.moe_body(p["moe"], cfg, h2))
+    return (yield from L.mlp_body(p["mlp"], cfg, h2)), None
+
+
+def _ffn_out(p, cfg, x):
+    return C.run_local(_ffn_out_body(p, cfg, x))
 
 
 def _ffn(p, cfg, x):
@@ -173,11 +190,13 @@ def _layer_prefill(p, cfg, x, positions, cache, window):
     if cfg.family == "ssm":
         y, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
         return x + y, cache
-    ya, cache = L.attn_prefill(p["attn"], cfg, h, positions, cache, window)
+    ya, cache = yield from L.attn_prefill_body(p["attn"], cfg, h, positions,
+                                               cache, window)
     if cfg.family == "hybrid":
         ym, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
         ya = _hybrid_mix(p, cfg, ya, ym)
-    return _ffn(p, cfg, x + ya)[0], cache
+    x = x + ya
+    return x + (yield from _ffn_out_body(p, cfg, x))[0], cache
 
 
 def _layer_decode(p, cfg, x1, cache, pos, window):
@@ -185,11 +204,13 @@ def _layer_decode(p, cfg, x1, cache, pos, window):
     if cfg.family == "ssm":
         y, cache = L.ssd_decode(p["ssd"], cfg, h, cache)
         return x1 + y, cache
-    ya, cache = L.attn_decode(p["attn"], cfg, h, cache, pos, window)
+    ya, cache = yield from L.attn_decode_body(p["attn"], cfg, h, cache, pos,
+                                              window)
     if cfg.family == "hybrid":
         ym, cache = L.ssd_decode(p["ssd"], cfg, h, cache)
         ya = _hybrid_mix(p, cfg, ya, ym)
-    return _ffn(p, cfg, x1 + ya)[0], cache
+    x1 = x1 + ya
+    return x1 + (yield from _ffn_out_body(p, cfg, x1))[0], cache
 
 
 def layer_slice(tree: dict, i: int) -> dict:
@@ -262,18 +283,61 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def embed_lookup(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor):
+    """Rank body step: the rows of ``tokens``. On the rank's rows of a
+    vocabulary split over the model axis, a masked lookup (zero rows for
+    ids outside them) and the sum over the axis, exact: one rank adds
+    each row."""
+    ids = tokens.long()
+    n = table.shape[0]
+    if n == cfg.vocab_size:
+        return table[ids]
+    tp = acts.tensor_parallel_context()
+    ids = ids - tp.index * n
+    inside = (ids >= 0) & (ids < n)
+    rows = torch.where(inside[..., None], table[ids.clamp(0, n - 1)], 0)
+    return (yield C.psum(tp.axis, rows))
+
+
+def prefill_body(params: dict, cfg: ModelConfig, cache: dict,
+                 tokens: Optional[torch.Tensor] = None,
+                 embeds: Optional[torch.Tensor] = None,
+                 prefix: Optional[torch.Tensor] = None):
+    """Rank body of :func:`prefill`; ``prefix`` (B, P, D) embeddings go
+    before the tokens' (the vlm's image patches)."""
+    check_family(cfg)
+    x = embeds if embeds is not None else \
+        (yield from embed_lookup(params["embed"], cfg, tokens))
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for i, win in enumerate(window_schedule(cfg)):
+        x, _ = yield from _layer_prefill(layer_slice(params["layers"], i),
+                                         cfg, x, positions,
+                                         layer_slice(cache, i), win)
+    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return (x @ params["head"])[:, 0].float(), cache
+
+
 def prefill(params: dict, cfg: ModelConfig, cache: dict,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None):
     """Prefill S tokens into the cache; returns (last-position logits (B,V)
     float32, cache)."""
+    return C.run_local(prefill_body(params, cfg, cache, tokens, embeds))
+
+
+def decode_body(params: dict, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos):
+    """Rank body of :func:`decode_step`."""
     check_family(cfg)
-    x = params["embed"][tokens.long()] if embeds is None else embeds
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = yield from embed_lookup(params["embed"], cfg, tokens[:, None])
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(
+        tokens.shape[0]).contiguous()
     for i, win in enumerate(window_schedule(cfg)):
-        x, _ = _layer_prefill(layer_slice(params["layers"], i), cfg, x,
-                              positions, layer_slice(cache, i), win)
-    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        x, _ = yield from _layer_decode(layer_slice(params["layers"], i), cfg,
+                                        x, layer_slice(cache, i), pos, win)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return (x @ params["head"])[:, 0].float(), cache
 
 
@@ -283,12 +347,4 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     positions (a scalar broadcasts — uniform batch).
 
     Returns (logits (B,V) float32, cache)."""
-    check_family(cfg)
-    x = params["embed"][tokens[:, None].long()]                     # (B,1,D)
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(
-        tokens.shape[0]).contiguous()
-    for i, win in enumerate(window_schedule(cfg)):
-        x, _ = _layer_decode(layer_slice(params["layers"], i), cfg, x,
-                             layer_slice(cache, i), pos, win)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return (x @ params["head"])[:, 0].float(), cache
+    return C.run_local(decode_body(params, cfg, cache, tokens, pos))

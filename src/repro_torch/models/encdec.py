@@ -12,7 +12,12 @@ reference's ``nothing_saveable`` policy, whatever ``remat_policy``
 says). The decoder's self-attention decode goes through
 ``layers.attn_decode``, so through the flash-decode kernel K5 on the
 card; the cross-attention over the memory stays plain, as in the
-reference."""
+reference. The serving paths are rank bodies (:func:`prefill_body`,
+:func:`decode_body`, as in ``models/decoder.py``): under
+``act_sharding.tensor_parallel`` the encoder's and the decoder's
+attention, the cross-attention and the MLPs compute on the rank's heads
+and FFN slice and sum over the model axis, and ``mem_k`` / ``mem_v``
+hold the rank's KV heads."""
 from __future__ import annotations
 
 import math
@@ -21,9 +26,11 @@ from typing import Optional
 import torch
 
 from repro_torch.bridge import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
-from repro_torch.models.decoder import layer_slice, remat, remat_active
+from repro_torch.models.decoder import (embed_lookup, layer_slice, remat,
+                                        remat_active)
 
 
 # --- encoder ---------------------------------------------------------------
@@ -40,20 +47,28 @@ def _enc_layer_axes(cfg):
             "ln2": (None,), "mlp": L.mlp_axes(cfg)}
 
 
-def _softmax_attn(q, k, v, n_rep, dh):
-    """Unmasked attention: q (B,Sq,Hq,Dh), k/v (B,Sk,Hkv,Dh)."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, L._repeat_kv(k, n_rep)
-                          ).float() / math.sqrt(dh)
+def _softmax_attn(cfg, blk, q, k, v):
+    """Unmasked attention: q (B,Sq,Hq,Dh) of the heads of ``blk``, k/v
+    (B,Sk,Hkv,Dh) the stored KV heads."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, L._kv_for_q(cfg, k, blk)
+                          ).float() / math.sqrt(cfg.dh)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, L._repeat_kv(v, n_rep))
+    return torch.einsum("bhqk,bkhd->bqhd", probs, L._kv_for_q(cfg, v, blk))
+
+
+def _enc_layer_body(p, cfg, x, positions):
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    blk = L.head_block(cfg, p["attn"])
+    q, k, v = L._project_qkv(p["attn"], cfg, h, positions[None])
+    out = _softmax_attn(cfg, blk, q, k, v)
+    x = x + (yield from L.row_sum(blk, torch.einsum(
+        "bshk,hkd->bsd", out, p["attn"]["wo"])))
+    return x + (yield from L.mlp_body(p["mlp"], cfg,
+                                      rms_norm(p["ln2"], x, cfg.norm_eps)))
 
 
 def _enc_layer_fwd(p, cfg, x, positions):
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = L._project_qkv(p["attn"], cfg, h, positions[None])
-    out = _softmax_attn(q, k, v, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
-    x = x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"])
-    return x + L.mlp_apply(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+    return C.run_local(_enc_layer_body(p, cfg, x, positions))
 
 
 # --- decoder with cross-attention ------------------------------------------
@@ -73,10 +88,13 @@ def _dec_layer_axes(cfg):
 
 
 def _cross_attn(p, cfg, h, mem_k, mem_v):
-    """h (B,Sq,D); mem_k/v (B,Sm,Hkv,Dh) precomputed from the memory."""
+    """Rank body step. h (B,Sq,D); mem_k/v (B,Sm,Hkv,Dh) precomputed
+    from the memory."""
+    blk = L.head_block(cfg, p)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    out = _softmax_attn(q, mem_k, mem_v, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _softmax_attn(cfg, blk, q, mem_k, mem_v)
+    return (yield from L.row_sum(blk, torch.einsum("bshk,hkd->bsd", out,
+                                                   p["wo"])))
 
 
 def _mem_kv(p, mem):
@@ -85,17 +103,19 @@ def _mem_kv(p, mem):
 
 
 def _dec_tail(lp, cfg, h, mem_k, mem_v):
-    """Cross-attention and the MLP after the self-attention."""
+    """Rank body step: cross-attention and the MLP after the
+    self-attention."""
     hx = rms_norm(lp["lnx"], h, cfg.norm_eps)
-    h = h + _cross_attn(lp["xattn"], cfg, hx, mem_k, mem_v)
-    return h + L.mlp_apply(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps))
+    h = h + (yield from _cross_attn(lp["xattn"], cfg, hx, mem_k, mem_v))
+    return h + (yield from L.mlp_body(lp["mlp"], cfg,
+                                      rms_norm(lp["ln2"], h, cfg.norm_eps)))
 
 
 def _dec_layer_fwd(lp, cfg, h, positions, mem):
     """One decoder layer of the teacher-forced forward."""
     hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
     h = h + L.attn_forward(lp["attn"], cfg, hh, positions, 0)
-    return _dec_tail(lp, cfg, h, *_mem_kv(lp["xattn"], mem))
+    return C.run_local(_dec_tail(lp, cfg, h, *_mem_kv(lp["xattn"], mem)))
 
 
 # --- full model --------------------------------------------------------------
@@ -142,6 +162,17 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
+def _encode_body(params, cfg: ModelConfig, frames: torch.Tensor):
+    """Rank body of :func:`encode` (serving: no remat)."""
+    positions = torch.arange(frames.shape[1], dtype=torch.int32,
+                             device=frames.device)
+    x = frames
+    for i in range(cfg.n_enc_layers):
+        x = yield from _enc_layer_body(layer_slice(params["enc_layers"], i),
+                                       cfg, x, positions)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(params, cfg: ModelConfig, frames: torch.Tensor,
             tokens: torch.Tensor):
     """Teacher-forced training forward. Returns (logits (B,S,V), aux=0)."""
@@ -170,24 +201,46 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
-def prefill(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
-            tokens: torch.Tensor):
-    """Encode + teacher-force tokens, filling the self- and cross-attention
-    caches in place; returns (last-position logits (B,V) float32, cache)."""
-    mem = encode(params, cfg, frames)
-    h = params["embed"][tokens.long()]
+def prefill_body(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
+                 tokens: torch.Tensor):
+    """Rank body of :func:`prefill`."""
+    mem = yield from _encode_body(params, cfg, frames)
+    h = yield from embed_lookup(params["embed"], cfg, tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=h.device)
     for i in range(cfg.n_layers):
         lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
         hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
-        y, lc = L.attn_prefill(lp["attn"], cfg, hh, positions, lc, 0)
+        y, lc = yield from L.attn_prefill_body(lp["attn"], cfg, hh, positions,
+                                               lc, 0)
         h = h + y
         mk, mv = _mem_kv(lp["xattn"], mem)
         lc["mem_k"].copy_(mk)
         lc["mem_v"].copy_(mv)
-        h = _dec_tail(lp, cfg, h, mk, mv)
+        h = yield from _dec_tail(lp, cfg, h, mk, mv)
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return (h @ params["head"])[:, 0].float(), cache
+
+
+def prefill(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
+            tokens: torch.Tensor):
+    """Encode + teacher-force tokens, filling the self- and cross-attention
+    caches in place; returns (last-position logits (B,V) float32, cache)."""
+    return C.run_local(prefill_body(params, cfg, cache, frames, tokens))
+
+
+def decode_body(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                pos):
+    """Rank body of :func:`decode_step`."""
+    h = yield from embed_lookup(params["embed"], cfg, tokens[:, None])
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device).expand(
+        tokens.shape[0]).contiguous()
+    for i in range(cfg.n_layers):
+        lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
+        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
+        y, lc = yield from L.attn_decode_body(lp["attn"], cfg, hh, lc, pos, 0)
+        h = yield from _dec_tail(lp, cfg, h + y, lc["mem_k"], lc["mem_v"])
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["head"])[:, 0].float(), cache
 
 
@@ -195,13 +248,4 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 pos):
     """One decoder token; the cross-attention reads the cached mem_k /
     mem_v. Returns (logits (B,V) float32, cache)."""
-    h = params["embed"][tokens[:, None].long()]                     # (B,1,D)
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device).expand(
-        tokens.shape[0]).contiguous()
-    for i in range(cfg.n_layers):
-        lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
-        hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
-        y, lc = L.attn_decode(lp["attn"], cfg, hh, lc, pos, 0)
-        h = _dec_tail(lp, cfg, h + y, lc["mem_k"], lc["mem_v"])
-    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["head"])[:, 0].float(), cache
+    return C.run_local(decode_body(params, cfg, cache, tokens, pos))

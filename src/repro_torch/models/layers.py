@@ -5,8 +5,23 @@ the capacity-based MoE and the Mamba2 SSD mixer (port of
 Per-layer params are plain dicts, stacked by the decoder on a leading
 layer axis. The reference's sharding hints (``_constrain_attn`` and the
 ``acts.constrain_*`` calls) pin activation shardings on a device mesh;
-the port computes on plain tensors, where they would be no-ops, and has
-none.
+the port has none.
+
+Tensor parallelism (the reference's SPMD partition of a serving cell):
+under ``act_sharding.tensor_parallel`` a layer computes on the rank's
+shards of its leaves, each split read from the leaf's shape. Attention
+projects the rank's query heads (column-parallel ``wq``) and its KV
+heads (``wk`` / ``wv``, whole where the rules replicate them), reads the
+contiguous block of KV heads its query heads map to (:class:`HeadBlock`)
+and multiplies by its rows of ``wo``; the MLP takes its columns of
+``w_up`` / ``w_gate`` and rows of ``w_down``; the MoE runs its experts
+(:func:`moe_ep_body`) or, where the experts do not split, every expert
+on its slice of the expert FFN dim. The rank body steps
+:func:`attn_prefill_body`, :func:`attn_decode_body`, :func:`mlp_body`
+and :func:`moe_body` then ask for the model axis's sum. Off a mesh those
+steps ask for nothing and compute what the plain functions compute. The
+SSD mixer has no such split: a serving rank gathers its leaves whole
+(``launch.input_specs``).
 
 One deviation from the reference: :func:`attn_decode` computes its
 attention through ``kernels.ops.flash_decode`` (kernel K5 on the card,
@@ -23,7 +38,9 @@ and a CUDA graph replay and the eager step, are bitwise equal. The
 reference's scatter-add rounds after each add in the model dtype. Under
 an activation policy whose model axis divides the experts it takes the
 expert-parallel path, :func:`moe_apply_ep`: each rank's partial sum
-stays in float32 through the all-reduce and is rounded once.
+stays in float32 through the all-reduce and is rounded once. The
+tensor-parallel sums do the same (``act_sharding.model_sum``), where
+XLA's all-reduce sums in the model dtype.
 
 The SSD mixer's decode writes its ``ssm`` and ``conv`` caches in place,
 as :func:`attn_decode` does its KV cache, where the reference returns
@@ -31,6 +48,8 @@ new ones; a captured decode step reads fixed addresses."""
 from __future__ import annotations
 
 import math
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -84,23 +103,71 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, hkv * n_rep, dh)
 
 
-def _kv_for_q(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
-    """Map kv heads to PHYSICAL q heads: the usual GQA repeat without
-    padding; with padded q heads, real heads keep their q->kv grouping and
-    padded heads clamp to the last kv head (their output is masked)."""
+def _q_to_kv(cfg: ModelConfig) -> np.ndarray:
+    """The KV head each PHYSICAL q head reads: the usual GQA grouping;
+    padded q heads clamp to the last kv head (their output is masked)."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    return np.minimum(np.arange(cfg.h_phys) // n_rep, cfg.n_kv_heads - 1)
+
+
+class HeadBlock(NamedTuple):
+    """The query heads a rank computes, ``[q0, q0 + nq)``, the KV heads
+    they read, ``[kv0, kv0 + nkv)``, and the first KV head of the rank's
+    stored KV shard (0 where the KV heads are whole). ``split``: the
+    query heads are split over the model axis (``wo`` row-parallel)."""
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    kv_stored0: int
+    split: bool
+
+
+def head_block(cfg: ModelConfig, p: dict) -> HeadBlock:
+    """The rank's :class:`HeadBlock` under the tensor-parallel context:
+    its query heads are the ``wq`` shard it holds, its KV heads the
+    contiguous block those heads map to. Raises where the KV heads are
+    split and the query heads whole (no rank's KV shard serves its
+    heads)."""
+    tp = acts.tensor_parallel_context()
+    hq, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
+    if tp is None or (hq == cfg.h_phys and hkv == cfg.n_kv_heads):
+        return HeadBlock(0, cfg.h_phys, 0, cfg.n_kv_heads, 0, False)
+    if hq == cfg.h_phys:
+        raise ValueError(f"{cfg.name}: KV heads split over the model axis "
+                         "while the query heads are whole")
+    q0 = tp.index * hq
+    qmap = _q_to_kv(cfg)[q0:q0 + hq]
+    kv0, kv1 = int(qmap.min()), int(qmap.max()) + 1
+    stored0 = 0 if hkv == cfg.n_kv_heads else tp.index * hkv
+    if kv0 < stored0 or kv1 > stored0 + hkv:
+        raise ValueError(f"{cfg.name}: query heads {q0}..{q0 + hq - 1} read "
+                         f"KV heads {kv0}..{kv1 - 1}, outside the rank's "
+                         f"{stored0}..{stored0 + hkv - 1}")
+    return HeadBlock(q0, hq, kv0, kv1 - kv0, stored0, True)
+
+
+def _kv_for_q(cfg: ModelConfig, k: torch.Tensor,
+              blk: HeadBlock | None = None) -> torch.Tensor:
+    """Map the stored kv heads of ``k`` to the q heads of ``blk`` (all
+    the PHYSICAL q heads without one): the usual GQA repeat without
+    padding; with padded q heads, real heads keep their q->kv grouping
+    and padded heads clamp to the last kv head (their output is masked)."""
+    if blk is not None and blk.split:
+        idx = _q_to_kv(cfg)[blk.q0:blk.q0 + blk.nq] - blk.kv_stored0
+        return k[:, :, torch.from_numpy(idx).to(k.device)]
     if cfg.h_phys == cfg.n_heads:
-        return _repeat_kv(k, n_rep)
-    hmap = np.minimum(np.arange(cfg.h_phys) // n_rep, cfg.n_kv_heads - 1)
-    return k[:, :, torch.from_numpy(hmap).to(k.device)]
+        return _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+    return k[:, :, torch.from_numpy(_q_to_kv(cfg)).to(k.device)]
 
 
-def _head_mask(cfg: ModelConfig, dtype, device=None):
+def _head_mask(cfg: ModelConfig, dtype, device=None,
+               blk: HeadBlock | None = None):
     if cfg.h_phys == cfg.n_heads:
         return None
     m = torch.zeros((cfg.h_phys,), dtype=dtype, device=device)
     m[:cfg.n_heads] = 1.0
-    return m
+    return m if blk is None else m[blk.q0:blk.q0 + blk.nq]
 
 
 def _window(window) -> int:
@@ -169,19 +236,19 @@ def _project_qkv(p, cfg, x, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _attend(cfg, q, k, v, positions, window):
-    """The full-sequence attention of forward and prefill: blockwise when
-    the sequence is long and divides into ``attn_chunk``, else dense;
-    padded heads masked."""
+def _attend(cfg, q, k, v, positions, window, blk=None):
+    """The full-sequence attention of forward and prefill over the q
+    heads of ``blk``: blockwise when the sequence is long and divides
+    into ``attn_chunk``, else dense; padded heads masked."""
     s = q.shape[1]
     if cfg.attn_impl != "dense" and s > 2 * cfg.attn_chunk \
             and s % cfg.attn_chunk == 0:
-        out = _attn_blockwise(q, _kv_for_q(cfg, k), _kv_for_q(cfg, v),
-                              window, cfg.attn_chunk)
+        out = _attn_blockwise(q, _kv_for_q(cfg, k, blk),
+                              _kv_for_q(cfg, v, blk), window, cfg.attn_chunk)
     else:
-        out = _attn_dense(q, _kv_for_q(cfg, k), _kv_for_q(cfg, v),
+        out = _attn_dense(q, _kv_for_q(cfg, k, blk), _kv_for_q(cfg, v, blk),
                           positions, positions, window)
-    mask = _head_mask(cfg, out.dtype, out.device)
+    mask = _head_mask(cfg, out.dtype, out.device, blk)
     if mask is not None:
         out = out * mask[None, None, :, None]
     return out
@@ -189,10 +256,19 @@ def _attend(cfg, q, k, v, positions, window):
 
 def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, window) -> torch.Tensor:
-    """Full-sequence causal attention. x (B,S,D); positions (S,) int32."""
+    """Full-sequence causal attention. x (B,S,D); positions (S,) int32.
+    Under the tensor-parallel context, the rank's partial output."""
     q, k, v = _project_qkv(p, cfg, x, positions[None])
-    out = _attend(cfg, q, k, v, positions, window)
+    out = _attend(cfg, q, k, v, positions, window, head_block(cfg, p))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def row_sum(blk: HeadBlock, y: torch.Tensor):
+    """Rank body step: the model axis's sum of ``y``, the product by the
+    rank's rows of ``wo``, where the query heads are split."""
+    if blk.split:
+        y = yield from acts.model_sum(y)
+    return y
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, lead=(),
@@ -212,10 +288,11 @@ def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, lead=(),
 def attn_prefill(p, cfg, x, positions, cache, window):
     """Forward over S tokens + write cache slots [0..S). Requires S<=W.
     Writes ``cache``'s tensors in place (the reference returns new ones)
-    and returns (y, cache)."""
+    and returns (y, cache); under the tensor-parallel context ``cache``
+    holds the rank's KV heads and ``y`` is the rank's partial output."""
     w = cache["k"].shape[1]
     q, k, v = _project_qkv(p, cfg, x, positions[None])
-    out = _attend(cfg, q, k, v, positions, window)
+    out = _attend(cfg, q, k, v, positions, window, head_block(cfg, p))
     slots = (positions % w).long()
     cache["k"][:, slots] = k
     cache["v"][:, slots] = v
@@ -223,10 +300,20 @@ def attn_prefill(p, cfg, x, positions, cache, window):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
-def check_decode_heads(cfg: ModelConfig) -> None:
+def attn_prefill_body(p, cfg, x, positions, cache, window):
+    """Rank body step: :func:`attn_prefill` and the sum over the model
+    axis."""
+    y, cache = attn_prefill(p, cfg, x, positions, cache, window)
+    y = yield from row_sum(head_block(cfg, p), y)
+    return y, cache
+
+
+def check_decode_heads(cfg: ModelConfig, blk: HeadBlock | None = None) -> None:
     """K5 gives query head h the KV head ``h // ceil(Hq / Hkv)``; the
     model's mapping (``_kv_for_q``) is the same only without padded
-    heads and when Hkv divides Hq."""
+    heads and when Hkv divides Hq. On a rank's :class:`HeadBlock` (the
+    KV block handed to K5) the same must hold of the block's ratio:
+    local query head j reads block head ``j // ceil(nq / nkv)``."""
     if cfg.h_phys != cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(
             f"attn_decode: {cfg.name} has {cfg.h_phys} physical query heads "
@@ -234,13 +321,27 @@ def check_decode_heads(cfg: ModelConfig) -> None:
             "flash-decode kernel maps query head h to KV head "
             "h // ceil(Hq / Hkv), which is the model's mapping only when "
             "there are no padded heads and Hkv divides Hq")
+    if blk is None or not blk.split:
+        return
+    local = _q_to_kv(cfg)[blk.q0:blk.q0 + blk.nq] - blk.kv0
+    if not np.array_equal(local, np.arange(blk.nq) // -(-blk.nq // blk.nkv)):
+        raise ValueError(
+            f"attn_decode: {cfg.name}'s query heads {blk.q0}.."
+            f"{blk.q0 + blk.nq - 1} read KV heads {(local + blk.kv0).tolist()}"
+            f" (block {blk.kv0}..{blk.kv0 + blk.nkv - 1}); the flash-decode "
+            "kernel would give local head j the block's head "
+            "j // ceil(nq / nkv): no contiguous KV block serves this rank")
 
 
 def attn_decode(p, cfg, x1, cache, pos, window):
     """One-token decode. x1 (B,1,D); pos (B,) int32 per-request positions
     (continuous batching); ring-buffer cache, written in place. The
-    attention runs through ``ops.flash_decode`` (K5)."""
-    check_decode_heads(cfg)
+    attention runs through ``ops.flash_decode`` (K5), under the
+    tensor-parallel context on the rank's query heads and the contiguous
+    KV block they read (copied out of the cache where the KV heads are
+    whole); ``y`` is then the rank's partial output."""
+    blk = head_block(cfg, p)
+    check_decode_heads(cfg, blk)
     b = x1.shape[0]
     w = cache["k"].shape[1]
     q, k, v = _project_qkv(p, cfg, x1, pos[:, None])
@@ -251,8 +352,21 @@ def attn_decode(p, cfg, x1, cache, pos, window):
     cache["kpos"][bidx, slot] = pos
     kpos = cache["kpos"]
     valid = (kpos <= pos[:, None]) & (kpos > pos[:, None] - _window(window))
-    out = ops.flash_decode(q[:, 0].contiguous(), cache["k"], cache["v"], valid)
+    kc, vc = cache["k"], cache["v"]
+    if blk.nkv != kc.shape[2]:
+        lo = blk.kv0 - blk.kv_stored0
+        kc = kc[:, :, lo:lo + blk.nkv].contiguous()
+        vc = vc[:, :, lo:lo + blk.nkv].contiguous()
+    out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, valid)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+    return y, cache
+
+
+def attn_decode_body(p, cfg, x1, cache, pos, window):
+    """Rank body step: :func:`attn_decode` and the sum over the model
+    axis."""
+    y, cache = attn_decode(p, cfg, x1, cache, pos, window)
+    y = yield from row_sum(head_block(cfg, p), y)
     return y, cache
 
 
@@ -280,11 +394,22 @@ def mlp_axes(cfg: ModelConfig) -> dict:
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """On a rank's columns of ``w_up`` / ``w_gate`` and rows of
+    ``w_down``, its partial output."""
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = gelu(x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def mlp_body(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Rank body step: :func:`mlp_apply` and, where the rank holds a
+    slice of the FFN dim, the sum over the model axis."""
+    y = mlp_apply(p, x)
+    if p["w_down"].shape[-2] != cfg.d_ff:
+        y = yield from acts.model_sum(y)
+    return y
 
 
 # ===========================================================================
@@ -473,11 +598,38 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x (B,S,D) -> (out (B,S,D), aux_loss). Dropped-token capacity MoE,
     dispatched per batch row; capacity per (row, expert) is
     ceil(S*k/E * cf)."""
+    tp = acts.model_axis_size()
+    if tp > 1 and cfg.n_experts % tp == 0:
+        return moe_apply_ep(p, cfg, x)                   # explicit EP
+    out, aux_loss = _moe_local(p, cfg, x)
+    return out.to(x.dtype), aux_loss
+
+
+def moe_body(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Rank body step of the MoE under the tensor-parallel context: the
+    expert-parallel body where the rank holds a shard of the experts;
+    every expert on the rank's slice of the expert FFN dim, then the sum
+    over the model axis, where it holds such a slice; else (and off a
+    mesh) :func:`moe_apply`."""
+    tp = acts.tensor_parallel_context()
+    if tp is not None and p["w_gate"].shape[0] != cfg.n_experts:
+        out, aux = yield from moe_ep_body(tp.rank, cfg, p["router"],
+                                          p["w_gate"], p["w_up"],
+                                          p["w_down"], x, tp.axis, ())
+        return out, aux
+    if p["w_gate"].shape[-1] != cfg.d_ff:
+        out, aux = _moe_local(p, cfg, x)
+        out = yield from acts.model_sum(out)
+        return out.to(x.dtype), aux
+    return moe_apply(p, cfg, x)
+
+
+def _moe_local(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Every expert of ``p`` on every token of ``x``: (out (B,S,D)
+    float32, aux_loss); on a slice of the expert FFN dim, the partial
+    output."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
-    tp = acts.model_axis_size()
-    if tp > 1 and e % tp == 0:
-        return moe_apply_ep(p, cfg, x)                   # explicit EP
     probs, top_p, top_e = moe_route(p, cfg, x)
     aux_loss = _balance_aux(probs, top_e, e)
 
@@ -491,8 +643,8 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
     h = _expert_ffn(buf[:, :-1].reshape(b, e, cap, d), p["w_gate"], p["w_up"],
                     p["w_down"]).reshape(b, e * cap, d)
-    out = _moe_combine_f32(h, dest, keep, order, top_p, x.dtype, e * cap, s, k)
-    return out.to(x.dtype), aux_loss
+    return _moe_combine_f32(h, dest, keep, order, top_p, x.dtype, e * cap,
+                            s, k), aux_loss
 
 
 # ===========================================================================

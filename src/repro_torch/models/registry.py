@@ -4,7 +4,10 @@ patch embeddings prepended to the text, and encdec.
 
 The port's ``init`` takes ``(cfg, gen=None, *, device="cuda")`` and its
 ``init_cache`` ``(cfg, batch, cache_len, device="cuda")``; every other
-entry keeps the reference's signature. ``axes`` gives the params' logical
+entry keeps the reference's signature. ``prefill_body`` and
+``decode_body`` are ``prefill`` and ``decode_step`` as rank bodies
+(generators of ``distributed.collectives``, with the same arguments),
+which a serving cell's rank runs under the tensor-parallel context. ``axes`` gives the params' logical
 sharding axes and :func:`rules_overrides` the per-arch rule adjustments
 that ``train/step.py``'s sharding rules apply on a device mesh."""
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.collectives import run_local
 from repro_torch.models import decoder, encdec
 from repro_torch.models.common import ModelConfig, cross_entropy_loss
 
@@ -25,6 +29,8 @@ class ModelAPI(NamedTuple):
     prefill: Callable              # (params, cfg, cache, batch) -> (logits, cache)
     decode_step: Callable          # (params, cfg, cache, tokens, pos) -> (logits, cache)
     axes: Optional[Callable] = None  # cfg -> logical axes tree of the params
+    prefill_body: Optional[Callable] = None  # prefill as a rank body
+    decode_body: Optional[Callable] = None   # decode_step as a rank body
 
 
 # --- decoder-only families ---------------------------------------------------
@@ -42,8 +48,13 @@ def _dec_forward(params, cfg, batch):
     return logits
 
 
-def _dec_prefill(params, cfg, cache, batch):
-    return decoder.prefill(params, cfg, cache, tokens=batch["tokens"])
+def _dec_prefill_body(params, cfg, cache, batch):
+    return decoder.prefill_body(params, cfg, cache, tokens=batch["tokens"])
+
+
+def _local(body: Callable) -> Callable:
+    """``body`` run off any mesh."""
+    return lambda *args: run_local(body(*args))
 
 
 # --- vlm: stub patch embeddings prepended to text ----------------------------
@@ -70,9 +81,9 @@ def _vlm_forward(params, cfg, batch):
     return logits
 
 
-def _vlm_prefill(params, cfg, cache, batch):
-    return decoder.prefill(params, cfg, cache,
-                           embeds=_vlm_embeds(params, cfg, batch))
+def _vlm_prefill_body(params, cfg, cache, batch):
+    return decoder.prefill_body(params, cfg, cache, tokens=batch["tokens"],
+                                prefix=batch["img_embeds"])
 
 
 # --- enc-dec ------------------------------------------------------------------
@@ -89,14 +100,16 @@ def _encdec_forward(params, cfg, batch):
     return logits
 
 
-def _encdec_prefill(params, cfg, cache, batch):
-    return encdec.prefill(params, cfg, cache, batch["frames"], batch["tokens"])
+def _encdec_prefill_body(params, cfg, cache, batch):
+    return encdec.prefill_body(params, cfg, cache, batch["frames"],
+                               batch["tokens"])
 
 
 _DEC_API = ModelAPI(
     init=decoder.init_decoder, loss_fn=_dec_loss, forward=_dec_forward,
-    init_cache=decoder.init_cache, prefill=_dec_prefill,
-    decode_step=decoder.decode_step, axes=decoder.decoder_axes)
+    init_cache=decoder.init_cache, prefill=_local(_dec_prefill_body),
+    decode_step=decoder.decode_step, axes=decoder.decoder_axes,
+    prefill_body=_dec_prefill_body, decode_body=decoder.decode_body)
 
 _REGISTRY: dict[str, ModelAPI] = {
     "dense": _DEC_API,
@@ -104,11 +117,13 @@ _REGISTRY: dict[str, ModelAPI] = {
     "ssm": _DEC_API,
     "hybrid": _DEC_API,
     "vlm": _DEC_API._replace(loss_fn=_vlm_loss, forward=_vlm_forward,
-                             prefill=_vlm_prefill),
+                             prefill=_local(_vlm_prefill_body),
+                             prefill_body=_vlm_prefill_body),
     "encdec": ModelAPI(
         init=encdec.init_encdec, loss_fn=_encdec_loss, forward=_encdec_forward,
-        init_cache=encdec.init_cache, prefill=_encdec_prefill,
-        decode_step=encdec.decode_step, axes=encdec.encdec_axes),
+        init_cache=encdec.init_cache, prefill=_local(_encdec_prefill_body),
+        decode_step=encdec.decode_step, axes=encdec.encdec_axes,
+        prefill_body=_encdec_prefill_body, decode_body=encdec.decode_body),
 }
 
 

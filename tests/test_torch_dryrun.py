@@ -7,10 +7,11 @@ the CPU: fake runs on a fake process group, held against real runs.
   * a small prefill cell (minitron-4b SMOKE, 2 × 2 mesh): the fake run's
     FLOPs equal a quarter of a real CPU run of the four ranks'
     bodies in process (the ranks' work is equal), its argument bytes
-    equal the bytes of rank 0's shards, its bytes handed to the
-    collectives equal ``CommStats`` of the in-process run, and the
-    in-process ranks' logits and kept cache shards equal a one-device
-    prefill (1e-5);
+    equal the bytes of rank 0's shards, the bytes its rank body asks of
+    each collective, by mesh axis, equal ``CommStats`` of the in-process
+    run, and the
+    in-process ranks' logits (each rank's columns of the vocabulary) and
+    kept cache shards equal a one-device prefill (1e-5);
   * a small long-context decode cell (hymba-1.5b SMOKE, batch 1, cache
     length sharded over data): collectives against ``CommStats`` and
     outputs against a one-device decode step, the same way;
@@ -43,7 +44,7 @@ from repro_torch.distributed.sharding import tree_map as spec_map  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.library import card_stand_in  # noqa: E402
 from repro_torch.launch import detr_cells, dryrun, hlo_stats  # noqa: E402
-from repro_torch.launch.input_specs import build_cell  # noqa: E402
+from repro_torch.launch.input_specs import build_cell, logits_spec  # noqa: E402
 from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 
@@ -138,8 +139,10 @@ def test_serving_cell_fake_run_against_in_process_ranks(case):
     outs, mine, stats, flops = _in_process(cell, inputs, mesh)
 
     assert res["memory"]["argument_bytes"] == _shard_sum(cell, mesh)
-    assert res["collectives"]["handed_bytes"] == stats.rank_bytes(0) > 0
-    assert set(res["collectives"]["by_kind"]) == {"all-gather"}
+    assert res["collectives"]["requested"] == stats.by_axis[0]
+    assert stats.rank_bytes(0) > 0
+    # a float sum on the wire: an all-to-all of chunks, then an all-gather
+    assert set(res["collectives"]["by_kind"]) == {"all-gather", "all-to-all"}
     if case == "prefill":                  # no kernel: FLOPs comparable
         assert res["cost"]["flops"] * mesh.size == flops
     else:
@@ -152,12 +155,11 @@ def test_serving_cell_fake_run_against_in_process_ranks(case):
     else:
         want, want_cache = api.decode_step(full[0], cfg, full[1], full[2],
                                            full[3])
+    lspec = logits_spec(cfg, mesh, want.shape[0])
     for rank, (logits, cache) in enumerate(outs):
         ctx = C.RankContext(mesh.coords(rank), C.mesh_shape(mesh))
-        rows = C.local_slices(cell.in_shardings[2]["tokens"] if case == "prefill"
-                              else cell.in_shardings[2], want.shape[:1],
-                              ctx.size, ctx.index)
-        torch.testing.assert_close(logits, want[rows], rtol=1e-5, atol=1e-5)
+        part = C.local_slices(lspec, want.shape, ctx.size, ctx.index)
+        torch.testing.assert_close(logits, want[part], rtol=1e-5, atol=1e-5)
         got_cache = _local(want_cache, cell.in_shardings[1], ctx)
         for g, w in zip(tree_leaves(cache), tree_leaves(got_cache)):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -274,3 +274,30 @@ def test_k4_wrapper_rejects_unsupported_operands():
         matmul(x.t().contiguous().t(), w)
     with pytest.raises(ValueError, match="tile sizes"):
         matmul(x, w, bk=0)
+
+
+TP_MODULES = ("repro_torch.distributed.act_sharding",
+              "repro_torch.distributed.collectives",
+              "repro_torch.models.layers", "repro_torch.models.decoder",
+              "repro_torch.models.encdec", "repro_torch.models.registry",
+              "repro_torch.launch.input_specs", "repro_torch.launch.dryrun")
+
+
+def test_tensor_parallel_modules_are_scanned_and_import_alone():
+    """The modules of the tensor-parallel serving path are in the scan,
+    and importing them in a fresh interpreter loads neither JAX nor the
+    reference."""
+    import os
+    import subprocess
+    import sys
+    names = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for mod in TP_MODULES:
+        assert "src/" + mod.replace(".", "/") + ".py" in names, mod
+    probe = ("import sys\n" + "".join(f"import {m}\n" for m in TP_MODULES)
+             + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, env=dict(
+                             os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout

@@ -192,3 +192,40 @@ def world8_ranks(rank, world, init_file, inputs_file, out_dir):
 
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def tp_serve_ranks(rank, world, init_file, inputs_file, out_dir):
+    """The serving cells of tests/test_torch_tp.py on a world of gloo
+    ranks: each case's prefill and decode rank programs (``Cell.fn``) on
+    this rank's slices of the global inputs; this rank's logits and cache
+    shards after each."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.optim.adamw import tree_leaves
+    _join(rank, world, init_file)
+    inputs = torch.load(inputs_file, weights_only=False)
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg = ModelConfig(**case["cfg"])
+        mesh = _mesh(case["mesh"], ("data", "model"))
+        w, b = case["w_b"]
+        local = lambda tree, specs: spec_map(
+            lambda t, sp: _local(t, sp, mesh).clone(), tree, specs,
+            is_leaf=lambda x: isinstance(x, torch.Tensor))
+        pre = build_cell("tp", cfg, ShapeSpec("p", "prefill", w, b), mesh)
+        args = tuple(local(x, sp) for x, sp in
+                     zip(case["prefill"], pre.in_shardings))
+        logits, cache = pre.fn(*args)
+        res = {"prefill": logits,
+               "prefill_cache": [t.clone() for t in tree_leaves(cache)]}
+        dec = build_cell("tp", cfg, ShapeSpec("d", "decode", w, b), mesh)
+        tok, pos = (local(x, sp) for x, sp in
+                    zip(case["decode"], dec.in_shardings[2:]))
+        logits, cache = dec.fn(args[0], cache, tok, pos)
+        res["decode"] = logits
+        res["decode_cache"] = list(tree_leaves(cache))
+        out[name] = res
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
