@@ -945,6 +945,19 @@ K4_CASES = [("sweep_a", 70, 90, 50, K4_KINDS), ("sweep_b", 128, 128, 128, K4_KIN
 # this limit.
 K5_SPLIT_EDGE_CASES = {"w_not_split_multiple", "empty_splits", "last_slot_only",
                        "b1_hkv1", "unaligned_rows"}
+# K5 given the model's head map (label, B, stored KV heads, Dh, W, chunk,
+# mask, kv_heads): a tensor-parallel rank of 12 / 3 heads on 4 whose query
+# heads straddle two KV groups; minitron-8b's tp-16 rank (2 query heads on
+# KV head 5 of the 8 its cache stores, read in place at that offset);
+# 6 real query heads padded to 8 over 3 KV heads (the padded ones clamp
+# to the last); a map that leaves KV head 1 unread and has a row with no
+# valid slot (its V average comes from each head's own KV head)
+K5_MAP_CASES = [("straddle", 4, 3, 128, 1000, 512, "ring", (0, 1, 1)),
+                ("in_place_offset", 4, 8, 128, 1024, 512, "ring", (5, 5)),
+                ("padded_heads", 2, 3, 64, 300, 64, "ring_window",
+                 (0, 0, 1, 1, 2, 2, 2, 2)),
+                ("gap_empty_row", 2, 3, 32, 257, 64, "ring_empty",
+                 (2, 2, 2, 0, 0))]
 # cases whose route is fixed by the contract of this kernel
 K4_MUST_ROUTE = {"prefill_mlp_up/bfloat16": "wgmma", "prefill_mlp_up/int8": "wgmma",
                  "decode_mlp_up/bfloat16": "wgmma", "int8_n_mod16_8/int8_bf16x": "simt",
@@ -1003,7 +1016,7 @@ def phase_lm_kernels(device):
                               flash_decode.flash_decode(q, k, v, valid, chunk=chunk),
                               want, tol)
             length, n_splits = flash_decode.decode_splits(
-                b, hkv, flash_decode.head_groups(hq, hkv), w, sm_count(q.device))
+                b, k5_entries(hq, hkv, None), 1, w, sm_count(q.device))
             per_split = torch.nn.functional.pad(
                 valid, (0, n_splits * length - w)).reshape(b, n_splits, length).any(-1)
             k5.append({"case": case, "pad": flash_decode.chunk_padding(w, chunk),
@@ -1011,6 +1024,23 @@ def phase_lm_kernels(device):
                        "rows_without_valid_slot": int((~valid.any(1)).sum()),
                        "empty_splits_in_rows_with_valid_slots":
                            int((~per_split & valid.any(1, keepdim=True)).sum()),
+                       "max_abs_err": err})
+    for label, b, hkv, dh, w, chunk, mask, kv_heads in K5_MAP_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, valid = k5_operands(gen, b, len(kv_heads), hkv, dh, w,
+                                         dtype, mask, device)
+            case = f"{label}/{str(dtype)[6:]}"
+            want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk,
+                                                   kv_heads=kv_heads)
+            err = check_close(f"flash_decode {case}", flash_decode.flash_decode(
+                q, k, v, valid, chunk=chunk, kv_heads=kv_heads), want,
+                tolerance(dtype, None))
+            table = flash_decode.head_table(kv_heads)
+            k5.append({"case": case, "kv_heads": list(kv_heads),
+                       "stored_kv_heads": hkv, "table_entries": len(table),
+                       "split_len": flash_decode.decode_splits(
+                           b, len(table), 1, w, sm_count(q.device))[0],
+                       "rows_without_valid_slot": int((~valid.any(1)).sum()),
                        "max_abs_err": err})
     k4 = []
     for label, m, kk, n, kinds in K4_CASES:
@@ -2278,8 +2308,9 @@ class PlainAttention:
     def __enter__(self):
         from repro_torch.kernels import flash_decode, ops
         self.orig = ops.flash_decode
-        ops.flash_decode = lambda q, k, v, valid, *, chunk=512: \
-            flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk)
+        ops.flash_decode = lambda q, k, v, valid, *, chunk=512, kv_heads=None: \
+            flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk,
+                                            kv_heads=kv_heads)
         return self
 
     def __exit__(self, *exc):
@@ -3925,18 +3956,31 @@ def nbytes_of(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def flash_decode_bound(q, k, v, valid, out):
+def k5_entries(hq, hkv, kv_heads):
+    """Blocks per (split, b) of K5's grid: its head table's entries."""
+    from repro_torch.kernels import flash_decode
+    return len(flash_decode.head_table(
+        flash_decode.default_kv_heads(hq, hkv) if kv_heads is None
+        else tuple(kv_heads)))
+
+
+def flash_decode_bound(q, k, v, valid, out, kv_heads=None):
     """Least time for K5's function on these inputs: q, the mask and the
-    output once, and the K and V rows of the valid slots (a row with no
-    valid slot needs all its V rows and no K); 4 operations per channel,
-    query head and needed slot (the score's multiply-add and P.V's)."""
+    output once, and the K and V rows of the valid slots of the KV heads
+    the query heads read (``kv_heads``: of the heads the cache stores; a
+    row with no valid slot needs all its V rows and no K); 4 operations
+    per channel, query head and needed slot (the score's multiply-add and
+    P.V's)."""
+    from repro_torch.kernels import flash_decode
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
     n_valid = valid.sum(1)
     empty = n_valid == 0
     k_rows = int(n_valid.sum())
     v_rows = k_rows + int(empty.sum()) * w
-    row = hkv * dh * k.element_size()
+    read = len(set(flash_decode.default_kv_heads(hq, hkv) if kv_heads is None
+                   else kv_heads))
+    row = read * dh * k.element_size()
     nbytes = nbytes_of(q, valid, out) + (k_rows + v_rows) * row
     ops = 4 * dh * hq * (k_rows + int(empty.sum()) * w)
     return dict(roofline(nbytes, ops, q.dtype), valid_slots=k_rows,
@@ -3951,10 +3995,18 @@ def matmul_bound(x, w, scale, out):
                     x.dtype)
 
 
-def sdpa_call(q, k, v, valid):
+def sdpa_call(q, k, v, valid, kv_heads=None):
     """The library's one call for K5's function (GQA and a boolean mask);
-    used only as a yardstick."""
+    used only as a yardstick. With a head map, on a view of the block of
+    KV heads it reads where the map is the GQA grouping of that block
+    (None where no one call computes the map)."""
     import torch.nn.functional as F
+    if kv_heads is not None:
+        lo, n = min(kv_heads), max(kv_heads) - min(kv_heads) + 1
+        if len(kv_heads) % n or list(kv_heads) != [
+                lo + h // (len(kv_heads) // n) for h in range(len(kv_heads))]:
+            return None
+        k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
     return lambda: F.scaled_dot_product_attention(
         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=valid[:, None, None, :], enable_gqa=True)
@@ -3979,16 +4031,19 @@ def k5_entry(args, kw, launches):
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_decode.py:69",
              "launches": launches, "max_abs_err": err,
-             **kernel_times(call, plain, K5_KERNELS),
-             "library_ms": cuda_ms(sdpa_call(*args), 11, 20)}
-    bound = flash_decode_bound(*args, out)
+             **kernel_times(call, plain, K5_KERNELS)}
+    kv_heads = kw.get("kv_heads")
+    library = sdpa_call(*args, kv_heads=kv_heads)
+    entry["library_ms"] = None if library is None else cuda_ms(library, 11, 20)
+    bound = flash_decode_bound(*args, out, kv_heads=kv_heads)
     entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
     q, k = args[0], args[1]
     length, n_splits = flash_decode.decode_splits(
-        q.shape[0], k.shape[2], flash_decode.head_groups(q.shape[1], k.shape[2]),
+        q.shape[0], k5_entries(q.shape[1], k.shape[2], kv_heads), 1,
         k.shape[1], sm_count(q.device))
     return entry, dict(bound, shape=[list(t.shape) for t in args],
                        dtype=str(args[0].dtype), kernels=list(K5_KERNELS),
+                       kv_heads=None if kv_heads is None else list(kv_heads),
                        split_len=length, splits=n_splits)
 
 
@@ -4056,7 +4111,7 @@ def lm_times(lm, families, tp):
     d5["hymba_served"] = {k: e[k] for k in keep + ("launches", "bound_ms",
                                                     "bound_by")} | bd
     # minitron-8b at tp 16: rank 1's first decode call, its 2 query heads
-    # over the one KV head they read (copied out of its whole cache)
+    # over the one KV head they read, in place in its cache of all 8
     e, bd = k5_entry(*tp["k5_call"], tp["launches"])
     d5["tp_rank"] = {k: e[k] for k in keep + ("launches", "bound_ms",
                                                "bound_by")} | bd
@@ -4730,6 +4785,8 @@ def dist_rank_main():
     # --- TP serving on the wire: deepseek-7b's rank bodies, one per card --
     if world > 1:
         res["tp"] = dist_tp_serve(device, world, mesh_of)
+        torch.cuda.empty_cache()
+        res["tp_train"] = dist_tp_train(device, world, mesh_of)
     dist.barrier()
     if rank == 0:
         emit("distributed_nccl", **res)
@@ -4798,6 +4855,83 @@ def dist_tp_serve(device, world, mesh_of):
             "tp_step_ms": step_ms, "single_step_ms": single["ms"]}
 
 
+def dist_tp_train(device, world, mesh_of):
+    """One NCCL rank of deepseek-7b (TP_TRAIN_RUNS' depth) trained on a
+    (1, world) mesh for TP_NCCL_TRAIN_STEPS steps: the train cell's rank
+    program (``Cell.fn``) on this card's slices of the state, after its
+    gradients (``grads_rank_body`` on the wire) are held per leaf to the
+    same slices of this card's one-card step (``tp_train_run``'s
+    limits); the loss per step within TP_TRAIN_LOSS_RTOL. Rank 0 reports
+    the worst leaf over all ranks."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import OptConfig, adamw_update, tree_leaves
+    from repro_torch.train.step import (TrainState, _loss_and_grads,
+                                        grads_rank_body, make_train_state,
+                                        spec_leaves)
+    arch, depth, _ = TP_TRAIN_RUNS[0]
+    cfg, reduced = family_config(arch, depth)
+    cfg = dataclasses.replace(cfg, remat=False)
+    opt = OptConfig(lr=LM_TRAIN_LR, warmup_steps=0, total_steps=TP_TRAIN_STEPS)
+    mesh = mesh_of((1, world))
+    cell = build_cell(cfg.name, cfg, ShapeSpec("t", "train", TP_TRAIN_SEQ,
+                                               TP_TRAIN_BATCH), mesh, opt)
+    sspec, bspec = cell.in_shardings
+    grads_body = grads_rank_body(cfg, sspec.params)
+    grads_of = _loss_and_grads(cfg, get_api(cfg))
+    ctx = C.rank_context(mesh)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    cut = lambda tree, specs: spec_map(lambda t, sp: t[C.local_slices(
+        sp, t.shape, ctx.size, ctx.index)].clone(), tree, specs, is_leaf=is_t)
+    state = make_train_state(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device=device)
+    mine = cut(state, sspec)
+    worst = torch.zeros(2, dtype=torch.float64, device=device)
+    steps = []
+    for i, batch in enumerate(tp_train_batches(cfg, device,
+                                               TP_NCCL_TRAIN_STEPS)):
+        loss1, _, grads = grads_of(state.params, batch)
+        params, opt_state, _ = adamw_update(state.params, grads, state.opt, opt)
+        state = TrainState(params, opt_state, state.step + 1)
+        del params, opt_state
+        rows = cut(batch, bspec)
+        with torch.enable_grad():
+            _, _, got = C.run_spmd(grads_body(ctx, mine.params, rows), mesh)
+        for g, want, spec in zip(tree_leaves(got), tree_leaves(grads),
+                                 spec_leaves(sspec.params)):
+            c = grad_limits(g, want[C.local_slices(spec, want.shape, ctx.size,
+                                                   ctx.index)])
+            if not c["held"]:
+                raise AssertionError(f"distributed NCCL tp_train: {c}")
+            worst = torch.maximum(worst, torch.tensor(
+                [c["max_rel"], c["median_rel"]], dtype=torch.float64,
+                device=device))
+        del got, grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine, metrics = cell.fn(mine, rows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(metrics["loss"])
+        if not abs(loss - float(loss1)) <= TP_TRAIN_LOSS_RTOL * abs(float(loss1)):
+            raise AssertionError(f"distributed NCCL tp_train step {i}: loss "
+                                 f"{loss} vs {float(loss1)}")
+        steps.append({"loss": loss, "single_loss": float(loss1),
+                      "tp_step_ms": ms})
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    del state, mine
+    return {"model": cfg.name, "tp": world, "reduced": reduced,
+            "tokens": [TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1], "steps": steps,
+            "grad_worst_max_rel": float(worst[0]),
+            "grad_worst_median_rel": float(worst[1])}
+
+
 def phase_distributed(device):
     """In-process ranks on this card at full width (the banded encoder at
     2 and 4 bands, EP at tp 2 and 4, the compressed psum over 4 ranks),
@@ -4864,10 +4998,13 @@ DRYRUN_LM_CELLS = (("minitron-4b", "train_4k", False),
                    ("olmoe-1b-7b", "decode_32k", True),   # EP under --opt
                    ("hymba-1.5b", "long_500k", False))
 DRYRUN_DETR = "deformable-detr-defa"
-# (b) against the card on a mesh of one rank: minitron-4b decode_32k at
-# full widths, depth and batch cut
+# (b) against the card on a mesh of one rank: DETR serve, minitron-4b
+# decode_32k and deepseek-7b train_4k at full widths, depth and batch cut
+# (the train cell's sequence too)
 DRYRUN_LM_LAYERS = 2
 DRYRUN_LM_BATCH = 8
+DRYRUN_TRAIN_BATCH = 2           # the train cell against the card
+DRYRUN_TRAIN_SEQ = 1024
 DRYRUN_REPS = 5
 # the card's peak against the fake run's: it may not fall more than 1 %
 # below (every tensor the fake run counts is allocated for real), and may
@@ -4922,7 +5059,7 @@ def dryrun_fake_cells():
 
 
 def dryrun_against_card(device):
-    """(b): two cells traced fake and run for real on a mesh of one rank:
+    """(b): three cells traced fake and run for real on a mesh of one rank:
     argument bytes and FLOPs equal, the card's peak within the stated
     band of the fake run's, the median step at or above the roofline, and
     the kernels the fake run called launched once each per call."""
@@ -4934,10 +5071,25 @@ def dryrun_against_card(device):
     shape = dataclasses.replace(SHAPES["decode_32k"],
                                 global_batch=DRYRUN_LM_BATCH)
     SHAPES_DECODE_BATCH = SHAPES["decode_32k"].global_batch
+    train = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=DRYRUN_TRAIN_BATCH,
+                                seq_len=DRYRUN_TRAIN_SEQ)
     cells = {f"{DRYRUN_DETR}/serve": dryrun.detr_cell(
                  DRYRUN_DETR, "serve", backend="auto"),
              "minitron-4b/decode_32k": dryrun.lm_cell(
-                 "minitron-4b", shape, n_layers=DRYRUN_LM_LAYERS)}
+                 "minitron-4b", shape, n_layers=DRYRUN_LM_LAYERS),
+             # the train rank body (forward, loss, backward, AdamW)
+             "deepseek-7b/train_4k": dryrun.lm_cell(
+                 "deepseek-7b", train, n_layers=DRYRUN_LM_LAYERS)}
+    reduced = {
+        "minitron-4b/decode_32k": {
+            "n_layers": [lm_config().n_layers, DRYRUN_LM_LAYERS],
+            "global_batch": [SHAPES_DECODE_BATCH, DRYRUN_LM_BATCH]},
+        "deepseek-7b/train_4k": {
+            "n_layers": [30, DRYRUN_LM_LAYERS],
+            "global_batch": [SHAPES["train_4k"].global_batch,
+                             DRYRUN_TRAIN_BATCH],
+            "seq_len": [SHAPES["train_4k"].seq_len, DRYRUN_TRAIN_SEQ]}}
     out = {}
     for name, make_cell in cells.items():
         fake = dryrun.run_fake(make_cell, None, mesh_shape=one)
@@ -4952,10 +5104,7 @@ def dryrun_against_card(device):
         lo = want * (1 - DRYRUN_PEAK_BELOW)
         hi = want * (1 + DRYRUN_PEAK_ABOVE) + DRYRUN_PEAK_SLACK
         median_ms = statistics.median(real["step_ms"])
-        rec = {"fake": dryrun_summary(fake),
-               "reduced": {"n_layers": [lm_config().n_layers, DRYRUN_LM_LAYERS],
-                           "global_batch": [SHAPES_DECODE_BATCH, DRYRUN_LM_BATCH]}
-               if "minitron" in name else {},
+        rec = {"fake": dryrun_summary(fake), "reduced": reduced.get(name, {}),
                "real_flops": real["flops"],
                "real_argument_bytes": real["argument_bytes"],
                "real_peak_bytes": real["peak_bytes"],
@@ -5109,7 +5258,7 @@ def dryrun_remat(device):
 
 def phase_dryrun(device, stacks):
     """The dry run (``repro_torch.launch.dryrun``) on the card: (a) fake
-    traces on the single-pod mesh, (b) two cells fake and for real on a
+    traces on the single-pod mesh, (b) three cells fake and for real on a
     mesh of one rank, (c) the banded cell's bytes against the in-process
     ranks', (d) remat off / nothing / save_comm on lm_train's config."""
     import torch
@@ -5386,6 +5535,310 @@ def tp_split_picks(picks, n_prompts, steps, cfg, tp=1):
 
 
 # --------------------------------------------------------------------------
+# tp_train: one train step on model-axis shards (in-process ranks)
+# --------------------------------------------------------------------------
+
+# (arch, layers kept, tp degrees): full widths in bf16, depth cut
+TP_TRAIN_RUNS = (("deepseek-7b", 4, (2, 4)),
+                 # 8 KV heads on 16 ranks: wk / wv replicate, read in part
+                 ("minitron-8b", 2, (16,)),
+                 # 64 experts on 4 ranks: expert parallel
+                 ("olmoe-1b-7b", 2, (4,)))
+TP_TRAIN_BATCH = 4
+TP_TRAIN_SEQ = 512               # 513 tokens a row: 512 predicted
+TP_TRAIN_STEPS = 3
+TP_NCCL_TRAIN_STEPS = 2
+# per leaf: the gradient's max |d| <= 2^-4 and median <= 2^-8 of the
+# largest |g| (bf16 products summed in another order and split over the
+# ranks, as logit_limits); the loss within 2^-7 relative
+TP_TRAIN_GRAD_MAX = 2 ** -4
+TP_TRAIN_GRAD_MEDIAN = 2 ** -8
+TP_TRAIN_LOSS_RTOL = 2 ** -7
+# a leaf outside those against its float32 gradient (``grad_limits``):
+# the ranks add one bf16 rounding per partial product, so their distance
+# may exceed the one card's by a few roundings
+TP_TRAIN_F32_MEDIAN = 1.5
+TP_TRAIN_F32_MAX = 4.0
+
+
+def tp_train_batches(cfg, device, steps):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    return [{"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+            for _ in range(steps)]
+
+
+GRAD_CHUNK = 1 << 26             # elements per slice of a leaf compared
+
+
+def err_stats(got, ref):
+    """(max, median) of |got - ref| in float32, and whether ``got`` is
+    finite, a slice of GRAD_CHUNK elements at a time: a 1 G-element leaf
+    (minitron-8b's embedding) compared whole would take several times its
+    size again. The median (the upper middle element) by bisection on
+    counts."""
+    import torch
+    a, b = got.reshape(-1), ref.reshape(-1).to(got.device)
+    n = a.numel()
+
+    def errs():
+        for i in range(0, n, GRAD_CHUNK):
+            yield (a[i:i + GRAD_CHUNK].float() - b[i:i + GRAD_CHUNK].float()).abs()
+    finite = all(bool(torch.isfinite(a[i:i + GRAD_CHUNK]).all())
+                 for i in range(0, n, GRAD_CHUNK))
+    top = max(float(e.max()) for e in errs())
+    k = n // 2                              # elements strictly below it
+    lo, hi = 0.0, top
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        if sum(int(torch.count_nonzero(e <= mid)) for e in errs()) > k:
+            hi = mid
+        else:
+            lo = mid
+    return top, hi, finite
+
+
+def grad_limits(got, want, median_only=False, truth=None):
+    """Per leaf: max and median |d| of the gradient against the one
+    card's, as fractions of its largest |g|, held to TP_TRAIN_GRAD_MAX /
+    TP_TRAIN_GRAD_MEDIAN (the median only where ``median_only``). A leaf
+    outside them is held to its float32 gradient ``truth`` instead: bf16
+    rounding moves the one card's own gradient from the float32 one by
+    as much (olmoe-1b-7b at 2 layers: 0.9-1.7 % of the largest |g| in
+    median, my CPU probe), so the ranks' may lie no further from it than
+    TP_TRAIN_F32_MEDIAN x (median) and TP_TRAIN_F32_MAX x (max) the one
+    card's."""
+    w = want.reshape(-1)
+    scale = max([float(w[i:i + GRAD_CHUNK].float().abs().max())
+                 for i in range(0, w.numel(), GRAD_CHUNK)] + [1e-30])
+    top, med, finite = err_stats(got, want)
+    out = {"max_rel": top / scale, "median_rel": med / scale}
+    out["held"] = finite and med <= TP_TRAIN_GRAD_MEDIAN * scale \
+        and (median_only or top <= TP_TRAIN_GRAD_MAX * scale)
+    if out["held"] or truth is None:
+        return out
+    tp_max, tp_med, _ = err_stats(got, truth)
+    one_max, one_med, _ = err_stats(want, truth)
+    out["against_f32"] = {"tp_max_rel": tp_max / scale,
+                          "tp_median_rel": tp_med / scale,
+                          "one_card_max_rel": one_max / scale,
+                          "one_card_median_rel": one_med / scale}
+    out["held"] = finite and tp_med <= TP_TRAIN_F32_MEDIAN * one_med \
+        and (median_only or tp_max <= TP_TRAIN_F32_MAX * one_max)
+    return out
+
+
+def router_flips(picks_got, picks_want):
+    """Tokens whose set of router picks differs between two runs, summed
+    over the MoE layers."""
+    n = 0
+    for (_, ea, _), (_, eb, _) in zip(picks_got, picks_want):
+        n += int((ea.sort(-1).values != eb.sort(-1).values).any(-1).sum())
+    return n
+
+
+def tp_train_single(cfg, opt, device):
+    """The one card, TP_TRAIN_STEPS steps from the seeded state:
+    ``train.step``'s gradients and AdamW (``build_train_step``'s
+    operations, AdamW taken leaf by leaf); per step the loss, grad norm, time, the router picks
+    (MoE) and the gradients, with the float32 gradients of the same
+    parameters, copied to the host (a second copy of the state and its
+    moments would not fit beside the ranks' at minitron-8b's 256 K
+    vocabulary)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import (adamw_update, global_norm,
+                                         tree_leaves, tree_map, tree_unflatten)
+    from repro_torch.train.step import (TrainState, _loss_and_grads,
+                                        make_train_state)
+    grads_of = _loss_and_grads(cfg, get_api(cfg))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    grads32_of = _loss_and_grads(cfg32, get_api(cfg32))
+    state = make_train_state(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device=device)
+    out = []
+    for batch in tp_train_batches(cfg, device, TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RouterPicks() as rp:
+            loss, _, grads = grads_of(state.params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # the float32 gradient of the same bf16 parameters (untimed)
+        _, _, g32 = grads32_of(tree_map(lambda t: t.float(), state.params),
+                               batch)
+        g32 = [g.to("cpu") for g in tree_leaves(g32)]
+        host = [g.to("cpu") for g in tree_leaves(grads)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # AdamW leaf by leaf (each leaf's update is independent; the global
+        # norm clips them all), each old leaf dropped as its new one lands:
+        # two whole states would not fit beside what earlier phases hold
+        p, g = tree_leaves(state.params), tree_leaves(grads)
+        mm, vv = tree_leaves(state.opt["m"]), tree_leaves(state.opt["v"])
+        del grads
+        gnorm = global_norm(g)
+        for j in range(len(p)):
+            new_p, new_opt, m = adamw_update(
+                [p[j]], [g[j]], {"m": [mm[j]], "v": [vv[j]],
+                                 "step": state.opt["step"]}, opt, grad_norm=gnorm)
+            p[j], mm[j], vv[j], g[j] = new_p[0], new_opt["m"][0], new_opt["v"][0], None
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t0) * 1e3
+        out.append({"ms": ms, "loss": float(loss), "grad_norm": float(gnorm),
+                    "grads": host, "grads_f32": g32,
+                    "picks": [(None, e, None) for _, e, _ in rp.picks]})
+        del g32, g
+        state = TrainState(tree_unflatten(state.params, p),
+                           {"m": tree_unflatten(state.opt["m"], mm),
+                            "v": tree_unflatten(state.opt["v"], vv),
+                            "step": new_opt["step"]}, state.step + 1)
+        del p, mm, vv
+    del state
+    return out
+
+
+def tp_train_run(cfg, tp, opt, device, single):
+    """TP_TRAIN_STEPS steps of the train cell's rank bodies of a (1, tp)
+    mesh from the seeded state, every rank in turn on this card on its
+    own slices: per step their gradients (``grads_rank_body``,
+    assembled) against the one card's (``tp_train_single``), then the
+    step itself (``Cell.body``), timed, with its peak above the state."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import (grads_rank_body, make_train_state,
+                                        spec_leaves)
+    mesh = C.InProcessMesh((1, tp), ("data", "model"))
+    cell = build_cell(cfg.name, cfg, ShapeSpec("t", "train", TP_TRAIN_SEQ,
+                                               TP_TRAIN_BATCH), mesh, opt)
+    sspec, bspec = cell.in_shardings
+    grads_body = grads_rank_body(cfg, sspec.params)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    ctxs = [C.RankContext(mesh.coords(r), C.mesh_shape(mesh))
+            for r in range(tp)]
+    cut = lambda tree, specs, ctx: spec_map(lambda t, sp: t[C.local_slices(
+        sp, t.shape, ctx.size, ctx.index)].clone(), tree, specs, is_leaf=is_t)
+    state = make_train_state(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device=device)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    ranks = [cut(state, sspec, c) for c in ctxs]
+    paths = [p for p, _ in leaf_paths(state.params)]
+    shapes = [t.shape for t in tree_leaves(state.params)]
+    del state
+    steps, worst = [], {}
+    for i, batch in enumerate(tp_train_batches(cfg, device, TP_TRAIN_STEPS)):
+        rows = [cut(batch, bspec, c) for c in ctxs]
+        held = torch.cuda.memory_allocated()
+        with torch.enable_grad(), RouterPicks() as rp:
+            outs = C.run_in_process(lambda r, ctx: grads_body(
+                ctx, ranks[r].params, rows[r]), mesh)
+        # rank 0's router calls (every rank routes the same rows alike)
+        flips = router_flips(rp.picks[::tp], single[i]["picks"])
+        cmps = {}
+        for j, (path, spec, shape) in enumerate(zip(
+                paths, spec_leaves(sspec.params), shapes)):
+            got = C.assemble({r: tree_leaves(o[2])[j] for r, o in
+                              enumerate(outs)}, spec, shape, mesh)
+            cmps[path] = grad_limits(got, single[i]["grads"][j].to(got.device),
+                                     flips > 0, single[i]["grads_f32"][j])
+            del got
+        del outs
+        bad = {p: c for p, c in cmps.items() if not c["held"]}
+        if bad:
+            raise AssertionError(f"tp_train {cfg.name} x{tp} step {i}: "
+                                 f"{next(iter(bad.items()))}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            res = C.run_in_process(lambda r, ctx: cell.body(
+                ctx, ranks[r], rows[r]), mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        ranks = [o[0] for o in res]
+        loss, want = float(res[0][1]["loss"]), single[i]["loss"]
+        if not abs(loss - want) <= TP_TRAIN_LOSS_RTOL * abs(want):
+            raise AssertionError(f"tp_train {cfg.name} x{tp} step {i}: loss "
+                                 f"{loss} vs {want}")
+        for p, c in cmps.items():
+            w = worst.setdefault(p, {"max_rel": 0.0, "median_rel": 0.0})
+            w["max_rel"] = max(w["max_rel"], c["max_rel"])
+            w["median_rel"] = max(w["median_rel"], c["median_rel"])
+        steps.append({"loss": loss, "single_loss": want,
+                      "held_against_f32": {p: c["against_f32"] for p, c
+                                           in cmps.items() if "against_f32" in c},
+                      "grad_norm": float(res[0][1]["grad_norm"]),
+                      "single_grad_norm": single[i]["grad_norm"],
+                      "router_flips": flips, "tp_step_ms": ms,
+                      "single_step_ms": single[i]["ms"],
+                      "allocated_at_step_bytes": held,
+                      "peak_above_state_bytes": peak})
+        del res
+    del ranks
+    top = max(worst, key=lambda p: worst[p]["max_rel"])
+    return {"state_bytes": state_bytes, "steps": steps, "grad_worst": {
+        "max_rel": worst[top]["max_rel"], "leaf_of_max": top,
+        "median_rel": max(w["median_rel"] for w in worst.values())},
+        "computed_whole": cell.computed_whole}
+
+
+def phase_tp_train(device):
+    """Training on model-axis shards on this card: TP_TRAIN_RUNS, each
+    TP_TRAIN_STEPS steps from one seeded state through the train cell's
+    rank bodies on in-process ranks, against the one card's step on the
+    same batches (``tp_train_run``): the gradients per leaf and the loss
+    within their limits. The train path launches none of K1-K5."""
+    import dataclasses
+    import torch
+    from repro_torch.optim.adamw import OptConfig
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    held = memory_mark()[1]                   # what earlier phases hold
+    rows = []
+    for arch, depth, tps in TP_TRAIN_RUNS:
+        cfg, reduced = family_config(arch, depth)
+        cfg = dataclasses.replace(cfg, remat=False)
+        opt = OptConfig(lr=LM_TRAIN_LR, warmup_steps=0,
+                        total_steps=TP_TRAIN_STEPS)
+        memory_mark()
+        t1 = time.perf_counter()
+        single = tp_train_single(cfg, opt, device)
+        single_s = time.perf_counter() - t1
+        for tp in tps:
+            memory_mark()
+            t1 = time.perf_counter()
+            got = tp_train_run(cfg, tp, opt, device, single)
+            rows.append({"seconds": time.perf_counter() - t1,
+                         "single_seconds": single_s,
+                         "model": cfg.name, "tp": tp, "mesh": [1, tp],
+                         "reduced": reduced, "dtype": str(cfg.dtype),
+                         "remat": False,
+                         "tokens": [TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1], **got})
+        del single
+    memory_mark()
+    emit("tp_train", runs=rows, kernel_launches=counts_since(before),
+         allocated_before_bytes=held,
+         tolerance="per leaf: gradient max |d| <= 2^-4 and median <= 2^-8 "
+                   "of the largest |g| of the one card's (median only in a "
+                   "step whose MoE router flipped a token); else against "
+                   "the float32 gradient: median within 1.5x and max within "
+                   "4x the one card's bf16 distance; loss within 2^-7 "
+                   "relative",
+         seconds=time.perf_counter() - t0)
+    return rows
+
+
+# --------------------------------------------------------------------------
 # host cost of the kernels' wrappers (``--host-cost SRC``)
 # --------------------------------------------------------------------------
 
@@ -5559,6 +6012,8 @@ def main() -> int:
     loop = phase_train_loop()
     phase_accuracy_deterministic()
     phase_lm_train(device, loop["lm_fault_tolerant"])
+    # before the LM serving phases, whose weights stay held to the end
+    phase_tp_train(device)
     lm = phase_lm_serve(device)
     families = phase_lm_families(device)
     stream = phase_stream(device, serve)

@@ -4,7 +4,8 @@
 // flash_decode.py, body _kernel). For each sequence b and query head h it
 // computes softmax(q_h . K / sqrt(Dh)) . V over a (B, W, Hkv, Dh) KV cache
 // with a per-slot validity mask, and matches the TPU kernel's arithmetic:
-//   * query head h reads KV head h / n_rep with n_rep = ceil(Hq / Hkv);
+//   * query head h reads KV head h / n_rep with n_rep = ceil(Hq / Hkv),
+//     unless the caller hands a head table (below);
 //   * a score is the dot product rounded to the input dtype, then widened
 //     to float32 and scaled by 1/sqrt(Dh); invalid slots score -1e30;
 //   * the online max and sum start at -1e30 and 0, P.V is summed in
@@ -14,15 +15,29 @@
 //     is then uniform over real and padded slots alike: sum V / (W + pad)
 //     (argument `pad`).
 //
+// The head table. A model maps its query heads to KV heads in ways the TPU
+// kernel's h / n_rep does not cover: padded query heads clamp to the last
+// KV head, and a tensor-parallel rank's query heads may start inside a KV
+// group and read KV heads from the middle of the cache row. So the kernel
+// takes a table of entries (KV head g, first query head h0, count nh <=
+// kMaxRep): query heads h0 .. h0 + nh - 1 all read KV head g, and every
+// query head appears in exactly one entry (kernels/flash_decode.py builds
+// it from the model's map, one entry per run of query heads on one KV
+// head). g indexes the heads STORED in the cache row: Hkv is the row's
+// head count (its stride is Hkv * Dh), so a rank reads its block of a
+// cache that holds more heads in place. The table travels by value in the
+// launch's parameters (no device memory, so a CUDA graph holds it). The
+// wrapper's default table, g = h / n_rep in runs of at most kMaxRep, is
+// the TPU kernel's map.
+//
 // Design: a split pass and a merge pass. The split pass runs a block per
-// (split of W, b, KV head, group of up to kMaxRep query heads of that KV
-// head); kernels/flash_decode.py's decode_splits picks the split length
-// (a multiple of 32, at most kMaxSplit) so that at least four blocks per
+// (split of W, b, table entry); kernels/flash_decode.py's decode_splits
+// picks the split length (a multiple of 32, at most kMaxSplit) so that at least four blocks per
 // SM run (at the LM's decode shape: 128 slots, 1,024 blocks). A block
 // first compacts the indices of its split's valid slots into shared
 // memory (__ballot_sync / __popc per 32 mask bytes) and then reads the K
 // and V rows of those slots only, each once for all the query heads of
-// its group, through a warp-private cp.async ring. Two versions of the
+// its entry, through a warp-private cp.async ring. Two versions of the
 // split pass:
 //   * flash_decode_mma_kernel, bf16 with Dh % 32 == 0 (the LM's path): a
 //     warp takes 16 compacted slots per step; the scores and P.V are
@@ -71,7 +86,24 @@ constexpr int kStages = 3;          // steps in a warp's cp.async ring
 constexpr int kBlocksPerSm = 4;     // split blocks resident per SM (registers, smem)
 constexpr int kMergeThreads = 128;
 constexpr int kMaxMergeSplits = 1024;
+constexpr int kMaxEntries = 512;    // head-table entries (2 KiB of launch parameters)
 constexpr float kNeg = -1e30f;
+
+// An entry packs (g << 16) | (h0 << 4) | nh: g < 65536, h0 < 4096, nh <= kMaxRep.
+struct HeadTable {
+  int n;
+  uint32_t e[kMaxEntries];
+};
+
+__host__ __device__ __forceinline__ int entry_kv(uint32_t e) {
+  return static_cast<int>(e >> 16);
+}
+__host__ __device__ __forceinline__ int entry_h0(uint32_t e) {
+  return static_cast<int>((e >> 4) & 0xfffu);
+}
+__host__ __device__ __forceinline__ int entry_nh(uint32_t e) {
+  return static_cast<int>(e & 0xfu);
+}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -121,22 +153,20 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float (&r)[VEC]) {
 }
 
 // Where a split block sits: blockIdx.x is the split, blockIdx.y the
-// (b, KV head g, query-head group grp); its heads are h0 .. h0 + nh - 1
-// (nh <= 0: heads past Hq, the block has nothing to do); its slots are
-// [w0, w_end).
+// (b, head-table entry); its heads are h0 .. h0 + nh - 1, all reading the
+// stored KV head g; its slots are [w0, w_end).
 struct SplitBlock {
-  int b, g, grp, h0, nh, split, n_splits, w0, w_end;
+  int b, entry, g, h0, nh, split, n_splits, w0, w_end;
 };
 
-__device__ __forceinline__ SplitBlock split_block(int Hq, int Hkv, int W, int n_rep,
-                                                  int split_len) {
+__device__ __forceinline__ SplitBlock split_block(const HeadTable& table, int W, int split_len) {
   SplitBlock p;
-  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
-  p.grp = blockIdx.y % n_groups;
-  p.g = (blockIdx.y / n_groups) % Hkv;
-  p.b = blockIdx.y / n_groups / Hkv;
-  p.h0 = p.g * n_rep + p.grp * kMaxRep;
-  p.nh = min(min(kMaxRep, n_rep - p.grp * kMaxRep), Hq - p.h0);
+  p.entry = blockIdx.y % table.n;
+  p.b = blockIdx.y / table.n;
+  const uint32_t e = table.e[p.entry];
+  p.g = entry_kv(e);
+  p.h0 = entry_h0(e);
+  p.nh = entry_nh(e);
   p.split = blockIdx.x;
   p.n_splits = gridDim.x;
   p.w0 = p.split * split_len;
@@ -217,7 +247,8 @@ __global__ void __launch_bounds__(kWarp * kWarps, kBlocksPerSm)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const uint8_t* __restrict__ valid,
                           float* __restrict__ part, int* __restrict__ counts, int Hq, int Hkv,
-                          int Dh, int W, int n_rep, int split_len, int lpr, float scale) {
+                          int Dh, int W, int split_len, int lpr, float scale,
+                          const HeadTable table) {
   __shared__ int slots[kMaxSplit];
   __shared__ float sm_m[kMaxRep][kWarps * kWarp];
   __shared__ float sm_l[kMaxRep][kWarps * kWarp];
@@ -227,9 +258,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  const SplitBlock pos = split_block(Hq, Hkv, W, n_rep, split_len);
+  const SplitBlock pos = split_block(table, W, split_len);
   const int b = pos.b, g = pos.g, h0 = pos.h0, nh = pos.nh;
-  if (nh <= 0) return;                       // heads past Hq: the whole block
 
   // lane groups of lpr lanes, one slot each; lane lig holds channels
   // ch0 .. ch0 + VEC - 1. q is loaded first: its latency overlaps the
@@ -253,7 +283,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
   const int n_valid = compact_split(valid + static_cast<int64_t>(b) * W, pos, slots);
-  if (pos.g == 0 && pos.grp == 0 && threadIdx.x == 0)
+  if (pos.entry == 0 && threadIdx.x == 0)
     counts[static_cast<int64_t>(b) * pos.n_splits + pos.split] = n_valid;
 
   float m[kMaxRep], l[kMaxRep], acc[kMaxRep][VEC];
@@ -421,7 +451,7 @@ template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ counts,
                           const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv, int Dh,
-                          int W, int n_rep, int n_splits, int pad) {
+                          int W, int n_splits, int pad, const HeadTable table) {
   __shared__ float weight[kMaxMergeSplits];
   __shared__ float scratch[kMergeThreads / kWarp];
   const int bh = blockIdx.x;
@@ -437,7 +467,11 @@ flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict_
   total = block_reduce<false>(total, scratch);
   mx = block_reduce<true>(mx, scratch);
   if (total == 0.f) {
-    const int g = h / n_rep;
+    int g = 0;                               // the KV head of h's entry
+    for (int i = 0; i < table.n; ++i) {
+      const uint32_t e = table.e[i];
+      if (h >= entry_h0(e) && h < entry_h0(e) + entry_nh(e)) g = entry_kv(e);
+    }
     for (int ch = threadIdx.x; ch < Dh; ch += blockDim.x) {
       float sum = 0.f;
 #pragma unroll 8
@@ -522,7 +556,7 @@ __global__ void __launch_bounds__(kWarp * kWarps)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
                         float* __restrict__ part, int* __restrict__ counts, int Hq, int Hkv,
-                        int Dh, int W, int n_rep, int split_len, float scale) {
+                        int Dh, int W, int split_len, float scale, const HeadTable table) {
   __shared__ int slots[kMaxSplit];
   __shared__ float sm_m[kMaxRep][kWarps];
   __shared__ float sm_l[kMaxRep][kWarps];
@@ -532,9 +566,8 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  const SplitBlock pos = split_block(Hq, Hkv, W, n_rep, split_len);
+  const SplitBlock pos = split_block(table, W, split_len);
   const int b = pos.b, g = pos.g, h0 = pos.h0, nh = pos.nh;
-  if (nh <= 0) return;                       // heads past Hq: the whole block
   const int gr = lane / 4;                   // fragment row: the query head
   const int tq = lane % 4;                   // thread in the quad
   const int n_kk = Dh / 16;
@@ -553,7 +586,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 
   const int n_valid = compact_split(valid + static_cast<int64_t>(b) * W, pos, slots);
-  if (pos.g == 0 && pos.grp == 0 && threadIdx.x == 0)
+  if (pos.entry == 0 && threadIdx.x == 0)
     counts[static_cast<int64_t>(b) * pos.n_splits + pos.split] = n_valid;
 
   float m = kNeg, l = 0.f;                   // row gr; l is this lane's share
@@ -688,49 +721,48 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 template <typename T>
 int launch_merge(const float* part, const int* counts, const void* v, void* out, int B, int Hq,
-                 int Hkv, int Dh, int W, int n_rep, int n_splits, int pad, cudaStream_t s) {
+                 int Hkv, int Dh, int W, int n_splits, int pad, const HeadTable& table,
+                 cudaStream_t s) {
   flash_decode_merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(
-      part, counts, static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Dh, W, n_rep,
-      n_splits, pad);
+      part, counts, static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Dh, W, n_splits, pad,
+      table);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC, bool kVecLoad>
 int launch(const void* q, const void* k, const void* v, const uint8_t* ok, void* out, float* part,
-           int* counts, int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad, int split_len,
-           int lpr, float scale, cudaStream_t s) {
+           int* counts, int B, int Hq, int Hkv, int Dh, int W, int pad, int split_len, int lpr,
+           float scale, const HeadTable& table, cudaStream_t s) {
   const int n_splits = (W + split_len - 1) / split_len;
-  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
   constexpr int smem = split_smem_bytes<T, VEC, kVecLoad>();
   cudaError_t e = cudaFuncSetAttribute(flash_decode_split_kernel<T, VEC, kVecLoad>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_splits, B * Hkv * n_groups);
+  const dim3 grid(n_splits, B * table.n);
   flash_decode_split_kernel<T, VEC, kVecLoad><<<grid, kWarp * kWarps, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ok, part,
-      counts, Hq, Hkv, Dh, W, n_rep, split_len, lpr, scale);
+      counts, Hq, Hkv, Dh, W, split_len, lpr, scale, table);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_merge<T>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_rep, n_splits, pad, s);
+  return launch_merge<T>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_splits, pad, table, s);
 }
 
 int launch_mma(const void* q, const void* k, const void* v, const uint8_t* ok, void* out,
-               float* part, int* counts, int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad,
-               int split_len, float scale, cudaStream_t s) {
+               float* part, int* counts, int B, int Hq, int Hkv, int Dh, int W, int pad,
+               int split_len, float scale, const HeadTable& table, cudaStream_t s) {
   const int n_splits = (W + split_len - 1) / split_len;
-  const int n_groups = (n_rep + kMaxRep - 1) / kMaxRep;
   cudaError_t e = cudaFuncSetAttribute(flash_decode_mma_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_splits, B * Hkv * n_groups);
+  const dim3 grid(n_splits, B * table.n);
   flash_decode_mma_kernel<<<grid, kWarp * kWarps, kMmaSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ok, part, counts, Hq, Hkv, Dh, W, n_rep, split_len,
-      scale);
+      static_cast<const __nv_bfloat16*>(v), ok, part, counts, Hq, Hkv, Dh, W, split_len, scale,
+      table);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_merge<__nv_bfloat16>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_rep, n_splits,
-                                     pad, s);
+  return launch_merge<__nv_bfloat16>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_splits, pad,
+                                     table, s);
 }
 
 int pow2_at_least(int x) {
@@ -742,21 +774,41 @@ int pow2_at_least(int x) {
 }  // namespace repro_torch
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out alike); valid is one byte
-// per slot (torch.bool). n_rep = ceil(Hq / Hkv); pad = the TPU kernel's
-// padded slots, (-W) mod min(chunk, W); split_len a multiple of 32, at
-// most 512. part: float32 scratch (B, Hq, ceil(W / split_len), Dh + 2);
-// counts: int32 scratch (B, ceil(W / split_len)). Returns the first
-// non-zero cudaGetLastError() of the two launches.
+// per slot (torch.bool). Hkv is the number of KV heads the cache row
+// stores. table: n_entries packed head-table entries in host memory (see
+// the note at HeadTable; kernels/flash_decode.py's head_table). pad = the
+// TPU kernel's padded slots, (-W) mod min(chunk, W); split_len a multiple of 32, at most 512. part:
+// float32 scratch (B, Hq, ceil(W / split_len), Dh + 2); counts: int32
+// scratch (B, ceil(W / split_len)). Returns cudaErrorInvalidValue for a
+// table that does not cover each query head once with valid KV heads, else
+// the first non-zero cudaGetLastError() of the two launches.
 extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, const void* v,
                                     const void* valid, void* out, void* part, void* counts,
-                                    int B, int Hq, int Hkv, int Dh, int W, int n_rep, int pad,
-                                    int split_len, float scale, void* stream) {
+                                    int B, int Hq, int Hkv, int Dh, int W, int pad,
+                                    int split_len, float scale, const void* table,
+                                    int n_entries, void* stream) {
   using namespace repro_torch;
-  if (Dh < 1 || Dh > kMaxDh || n_rep < 1 || split_len < kWarp || split_len > kMaxSplit ||
-      split_len % kWarp != 0 || (W + split_len - 1) / split_len > kMaxMergeSplits ||
-      static_cast<long long>(B) * Hkv * ((n_rep + kMaxRep - 1) / kMaxRep) > 65535)
+  if (Dh < 1 || Dh > kMaxDh || Hkv < 1 || Hq < 1 || Hq >= 4096 || Hkv > 65535 ||
+      split_len < kWarp || split_len > kMaxSplit || split_len % kWarp != 0 ||
+      (W + split_len - 1) / split_len > kMaxMergeSplits)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Hq == 0 || W == 0) return 0;
+  if (table == nullptr || n_entries < 1 || n_entries > kMaxEntries)
+    return static_cast<int>(cudaErrorInvalidValue);
+  HeadTable ht;
+  ht.n = n_entries;
+  const auto* src = static_cast<const uint32_t*>(table);
+  int covered = 0;                           // entries in query-head order, each head once
+  for (int i = 0; i < n_entries; ++i) {
+    const uint32_t e = src[i];
+    const int nh = entry_nh(e);
+    if (nh < 1 || nh > kMaxRep || entry_kv(e) >= Hkv || entry_h0(e) != covered)
+      return static_cast<int>(cudaErrorInvalidValue);
+    covered += nh;
+    ht.e[i] = e;
+  }
+  if (covered != Hq) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(B) * ht.n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ok = static_cast<const uint8_t*>(valid);
   auto* pt = static_cast<float*>(part);
@@ -767,21 +819,20 @@ extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, con
   const int vec_ch = vec ? 16 / elem : 4;    // channels per lane
   const int lpr = pow2_at_least((Dh + vec_ch - 1) / vec_ch);
   if (dtype == 1 && vec && Dh % 32 == 0)
-    return launch_mma(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad, split_len, scale,
-                      s);
+    return launch_mma(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len, scale, ht, s);
   switch (dtype * 2 + (vec ? 1 : 0)) {
     case 0:
-      return launch<float, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad,
-                                     split_len, lpr, scale, s);
+      return launch<float, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
+                                     lpr, scale, ht, s);
     case 1:
-      return launch<float, 4, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep, pad,
-                                    split_len, lpr, scale, s);
+      return launch<float, 4, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
+                                    lpr, scale, ht, s);
     case 2:
-      return launch<__nv_bfloat16, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep,
-                                             pad, split_len, lpr, scale, s);
+      return launch<__nv_bfloat16, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad,
+                                             split_len, lpr, scale, ht, s);
     case 3:
-      return launch<__nv_bfloat16, 8, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, n_rep,
-                                            pad, split_len, lpr, scale, s);
+      return launch<__nv_bfloat16, 8, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad,
+                                            split_len, lpr, scale, ht, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,16 +9,21 @@ launch layer.
   :func:`model_axis_size` to take its expert-parallel path when it is
   called on global tensors.
 * The **tensor-parallel context** (:func:`tensor_parallel`, set by a
-  serving cell's rank body, ``launch.input_specs._serve_body``): the
-  rank's place on the model axis. Under it the serving paths of
-  ``models/`` compute on the rank's parameter shards, as the reference's
-  SPMD partitioner splits each matmul: a layer finds from a leaf's shape
+  serving or training cell's rank body, ``launch.input_specs``): the
+  rank's place on the model axis. Under it the paths of ``models/``
+  compute on the rank's parameter shards, as the reference's SPMD
+  partitioner splits each matmul: a layer finds from a leaf's shape
   whether its spec split it (query heads, KV heads, the MLP and expert
   FFN dims, experts, the vocabulary), computes its part and asks for
   the model axis's sum (:func:`model_sum`) where the reference's
   partitioner reduces. A rank body sets it with ``with`` and the
   in-process runner gives every rank a context of its own
-  (``collectives.run_in_process``).
+  (``collectives.run_in_process``). Training adds Megatron's pair of
+  gradients (``collectives``' convention): :func:`model_copy` where a
+  replicated value enters a region each rank computes a part of (the
+  input of a column-parallel product, a replicated leaf a rank uses in
+  part), whose backward sums the ranks' cotangents, and :func:`model_sum`
+  back into a replicated value, whose backward is the identity.
 
 The reference's ``constrain_*`` hints (and ``layers._constrain_attn``)
 are not ported: they pin the sharding of activations that XLA then
@@ -32,6 +37,8 @@ import contextvars
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import mesh_shape
 
@@ -39,6 +46,8 @@ _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "act_sharding_policy", default=None)
 _TP: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
+_BATCH: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_split", default=())
 
 
 @contextlib.contextmanager
@@ -102,9 +111,69 @@ def tensor_parallel_context() -> Optional[TensorParallel]:
 def model_sum(x):
     """Rank body step: the model axis's sum of every rank's partial ``x``
     (a row-parallel product), summed in float32 in rank order and
-    rounded once to ``x``'s dtype."""
+    rounded once to ``x``'s dtype; the result is replicated, so its
+    backward hands each rank its own cotangent."""
     tp = _TP.get()
     if tp is None:
         raise RuntimeError("model_sum outside a tensor-parallel context")
-    out = yield C.psum(tp.axis, x.float())
+    out = yield C.row_sum(tp.axis, x.float())
     return out.to(x.dtype)
+
+
+def model_copy(x):
+    """Rank body step: ``x``, a value every rank of the model axis holds
+    alike, entering a region each rank computes a part of; backward, the
+    axis's sum of the ranks' cotangents, in float32 in rank order and
+    rounded once to ``x``'s dtype (as :func:`model_sum`'s forward). Asks
+    for nothing where no gradient flows (serving) or off the
+    tensor-parallel context."""
+    tp = _TP.get()
+    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    out = yield C.model_copy(tp.axis, x.float())
+    return out.to(x.dtype)
+
+
+def model_reduce(op: str, x, grad: bool):
+    """Rank body step: the model axis's ``op`` ("sum" or "max") of ``x``,
+    with gradient (a sum into a replicated value, as :func:`model_sum`
+    but in ``x``'s own dtype) or without (``x`` detached, as a softmax's
+    running max is)."""
+    tp = _TP.get()
+    if tp is None:
+        raise RuntimeError("model_reduce outside a tensor-parallel context")
+    if not grad:
+        x = x.detach()
+    if op == "max":
+        if grad:
+            raise ValueError("a max over the model axis carries no gradient")
+        return (yield C.pmax(tp.axis, x))
+    return (yield C.row_sum(tp.axis, x))
+
+
+def data_axes(rank: C.RankContext) -> tuple:
+    """The rank's batch axes of more than one rank ("pod", "data")."""
+    return tuple(a for a in ("pod", "data") if rank.size.get(a, 1) > 1)
+
+
+@contextlib.contextmanager
+def batch_split(rank: C.RankContext):
+    """Inside the block (a training rank body) the rank holds its rows of
+    a batch split over its batch axes, and a statistic of the whole
+    batch (the MoE's balance loss) asks for their mean
+    (:func:`batch_mean`)."""
+    token = _BATCH.set(data_axes(rank))
+    try:
+        yield
+    finally:
+        _BATCH.reset(token)
+
+
+def batch_mean(x):
+    """Rank body step: the mean of ``x`` over the batch axes under
+    :func:`batch_split` (rows split evenly: the whole batch's mean of a
+    per-row mean), with gradient; ``x`` itself elsewhere."""
+    axes = _BATCH.get()
+    if not axes:
+        return x
+    return (yield C.pmean(axes, x))

@@ -36,11 +36,42 @@ sums and MAX, which are exact in any order, go through ``all_reduce``.
 A data-parallel gradient mean calls ``all_reduce`` itself
 (``train.step``).
 
-On a process group a floating-point SUM or mean carries gradient: each
-rank's input receives the group's sum of the output's gradients, as
-every rank's output depends on it. The other collectives are forward
-only, and :func:`run_spmd` raises if one is handed a tensor that
-requires grad while grad mode is on."""
+Gradients. A rank body that trains asks for its gradients with
+:func:`grad` (a step like a collective: the in-process runner takes the
+gradients of every rank's outputs in one call, since the backward of a
+collective needs every rank's cotangents; :func:`run_spmd` takes its
+own rank's). Both runners give the same gradients, by one convention:
+**each rank differentiates its own output, and the objective is the sum
+of the ranks' outputs, where a value that a collective declares
+replicated (``replicated=True``: every rank of the group holds it alike)
+counts once for the group.** So each collective's backward is the
+adjoint of its forward under that count:
+
+* ``sum`` / ``mean`` (:func:`psum`, :func:`pmean`): every rank's output
+  is a term of its own, so each input receives the group's sum of the
+  outputs' cotangents (the expert-parallel convention of ``moe_apply_ep``
+  and a data-parallel mean); with ``replicated=True`` (:func:`row_sum`,
+  Megatron's row-parallel sum into a replicated activation) the output is
+  one value and each rank's input receives its own output's cotangent;
+* ``copy`` (:func:`model_copy`, Megatron's copy into a tensor-parallel
+  region): the identity forward, whose input is one replicated value
+  that every rank's region uses in part, so each rank's input receives
+  the group's sum of the cotangents;
+* ``all_gather``: each input receives its slice of the group's summed
+  cotangents (a reduce-scatter: the FSDP gather over the data axes); with
+  ``replicated=True`` (a leaf gathered over the model axis to compute a
+  replicated region whole) its slice of its own cotangent;
+* ``max`` and ``exchange`` carry no gradient: both runners raise if one
+  is handed a tensor that requires grad while grad mode is on (a body
+  takes a max of detached values, as the vocabulary-parallel softmax
+  does).
+
+Every sum of a backward is the same ordered sum as a forward's, so the
+two runners' gradients agree bitwise too. :class:`CommStats` records
+the backward's sums and reduce-scatters as they run, beside the
+forward's (``backward``). Grad mode is the caller's: a body must not
+switch it around a ``yield`` (the in-process runner's ranks take turns
+on one thread)."""
 from __future__ import annotations
 
 import contextlib
@@ -56,10 +87,12 @@ AxisNames = Tuple[str, ...]
 
 class Collective(NamedTuple):
     """One collective a rank body asks for (see the module docstring)."""
-    op: str                    # exchange | all_gather | sum | max | mean
+    op: str                    # exchange | all_gather | sum | max | mean | copy | grad
     axis: AxisNames
     tensors: Tuple[torch.Tensor, ...]
     dim: int = 0
+    replicated: bool = False   # the result counts once for the group (gradients)
+    extra: Any = None          # grad: (inputs, grad_outputs)
 
 
 def _axes(axis) -> AxisNames:
@@ -74,14 +107,38 @@ def ring_exchange(axis: str, bottom: torch.Tensor,
     return Collective("exchange", _axes(axis), (bottom, top))
 
 
-def all_gather(axis: str, x: torch.Tensor, dim: int) -> Collective:
+def all_gather(axis: str, x: torch.Tensor, dim: int,
+               replicated: bool = False) -> Collective:
     """The axis's tensors concatenated along ``dim`` in rank order
     (``all_gather(..., tiled=True)``)."""
-    return Collective("all_gather", _axes(axis), (x,), dim)
+    return Collective("all_gather", _axes(axis), (x,), dim, replicated)
 
 
 def psum(axis, x: torch.Tensor) -> Collective:
     return Collective("sum", _axes(axis), (x,))
+
+
+def row_sum(axis, x: torch.Tensor) -> Collective:
+    """The sum whose result is one replicated value (backward: each
+    rank's own cotangent)."""
+    return Collective("sum", _axes(axis), (x,), replicated=True)
+
+
+def model_copy(axis, x: torch.Tensor) -> Collective:
+    """``x`` itself, entering a region every rank computes a part of
+    (backward: the group's sum of the cotangents). Moves no bytes
+    forward."""
+    return Collective("copy", _axes(axis), (x,))
+
+
+def grad(outputs: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
+         grad_outputs: Sequence[torch.Tensor] | None = None) -> Collective:
+    """The gradients of ``outputs`` (with ``grad_outputs``, default ones)
+    with respect to ``inputs``, zeros for an input they do not reach; the
+    runner takes every rank's at once (see the module docstring)."""
+    return Collective("grad", (), tuple(outputs),
+                      extra=(tuple(inputs), None if grad_outputs is None
+                             else tuple(grad_outputs)))
 
 
 def pmax(axis, x: torch.Tensor) -> Collective:
@@ -101,18 +158,29 @@ class RankContext:
 @dataclasses.dataclass
 class CommStats:
     """Bytes each rank handed to the collectives, by op (what it sends),
-    and by op and mesh axis (``by_axis[rank][op]["pod/data"]``)."""
+    and by op and mesh axis (``by_axis[rank][op]["pod/data"]``): the
+    forward's, and those of the backward (``backward[rank][op]``, its
+    sums and reduce-scatters, counted in ``sent`` and ``by_axis`` too).
+    A ``copy`` moves nothing forward and is not recorded there."""
     sent: Dict[int, Dict[str, int]] = dataclasses.field(default_factory=dict)
     by_axis: Dict[int, Dict[str, Dict[str, int]]] = dataclasses.field(
         default_factory=dict)
+    backward: Dict[int, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
 
     def record(self, rank: int, req: "Collective") -> None:
-        nbytes = _nbytes(req)
+        if req.op not in ("copy", "grad"):
+            self.add(rank, req.op, "/".join(req.axis), _nbytes(req))
+
+    def add(self, rank: int, op: str, axis: str, nbytes: int,
+            backward: bool = False) -> None:
         per = self.sent.setdefault(rank, {})
-        per[req.op] = per.get(req.op, 0) + nbytes
-        axes = self.by_axis.setdefault(rank, {}).setdefault(req.op, {})
-        key = "/".join(req.axis)
-        axes[key] = axes.get(key, 0) + nbytes
+        per[op] = per.get(op, 0) + nbytes
+        axes = self.by_axis.setdefault(rank, {}).setdefault(op, {})
+        axes[axis] = axes.get(axis, 0) + nbytes
+        if backward:
+            bwd = self.backward.setdefault(rank, {})
+            bwd[op] = bwd.get(op, 0) + nbytes
 
     def rank_bytes(self, rank: int = 0) -> int:
         return sum(self.sent.get(rank, {}).values())
@@ -195,19 +263,100 @@ def _ordered_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
-def _local_group(op: str, xs: List[Tuple[torch.Tensor, ...]], dim: int):
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(op: str, tensors) -> None:
+    if op in ("max", "exchange") and _needs_grad(tensors):
+        raise NotImplementedError(f"{op} carries no gradient")
+
+
+def _chunks(x: torch.Tensor, n: int, dim: int) -> List[torch.Tensor]:
+    return list(torch.chunk(x, n, dim=dim))
+
+
+class _LocalSum(torch.autograd.Function):
+    """The group's ordered sum, one output per rank (see the module
+    docstring for the backward)."""
+
+    @staticmethod
+    def forward(ctx, replicated, record, *xs):
+        ctx.replicated, ctx.record = replicated, record
+        out = _ordered_sum(xs)
+        return tuple(out.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.replicated:
+            return (None, None) + gs
+        ctx.record("sum", gs[0])
+        tot = _ordered_sum(gs)
+        return (None, None) + tuple(tot.clone() for _ in gs)
+
+
+class _LocalCopy(torch.autograd.Function):
+    """Each rank's tensor itself; backward, the group's ordered sum."""
+
+    @staticmethod
+    def forward(ctx, record, *xs):
+        ctx.record = record
+        return tuple(x.clone() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.record("sum", gs[0])
+        tot = _ordered_sum(gs)
+        return (None,) + tuple(tot.clone() for _ in gs)
+
+
+class _LocalGather(torch.autograd.Function):
+    """The group's tensors concatenated, one output per rank; backward,
+    each input's slice of the ordered sum of the cotangents (its own
+    cotangent's slice where the result is replicated)."""
+
+    @staticmethod
+    def forward(ctx, dim, replicated, record, *xs):
+        ctx.dim, ctx.replicated, ctx.record = dim, replicated, record
+        out = torch.cat(xs, dim=dim)
+        return tuple(out.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = len(gs)
+        parts = [_chunks(g, n, ctx.dim) for g in gs]
+        if ctx.replicated:
+            return (None, None, None) + tuple(
+                parts[j][j].contiguous() for j in range(n))
+        ctx.record("reduce_scatter", gs[0])
+        return (None, None, None) + tuple(
+            _ordered_sum([p[j] for p in parts]).contiguous() for j in range(n))
+
+
+def _local_group(op: str, xs: List[Tuple[torch.Tensor, ...]], dim: int,
+                 replicated: bool = False, record=None):
     """One single-axis collective over the group's ranks, in axis order;
-    returns each rank's result."""
+    returns each rank's result. ``record(op, cotangent)`` hears of each
+    sum or reduce-scatter the backward runs."""
     n = len(xs)
+    flat = [t for x in xs for t in x]
+    _refuse_grad(op, flat)
+    grad_on = _needs_grad(flat)
     if op == "exchange":
         return [(xs[(i - 1) % n][0], xs[(i + 1) % n][1]) for i in range(n)]
+    if op == "copy":
+        return list(_LocalCopy.apply(record, *flat)) if grad_on else flat
     if op == "all_gather":
-        out = torch.cat([x[0] for x in xs], dim=dim)
+        if grad_on:
+            return list(_LocalGather.apply(dim, replicated, record, *flat))
+        out = torch.cat(flat, dim=dim)
         return [out] * n
     if op == "sum":
-        out = _ordered_sum([x[0] for x in xs])
+        if grad_on:
+            return list(_LocalSum.apply(replicated, record, *flat))
+        out = _ordered_sum(flat)
     elif op == "max":
-        out = _ordered_max([x[0] for x in xs])
+        out = _ordered_max(flat)
     else:
         raise ValueError(f"unknown collective {op!r}")
     return [out] * n
@@ -224,34 +373,95 @@ def _all_gather_flat(out, x, group):
     fn(out, x, group=group)
 
 
-class _WireSum(torch.autograd.Function):
+def _wire_sum(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """The group's tensors summed in rank order: rank i receives chunk i
     of every rank's tensor (all-to-all), adds them in rank order, and the
-    summed chunks are gathered; backward, the group's sum of the output's
-    gradients."""
+    summed chunks are gathered."""
+    flat = x.contiguous().reshape(-1)
+    chunk = -(-flat.numel() // n)
+    send = torch.nn.functional.pad(flat, (0, n * chunk - flat.numel()))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    mine = _ordered_sum(list(recv.view(n, chunk).unbind(0)))
+    out = torch.empty_like(send)
+    _all_gather_flat(out, mine, group=group)
+    return out[:flat.numel()].view(x.shape)
+
+
+def _wire_reduce_scatter(g: torch.Tensor, group, n: int, dim: int):
+    """Slice i along ``dim`` of the group's tensors, summed in rank order,
+    to rank i: an all-to-all of the slices, then the ordered sum."""
+    parts = [c.contiguous().reshape(-1) for c in _chunks(g, n, dim)]
+    send = torch.cat(parts)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    mine = _ordered_sum(list(recv.view(n, -1).unbind(0)))
+    return mine.view(_chunks(g, n, dim)[0].shape)
+
+
+def _wire_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    _all_gather_flat(out, x.contiguous().reshape(-1), group=group)
+    return torch.cat(list(out.view((n,) + tuple(x.shape)).unbind(0)), dim=dim)
+
+
+class _WireSum(torch.autograd.Function):
+    """:func:`_wire_sum`; backward, the same ordered sum of the output's
+    cotangents (the cotangent itself where the result is replicated)."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group = group
-        flat = x.reshape(-1)
-        chunk = -(-flat.numel() // n)
-        send = torch.nn.functional.pad(flat, (0, n * chunk - flat.numel()))
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
-        mine = _ordered_sum(list(recv.view(n, chunk).unbind(0)))
-        out = torch.empty_like(send)
-        _all_gather_flat(out, mine, group=group)
-        return out[:flat.numel()].view(x.shape)
+    def forward(ctx, x, group, n, replicated, record):
+        ctx.group, ctx.n, ctx.replicated, ctx.record = group, n, replicated, record
+        return _wire_sum(x, group, n)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None, None
+        if not ctx.replicated:
+            ctx.record("sum", grad)
+            grad = _wire_sum(grad, ctx.group, ctx.n)
+        return grad, None, None, None, None
+
+
+class _WireCopy(torch.autograd.Function):
+    """The tensor itself; backward, the group's ordered sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, record):
+        ctx.group, ctx.n, ctx.record = group, n, record
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.record("sum", grad)
+        return _wire_sum(grad, ctx.group, ctx.n), None, None, None
+
+
+class _WireGather(torch.autograd.Function):
+    """:func:`_wire_gather`; backward, this rank's slice of the group's
+    ordered sum of the cotangents (of its own cotangent where the result
+    is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim, replicated, record):
+        ctx.args = (group, n, index, dim, replicated, record)
+        return _wire_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, n, index, dim, replicated, record = ctx.args
+        if replicated:
+            g = _chunks(grad, n, dim)[index].contiguous()
+        else:
+            record("reduce_scatter", grad)
+            g = _wire_reduce_scatter(grad, group, n, dim)
+        return g, None, None, None, None, None, None
 
 
 def _wire_group(op: str, tensors: Tuple[torch.Tensor, ...], dim: int,
-                group, index: int, n: int):
+                group, index: int, n: int, replicated: bool = False,
+                record=None):
+    _refuse_grad(op, tensors)
+    grad_on = _needs_grad(tensors)
     if op == "exchange":
         bottom, top = (t.contiguous() for t in tensors)
         if n == 1:                    # the pair (0, 0): a local copy
@@ -271,13 +481,17 @@ def _wire_group(op: str, tensors: Tuple[torch.Tensor, ...], dim: int,
         return from_above, from_below
     (x,) = tensors
     x = x.contiguous()
+    if op == "copy":
+        return _WireCopy.apply(x, group, n, record) if grad_on else x
     if op == "sum" and x.is_floating_point():
-        return _WireSum.apply(x, group, n)
+        if grad_on:
+            return _WireSum.apply(x, group, n, replicated, record)
+        return _wire_sum(x, group, n)
     if op == "all_gather":
-        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-        _all_gather_flat(out, x.reshape(-1), group=group)
-        return torch.cat(list(out.view((n,) + tuple(x.shape)).unbind(0)),
-                         dim=dim)
+        if grad_on:
+            return _WireGather.apply(x, group, n, index, dim, replicated,
+                                     record)
+        return _wire_gather(x, group, n, dim)
     if op in ("sum", "max"):
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
@@ -309,6 +523,39 @@ def _finish(req: Collective, out, sizes: Dict[str, int]):
     return out / n
 
 
+def _recorder(stats: CommStats | None, ranks: Sequence[int], axis: str):
+    """``record(op, cotangent)`` for the backward: each of ``ranks``
+    hands the cotangent's bytes to the op over ``axis``."""
+    def record(op: str, g: torch.Tensor) -> None:
+        if stats is not None:
+            for r in ranks:
+                stats.add(r, op, axis, g.numel() * g.element_size(), True)
+    return record
+
+
+def _autograd(reqs: Sequence[Collective]) -> list:
+    """Every request's gradients, in one call: each output's cotangent
+    ones unless given, and zeros for an input no output reaches."""
+    outs, gouts, ins = [], [], []
+    for r in reqs:
+        inputs, given = r.extra
+        outs += list(r.tensors)
+        gouts += list(given) if given is not None else \
+            [torch.ones_like(t) for t in r.tensors]
+        ins += list(inputs)
+    live = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in live], ins,
+                              [g for _, g in live], allow_unused=True) \
+        if live else [None] * len(ins)
+    got = [torch.zeros_like(x) if g is None else g for x, g in zip(ins, got)]
+    res, at = [], 0
+    for r in reqs:
+        k = len(r.extra[0])
+        res.append(tuple(got[at:at + k]))
+        at += k
+    return res
+
+
 def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
     """Drive this process's rank body over ``mesh`` (a ``DeviceMesh``);
     returns what the body returns."""
@@ -319,16 +566,16 @@ def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
     try:
         req = next(body)
         while True:
-            if req.op not in ("sum", "mean") and torch.is_grad_enabled() \
-                    and any(t.requires_grad for t in req.tensors):
-                raise NotImplementedError(
-                    f"{req.op} over a process group carries no gradient")
+            if req.op == "grad":
+                req = body.send(_autograd([req])[0])
+                continue
             if stats is not None:
                 stats.record(me, req)
             cur = req.tensors
             for op, a in _steps(req):
                 out = _wire_group(op, cur, req.dim, mesh.get_group(a),
-                                  index[a], sizes[a])
+                                  index[a], sizes[a], req.replicated,
+                                  _recorder(stats, [me], a))
                 cur = out if isinstance(out, tuple) else (out,)
             res = cur if req.op == "exchange" else _finish(req, cur[0], sizes)
             req = body.send(res)
@@ -337,9 +584,12 @@ def run_spmd(body: Generator, mesh, stats: CommStats | None = None):
 
 
 def run_local(body: Generator):
-    """Drive a rank body that asks for no collective; returns its output."""
+    """Drive a rank body that asks for no collective (its gradients at
+    most); returns its output."""
     try:
         req = next(body)
+        while req.op == "grad":
+            req = body.send(_autograd([req])[0])
     except StopIteration as stop:
         return stop.value
     raise RuntimeError(f"a {req.op} over {req.axis} asked outside a mesh")
@@ -378,6 +628,9 @@ def _take_turns(bodies, contexts, mesh, sizes, stats) -> list:
         if len(ops) != 1:
             raise RuntimeError(f"ranks asked for different collectives: {ops}")
         req0 = reqs[0]
+        if req0.op == "grad":
+            _send_all(bodies, contexts, reqs, results, _autograd(reqs))
+            continue
         if stats is not None:
             for rank, r in enumerate(reqs):
                 stats.record(rank, r)
@@ -391,18 +644,53 @@ def _take_turns(bodies, contexts, mesh, sizes, stats) -> list:
                 groups.setdefault(key, []).append((c[a], rank))
             for members in groups.values():
                 members.sort()
-                outs = _local_group(op, [cur[rk] for _, rk in members], req0.dim)
+                outs = _local_group(
+                    op, [cur[rk] for _, rk in members], req0.dim,
+                    req0.replicated,
+                    _recorder(stats, [rk for _, rk in members], a))
                 for (_, rk), o in zip(members, outs):
                     nxt[rk] = o if isinstance(o, tuple) else (o,)
             cur = nxt
-        for rank, b in enumerate(bodies):
-            res = cur[rank] if req0.op == "exchange" \
-                else _finish(req0, cur[rank][0], sizes)
-            try:
-                reqs[rank] = contexts[rank].run(b.send, res)
-            except StopIteration as stop:
-                reqs[rank] = None
-                results[rank] = stop.value
+        _send_all(bodies, contexts, reqs, results, [
+            cur[rank] if req0.op == "exchange"
+            else _finish(req0, cur[rank][0], sizes)
+            for rank in range(mesh.size)])
+
+
+def _send_all(bodies, contexts, reqs, results, res) -> None:
+    """Hand each rank its result and take its next request (or its
+    output, where its body returns)."""
+    for rank, b in enumerate(bodies):
+        try:
+            reqs[rank] = contexts[rank].run(b.send, res[rank])
+        except StopIteration as stop:
+            reqs[rank] = None
+            results[rank] = stop.value
+
+
+def spec_axes(entry) -> AxisNames:
+    """The mesh axes one dim of a PartitionSpec names (``()`` for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def gather_dims(x: torch.Tensor, spec, sizes, dims=None, keep=None,
+                replicated=()):
+    """Rank body step: ``x``'s shards gathered along ``dims`` (default:
+    every sharded dim), each dim over the axes ``spec`` names for it
+    (those in ``keep`` only, where given), minor to major, so the shards
+    land in the order :func:`local_slices` cut them; an axis of one rank
+    (``sizes``) holds the whole dim already. A gather over an axis in
+    ``replicated`` feeds a computation every rank of the axis repeats
+    (its gradient: each rank's own slice)."""
+    for d in range(len(spec)) if dims is None else dims:
+        if d >= len(spec):
+            continue
+        for a in reversed(spec_axes(spec[d])):
+            if sizes[a] > 1 and (keep is None or a in keep):
+                x = yield all_gather(a, x, d, a in replicated)
+    return x
 
 
 def local_slices(spec: Sequence[Any], shape: Sequence[int],

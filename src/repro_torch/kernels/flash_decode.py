@@ -9,7 +9,8 @@ reference's oracle ``flash_decode_ref`` computes:
 
   * query head ``h`` reads KV head ``h // ceil(Hq / Hkv)`` (the oracle:
     ``min(h // (Hq // Hkv), Hkv - 1)``; they differ when Hkv does not
-    divide Hq);
+    divide Hq), unless the caller names each query head's KV head
+    (``kv_heads``);
   * W is padded to a multiple of ``min(chunk, W)`` with invalid zero
     slots, and a row with no valid slot averages V over real and padded
     slots alike (the oracle: over the W real slots).
@@ -19,7 +20,17 @@ version :func:`flash_decode_plain` only when the tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernel splits W
 over blocks (:func:`decode_splits`), reads the K and V rows of the valid
 slots only, and merges the splits in a second pass; ``LAUNCHES`` counts
-wrapper calls that launched. The launch is the operator
+wrapper calls that launched.
+
+``kv_heads`` gives the model's own map: query head ``h`` reads the
+stored KV head ``kv_heads[h]`` of ``k`` / ``v``, whose third dim is the
+cache row's head count. Padded query heads that clamp to the last KV
+head, and a tensor-parallel rank's query heads reading a block of KV
+heads from the middle of a cache that stores more (in place, no copy),
+are both such maps. The kernel takes it as a head table
+(:func:`head_table`): one entry per run of at most MAX_REP consecutive
+query heads on one KV head, passed by value in the launch's
+parameters. The launch is the operator
 ``repro_torch::flash_decode`` (:mod:`repro_torch.kernels.library`).
 """
 from __future__ import annotations
@@ -27,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import List
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +59,7 @@ MAX_REP = 4                      # kMaxRep: query heads per block
 MAX_SPLIT = 512                  # kMaxSplit: slots per split, at most
 MIN_SPLIT = 64                   # the shortest split decode_splits picks
 MAX_SPLITS = 1024                # kMaxMergeSplits: splits the merge takes
+MAX_ENTRIES = 512                # kMaxEntries: head-table entries
 BLOCKS_PER_SM = 4                # the grid decode_splits aims at, per SM
 
 
@@ -76,6 +89,34 @@ def n_rep_of(hq: int, hkv: int) -> int:
     return max(1, -(-hq // hkv))
 
 
+def default_kv_heads(hq: int, hkv: int) -> tuple:
+    """The TPU kernel's map: query head h reads KV head h // n_rep."""
+    n_rep = n_rep_of(hq, hkv)
+    return tuple(h // n_rep for h in range(hq))
+
+
+@functools.lru_cache(maxsize=None)
+def head_table(kv_heads: tuple) -> tuple:
+    """K5's head table for the map ``kv_heads`` (query head -> stored KV
+    head): entries ``(g << 16) | (h0 << 4) | nh``, one per run of at most
+    MAX_REP consecutive query heads h0 .. h0 + nh - 1 that all read KV
+    head g, in query-head order."""
+    out, h = [], 0
+    while h < len(kv_heads):
+        g, nh = kv_heads[h], 1
+        while nh < MAX_REP and h + nh < len(kv_heads) and kv_heads[h + nh] == g:
+            nh += 1
+        out.append((int(g) << 16) | (h << 4) | nh)
+        h += nh
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_table(table: tuple):
+    """The table as the C entry's uint32 array (kept alive by the cache)."""
+    return (ctypes.c_uint32 * len(table))(*table)
+
+
 def chunk_padding(w: int, chunk: int) -> int:
     """Invalid zero slots the TPU kernel appends to reach a multiple of
     ``min(chunk, W)``."""
@@ -92,7 +133,7 @@ def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
                            "differentiated")
 
 
-def _check(q, k, v, valid, chunk) -> None:
+def _check(q, k, v, valid, chunk, kv_heads=None) -> None:
     name = "flash_decode"
     refuse_autograd(name, q, k, v)
     check_device(q.device, name)
@@ -118,6 +159,12 @@ def _check(q, k, v, valid, chunk) -> None:
                          f"got {valid.dtype} {tuple(valid.shape)}")
     if chunk < 1:
         raise ValueError(f"{name}: chunk must be positive, got {chunk}")
+    if kv_heads is not None and (
+            len(kv_heads) != hq or hq >= 4096
+            or any(not 0 <= int(g) < k.shape[2] for g in kv_heads)):
+        raise ValueError(f"{name}: kv_heads must name one of the {k.shape[2]} "
+                         f"stored KV heads for each of the {hq} query heads, "
+                         f"got {tuple(kv_heads)}")
     for label, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if t.device != q.device:
             raise ValueError(f"{name}: {label} on {t.device}, q on {q.device}")
@@ -125,45 +172,55 @@ def _check(q, k, v, valid, chunk) -> None:
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
-def flash_decode_plain(q, k, v, valid, *, chunk: int = 512) -> torch.Tensor:
+def flash_decode_plain(q, k, v, valid, *, chunk: int = 512,
+                       kv_heads=None) -> torch.Tensor:
     """Plain PyTorch version: the TPU kernel's function in one pass. The
     query heads are padded to ``Hkv * n_rep`` and grouped per KV head
-    (the kernel's broadcast ``rep``), each score is the float32 dot
-    product rounded to the input dtype and scaled by ``1/sqrt(Dh)``,
-    invalid and padded slots score -1e30, the softmax's max starts at
-    -1e30, P.V is summed in float32 and the denominator is clamped at
-    1e-20. Returns (B, Hq, Dh) in ``q.dtype``."""
+    (the kernel's broadcast ``rep``), or with ``kv_heads`` each reads its
+    own KV head; each score is the float32 dot product rounded to the
+    input dtype and scaled by ``1/sqrt(Dh)``, invalid and padded slots
+    score -1e30, the softmax's max starts at -1e30, P.V is summed in
+    float32 and the denominator is clamped at 1e-20. Returns (B, Hq, Dh)
+    in ``q.dtype``."""
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
-    n_rep = n_rep_of(hq, hkv)
     pad = chunk_padding(w, chunk)
-    qg = F.pad(q.float(), (0, 0, 0, hkv * n_rep - hq)).view(b, hkv, n_rep, dh)
-    s = torch.einsum("bgrd,bwgd->bgrw", qg, k.float())
+    if kv_heads is None:
+        n_rep = n_rep_of(hq, hkv)
+        qg = F.pad(q.float(), (0, 0, 0, hkv * n_rep - hq)).view(b, hkv, n_rep, dh)
+        kg, vg = k.float(), v.float()
+    else:
+        idx = torch.as_tensor(list(kv_heads), dtype=torch.long, device=k.device)
+        qg = q.float()[:, :, None]                     # a group of one per head
+        kg, vg = k.float()[:, :, idx], v.float()[:, :, idx]
+    s = torch.einsum("bgrd,bwgd->bgrw", qg, kg)
     s = s.to(q.dtype).float() * (1.0 / math.sqrt(dh))
     s = torch.where(valid[:, None, None, :], s, NEG)
     s = F.pad(s, (0, pad), value=NEG)                  # padded slots
     mx = torch.clamp(s.amax(-1, keepdim=True), min=NEG)
     p = torch.exp(s - mx)
     den = p.sum(-1, keepdim=True)
-    acc = torch.einsum("bgrw,bwgd->bgrd", p[..., :w], v.float())
+    acc = torch.einsum("bgrw,bwgd->bgrd", p[..., :w], vg)
     out = acc / torch.clamp(den, min=1e-20)
-    return out.reshape(b, hkv * n_rep, dh)[:, :hq].to(q.dtype)
+    return out.reshape(b, -1, dh)[:, :hq].to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry ``flash_decode_forward``: dtype code, 7 pointers (q, k,
     v, valid, out, the partials and the split counts), B, Hq, Hkv, Dh, W,
-    n_rep, pad, the split length, the scale and the stream."""
+    pad, the split length, the scale, the head table and its length, and
+    the stream."""
     from repro_torch.kernels.build import load_library
     fn = load_library("flash_decode").flash_decode_forward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fake(q, k, v, valid, chunk):
+def _fake(q, k, v, valid, chunk, table):
     return torch.empty_like(q)
 
 
@@ -176,13 +233,16 @@ def _flops(q, k, *_, out_shape=None, **__) -> int:
 
 @kernel_op("flash_decode", fake=_fake, flops=_flops)
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            valid: torch.Tensor, chunk: int) -> torch.Tensor:
+            valid: torch.Tensor, chunk: int, table: List[int]) -> torch.Tensor:
     global LAUNCHES
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
+    table = tuple(table)
+    if len(table) > MAX_ENTRIES:
+        raise ValueError(f"flash_decode: {len(table)} head-table entries; the "
+                         f"kernel takes at most {MAX_ENTRIES}")
     out = torch.empty_like(q)
-    length, n_splits = decode_splits(b, hkv, head_groups(hq, hkv), w,
-                                     sm_count(q.device))
+    length, n_splits = decode_splits(b, len(table), 1, w, sm_count(q.device))
     if n_splits > MAX_SPLITS:
         raise ValueError(f"flash_decode: W {w} needs {n_splits} splits of "
                          f"{length}; the kernel merges at most {MAX_SPLITS}")
@@ -193,22 +253,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), valid.data_ptr(), out.data_ptr(),
                         part.data_ptr(), counts.data_ptr(), b, hq, hkv, dh, w,
-                        n_rep_of(hq, hkv), chunk_padding(w, chunk), length,
-                        1.0 / math.sqrt(dh), stream_ptr(q.device))
+                        chunk_padding(w, chunk), length, 1.0 / math.sqrt(dh),
+                        ctypes.addressof(_c_table(table)), len(table),
+                        stream_ptr(q.device))
     LAUNCHES += 1
     raise_on_error(code, "flash_decode")
     return out
 
 
-def flash_decode(q, k, v, valid, *, chunk: int = 512) -> torch.Tensor:
+def flash_decode(q, k, v, valid, *, chunk: int = 512,
+                 kv_heads=None) -> torch.Tensor:
     """Fused one-token GQA decode attention over a masked KV cache.
 
     ``q (B, Hq, Dh)``, ``k``/``v (B, W, Hkv, Dh)`` in float32 or bf16,
     ``valid (B, W)`` bool; ``chunk`` is the TPU kernel's KV chunk, which
-    shows only in rows with no valid slot. Returns (B, Hq, Dh) in
-    ``q.dtype``. CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
-    _check(q, k, v, valid, chunk)
+    shows only in rows with no valid slot; ``kv_heads`` (Hq ints, default
+    the TPU kernel's ``h // ceil(Hq / Hkv)``) names the stored KV head
+    each query head reads. Returns (B, Hq, Dh) in ``q.dtype``. CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
+    kv_heads = None if kv_heads is None else tuple(int(g) for g in kv_heads)
+    _check(q, k, v, valid, chunk, kv_heads)
     if not on_card(q):
-        return flash_decode_plain(q, k, v, valid, chunk=chunk)
-    return _launch(q, k, v, valid, chunk)
+        return flash_decode_plain(q, k, v, valid, chunk=chunk,
+                                  kv_heads=kv_heads)
+    hq, hkv = q.shape[1], k.shape[2]
+    return _launch(q, k, v, valid, chunk, list(head_table(
+        default_kv_heads(hq, hkv) if kv_heads is None else kv_heads)))

@@ -11,8 +11,10 @@ exchange over the model axis (:func:`build_banded_detr_stack`, the
 function over a mesh, and :func:`build_banded_detr_cell`, its cell).
 
 Each cell's program stores the parameters as the rule table
-(:func:`_detr_rules`) shards them and gathers them whole to compute, as
-the LM cells of ``launch.input_specs`` do. The train cell's encoder
+(:func:`_detr_rules`) shards them and gathers them whole to compute (the
+train cell through ``train.step.train_rank_body``, whose detector has no
+loss body on shards; the LM cells of ``launch.input_specs`` compute on
+their shards). The train cell's encoder
 samples through ``torch_gather``: the kernels K1 and K3 are forward-only
 (the reference's ``pallas_call`` has no autodiff rule either)."""
 from __future__ import annotations

@@ -16,12 +16,13 @@ reference's top-level keys (``meta``, ``cost``, ``memory``,
 ``raw_cost_uncorrected`` and ``collectives_corrected``) plus ``fits``
 (the predicted peak against the card's memory) and ``trace`` (the
 device the trace stood for, what the DETR plans were made for, the
-kernel operators called, the world; a serving cell's parameter leaves
+kernel operators called, the world; an LM cell's parameter leaves
 computed whole on every rank, ``input_specs.computed_whole``).
 ``collectives["requested"]`` holds the bytes the rank's bodies asked of
-each collective by mesh axis (``collectives.CommStats``), where the
-other counts follow the operators on the wire: a float sum there is an
-all-gather (the rank-order rule of ``distributed.collectives``). Existing results are skipped
+each collective by mesh axis (``collectives.CommStats``; a train cell's
+backward sums and reduce-scatters included), where the other counts
+follow the operators on the wire: a float sum there is an all-to-all and
+an all-gather (the rank-order rule of ``distributed.collectives``). Existing results are skipped
 (``--force`` redoes them). The output goes to ``results/dryrun_torch``,
 never to the reference's ``results/dryrun``.
 

@@ -16,10 +16,11 @@ batch over the data axes, the cache by :func:`_cache_specs`. Under
 ``jax.jit`` GSPMD partitions the compute by those specs; the port's rank
 programs are:
 
-  * ``train``: ``train.step.build_sharded_train_step``, which still
-    GATHERS (parameters whole, this rank's rows of the batch, gradients
-    averaged over the data axes, AdamW on this rank's moment shards):
-    every rank of a data group computes the whole model for its rows;
+  * ``train``: a rank body (:func:`_train_body`,
+    ``train.step.train_rank_body``): forward, loss, backward and AdamW
+    on the rank's shards of the model axis and its rows of the batch,
+    gathering only what the serving bodies gather (below), the
+    gradients through every collective, the vocabulary-parallel loss;
   * ``prefill`` / ``decode``: a rank body (:func:`_serve_body`, a
     generator of ``distributed.collectives``) that computes on its
     shards, as the partitioner splits the reference's: it all-gathers
@@ -60,9 +61,9 @@ from repro_torch.distributed.sharding import tree_map as spec_tree_map
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import OptConfig, tree_leaves, tree_unflatten
-from repro_torch.train.step import (TrainState, build_sharded_train_step,
-                                    make_train_state, rules_for, spec_leaves,
-                                    train_state_shardings)
+from repro_torch.train.step import (DATA_AXES, TrainState, make_train_state,
+                                    model_gathered, rules_for, spec_leaves,
+                                    train_rank_body, train_state_shardings)
 from repro_torch.utils.tree import tree_map_with_path_str
 
 
@@ -78,7 +79,7 @@ class Cell:
                                       # updates, as the real launchers run them
     body: Optional[Callable] = None   # the rank body body(ctx, *rank_inputs),
                                       # where the program is one
-    computed_whole: Optional[dict] = None  # serving: the parameter leaves
+    computed_whole: Optional[dict] = None  # LM cells: the parameter leaves
                                       # every rank computes whole (see
                                       # computed_whole())
 
@@ -222,32 +223,13 @@ def _maybe_policy(fn: Callable, mesh, policy: bool) -> Callable:
 # rank programs
 # --------------------------------------------------------------------------
 
-def _axes_of(entry) -> tuple:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
-
-
-def gather_dims(x: torch.Tensor, spec, sizes, dims=None):
-    """Rank body step: ``x``'s shards gathered along ``dims`` (default:
-    every sharded dim), each dim over the axes ``spec`` names for it,
-    minor to major, so the shards land in the order ``local_slices`` cut
-    them; an axis of one rank (``sizes``) holds the whole dim already."""
-    for d in range(len(spec)) if dims is None else dims:
-        if d >= len(spec):
-            continue
-        for a in reversed(_axes_of(spec[d])):
-            if sizes[a] > 1:
-                x = yield C.all_gather(a, x, d)
-    return x
-
 
 def gather_tree(tree: Any, specs: Any, sizes, dims=None):
-    """Rank body step: :func:`gather_dims` over every leaf of ``tree``
-    (leaves in ``tree_leaves`` order)."""
+    """Rank body step: ``collectives.gather_dims`` over every leaf of
+    ``tree`` (leaves in ``tree_leaves`` order)."""
     out = []
     for x, sp in zip(tree_leaves(tree), spec_leaves(specs)):
-        out.append((yield from gather_dims(x, sp, sizes, dims)))
+        out.append((yield from C.gather_dims(x, sp, sizes, dims)))
     return tree_unflatten(tree, out)
 
 
@@ -255,8 +237,6 @@ def gather_tree(tree: Any, specs: Any, sizes, dims=None):
 #: data axis at long_500k); the batch (dim 1) and the KV heads (dim 3)
 #: stay its own
 CACHE_GATHER_DIMS = (2,)
-#: the axes a serving rank gathers every parameter leaf over (FSDP's)
-DATA_AXES = ("pod", "data")
 
 
 def _map_specs(fn: Callable, specs, prefix: str = ""):
@@ -265,17 +245,6 @@ def _map_specs(fn: Callable, specs, prefix: str = ""):
         return fn(prefix, specs)
     return {k: _map_specs(fn, v, f"{prefix}/{k}" if prefix else k)
             for k, v in specs.items()}
-
-
-def model_gathered(cfg: ModelConfig, path: str) -> Optional[str]:
-    """Why a serving rank gathers the parameter leaf at ``path`` over the
-    model axis too (None: it computes on its shard)."""
-    if cfg.pure_dp:
-        return "pure_dp: ZeRO splits the embed dim over every axis"
-    if "/ssd/" in f"/{path}/":
-        return ("SSD mixer: in_xbc concatenates x, B and C along the split "
-                "dim, so a rank's slice is no block of heads")
-    return None
 
 
 #: the logical axes the rules may put on the model axis
@@ -297,7 +266,7 @@ def computed_whole(cfg: ModelConfig, param_specs, axes, sizes) -> dict:
         logical = axes
         for k in path.split("/"):
             logical = logical[k]
-        on_model = any("model" in _axes_of(e) for e in sp)
+        on_model = any("model" in C.spec_axes(e) for e in sp)
         why = model_gathered(cfg, path)
         if on_model and why:
             out["gathered"][path] = why
@@ -314,7 +283,7 @@ def _gather_specs(cfg: ModelConfig, param_specs) -> Any:
     so."""
     def cut(path, sp):
         keep = DATA_AXES + (("model",) if model_gathered(cfg, path) else ())
-        return P(*[tuple(a for a in _axes_of(e) if a in keep) or None
+        return P(*[tuple(a for a in C.spec_axes(e) if a in keep) or None
                    for e in sp])
     return _map_specs(cut, param_specs)
 
@@ -371,14 +340,28 @@ def as_dtensors(tree: Any, specs: Any, mesh) -> Any:
         tree, specs, is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
-def _train_program(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
-                   specs: TrainState, api=None) -> Callable:
-    """``fn(state, batch)`` on this rank's slices: the state laid out as
-    DTensors, then ``build_sharded_train_step``."""
-    step = build_sharded_train_step(cfg, opt_cfg, mesh, specs, api)
+def _train_body(cfg: ModelConfig, opt_cfg: OptConfig, specs: TrainState,
+                api=None) -> Callable:
+    """The rank body of a train cell: args (state, batch), this rank's
+    slices of each; returns (its slices of the new state, metrics)
+    (``train.step.train_rank_body``)."""
+    step = train_rank_body(cfg, opt_cfg, specs, api)
+
+    def body(ctx: C.RankContext, state: TrainState, batch: dict):
+        params, opt, n, metrics = yield from step(ctx, state.params,
+                                                  state.opt, state.step, batch)
+        return TrainState(params, opt, n), metrics
+    return body
+
+
+def _train_program(body: Callable, mesh) -> Callable:
+    """``fn(state, batch)`` on this rank's slices of ``mesh`` (a
+    ``DeviceMesh``): the train body under grad mode."""
+    run = spmd_program(body, mesh)
 
     def fn(state: TrainState, batch: dict):
-        return step(as_dtensors(state, specs, mesh), batch)
+        with torch.enable_grad():
+            return run(state, batch)
     return fn
 
 
@@ -399,12 +382,14 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
         state_sds = traced_shapes(lambda: make_train_state(cfg, device="cpu"))
         state_specs = train_state_shardings(cfg, mesh, state_sds)
         batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=True)
-        fn = _maybe_policy(_train_program(cfg, opt_cfg, mesh, state_specs),
-                           mesh, policy)
+        body = _train_body(cfg, opt_cfg, state_specs, api)
+        fn = _maybe_policy(_train_program(body, mesh), mesh, policy)
         return Cell(name=f"{arch}/{shape.name}", fn=fn,
                     in_specs=(state_sds, batch_sds),
                     in_shardings=(state_specs, batch_sh),
-                    out_shardings=(state_specs, None), meta=meta, donate=(0,))
+                    out_shardings=(state_specs, None), meta=meta, donate=(0,),
+                    body=body, computed_whole=computed_whole(
+                        cfg, state_specs.params, api.axes(cfg), sizes))
 
     # serving cells share param shardings (no optimizer)
     params_sds = traced_shapes(lambda: api.init(cfg, device="cpu"))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.bridge import host_constant
+from repro_torch.distributed import act_sharding as acts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +178,32 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def cross_entropy_body(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_size: int):
+    """Rank body step: :func:`cross_entropy_loss` of logits whose columns
+    the rank holds a block of (the vocabulary split over the model axis
+    of the tensor-parallel context; the whole vocabulary computes the
+    plain loss). In float32: the max over the rank's columns, taken over
+    the axis without gradient; the exp-sum, summed over the axis; the gold
+    logit, taken on the rank whose block holds the label and summed.
+    Those sums are replicated values (``act_sharding.model_reduce``), so
+    each rank's logits receive their own columns' gradient."""
+    n = logits.shape[-1]
+    if n == vocab_size:
+        return cross_entropy_loss(logits, labels)
+    tp = acts.tensor_parallel_context()
+    z = logits.float()
+    m = yield from acts.model_reduce("max", z.amax(-1), grad=False)
+    sumexp = torch.exp(z - m[..., None]).sum(-1)
+    sumexp = yield from acts.model_reduce("sum", sumexp, grad=True)
+    ids = labels.long() - tp.index * n
+    inside = (ids >= 0) & (ids < n)
+    gold = torch.gather(z, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    gold = yield from acts.model_reduce("sum", torch.where(inside, gold, 0.0),
+                                        grad=True)
+    return torch.mean(torch.log(sumexp) + m - gold)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

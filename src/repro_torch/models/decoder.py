@@ -29,7 +29,8 @@ rank's shards (``models/layers.py``): the embedding looks up the rank's
 rows of the vocabulary and sums over the model axis
 (:func:`embed_lookup`), and the head returns the rank's columns of the
 logits, sharded over the vocabulary as the reference's
-``constrain_batch_model(x @ head, 2)`` leaves them."""
+``constrain_batch_model(x @ head, 2)`` leaves them. :func:`forward_body`
+is the training forward as a rank body (see its note on remat)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -127,10 +128,10 @@ def _hybrid_mix(p, cfg, ya, ym):
 def _ffn_out_body(p, cfg, x):
     """Rank body step: the MLP or MoE of the second half's norm
     (mlp_out / moe_out, aux)."""
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
+        h2 = L.piece(cfg, L.prenorm, p["ln2"], cfg, x)
         return (yield from L.moe_body(p["moe"], cfg, h2))
-    return (yield from L.mlp_body(p["mlp"], cfg, h2)), None
+    return (yield from L.mlp_body(p["mlp"], cfg, x, p["ln2"])), None
 
 
 def _ffn_out(p, cfg, x):
@@ -182,6 +183,34 @@ def _layer_remat(p: dict, cfg: ModelConfig, x, positions, window):
     if cfg.family == "ssm":
         return x, None
     y, aux = remat(_ffn_out, p, cfg, x)
+    return x + y, aux
+
+
+def _mixer_body(p, cfg, x, positions, window):
+    """Rank body step of :func:`_mixer_out` (training): the attention on
+    the rank's heads (``layers.attn_body``, the norm inside its region);
+    the SSD mixer whole, its leaves gathered over the model axis by the
+    train step."""
+    if cfg.family == "ssm":
+        return L.piece(cfg, _ssd_core, p, cfg, x)
+    ya = yield from L.attn_body(p["attn"], cfg, x, positions, window, p["ln1"])
+    if cfg.family == "hybrid":
+        return L.piece(cfg, _hybrid_mix, p, cfg, ya,
+                       L.piece(cfg, _ssd_core, p, cfg, x))
+    return ya
+
+
+def _ssd_core(p, cfg, x):
+    """The SSD mixer of the first half's norm."""
+    return L.ssd_forward(p["ssd"], cfg, rms_norm(p["ln1"], x, cfg.norm_eps))
+
+
+def _layer_body(p: dict, cfg: ModelConfig, x, positions, window):
+    """Rank body step of :func:`_layer_forward`."""
+    x = x + (yield from _mixer_body(p, cfg, x, positions, window))
+    if cfg.family == "ssm":
+        return x, None
+    y, aux = yield from _ffn_out_body(p, cfg, x)
     return x + y, aux
 
 
@@ -269,6 +298,52 @@ def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor] = Non
     return x @ params["head"], aux
 
 
+def head_logits(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Rank body step: ``x @ head``; on the rank's columns of a vocabulary
+    split over the model axis, ``x`` enters through the axis's copy."""
+    if params["head"].shape[-1] != cfg.vocab_size:
+        x = yield from acts.model_copy(x)
+    return x @ params["head"]
+
+
+def forward_body(params: dict, cfg: ModelConfig,
+                 tokens: Optional[torch.Tensor] = None,
+                 embeds: Optional[torch.Tensor] = None):
+    """Rank body of :func:`forward` for training: no cache, each layer's
+    window from :func:`window_schedule`, the MoE layers' aux summed.
+    Under ``act_sharding.tensor_parallel`` it computes on the rank's
+    shards and returns the rank's columns of the logits (the vocabulary
+    split as the head's columns), with the Megatron pair of gradients
+    around each split product (``models/layers.py``).
+
+    Remat: a region that recomputes a collective in backward cannot be
+    a rank body's, so with ``cfg.remat`` (and grad on) only the local
+    pieces between collectives are checkpointed (``layers.piece``: each
+    norm with what follows it up to the next collective, so the attention
+    from the layer's input to its partial output, the MLP likewise, the
+    experts' FFN, the SSD mixer, the hybrid's mix). A layer then keeps
+    its input and the input of its second half, each once more as the
+    copy that enters the rank's region where the model axis splits it.
+    Both ``remat_policy`` values map onto that: ``save_comm`` keeps the
+    collectives' outputs, as the reference keeps its tagged ones, and
+    ``nothing`` keeps them too, since no region may span a collective
+    (the reference recomputes the whole layer from its input)."""
+    check_family(cfg)
+    x = embeds if embeds is not None else \
+        (yield from embed_lookup(params["embed"], cfg, tokens))
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    auxs = []
+    with L.remat_pieces(remat_active(cfg)):
+        for i, win in enumerate(window_schedule(cfg)):
+            x, a = yield from _layer_body(layer_slice(params["layers"], i),
+                                          cfg, x, positions, win)
+            auxs.append(a)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    aux = torch.stack(auxs).sum() if cfg.family == "moe" else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+    return (yield from head_logits(params, cfg, x)), aux
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> dict:
     """Stacked (n_layers leading axis) cache: the ring-buffer KV cache of
@@ -296,7 +371,7 @@ def embed_lookup(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor):
     ids = ids - tp.index * n
     inside = (ids >= 0) & (ids < n)
     rows = torch.where(inside[..., None], table[ids.clamp(0, n - 1)], 0)
-    return (yield C.psum(tp.axis, rows))
+    return (yield C.row_sum(tp.axis, rows))
 
 
 def prefill_body(params: dict, cfg: ModelConfig, cache: dict,
@@ -316,7 +391,7 @@ def prefill_body(params: dict, cfg: ModelConfig, cache: dict,
                                          cfg, x, positions,
                                          layer_slice(cache, i), win)
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return (x @ params["head"])[:, 0].float(), cache
+    return (yield from head_logits(params, cfg, x))[:, 0].float(), cache
 
 
 def prefill(params: dict, cfg: ModelConfig, cache: dict,
@@ -338,7 +413,7 @@ def decode_body(params: dict, cfg: ModelConfig, cache: dict,
         x, _ = yield from _layer_decode(layer_slice(params["layers"], i), cfg,
                                         x, layer_slice(cache, i), pos, win)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return (x @ params["head"])[:, 0].float(), cache
+    return (yield from head_logits(params, cfg, x))[:, 0].float(), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,

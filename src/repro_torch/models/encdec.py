@@ -17,7 +17,8 @@ reference. The serving paths are rank bodies (:func:`prefill_body`,
 ``act_sharding.tensor_parallel`` the encoder's and the decoder's
 attention, the cross-attention and the MLPs compute on the rank's heads
 and FFN slice and sum over the model axis, and ``mem_k`` / ``mem_v``
-hold the rank's KV heads."""
+hold the rank's KV heads. :func:`forward_body` is the training forward
+as a rank body."""
 from __future__ import annotations
 
 import math
@@ -26,11 +27,12 @@ from typing import Optional
 import torch
 
 from repro_torch.bridge import resolve_device
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
-from repro_torch.models.decoder import (embed_lookup, layer_slice, remat,
-                                        remat_active)
+from repro_torch.models.decoder import (embed_lookup, head_logits,
+                                        layer_slice, remat, remat_active)
 
 
 # --- encoder ---------------------------------------------------------------
@@ -56,15 +58,18 @@ def _softmax_attn(cfg, blk, q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, L._kv_for_q(cfg, v, blk))
 
 
+def _enc_attn_core(p, cfg, x, positions, blk, ln):
+    q, k, v = L._project_qkv(p, cfg, L.prenorm(ln, cfg, x), positions[None])
+    return torch.einsum("bshk,hkd->bsd", _softmax_attn(cfg, blk, q, k, v),
+                        p["wo"])
+
+
 def _enc_layer_body(p, cfg, x, positions):
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
     blk = L.head_block(cfg, p["attn"])
-    q, k, v = L._project_qkv(p["attn"], cfg, h, positions[None])
-    out = _softmax_attn(cfg, blk, q, k, v)
-    x = x + (yield from L.row_sum(blk, torch.einsum(
-        "bshk,hkd->bsd", out, p["attn"]["wo"])))
-    return x + (yield from L.mlp_body(p["mlp"], cfg,
-                                      rms_norm(p["ln2"], x, cfg.norm_eps)))
+    pa, xa, ln = yield from L.enter_heads(p["attn"], cfg, x, blk, p["ln1"])
+    x = x + (yield from L.row_sum(blk, L.piece(cfg, _enc_attn_core, pa, cfg,
+                                                xa, positions, blk, ln)))
+    return x + (yield from L.mlp_body(p["mlp"], cfg, x, p["ln2"]))
 
 
 def _enc_layer_fwd(p, cfg, x, positions):
@@ -97,6 +102,33 @@ def _cross_attn(p, cfg, h, mem_k, mem_v):
                                                    p["wo"])))
 
 
+def _xattn_core(p, cfg, h, mem, blk, ln):
+    q = torch.einsum("bsd,dhk->bshk", L.prenorm(ln, cfg, h), p["wq"])
+    out = _softmax_attn(cfg, blk, q, *_mem_kv(p, mem))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _cross_attn_body(p, cfg, h, mem, ln):
+    """Rank body step of the training forward's cross-attention over the
+    norm (scale ``ln``) of ``h``: the KV projections of the encoder memory
+    computed here, ``h``, ``ln`` and ``mem`` entering the rank's heads
+    through the model axis's copy."""
+    blk = L.head_block(cfg, p)
+    p, h, ln = yield from L.enter_heads(p, cfg, h, blk, ln)
+    if blk.split:
+        mem = yield from acts.model_copy(mem)
+    return (yield from L.row_sum(blk, L.piece(cfg, _xattn_core, p, cfg, h,
+                                              mem, blk, ln)))
+
+
+def _dec_layer_body(lp, cfg, h, positions, mem):
+    """Rank body step of one decoder layer of the training forward."""
+    h = h + (yield from L.attn_body(lp["attn"], cfg, h, positions, 0,
+                                    lp["ln1"]))
+    h = h + (yield from _cross_attn_body(lp["xattn"], cfg, h, mem, lp["lnx"]))
+    return h + (yield from L.mlp_body(lp["mlp"], cfg, h, lp["ln2"]))
+
+
 def _mem_kv(p, mem):
     return (torch.einsum("bsd,dhk->bshk", mem, p["wk"]),
             torch.einsum("bsd,dhk->bshk", mem, p["wv"]))
@@ -107,8 +139,7 @@ def _dec_tail(lp, cfg, h, mem_k, mem_v):
     self-attention."""
     hx = rms_norm(lp["lnx"], h, cfg.norm_eps)
     h = h + (yield from _cross_attn(lp["xattn"], cfg, hx, mem_k, mem_v))
-    return h + (yield from L.mlp_body(lp["mlp"], cfg,
-                                      rms_norm(lp["ln2"], h, cfg.norm_eps)))
+    return h + (yield from L.mlp_body(lp["mlp"], cfg, h, lp["ln2"]))
 
 
 def _dec_layer_fwd(lp, cfg, h, positions, mem):
@@ -163,7 +194,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_body(params, cfg: ModelConfig, frames: torch.Tensor):
-    """Rank body of :func:`encode` (serving: no remat)."""
+    """Rank body of :func:`encode`."""
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)
     x = frames
@@ -187,6 +218,24 @@ def forward(params, cfg: ModelConfig, frames: torch.Tensor,
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return h @ params["head"], torch.zeros((), dtype=torch.float32,
                                            device=h.device)
+
+
+def forward_body(params, cfg: ModelConfig, frames: torch.Tensor,
+                 tokens: torch.Tensor):
+    """Rank body of :func:`forward` for training (``decoder.forward_body``
+    says how it splits over the model axis and how remat maps onto its
+    local pieces). Returns (the rank's columns of the logits, aux=0)."""
+    with L.remat_pieces(remat_active(cfg)):
+        mem = yield from _encode_body(params, cfg, frames)
+        h = yield from embed_lookup(params["embed"], cfg, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=h.device)
+        for i in range(cfg.n_layers):
+            h = yield from _dec_layer_body(layer_slice(params["dec_layers"], i),
+                                           cfg, h, positions, mem)
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return (yield from head_logits(params, cfg, h)), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -219,7 +268,7 @@ def prefill_body(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
         lc["mem_v"].copy_(mv)
         h = yield from _dec_tail(lp, cfg, h, mk, mv)
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
-    return (h @ params["head"])[:, 0].float(), cache
+    return (yield from head_logits(params, cfg, h))[:, 0].float(), cache
 
 
 def prefill(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
@@ -241,7 +290,7 @@ def decode_body(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
         y, lc = yield from L.attn_decode_body(lp["attn"], cfg, hh, lc, pos, 0)
         h = yield from _dec_tail(lp, cfg, h + y, lc["mem_k"], lc["mem_v"])
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["head"])[:, 0].float(), cache
+    return (yield from head_logits(params, cfg, h))[:, 0].float(), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,

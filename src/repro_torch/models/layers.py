@@ -20,15 +20,20 @@ on its slice of the expert FFN dim. The rank body steps
 :func:`attn_prefill_body`, :func:`attn_decode_body`, :func:`mlp_body`
 and :func:`moe_body` then ask for the model axis's sum. Off a mesh those
 steps ask for nothing and compute what the plain functions compute. The
-SSD mixer has no such split: a serving rank gathers its leaves whole
-(``launch.input_specs``).
+SSD mixer has no such split: a rank gathers its leaves whole
+(``train.step.model_gathered``). Training (:func:`attn_body` and the
+same MLP and MoE steps with grad on) adds Megatron's copy into each
+split region (:func:`enter_heads`, ``act_sharding.model_copy``), whose
+backward sums the ranks' cotangents, and checkpoints the local pieces
+between collectives under :func:`remat_pieces`.
 
 One deviation from the reference: :func:`attn_decode` computes its
 attention through ``kernels.ops.flash_decode`` (kernel K5 on the card,
-its plain version on the CPU), where the reference computes it in plain
-jnp. K5 masks with -1e30 instead of ``BIG_NEG`` (no effect while the
-token's own slot is valid), keeps the probabilities in float32 where the
-reference rounds them to the model dtype, and sums P.V in float32.
+its plain version on the CPU, handed the model's query-to-KV head map),
+where the reference computes it in plain jnp. K5 masks with -1e30
+instead of ``BIG_NEG`` (no effect while the token's own slot is valid),
+keeps the probabilities in float32 where the reference rounds them to
+the model dtype, and sums P.V in float32.
 
 :func:`moe_apply` keeps the reference's routing exactly (``lax.top_k``'s
 tie order, the stable sort that decides which assignments a full expert
@@ -47,6 +52,9 @@ as :func:`attn_decode` does its KV cache, where the reference returns
 new ones; a captured decode step reads fixed addresses."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 
 from typing import NamedTuple
@@ -54,11 +62,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.pap import topk_stable
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import default_kv_heads
 from repro_torch.models.common import (ModelConfig, gelu, init_dense, rms_norm,
                                        rope)
 
@@ -254,13 +264,85 @@ def _attend(cfg, q, k, v, positions, window, blk=None):
     return out
 
 
+_PIECES: contextvars.ContextVar = contextvars.ContextVar(
+    "remat_pieces", default=False)
+
+
+@contextlib.contextmanager
+def remat_pieces(on: bool):
+    """Inside the block (a training rank body, ``decoder.forward_body``)
+    :func:`piece` checkpoints the local pieces of the layers."""
+    token = _PIECES.set(bool(on))
+    try:
+        yield
+    finally:
+        _PIECES.reset(token)
+
+
+def piece(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, a local piece of a layer between two collectives,
+    as a checkpointed region under :func:`remat_pieces` with grad on
+    (backward recomputes it). A region cannot hold a collective: backward
+    could not replay a rank body's step. ``fn`` reads nothing but its
+    arguments, since backward may recompute it outside the rank's
+    context."""
+    if _PIECES.get() and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def prenorm(ln, cfg, x):
+    """``x`` through the RMS norm of scale ``ln`` (None: as is)."""
+    return x if ln is None else rms_norm(ln, x, cfg.norm_eps)
+
+
+def _attn_core(p, cfg, x, positions, window, blk, ln=None):
+    """The norm (``ln``), the projections, the attention over the q heads
+    of ``blk`` and the product by the rank's rows of ``wo``."""
+    q, k, v = _project_qkv(p, cfg, prenorm(ln, cfg, x), positions[None])
+    out = _attend(cfg, q, k, v, positions, window, blk)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, window) -> torch.Tensor:
     """Full-sequence causal attention. x (B,S,D); positions (S,) int32.
     Under the tensor-parallel context, the rank's partial output."""
-    q, k, v = _project_qkv(p, cfg, x, positions[None])
-    out = _attend(cfg, q, k, v, positions, window, head_block(cfg, p))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _attn_core(p, cfg, x, positions, window, head_block(cfg, p))
+
+
+def enter_heads(p: dict, cfg: ModelConfig, x: torch.Tensor, blk: HeadBlock,
+                ln=None):
+    """Rank body step: where the rank computes a block of query heads,
+    ``x`` (the layer's input, before its norm ``ln``), ``ln`` and the KV
+    projections that the rules replicate but the rank reads in part
+    (``wk`` / ``wv`` whole while the query heads split, as minitron-8b's
+    8 KV heads on 16 ranks) go through ``act_sharding.model_copy``: a
+    value every rank holds alike, used by each rank's region in part;
+    returns (p, x, ln) to compute on."""
+    if not blk.split:
+        return p, x, ln
+    x = yield from acts.model_copy(x)
+    if ln is not None:
+        ln = yield from acts.model_copy(ln)
+    if p["wk"].shape[-2] == cfg.n_kv_heads:
+        p = dict(p, wk=(yield from acts.model_copy(p["wk"])),
+                 wv=(yield from acts.model_copy(p["wv"])))
+    return p, x, ln
+
+
+def attn_body(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, window, ln=None):
+    """Rank body step of the training forward's attention over the norm
+    (scale ``ln``) of ``x``: full sequence, causal with ``window``, no
+    cache; on the rank's query heads under the tensor-parallel context,
+    then the model axis's sum. The norm is computed inside the rank's
+    region, so one remat piece (:func:`piece`) runs from the layer's
+    input to the partial output and keeps only that input."""
+    blk = head_block(cfg, p)
+    p, x, ln = yield from enter_heads(p, cfg, x, blk, ln)
+    y = piece(cfg, _attn_core, p, cfg, x, positions, window, blk, ln)
+    return (yield from row_sum(blk, y))
 
 
 def row_sum(blk: HeadBlock, y: torch.Tensor):
@@ -308,40 +390,40 @@ def attn_prefill_body(p, cfg, x, positions, cache, window):
     return y, cache
 
 
-def check_decode_heads(cfg: ModelConfig, blk: HeadBlock | None = None) -> None:
-    """K5 gives query head h the KV head ``h // ceil(Hq / Hkv)``; the
-    model's mapping (``_kv_for_q``) is the same only without padded
-    heads and when Hkv divides Hq. On a rank's :class:`HeadBlock` (the
-    KV block handed to K5) the same must hold of the block's ratio:
-    local query head j reads block head ``j // ceil(nq / nkv)``."""
-    if cfg.h_phys != cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
-        raise ValueError(
-            f"attn_decode: {cfg.name} has {cfg.h_phys} physical query heads "
-            f"({cfg.n_heads} real) over {cfg.n_kv_heads} KV heads; the "
-            "flash-decode kernel maps query head h to KV head "
-            "h // ceil(Hq / Hkv), which is the model's mapping only when "
-            "there are no padded heads and Hkv divides Hq")
-    if blk is None or not blk.split:
-        return
-    local = _q_to_kv(cfg)[blk.q0:blk.q0 + blk.nq] - blk.kv0
-    if not np.array_equal(local, np.arange(blk.nq) // -(-blk.nq // blk.nkv)):
-        raise ValueError(
-            f"attn_decode: {cfg.name}'s query heads {blk.q0}.."
-            f"{blk.q0 + blk.nq - 1} read KV heads {(local + blk.kv0).tolist()}"
-            f" (block {blk.kv0}..{blk.kv0 + blk.nkv - 1}); the flash-decode "
-            "kernel would give local head j the block's head "
-            "j // ceil(nq / nkv): no contiguous KV block serves this rank")
+@functools.lru_cache(maxsize=None)
+def _decode_map(h_phys: int, n_heads: int, n_kv: int, q0: int, nq: int,
+                stored0: int, n_stored: int):
+    n_rep = n_heads // n_kv
+    qmap = np.minimum(np.arange(h_phys) // n_rep, n_kv - 1)[q0:q0 + nq] - stored0
+    mine = tuple(int(g) for g in qmap)
+    return None if mine == default_kv_heads(nq, n_stored) else mine
+
+
+def decode_kv_heads(cfg: ModelConfig, blk: HeadBlock, n_stored: int):
+    """The KV head of the ``n_stored`` the rank's cache holds that each of
+    its query heads reads, as K5 takes it (``kv_heads``): the model's map
+    (:func:`_q_to_kv`, padded heads clamped to the last KV head) over the
+    query heads of ``blk``; None where it is K5's default map. Raises
+    where the reference cannot map the heads either (Hkv does not divide
+    Hq and no heads are padded)."""
+    if cfg.h_phys == cfg.n_heads and cfg.n_heads % cfg.n_kv_heads:
+        raise ValueError(f"attn_decode: {cfg.name} has {cfg.n_heads} query "
+                         f"heads over {cfg.n_kv_heads} KV heads and no padded "
+                         "heads; the GQA repeat needs Hkv to divide Hq")
+    return _decode_map(cfg.h_phys, cfg.n_heads, cfg.n_kv_heads, blk.q0,
+                       blk.nq, blk.kv_stored0, n_stored)
 
 
 def attn_decode(p, cfg, x1, cache, pos, window):
     """One-token decode. x1 (B,1,D); pos (B,) int32 per-request positions
     (continuous batching); ring-buffer cache, written in place. The
-    attention runs through ``ops.flash_decode`` (K5), under the
-    tensor-parallel context on the rank's query heads and the contiguous
-    KV block they read (copied out of the cache where the KV heads are
-    whole); ``y`` is then the rank's partial output."""
+    attention runs through ``ops.flash_decode`` (K5) with the model's
+    query-to-KV head map (:func:`decode_kv_heads`), which reads the rank's
+    KV heads in place in a cache that stores more; padded heads are
+    masked after it, as the reference masks them. Under the
+    tensor-parallel context it computes the rank's query heads and ``y``
+    is the rank's partial output."""
     blk = head_block(cfg, p)
-    check_decode_heads(cfg, blk)
     b = x1.shape[0]
     w = cache["k"].shape[1]
     q, k, v = _project_qkv(p, cfg, x1, pos[:, None])
@@ -353,11 +435,11 @@ def attn_decode(p, cfg, x1, cache, pos, window):
     kpos = cache["kpos"]
     valid = (kpos <= pos[:, None]) & (kpos > pos[:, None] - _window(window))
     kc, vc = cache["k"], cache["v"]
-    if blk.nkv != kc.shape[2]:
-        lo = blk.kv0 - blk.kv_stored0
-        kc = kc[:, :, lo:lo + blk.nkv].contiguous()
-        vc = vc[:, :, lo:lo + blk.nkv].contiguous()
-    out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, valid)
+    out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, valid,
+                           kv_heads=decode_kv_heads(cfg, blk, kc.shape[2]))
+    mask = _head_mask(cfg, out.dtype, out.device, blk)
+    if mask is not None:
+        out = out * mask[None, :, None]
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
     return y, cache
 
@@ -393,9 +475,12 @@ def mlp_axes(cfg: ModelConfig) -> dict:
     return ax
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, ln=None, eps: float = 1e-5
+              ) -> torch.Tensor:
     """On a rank's columns of ``w_up`` / ``w_gate`` and rows of
-    ``w_down``, its partial output."""
+    ``w_down``, its partial output; with ``ln``, of the RMS norm of x."""
+    if ln is not None:
+        x = rms_norm(ln, x, eps)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
@@ -403,11 +488,17 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
-def mlp_body(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """Rank body step: :func:`mlp_apply` and, where the rank holds a
-    slice of the FFN dim, the sum over the model axis."""
-    y = mlp_apply(p, x)
-    if p["w_down"].shape[-2] != cfg.d_ff:
+def mlp_body(p: dict, cfg: ModelConfig, x: torch.Tensor, ln=None):
+    """Rank body step: :func:`mlp_apply` of the norm (scale ``ln``) of
+    ``x`` and, where the rank holds a slice of the FFN dim, its inputs
+    through ``model_copy`` and the sum over the model axis."""
+    split = p["w_down"].shape[-2] != cfg.d_ff
+    if split:
+        x = yield from acts.model_copy(x)
+        if ln is not None:
+            ln = yield from acts.model_copy(ln)
+    y = piece(cfg, mlp_apply, p, x, ln, cfg.norm_eps)
+    if split:
         y = yield from acts.model_sum(y)
     return y
 
@@ -491,20 +582,44 @@ def _expert_ffn(buf, w_gate, w_up, w_down):
 
 def _balance_aux(probs, top_e, e):
     """Switch-style load-balance loss of the rows given."""
+    return C.run_local(_balance_aux_body(probs, top_e, e))
+
+
+def _balance_aux_body(probs, top_e, e):
+    """Rank body step: the Switch-style load-balance loss of the whole
+    batch, its router means taken over the batch axes of a training rank
+    body (``act_sharding.batch_mean``), of the rows given elsewhere."""
     me = probs.mean(dim=(0, 1))
     ce = (top_e[..., :1] == torch.arange(e, device=probs.device)).float().mean(
         dim=(0, 1))                                     # one-hot of the top pick
+    me = yield from acts.batch_mean(me)
+    ce = yield from acts.batch_mean(ce)
     return e * torch.sum(me * ce)
 
 
+def _enter(axis, t: torch.Tensor):
+    """Rank body step: ``t`` into the rank's part of the MoE through the
+    model axis's copy (its backward summing in float32) where it carries
+    gradient (``axis`` None: as is)."""
+    if axis is None or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    out = yield C.model_copy(axis, t.float())
+    return out.to(t.dtype)
+
+
 def moe_ep_body(ctx: C.RankContext, cfg: ModelConfig, router, w_gate, w_up,
-                w_down, xl, tp_axis: str, batch_axes: tuple):
+                w_down, xl, tp_axis: str, batch_axes: tuple,
+                replicated: bool = False):
     """One rank of the expert-parallel MoE (the reference's ``shard_map``
     body): every rank routes all of its rows' tokens, fills capacity only
     from its own E/TP experts (non-local assignments sort to the end and
     never enter capacity), runs those experts' FFN, and ONE sum over the
     model axis combines the float32 partial outputs. ``aux`` is this
-    shard's balance loss averaged over the batch axes."""
+    shard's balance loss averaged over the batch axes. ``replicated``
+    (a tensor-parallel rank body): the tokens and their gate weights
+    enter the rank's experts through the model axis's copy and the
+    combine is a sum into a replicated value (Megatron's pair), and
+    ``aux`` is the whole batch's (:func:`_balance_aux_body`)."""
     rank = ctx.index[tp_axis]
     e, k = cfg.n_experts, cfg.n_experts_active
     e_loc = e // ctx.size[tp_axis]
@@ -512,7 +627,12 @@ def moe_ep_body(ctx: C.RankContext, cfg: ModelConfig, router, w_gate, w_up,
     cap = moe_capacity(cfg, s)
     sk = s * k
     probs, top_p, top_e = moe_route({"router": router}, cfg, xl)
-    aux = _balance_aux(probs, top_e, e)
+    if replicated:
+        aux = yield from _balance_aux_body(probs, top_e, e)
+        xl = yield from _enter(tp_axis, xl)
+        top_p = yield from _enter(tp_axis, top_p)
+    else:
+        aux = _balance_aux(probs, top_e, e)
 
     flat_e = top_e.reshape(b, sk)
     is_local = torch.div(flat_e, e_loc, rounding_mode="floor") == rank
@@ -530,11 +650,11 @@ def moe_ep_body(ctx: C.RankContext, cfg: ModelConfig, router, w_gate, w_up,
         * keep[..., None].to(xl.dtype)
     buf = torch.zeros((b, e_loc * cap + 1, d), dtype=xl.dtype, device=xl.device)
     buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
-    h = _expert_ffn(buf[:, :-1].reshape(b, e_loc, cap, d), w_gate, w_up,
-                    w_down).reshape(b, e_loc * cap, d)
+    h = piece(cfg, _expert_ffn, buf[:, :-1].reshape(b, e_loc, cap, d), w_gate,
+              w_up, w_down).reshape(b, e_loc * cap, d)
     partial = _moe_combine_f32(h, dest, keep, order, top_p, xl.dtype,
                                e_loc * cap, s, k)
-    out = yield C.psum(tp_axis, partial)
+    out = yield (C.row_sum if replicated else C.psum)(tp_axis, partial)
     if batch_axes:
         # per-shard balance loss, averaged — the standard EP choice (a
         # global mean would need an extra reduction of the full probs)
@@ -615,23 +735,36 @@ def moe_body(p: dict, cfg: ModelConfig, x: torch.Tensor):
     if tp is not None and p["w_gate"].shape[0] != cfg.n_experts:
         out, aux = yield from moe_ep_body(tp.rank, cfg, p["router"],
                                           p["w_gate"], p["w_up"],
-                                          p["w_down"], x, tp.axis, ())
+                                          p["w_down"], x, tp.axis, (), True)
         return out, aux
     if p["w_gate"].shape[-1] != cfg.d_ff:
-        out, aux = _moe_local(p, cfg, x)
+        out, aux = yield from _moe_local_body(p, cfg, x, tp.axis)
         out = yield from acts.model_sum(out)
         return out.to(x.dtype), aux
-    return moe_apply(p, cfg, x)
+    if acts.model_axis_size() > 1:
+        return moe_apply(p, cfg, x)                      # the policy's EP
+    out, aux = yield from _moe_local_body(p, cfg, x, None)
+    return out.to(x.dtype), aux
 
 
 def _moe_local(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """Every expert of ``p`` on every token of ``x``: (out (B,S,D)
     float32, aux_loss); on a slice of the expert FFN dim, the partial
     output."""
+    return C.run_local(_moe_local_body(p, cfg, x, None))
+
+
+def _moe_local_body(p: dict, cfg: ModelConfig, x: torch.Tensor, axis):
+    """Rank body step of :func:`_moe_local`: on a slice of the expert FFN
+    dim of the model axis ``axis``, the tokens and their gate weights
+    enter through the axis's copy (``axis`` None: off the axis); the
+    balance loss is :func:`_balance_aux_body`'s."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     probs, top_p, top_e = moe_route(p, cfg, x)
-    aux_loss = _balance_aux(probs, top_e, e)
+    aux_loss = yield from _balance_aux_body(probs, top_e, e)
+    x = yield from _enter(axis, x)
+    top_p = yield from _enter(axis, top_p)
 
     order, keep, dest, cap = moe_dispatch(cfg, top_e, s)
     token_of = order // k                                           # (B, S*k)
@@ -641,8 +774,8 @@ def _moe_local(p: dict, cfg: ModelConfig, x: torch.Tensor):
     # row, which is cut off whichever write wins there
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
-    h = _expert_ffn(buf[:, :-1].reshape(b, e, cap, d), p["w_gate"], p["w_up"],
-                    p["w_down"]).reshape(b, e * cap, d)
+    h = piece(cfg, _expert_ffn, buf[:, :-1].reshape(b, e, cap, d), p["w_gate"],
+              p["w_up"], p["w_down"]).reshape(b, e * cap, d)
     return _moe_combine_f32(h, dest, keep, order, top_p, x.dtype, e * cap,
                             s, k), aux_loss
 

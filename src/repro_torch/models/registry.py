@@ -7,7 +7,9 @@ The port's ``init`` takes ``(cfg, gen=None, *, device="cuda")`` and its
 entry keeps the reference's signature. ``prefill_body`` and
 ``decode_body`` are ``prefill`` and ``decode_step`` as rank bodies
 (generators of ``distributed.collectives``, with the same arguments),
-which a serving cell's rank runs under the tensor-parallel context. ``axes`` gives the params' logical
+which a serving cell's rank runs under the tensor-parallel context, and
+``loss_body`` is ``loss_fn`` as a rank body, which a train cell's rank
+runs there (:mod:`repro_torch.train.step`). ``axes`` gives the params' logical
 sharding axes and :func:`rules_overrides` the per-arch rule adjustments
 that ``train/step.py``'s sharding rules apply on a device mesh."""
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.distributed.collectives import run_local
 from repro_torch.models import decoder, encdec
-from repro_torch.models.common import ModelConfig, cross_entropy_loss
+from repro_torch.models.common import (ModelConfig, cross_entropy_body,
+                                       cross_entropy_loss)
 
 
 class ModelAPI(NamedTuple):
@@ -31,6 +34,7 @@ class ModelAPI(NamedTuple):
     axes: Optional[Callable] = None  # cfg -> logical axes tree of the params
     prefill_body: Optional[Callable] = None  # prefill as a rank body
     decode_body: Optional[Callable] = None   # decode_step as a rank body
+    loss_body: Optional[Callable] = None     # loss_fn as a rank body
 
 
 # --- decoder-only families ---------------------------------------------------
@@ -41,6 +45,15 @@ def _dec_loss(params, cfg: ModelConfig, batch):
     loss = cross_entropy_loss(logits, tokens[:, 1:])
     total = loss + 0.01 * aux
     return total, {"ce": loss, "moe_aux": aux}
+
+
+def _dec_loss_body(params, cfg: ModelConfig, batch):
+    tokens = batch["tokens"]
+    logits, aux = yield from decoder.forward_body(params, cfg,
+                                                  tokens=tokens[:, :-1])
+    loss = yield from cross_entropy_body(logits, tokens[:, 1:],
+                                         cfg.vocab_size)
+    return loss + 0.01 * aux, {"ce": loss, "moe_aux": aux}
 
 
 def _dec_forward(params, cfg, batch):
@@ -75,6 +88,17 @@ def _vlm_loss(params, cfg: ModelConfig, batch):
     return loss + 0.01 * aux, {"ce": loss, "moe_aux": aux}
 
 
+def _vlm_loss_body(params, cfg: ModelConfig, batch):
+    tokens = batch["tokens"]
+    txt = yield from decoder.embed_lookup(params["embed"], cfg, tokens[:, :-1])
+    embeds = torch.cat([batch["img_embeds"].to(txt.dtype), txt], dim=1)
+    logits, aux = yield from decoder.forward_body(params, cfg, embeds=embeds)
+    n_img = batch["img_embeds"].shape[1]
+    loss = yield from cross_entropy_body(logits[:, n_img:], tokens[:, 1:],
+                                         cfg.vocab_size)
+    return loss + 0.01 * aux, {"ce": loss, "moe_aux": aux}
+
+
 def _vlm_forward(params, cfg, batch):
     logits, _ = decoder.forward(params, cfg,
                                 embeds=_vlm_embeds(params, cfg, batch))
@@ -95,6 +119,15 @@ def _encdec_loss(params, cfg: ModelConfig, batch):
     return loss, {"ce": loss, "moe_aux": aux}
 
 
+def _encdec_loss_body(params, cfg: ModelConfig, batch):
+    tokens = batch["tokens"]
+    logits, aux = yield from encdec.forward_body(params, cfg, batch["frames"],
+                                                 tokens[:, :-1])
+    loss = yield from cross_entropy_body(logits, tokens[:, 1:],
+                                         cfg.vocab_size)
+    return loss, {"ce": loss, "moe_aux": aux}
+
+
 def _encdec_forward(params, cfg, batch):
     logits, _ = encdec.forward(params, cfg, batch["frames"], batch["tokens"])
     return logits
@@ -109,7 +142,8 @@ _DEC_API = ModelAPI(
     init=decoder.init_decoder, loss_fn=_dec_loss, forward=_dec_forward,
     init_cache=decoder.init_cache, prefill=_local(_dec_prefill_body),
     decode_step=decoder.decode_step, axes=decoder.decoder_axes,
-    prefill_body=_dec_prefill_body, decode_body=decoder.decode_body)
+    prefill_body=_dec_prefill_body, decode_body=decoder.decode_body,
+    loss_body=_dec_loss_body)
 
 _REGISTRY: dict[str, ModelAPI] = {
     "dense": _DEC_API,
@@ -118,12 +152,14 @@ _REGISTRY: dict[str, ModelAPI] = {
     "hybrid": _DEC_API,
     "vlm": _DEC_API._replace(loss_fn=_vlm_loss, forward=_vlm_forward,
                              prefill=_local(_vlm_prefill_body),
-                             prefill_body=_vlm_prefill_body),
+                             prefill_body=_vlm_prefill_body,
+                             loss_body=_vlm_loss_body),
     "encdec": ModelAPI(
         init=encdec.init_encdec, loss_fn=_encdec_loss, forward=_encdec_forward,
         init_cache=encdec.init_cache, prefill=_local(_encdec_prefill_body),
         decode_step=encdec.decode_step, axes=encdec.encdec_axes,
-        prefill_body=_encdec_prefill_body, decode_body=encdec.decode_body),
+        prefill_body=_encdec_prefill_body, decode_body=encdec.decode_body,
+        loss_body=_encdec_loss_body),
 }
 
 

@@ -13,20 +13,29 @@ The sharding rules (``rules_for``, ``param_shardings``, ``zero_spec``,
 give the PartitionSpec tree of a TrainState on a mesh. On a
 ``DeviceMesh`` the state lives as DTensors laid out by those specs
 (:func:`place_train_state`): parameters by the rule table, AdamW moments
-by ``zero_spec`` (ZeRO-1). :func:`build_sharded_train_step` takes this
-rank's rows of the batch (split over the data axes), gathers the
-parameters whole to compute (the model axis stores shards but computes
-replicated), averages the gradients over the data axes, updates each
-rank's moment shard and returns the state in the same layout."""
+by ``zero_spec`` (ZeRO-1). :func:`train_rank_body` is one rank's step as
+a rank body (``distributed.collectives``), the counterpart of the
+reference's ``build_train_step`` jitted with those shardings, which XLA
+partitions over the mesh: the rank gathers a leaf only over the data
+axes where FSDP splits it (and over the model axis where
+:func:`model_gathered` says so: the SSD mixer's leaves and a ``pure_dp``
+config's), runs the model's ``loss_body`` on its rows under
+``act_sharding.tensor_parallel`` (its heads, FFN slice, experts and
+vocabulary columns, with the Megatron pair of gradients around each
+split product), takes its gradients through every collective, sums them
+over the data axes (the FSDP gathers' backward is a reduce-scatter),
+takes the global norm with each element counted once and updates its
+moment slices. :func:`build_sharded_train_step` runs that body on a
+``DeviceMesh`` over DTensor states."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.bridge import resolve_device
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (
     AxisRules, DEFAULT_RULES, P, fsdp_rules_for_mesh, is_spec,
@@ -232,22 +241,175 @@ def local_batch(batch: dict, mesh) -> dict:
             for k, v in batch.items()}
 
 
-def _mean_over(xs: list, mesh, axes: tuple) -> list:
-    """Every tensor of ``xs`` averaged over the mesh axes ``axes``: a SUM
-    all-reduce over each axis's group, in place, then one division (gloo
-    has no AVG). The backend sums in its own order; the step is held to
-    a tolerance, not bitwise."""
-    sizes = C.mesh_shape(mesh)
-    n = 1
-    for a in axes:
-        n *= sizes[a]
-    out = []
-    for x in xs:
-        x = x.detach().contiguous()
-        for a in axes:
-            dist.all_reduce(x, group=mesh.get_group(a))
-        out.append(x / n)
-    return out
+#: the axes FSDP splits a parameter over, which a rank gathers it over
+DATA_AXES = ("pod", "data")
+
+
+def model_gathered(cfg: ModelConfig, path: str) -> Optional[str]:
+    """Why a rank gathers the parameter leaf at ``path`` over the model
+    axis too (None: it computes on its shard)."""
+    if cfg.pure_dp:
+        return "pure_dp: ZeRO splits the embed dim over every axis"
+    if "/ssd/" in f"/{path}/":
+        return ("SSD mixer: in_xbc concatenates x, B and C along the split "
+                "dim, so a rank's slice is no block of heads")
+    return None
+
+
+def leaf_paths(tree: Any, prefix: str = "") -> list:
+    """The "a/b/c" path of every leaf, in :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_paths(
+            tree[k], f"{prefix}/{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in leaf_paths(
+            v, f"{prefix}/{i}" if prefix else str(i))]
+    return [prefix]
+
+
+def _no_steps(fn: Callable) -> Callable:
+    """``fn`` as a rank body step that asks for nothing."""
+    def body(*args):
+        return fn(*args)
+        yield                                      # a generator all the same
+    return body
+
+
+def _owned(spec, ctx: C.RankContext) -> bool:
+    """Whether this rank counts a leaf laid out by ``spec`` in a global
+    sum: the first rank along every axis the spec does not split it over
+    (each element is counted once)."""
+    used = {a for e in spec for a in C.spec_axes(e)}
+    return all(i == 0 for a, i in ctx.index.items() if a not in used)
+
+
+def _extra_spec(spec, zspec) -> P:
+    """The axes ``zero_spec`` adds to ``spec``, dim by dim."""
+    spec = tuple(spec) + (None,) * (len(zspec) - len(spec))
+    return P(*[z if s is None else None for s, z in zip(spec, zspec)])
+
+
+def grads_rank_body(cfg, param_specs: Any,
+                    api: Optional[ModelAPI] = None) -> Callable:
+    """The gradient half of :func:`train_rank_body`: ``body(ctx, params,
+    batch)`` over this rank's slices -> (loss, metrics, grads), the
+    gradients in the parameters' layout (each rank's slices of the data
+    groups' mean) and the loss and metrics averaged over the data axes.
+
+    Per microbatch (``cfg.grad_accum``, rows taken in order, as the
+    reference's scan takes them) the rank gathers each leaf over the
+    data axes where FSDP splits it and over the model axis where
+    :func:`model_gathered` says so, runs ``api.loss_body`` under
+    ``act_sharding.tensor_parallel`` and ``batch_split``, and takes the
+    gradients of its loss with respect to its slices (``collectives.grad``:
+    through the Megatron pair of the model axis and the gathers, whose
+    backward sums the FSDP slices over the data ranks); float32
+    accumulators sum the microbatches. The loss is each data group's,
+    replicated over the model axis: a slice's gradient is then summed
+    over the data axes the leaf is not split over and divided by their
+    ranks. A model with no ``loss_body`` (the detector) computes
+    ``loss_fn`` on leaves gathered whole."""
+    api = api or get_api(cfg)
+    accum = max(1, getattr(cfg, "grad_accum", 1))
+    p_specs = spec_leaves(param_specs)
+    loss_body = api.loss_body or _no_steps(api.loss_fn)
+
+    def body(ctx: C.RankContext, params, batch):
+        sizes = ctx.size
+        paths = leaf_paths(params)
+        dp = tuple(a for a in DATA_AXES if sizes.get(a, 1) > 1)
+        n_dp = int(np.prod([sizes[a] for a in dp]))
+        live = [x.detach().requires_grad_() for x in tree_leaves(params)]
+        keeps = [DATA_AXES + (("model",) if api.loss_body is None
+                              or model_gathered(cfg, path) else ())
+                 for path in paths]
+        rows = next(iter(batch.values())).shape[0] // accum
+        loss, grads, per_micro = None, None, []
+        for i in range(accum):
+            mb = batch if accum == 1 else \
+                {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            mine = []
+            for x, sp, keep in zip(live, p_specs, keeps):
+                mine.append((yield from C.gather_dims(
+                    x, sp, sizes, keep=keep, replicated=("model",))))
+            with acts.tensor_parallel(ctx), acts.batch_split(ctx):
+                li, mi = yield from loss_body(tree_unflatten(params, mine),
+                                              cfg, mb)
+            gi = yield C.grad([li], live)
+            li = li.detach()
+            if accum == 1:
+                loss, grads = li, list(gi)
+            else:
+                loss = li if loss is None else loss + li
+                grads = [g.float() for g in gi] if grads is None else \
+                    [a + g for a, g in zip(grads, gi)]
+            per_micro.append({k: v.detach() for k, v in (
+                mi if isinstance(mi, dict) else {"aux": mi}).items()})
+        metrics = per_micro[0]
+        if accum > 1:
+            loss = loss / accum
+            grads = [g / accum for g in grads]
+            metrics = {k: torch.mean(torch.stack([m[k] for m in per_micro]))
+                       for k in metrics}
+        out = []
+        for g, sp in zip(grads, p_specs):
+            used = {a for e in sp for a in C.spec_axes(e)}
+            over = tuple(a for a in dp if a not in used)
+            if over:                          # in float32, as AdamW reads it
+                g = yield C.psum(over, g.float())
+            out.append(g / n_dp if n_dp > 1 else g)
+        if dp:
+            names = sorted(metrics)
+            avg = yield C.pmean(dp, torch.stack(
+                [loss.float()] + [metrics[k].float() for k in names]))
+            loss = avg[0].to(loss.dtype)
+            metrics = {k: avg[j + 1].to(metrics[k].dtype)
+                       for j, k in enumerate(names)}
+        return loss, metrics, tree_unflatten(params, out)
+    return body
+
+
+def train_rank_body(cfg, opt_cfg: OptConfig, specs: TrainState,
+                    api: Optional[ModelAPI] = None) -> Callable:
+    """One rank's train step as a rank body ``body(ctx, params, opt,
+    step, batch)`` over this rank's slices (``collectives.local_slices``
+    of each leaf of ``specs``, the batch's rows split over the data axes
+    or whole) -> (params, opt, step, metrics) in the same layout. Run it
+    with grad mode on. The gradients are :func:`grads_rank_body`'s; the
+    global norm sums each element's square once (:func:`_owned`), and
+    AdamW updates the rank's ``zero_spec`` slices, which are gathered
+    back into the parameters' layout."""
+    grads_of = grads_rank_body(cfg, specs.params, api)
+    p_specs = spec_leaves(specs.params)
+    extra = [_extra_spec(sp, zs)
+             for sp, zs in zip(p_specs, spec_leaves(specs.opt["m"]))]
+
+    def body(ctx: C.RankContext, params, opt, step, batch):
+        sizes = ctx.size
+        loss, metrics, grads = yield from grads_of(ctx, params, batch)
+        grads = tree_leaves(grads)
+        sq = sum((torch.sum(torch.square(g.float())) for g, sp
+                  in zip(grads, p_specs) if _owned(sp, ctx)),
+                 torch.zeros((), dtype=torch.float32, device=loss.device))
+        every = tuple(a for a in sizes if sizes[a] > 1)
+        if every:
+            sq = yield C.psum(every, sq)
+        cut = lambda t, ex: t[C.local_slices(ex, t.shape, sizes, ctx.index)]
+        with torch.no_grad():
+            new_p, new_opt, opt_metrics = adamw_update(
+                [cut(x, ex) for x, ex in zip(tree_leaves(params), extra)],
+                [cut(g, ex) for g, ex in zip(grads, extra)],
+                {"m": tree_leaves(opt["m"]), "v": tree_leaves(opt["v"]),
+                 "step": opt["step"]}, opt_cfg, grad_norm=torch.sqrt(sq))
+        shards = []
+        for x, ex in zip(new_p, extra):
+            shards.append((yield from C.gather_dims(x, ex, sizes)))
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        new_opt = {"m": tree_unflatten(opt["m"], new_opt["m"]),
+                   "v": tree_unflatten(opt["v"], new_opt["v"]),
+                   "step": new_opt["step"]}
+        return tree_unflatten(params, shards), new_opt, step + 1, metrics
+    return body
 
 
 def build_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
@@ -255,57 +417,36 @@ def build_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
     """Returns train_step(state, batch) -> (state, metrics) on ``mesh`` (a
     ``DeviceMesh``). ``state`` is laid out by ``specs``
     (:func:`place_train_state`); ``batch`` is this rank's rows
-    (:func:`local_batch`). Each rank computes the loss and gradients of
-    its rows on the whole parameters, the gradients and metrics are
-    averaged over the data axes, and AdamW updates this rank's moment
-    shards (its ``zero_spec`` slices) with the global gradient norm; the
-    new parameters are gathered back into their own layout."""
+    (:func:`local_batch`). The rank's slices run :func:`train_rank_body`
+    through ``collectives.run_spmd`` and come back as DTensors of the
+    same layout."""
     from torch.distributed.tensor import DTensor
-    api = api or get_api(cfg)
-    grads_of = _loss_and_grads(cfg, api)
-    axes = data_axes(mesh)
-    m_specs = spec_leaves(specs.opt["m"])
+    body = train_rank_body(cfg, opt_cfg, specs, api)
     p_place = [spec_placements(sp, mesh) for sp in spec_leaves(specs.params)]
-    m_place = [spec_placements(sp, mesh) for sp in m_specs]
-
-    def mine(full, spec):
-        ctx = C.rank_context(mesh)
-        return full[C.local_slices(spec, full.shape, ctx.size, ctx.index)]
+    m_place = [spec_placements(sp, mesh) for sp in spec_leaves(specs.opt["m"])]
 
     def train_step(state: TrainState, batch: dict):
-        full = tree_map(lambda p: p.full_tensor(), state.params)
-        loss, metrics, grads = grads_of(full, batch)
-        metrics = dict(metrics) if isinstance(metrics, dict) else {"aux": metrics}
-        names = sorted(metrics)
-        g_leaves = tree_leaves(grads)
-        if axes:
-            avg = _mean_over(g_leaves + [loss] + [metrics[k] for k in names],
-                             mesh, axes)
-            g_leaves, loss = avg[:len(g_leaves)], avg[len(g_leaves)]
-            metrics = dict(zip(names, avg[len(g_leaves) + 1:]))
-        gnorm = global_norm(g_leaves)
-        p_loc = [mine(p, sp) for p, sp in zip(tree_leaves(full), m_specs)]
-        g_loc = [mine(g, sp) for g, sp in zip(g_leaves, m_specs)]
-        opt_loc = {"m": [m.to_local() for m in tree_leaves(state.opt["m"])],
-                   "v": [v.to_local() for v in tree_leaves(state.opt["v"])],
-                   "step": state.opt["step"].to_local()}
-        new_p, new_opt, opt_metrics = adamw_update(p_loc, g_loc, opt_loc,
-                                                   opt_cfg, grad_norm=gnorm)
-        as_moment = lambda t, pl: DTensor.from_local(t, mesh, pl,
-                                                     run_check=False)
+        local = lambda t: t.to_local()
+        params = tree_map(local, state.params)
+        opt = {"m": tree_map(local, state.opt["m"]),
+               "v": tree_map(local, state.opt["v"]),
+               "step": state.opt["step"].to_local()}
+        with torch.enable_grad():
+            new_p, new_opt, step, metrics = C.run_spmd(
+                body(C.rank_context(mesh), params, opt,
+                     state.step.to_local(), batch), mesh)
+        wrap = lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False)
+        rep = lambda t: wrap(t, state.step.placements)
         params = tree_unflatten(state.params, [
-            as_moment(p, mp).redistribute(mesh, pp)
-            for p, mp, pp in zip(new_p, m_place, p_place)])
-        rep = lambda t: DTensor.from_local(t, mesh, state.step.placements,
-                                           run_check=False)
+            wrap(x, pl) for x, pl in zip(tree_leaves(new_p), p_place)])
         opt = {"m": tree_unflatten(state.opt["m"], [
-                   as_moment(m, pl) for m, pl in zip(new_opt["m"], m_place)]),
+                   wrap(x, pl) for x, pl in zip(tree_leaves(new_opt["m"]),
+                                                m_place)]),
                "v": tree_unflatten(state.opt["v"], [
-                   as_moment(v, pl) for v, pl in zip(new_opt["v"], m_place)]),
+                   wrap(x, pl) for x, pl in zip(tree_leaves(new_opt["v"]),
+                                                m_place)]),
                "step": rep(new_opt["step"])}
-        metrics["loss"] = loss
-        metrics.update(opt_metrics)
-        return TrainState(params, opt, rep(state.step.to_local() + 1)), metrics
+        return TrainState(params, opt, rep(step)), metrics
 
     return train_step
 

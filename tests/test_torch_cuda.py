@@ -342,6 +342,27 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_head_map_matches_plain(cuda, dtype):
+    """K5 given the model's head map: 5 query heads on stored KV heads
+    (2, 2, 2, 0, 0) of 3 (two table entries, KV head 1 unread, a row
+    with no valid slot), read in place. float32 1e-5; bf16 rtol 2^-7."""
+    from repro_torch.kernels import flash_decode
+    g = torch.Generator().manual_seed(4)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g).to(tdt).to(cuda)
+               for s in ((3, 5, 64), (3, 100, 3, 64), (3, 100, 3, 64)))
+    valid = torch.rand((3, 100), generator=g) < 0.6
+    valid[0] = False
+    valid = valid.to(cuda)
+    heads = (2, 2, 2, 0, 0)
+    got = flash_decode.flash_decode(q, k, v, valid, chunk=16, kv_heads=heads)
+    want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=16,
+                                           kv_heads=heads)
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+
+
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16", "int8"])
 def test_matmul_kernel_matches_plain(cuda, w_dtype):
     """K4 on ragged (70, 257) x (257, 65). atol 2^-20 of the largest

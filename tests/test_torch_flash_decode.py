@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -123,3 +124,81 @@ def test_flash_decode_chunk_shows_only_in_rows_without_a_valid_slot():
     torch.testing.assert_close(a, flash_decode_plain(*t, chunk=512),
                                rtol=1e-6, atol=1e-6)
     assert torch.equal(a, ops.flash_decode(*t, chunk=16))
+
+
+def test_head_table_runs_and_in_place_block():
+    """``head_table`` packs one entry per run of at most MAX_REP query
+    heads on one KV head, in query-head order; the default map is the TPU
+    kernel's h // ceil(Hq / Hkv)."""
+    from repro_torch.kernels.flash_decode import default_kv_heads, head_table
+    unpack = lambda t: [(e >> 16, (e >> 4) & 0xfff, e & 0xf) for e in t]
+    assert default_kv_heads(6, 4) == (0, 0, 1, 1, 2, 2)
+    assert unpack(head_table((0,) * 6 + (1,) * 2)) == [(0, 0, 4), (0, 4, 2),
+                                                      (1, 6, 2)]
+    # a rank's heads straddling two KV groups of a cache storing 3 heads
+    assert unpack(head_table((1, 1, 2))) == [(1, 0, 2), (2, 2, 1)]
+    # padded heads clamp to the last KV head
+    assert unpack(head_table((0, 0, 1, 1, 1, 1))) == [(0, 0, 2), (1, 2, 4)]
+
+
+@pytest.mark.parametrize("kv_heads", [(1, 1, 2), (2, 2, 2, 2, 2, 0),
+                                      (0, 0, 1, 1, 1, 1)],
+                         ids=["straddle", "offset", "padded"])
+def test_flash_decode_head_map_matches_gathered_heads(kv_heads):
+    """With ``kv_heads`` each query head reads its own stored KV head in
+    place: the wrapper (the plain version on the CPU) equals the default
+    map run on the KV heads gathered per query head (one KV head per
+    query head), and the oracle given those gathered heads."""
+    hq = len(kv_heads)
+    q, k, v, valid = _operands(21 + hq, 2, hq, 3, 16, 40)
+    valid[:, 0] = True
+    t = [torch.from_numpy(a) for a in (q, k, v, valid)]
+    got = ops.flash_decode(*t, chunk=16, kv_heads=kv_heads)
+    idx = list(kv_heads)
+    want = flash_decode_plain(t[0], t[1][:, :, idx].contiguous(),
+                              t[2][:, :, idx].contiguous(), t[3], chunk=16)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    oracle = np.asarray(ref_oracle.flash_decode_ref(
+        jnp.asarray(q), jnp.asarray(k[:, :, idx]), jnp.asarray(v[:, :, idx]),
+        jnp.asarray(valid)))
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_plain_head_table_against_reference_attn_decode():
+    """The padded-heads model (4 query heads over 2 KV heads, padded to
+    6): the reference's attn_decode over a filled cache, and the port's
+    plain K5 with the model's map on the same cache, the padded heads
+    masked and multiplied by wo, agree to 2e-5."""
+    from repro.models import layers as RL
+    from repro.models.common import ModelConfig as RCfg
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import ModelConfig
+    kw = dict(d_model=32, n_heads=4, n_kv_heads=2, pad_heads_to=6,
+              d_ff=32, vocab_size=32)
+    rcfg = RCfg(dtype=jnp.float32, **kw)
+    cfg = ModelConfig(dtype=torch.float32, **kw)
+    p = RL.attn_init(jax.random.PRNGKey(3), rcfg)
+    rng = np.random.default_rng(4)
+    cache = RL.attn_cache_init(rcfg, 2, 8)
+    _, cache = RL.attn_prefill(p, rcfg, jnp.asarray(rng.normal(
+        size=(2, 5, 32)).astype(np.float32)), jnp.arange(5, dtype=jnp.int32),
+        cache, jnp.asarray(0, jnp.int32))
+    x1 = rng.normal(size=(2, 1, 32)).astype(np.float32)
+    pos = jnp.asarray([5, 5], jnp.int32)
+    want, rc = RL.attn_decode(p, rcfg, jnp.asarray(x1), cache, pos,
+                              jnp.asarray(0, jnp.int32))
+    tp = {k2: torch.from_numpy(np.array(v2)) for k2, v2 in p.items()}
+    q = torch.einsum("bsd,dhk->bshk", torch.from_numpy(x1), tp["wq"])
+    from repro_torch.models.common import rope
+    q = rope(q, torch.tensor([[5], [5]], dtype=torch.int32), cfg.rope_theta)
+    kc, vc = (torch.from_numpy(np.asarray(rc[n])) for n in ("k", "v"))
+    valid = torch.from_numpy(np.asarray(rc["kpos"])) <= 5
+    blk = L.head_block(cfg, tp)
+    kv_heads = L.decode_kv_heads(cfg, blk, kc.shape[2])
+    assert kv_heads == (0, 0, 1, 1, 1, 1)
+    out = flash_decode_plain(q[:, 0].contiguous(), kc, vc, valid,
+                             kv_heads=kv_heads)
+    out = out * torch.tensor([1., 1., 1., 1., 0., 0.])[None, :, None]
+    got = torch.einsum("bhk,hkd->bd", out, tp["wo"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0],
+                               rtol=2e-5, atol=2e-5)

@@ -190,18 +190,43 @@ def test_attn_prefill_then_decode_on_a_ring_buffer(window):
 
 
 def test_attn_decode_raises_where_k5_head_mapping_is_not_the_models():
-    """K5 maps query head h to KV head h // ceil(Hq/Hkv): with padded
-    query heads, or with Hkv not dividing Hq, that is not the model's
-    mapping, and attn_decode raises instead of taking another path."""
-    for kw in ({"n_heads": 4, "n_kv_heads": 2, "pad_heads_to": 6},
-               {"n_heads": 6, "n_kv_heads": 4}):
-        cfg = C.ModelConfig(d_model=48, d_ff=64, vocab_size=64,
-                            dtype=torch.float32, **kw)
-        p = L.attn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-        cache = L.attn_cache_init(cfg, 1, 8, device="cpu")
-        with pytest.raises(ValueError, match="flash-decode kernel"):
-            L.attn_decode(p, cfg, torch.zeros((1, 1, 48)), cache,
-                          torch.zeros((1,), dtype=torch.int32), 0)
+    """K5 now takes the model's query-to-KV head map. With padded query
+    heads (4 real over 2 KV heads, padded to 6: the padded heads clamp to
+    the last KV head and are masked) attn_decode decodes through
+    ops.flash_decode and equals the reference's attn_decode over three
+    steps. With Hkv not dividing Hq and no padding (6 over 4) neither the
+    reference nor the port can map the heads, and both raise."""
+    kw = {"n_heads": 4, "n_kv_heads": 2, "pad_heads_to": 6}
+    rcfg = RC.ModelConfig(d_model=48, d_ff=64, vocab_size=64,
+                          dtype=jnp.float32, **kw)
+    cfg = C.ModelConfig(d_model=48, d_ff=64, vocab_size=64,
+                        dtype=torch.float32, **kw)
+    p = RL.attn_init(jax.random.PRNGKey(5), rcfg)
+    tp = _tree(p)
+    rc, tc = RL.attn_cache_init(rcfg, 2, 8), L.attn_cache_init(cfg, 2, 8,
+                                                               device="cpu")
+    rng = np.random.default_rng(6)
+    for step in range(3):
+        x1 = rng.normal(size=(2, 1, 48)).astype(np.float32)
+        pv = np.asarray([step, step + 2], np.int32)
+        y_ref, rc = RL.attn_decode(p, rcfg, jnp.asarray(x1), rc,
+                                   jnp.asarray(pv), jnp.asarray(0, jnp.int32))
+        y, tc = L.attn_decode(tp, cfg, _t(x1), tc, torch.from_numpy(pv), 0)
+        _close(y, y_ref, **F32)
+    kw = {"n_heads": 6, "n_kv_heads": 4}
+    rcfg = RC.ModelConfig(d_model=48, d_ff=64, vocab_size=64,
+                          dtype=jnp.float32, **kw)
+    cfg = C.ModelConfig(d_model=48, d_ff=64, vocab_size=64,
+                        dtype=torch.float32, **kw)
+    p = RL.attn_init(jax.random.PRNGKey(5), rcfg)
+    with pytest.raises((ValueError, TypeError)):
+        RL.attn_decode(p, rcfg, jnp.zeros((1, 1, 48)),
+                       RL.attn_cache_init(rcfg, 1, 8),
+                       jnp.zeros((1,), jnp.int32), jnp.asarray(0, jnp.int32))
+    with pytest.raises(ValueError, match="GQA repeat needs Hkv"):
+        L.attn_decode(_tree(p), cfg, torch.zeros((1, 1, 48)),
+                      L.attn_cache_init(cfg, 1, 8, device="cpu"),
+                      torch.zeros((1,), dtype=torch.int32), 0)
 
 
 @pytest.mark.parametrize("gated", [False, True])

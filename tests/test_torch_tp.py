@@ -9,8 +9,12 @@ Layouts (2 layers, d_model <= 64, float32), each on ``InProcessMesh``
   * ``kv_block``: 8 / 2 heads: at tp 4 the KV heads replicate and each
     rank hands K5 the one KV head its two query heads read;
   * ``kv_raise``: 12 / 3 heads: KV heads replicate and a rank's query
-    heads straddle two KV groups, so no KV block gives K5's head map:
-    prefill matches, decode raises;
+    heads straddle two KV groups; K5 takes the rank's own head map and
+    reads its KV heads in place (this layout raised before K5 took a
+    head map);
+  * ``padded``: 6 query heads padded to 8 over 3 KV heads: the padded
+    heads clamp to the last KV head and are masked (at tp 2 one rank
+    holds two real and two padded heads, at tp 4 the heads are whole);
   * ``heads_whole``: 5 / 1 heads (whole on every rank), MLP and
     vocabulary split (minitron-4b's layout on 16);
   * ``moe_ffn``: 3 experts (no tp divides them): every expert on each
@@ -79,6 +83,8 @@ LAYOUTS = {
     "split": BASE,
     "kv_block": dict(BASE, n_kv_heads=2),
     "kv_raise": dict(BASE, d_model=48, n_heads=12, n_kv_heads=3),
+    "padded": dict(BASE, d_model=48, n_heads=6, n_kv_heads=3,
+                   pad_heads_to=8),
     "heads_whole": dict(BASE, d_model=40, n_heads=5, n_kv_heads=1,
                         mlp_gated=False),
     "moe_ffn": dict(BASE, family="moe", d_ff=64, n_experts=3,
@@ -239,8 +245,6 @@ def _single(lay, params, batch, tok, pos):
     cache = api.init_cache(cfg, B, W, device="cpu")
     pre, cache = api.prefill(params, cfg, cache, batch)
     pre_cache = _clone(cache)
-    if lay == "kv_raise":
-        return pre, pre_cache, None, None
     dec, cache = api.decode_step(params, cfg, cache, tok, pos)
     return pre, pre_cache, dec, cache
 
@@ -288,8 +292,6 @@ def _in_process(lay, mesh_shape, params, batch, tok, pos):
     new_cache = spec_map(lambda t: t, cache, is_leaf=is_t)
     for leaf, full in zip(tree_leaves(new_cache), res["prefill"][1]):
         leaf.copy_(full)
-    if lay == "kv_raise":
-        return res, (pre, dec, mesh, new_cache)
     outs, _ = _ranks(dec, mesh, (params, new_cache, tok, pos))
     res["decode"] = gather(outs, dec)
     res["decode_outs"] = outs
@@ -312,15 +314,14 @@ def _close(got, want, scale=None):
                          ids=[f"{lay}-{d}x{t}" for lay, (d, t) in CASES])
 def test_tp_cell_matches_one_device_and_reference(world, lay, mesh_shape):
     params, batch, tok, pos = world["data"][lay]
-    res, (_, dec, mesh, cache) = _in_process(lay, mesh_shape, params, batch,
+    res, _ = _in_process(lay, mesh_shape, params, batch,
                                              tok, pos)
     single = world["single"][lay]
     ref = world["ref"]
     tag = f"{lay}/{mesh_shape[0]}x{mesh_shape[1]}"
     cache_keys = sorted(k for k in get_api(_cfg(lay)).init_cache(
         _cfg(lay), 1, 1, device="cpu"))
-    phases = ["prefill"] if lay == "kv_raise" else ["prefill", "decode"]
-    for i, phase in enumerate(phases):
+    for i, phase in enumerate(("prefill", "decode")):
         logits, caches = res[phase]
         want = single[2 * i]
         _close(logits, want)
@@ -330,9 +331,6 @@ def test_tp_cell_matches_one_device_and_reference(world, lay, mesh_shape):
             _close(got, one)
             _close(got, ref[f"{tag}/{phase}_cache/{key}"],
                    float(one.abs().max()))
-    if lay == "kv_raise":
-        with pytest.raises(ValueError, match="no contiguous KV block"):
-            _ranks(dec, mesh, (params, cache, tok, pos))
 
 
 @pytest.mark.parametrize("lay,mesh_shape", GLOO,

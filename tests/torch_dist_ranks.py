@@ -229,3 +229,31 @@ def tp_serve_ranks(rank, world, init_file, inputs_file, out_dir):
         out[name] = res
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def tp_train_ranks(rank, world, init_file, inputs_file, out_dir):
+    """The train cells of tests/test_torch_tp_train.py on a world of gloo
+    ranks: each case's rank program (``Cell.fn``) on this rank's slices of
+    the state and the batch; this rank's slices of the new state and its
+    metrics."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.optim.adamw import OptConfig, tree_leaves
+    _join(rank, world, init_file)
+    inputs = torch.load(inputs_file, weights_only=False)
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg = ModelConfig(**case["cfg"])
+        mesh = _mesh(case["mesh"], ("data", "model"))
+        s, b = case["s_b"]
+        cell = build_cell("tp", cfg, ShapeSpec("t", "train", s, b), mesh,
+                          OptConfig(**case["opt"]))
+        args = tuple(spec_map(lambda t, sp: _local(t, sp, mesh).clone(), x, sp,
+                              is_leaf=lambda v: isinstance(v, torch.Tensor))
+                     for x, sp in zip(case["inputs"], cell.in_shardings))
+        state, metrics = cell.fn(*args)
+        out[name] = {"state": list(tree_leaves(state)), "metrics": metrics}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
