@@ -158,11 +158,21 @@ Phases, each printing one JSON line:
      stream   — StreamingDetrEngine on the same detector's decoder and
                 heads (full width, 512 px levels, backend cuda_decode): 2
                 video sessions x 8 drifting-scene frames of encoder
-                memories, float32 then int8 table at the config's INT12:
-                per-frame mode and staged against rebuild bytes, wrapper
-                launches (6 K2 per frame, nothing else), K2 per frame from
-                torch.profiler, wall clock per frame by mode (median, p10,
-                p90), device busy and idle share, peak memory, outputs
+                memories, float32 then int8 table at the config's INT12,
+                each frame replayed from the engine's CUDA graphs (build,
+                frame, restage, hysteresis, decode): per-frame mode and
+                staged against rebuild bytes; every frame's outputs,
+                tables, diff reference, EMA and keep states bitwise those
+                of an eager engine (capture=False) on the same scenes,
+                and again with two sessions admitted mid-stream and a
+                reorder (first-call counts flat from the first admission
+                on); wrapper launches (the decode graph's warm-up and
+                capture only: 2 x 6 K2; eager 6 per frame); per frame from
+                torch.profiler for both engines K2 launches (6), graph
+                launches, pageable host-to-device copies (0), device
+                kernels, busy and idle share; wall clock per frame by
+                mode, eager and captured (median, p10, p90; frames that
+                capture apart); graph pool bytes, peak memory; outputs
                 against decoder_apply on a cache built from scratch under
                 the same FWP state (DEFA's limits; 1e-5 with act_bits None),
                 int8 codes that differ from a fresh build; the staged table
@@ -2982,7 +2992,8 @@ def phase_lm_families(device):
 def stream_setup(device):
     """The streamed detector's decoder and heads at full width (random
     weights from the seed), its 512 px level shapes, and one drifting
-    scene of STREAM_FRAMES encoder memories per session."""
+    scene of STREAM_FRAMES encoder memories per session, plus one for the
+    session admitted mid-stream."""
     import torch
     from repro_torch.core.detector import init_detector
     from repro_torch.msda.plan import level_shapes_for_resolution
@@ -2994,7 +3005,7 @@ def stream_setup(device):
     d = cfg.encoder.attn.d_model
     scenes = [[f[0] for f in drifting_scene(STREAM_SEED + i, levels, d,
                                             STREAM_FRAMES)]
-              for i in range(STREAM_SESSIONS)]
+              for i in range(STREAM_SESSIONS + 1)]
     return {"attn": cfg.encoder.attn, "dec_cfg": cfg.decoder, "levels": levels,
             "params": {k: params[k] for k in ("decoder", "cls_head",
                                               "box_head")},
@@ -3014,8 +3025,9 @@ def stream_attn(setup, table_dtype=None, act_bits="config"):
 def profile_step(fn):
     """One call of ``fn`` under torch.profiler (a warm-up step first, so
     that tracing runs when the call starts): wall ms, device busy ms and
-    idle share, K2 launches, device kernels, pageable host-to-device
-    copies."""
+    idle share, K2 launches, device kernels, graph launches, host-to-device
+    copies from pageable and from pinned memory, and the device ms of
+    all host-to-device copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, schedule
@@ -3031,77 +3043,112 @@ def profile_step(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         prof.step()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("ProfilerStep")]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(_device_us(e) for e in dev) / 1e3
-    count = lambda frag: sum(e.count for e in dev if frag in e.key)
+    count = lambda evts, frag: sum(e.count for e in evts if frag in e.key)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall),
-            "k2_launches": count("msgs_decode_kernel"),
+            "k2_launches": count(dev, "msgs_decode_kernel"),
             "device_kernels": sum(e.count for e in dev),
-            "htod_pageable": count("Memcpy HtoD (Pageable")}
+            "graph_launches": count([e for e in events
+                                     if e.device_type == DeviceType.CPU],
+                                    "cudaGraphLaunch"),
+            "htod_pageable": count(dev, "Memcpy HtoD (Pageable"),
+            "htod_pinned": count(dev, "Memcpy HtoD (Pinned"),
+            "htod_ms": sum(_device_us(e) for e in dev
+                           if "Memcpy HtoD" in e.key) / 1e3}
 
 
-def stream_pass(setup, device, attn, order, *, scfg=None, profiled=False,
-                reorder_before=None, keep_tables=False, obs=None):
-    """One StreamingDetrEngine over the scenes: the session opened k-th
-    (slot k) streams scene ``order[k]``; one engine step per frame. Per
-    frame: the memory, the FWP state the cache was built under, the
-    frame stats, the outputs on the device (and, with ``keep_tables``,
-    copies of the value table, staged table and scale), the host wall
-    clock of the step (or, ``profiled``, one profiler step). The K2 calls
-    of the last frame are kept. With ``reorder_before`` the engine
-    reorders its sessions before that frame."""
+STREAM_PATHS = ("build", "frame", "restage", "hysteresis", "decode")
+
+
+def stream_record(engine, keep_tables, keep_state):
+    """What one step left, read from the engine's outputs and the
+    manager's standing tensors (a replay runs no Python of its paths):
+    the frame's memory, the keep state the frame's cache was built under,
+    the activation scale, the frame stats, copies of the outputs and,
+    as asked, of the tables and of the rest of the stream state; the
+    first-call counts of every path."""
+    mgr = engine.mgr
+    clone = lambda t: None if t is None else t.clone()
+    state = lambda st: None if st is None else type(st)(*map(clone, st))
+    rec = {"memory": engine._memory.clone(), "fwp": state(mgr._cache_fwp),
+           "act_scale": clone(mgr.act_scale),
+           "stats": dict(mgr.last_stats),
+           "outputs": tuple(t.clone() for t in engine.last_outputs),
+           "traces": {fn: mgr._m_traces.value(fn=fn) for fn in STREAM_PATHS}}
+    c = mgr.cache
+    if keep_tables or keep_state:
+        rec["tables"] = (clone(c.v), clone(c.staged.v), clone(c.scale))
+    if keep_state:
+        rec["state"] = {"x_ref": clone(mgr.x_ref), "ema": clone(mgr.ema),
+                        "fwp": state(mgr.fwp), "pix2slot": clone(c.pix2slot),
+                        "keep_idx": clone(c.keep_idx),
+                        "staged_scale": clone(c.staged.scale)}
+    return rec
+
+
+def stream_pass(setup, device, attn, order, *, scfg=None, profiled=(),
+                reorder_before=None, keep_tables=False, keep_state=False,
+                obs=None, capture=True, churn_at=(), update_fwp=True):
+    """One StreamingDetrEngine over the scenes, its paths CUDA graphs
+    unless ``capture`` is False: the session opened k-th (slot k) streams
+    scene ``order[k]``; one engine step per frame. Per frame the
+    ``stream_record`` of the step, the graphs it captured, the host ms
+    of staging its frames, and the host wall clock of the step (or, for
+    the frames in ``profiled``, one profiler step). Before each frame of ``churn_at`` the last session
+    opened is closed and a new one, streaming the extra scene from that
+    frame on, takes its slot; before ``reorder_before`` the engine
+    reorders its sessions. ``results`` holds the live sessions' by
+    scene."""
     import torch
-    from repro_torch.kernels import msgs_decode
     from repro_torch.obs import Observability
     from repro_torch.serve import StreamingDetrEngine
     engine = StreamingDetrEngine(
         attn, setup["dec_cfg"], setup["params"], setup["levels"],
         max_sessions=STREAM_SESSIONS, backend="cuda_decode",
-        stream_cfg=scfg, obs=obs or Observability.disabled(), device=device)
-    scene_of = {engine.open_session(): scene for scene in order}
+        stream_cfg=scfg, update_fwp=update_fwp,
+        obs=obs or Observability.disabled(), device=device, capture=capture)
+    live = {engine.open_session(): scene for scene in order}
     records, steps, mapping = [], [], None
-    real_forward = engine.forward
+    frame_in = engine._frame_memory
+    frame_in_ms = []
 
-    def forward(memory, cache):
-        logits, boxes, freq = real_forward(memory, cache)
-        rec = {"memory": memory, "fwp": engine.mgr.fwp,
-               "act_scale": engine.mgr.act_scale,
-               "stats": dict(engine.mgr.last_stats),
-               "outputs": (logits, boxes)}
-        if keep_tables:
-            rec["tables"] = tuple(None if t is None else t.clone()
-                                  for t in (cache.v, cache.staged.v,
-                                            cache.scale))
-        records.append(rec)
-        return logits, boxes, freq
-    engine.forward = forward
-    n_layers = setup["dec_cfg"].n_layers
-    with Recorder(msgs_decode, "msgs_decode",
-                  STREAM_FRAMES * n_layers) as rec_d:
-        for t in range(STREAM_FRAMES):
-            if t == reorder_before:
-                before = {sid: s.slot for sid, s in engine.sessions.items()}
-                mapping = {"before": before,
-                           "after": engine.reorder_sessions()}
-            for sid, scene in scene_of.items():
-                engine.submit_frame(sid, setup["scenes"][scene][t])
-            if profiled:
-                steps.append(profile_step(engine.step))
-            else:
-                t0 = time.perf_counter()
-                engine.step()
-                torch.cuda.synchronize()
-                steps.append({"wall_ms": (time.perf_counter() - t0) * 1e3})
-    engine.forward = real_forward
+    def timed_frame_in(pending):       # the host's share: staging the
+        t0 = time.perf_counter()       # frames into the pinned buffers
+        frame_in(pending)
+        frame_in_ms.append((time.perf_counter() - t0) * 1e3)
+    engine._frame_memory = timed_frame_in
+    for t in range(STREAM_FRAMES):
+        if t in churn_at:
+            last = max(live)
+            engine.close_session(last)
+            del live[last]
+            live[engine.open_session()] = STREAM_SESSIONS
+        if t == reorder_before:
+            before = {sid: s.slot for sid, s in engine.sessions.items()}
+            mapping = {"before": before,
+                       "after": engine.reorder_sessions()}
+        for sid, scene in live.items():
+            engine.submit_frame(sid, setup["scenes"][scene][t])
+        captures = engine.mgr.graphs.captures
+        if t in profiled:
+            steps.append(profile_step(engine.step))
+        else:
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            steps.append({"wall_ms": (time.perf_counter() - t0) * 1e3})
+        steps[-1]["graphs_captured"] = engine.mgr.graphs.captures - captures
+        steps[-1]["frame_in_ms"] = frame_in_ms[-1]
+        records.append(stream_record(engine, keep_tables, keep_state))
     results = {scene: [(r["cls_probs"], r["boxes"])
                        for r in engine.sessions[sid].results]
-               for sid, scene in scene_of.items()}
+               for sid, scene in live.items()}
     return {"engine": engine, "records": records, "steps": steps,
-            "results": results, "mapping": mapping,
-            "k2_calls": rec_d.calls[-n_layers:]}
+            "results": results, "mapping": mapping}
 
 
 def stream_scratch(run, rec):
@@ -3118,23 +3165,38 @@ def stream_scratch(run, rec):
 
 
 def wall_split(steps, records):
-    """Median, p10 and p90 of the step wall clock per frame mode."""
+    """Median, p10 and p90 of the step wall clock per frame mode, over the
+    frames that captured no graph (a capture's frame is reported by
+    ``capture_frames``), and the median host ms of staging the frames
+    (``frame_in_ms``)."""
     out = {}
     for mode in ("rebuild", "partial", "incremental"):
-        ts = [s["wall_ms"] for s, r in zip(steps, records)
-              if r["stats"]["mode"] == mode]
-        if not ts:
+        rows = [s for s, r in zip(steps, records)
+                if r["stats"]["mode"] == mode and not s["graphs_captured"]]
+        if not rows:
             continue
+        ts = [s["wall_ms"] for s in rows]
         dec = statistics.quantiles(ts, n=10) if len(ts) > 1 else [ts[0]] * 9
         out[mode] = {"n": len(ts), "median_ms": statistics.median(ts),
-                     "p10_ms": dec[0], "p90_ms": dec[-1]}
+                     "p10_ms": dec[0], "p90_ms": dec[-1],
+                     "frame_in_ms": statistics.median(s["frame_in_ms"]
+                                                      for s in rows)}
     return out
+
+
+def capture_frames(run):
+    """The frames whose step captured graphs: mode, graphs, wall ms."""
+    return [{"frame": t, "mode": r["stats"]["mode"],
+             "graphs": s["graphs_captured"], "wall_ms": s["wall_ms"]}
+            for t, (s, r) in enumerate(zip(run["steps"], run["records"]))
+            if s["graphs_captured"]]
 
 
 def stream_frames(run):
     return [{k: r["stats"][k] for k in ("mode", "reason", "n_dirty",
                                          "tiles_changed", "staged_bytes",
-                                         "rebuild_bytes", "restaged_levels")}
+                                         "rebuild_bytes", "restaged_levels",
+                                         "admitted_slots")}
             for r in run["records"]]
 
 
@@ -3226,21 +3288,26 @@ def stream_threshold0(label, run, bitwise):
 
 
 def stream_staged_checks(run):
-    """After the last (incremental) frame: a fresh staging of the updated
-    table equals the staged table bitwise; K2 on the staged table equals
-    K2 on the fresh staging bitwise and its plain version within the
-    kernel tolerance (each decoder layer's call of the last frame)."""
+    """After the last frame: a fresh staging of the updated table equals
+    the staged table bitwise; K2 on the staged table, as an eager decoder
+    call on the final cache hands it (each layer's call), equals K2 on
+    the fresh staging bitwise and its plain version within the kernel
+    tolerance. Returns the checks and those calls."""
     import torch
     from repro_torch.kernels import msgs_decode
-    cache = run["engine"].mgr.cache
+    engine = run["engine"]
+    cache = engine.mgr.cache
     fresh = msgs_decode.stage_decode_table(
         cache.v, cache.pix2slot, head_pack=cache.staged.head_pack,
         scale=cache.scale)
     if not torch.equal(fresh.v, cache.staged.v):
         raise AssertionError("stream: the updated staged table differs from "
                              "a fresh staging of the updated table")
+    n_layers = engine.dec_cfg.n_layers
+    with Recorder(msgs_decode, "msgs_decode", n_layers) as rec_d:
+        engine.forward(engine._memory, cache)
     errs = []
-    for args, _ in run["k2_calls"]:
+    for args, _ in rec_d.calls:
         staged, pts = args[0], args[1:7]
         if staged.v.data_ptr() != cache.staged.v.data_ptr():
             raise AssertionError("stream: K2 sampled a copy of the staged "
@@ -3257,7 +3324,137 @@ def stream_staged_checks(run):
                                                  staged.scale)))
     return {"staged_equals_fresh_staging": True,
             "k2_updated_equals_fresh": True, "k2_vs_plain_max_abs_err": errs,
-            "last_frame_mode": run["records"][-1]["stats"]["mode"]}
+            "last_frame_mode": run["records"][-1]["stats"]["mode"]}, \
+        rec_d.calls
+
+
+def stream_flat(rec):
+    """The tensors of a ``stream_record``, by name."""
+    out = {"logits": rec["outputs"][0], "boxes": rec["outputs"][1],
+           "memory": rec["memory"], "act_scale": rec["act_scale"]}
+    for name, st in (("cache_fwp", rec["fwp"]),
+                     ("fwp", rec.get("state", {}).get("fwp"))):
+        if st is not None:
+            out.update({f"{name}.{f}": t for f, t in zip(st._fields, st)})
+    out.update(zip(("v", "staged", "scale"), rec.get("tables", ())))
+    out.update({k: t for k, t in rec.get("state", {}).items() if k != "fwp"})
+    return out
+
+
+def stream_bitwise(label, captured, eager):
+    """Frame by frame, a captured pass against the eager pass on the same
+    scenes: the same modes, and every recorded tensor (outputs, value and
+    staged tables, scales, diff reference, EMA, both keep states) bitwise
+    equal. Returns the frames' modes."""
+    import torch
+    frames = []
+    for t, (a, b) in enumerate(zip(captured["records"], eager["records"])):
+        sa, sb = a["stats"], b["stats"]
+        keys = ("mode", "reason", "n_dirty", "admitted_slots",
+                "restaged_levels")
+        if any(sa[k] != sb[k] for k in keys):
+            raise AssertionError(f"{label} frame {t}: captured {sa} vs eager "
+                                 f"{sb}")
+        fa, fb = stream_flat(a), stream_flat(b)
+        bad = [k for k in fa if (fa[k] is None) != (fb[k] is None)
+               or fa[k] is not None and not torch.equal(fa[k], fb[k])]
+        if bad or set(fa) != set(fb):
+            raise AssertionError(f"{label} frame {t} ({sa['mode']}): "
+                                 f"captured vs eager not bitwise in {bad}")
+        frames.append({"mode": sa["mode"], "reason": sa["reason"],
+                       "admitted_slots": list(sa["admitted_slots"]),
+                       "restaged_levels": list(sa["restaged_levels"]),
+                       "compared": len(fa)})
+    return {"bitwise": True, "frames": frames,
+            "modes": sorted({f["mode"] for f in frames})}
+
+
+def stream_profiled(run, n_layers, captured):
+    """The profiled frames of a pass by mode: wall ms, device busy ms,
+    idle share, device kernels, graph launches, K2 launches; each frame
+    must launch K2 once per layer and copy nothing pageable to the card,
+    and a captured frame must launch graphs where an eager one launches
+    none."""
+    by_mode = {}
+    for t, (s, r) in enumerate(zip(run["steps"], run["records"])):
+        if "device_busy_ms" not in s:
+            continue
+        if s["k2_launches"] != n_layers or s["htod_pageable"] \
+                or (s["graph_launches"] > 0) != captured:
+            raise AssertionError(f"stream frame {t} "
+                                 f"({r['stats']['mode']}, captured "
+                                 f"{captured}): {s}")
+        m = by_mode.setdefault(r["stats"]["mode"], {
+            k: [] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                            "device_kernels", "graph_launches",
+                            "k2_launches", "htod_pageable", "htod_pinned",
+                            "htod_ms")})
+        for k in m:
+            m[k].append(s[k])
+    return by_mode
+
+
+def idle_at_median(profiled, walls):
+    """1 - (median device busy ms of a mode's profiled frames) / (median
+    wall ms of that mode's timed frames): the profiler slows the host,
+    so its own idle share is an upper bound."""
+    return {mode: max(0.0, 1 - statistics.median(p["device_busy_ms"])
+                      / walls[mode]["median_ms"])
+            for mode, p in profiled.items() if mode in walls}
+
+
+def graph_pool_bytes(engine):
+    """Bytes of the device segments in the engine's graph pool."""
+    import torch
+    pool = engine.mgr.graphs._pool
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool))
+
+
+STREAM_CHURN_AT = (3, 5)          # frames before which a session leaves
+#   and a new one is admitted into its slot
+
+
+def stream_churn(setup, device, table):
+    """Captured against eager under session churn: a session closed and a
+    new one admitted before each frame of STREAM_CHURN_AT, a reorder
+    before the last frame; bitwise per frame, each churn an admission
+    frame, and from the first admission on no path called for the first
+    time. The keep state stays the warm one here (no frequency feedback,
+    act_bits None): a joining session is then admitted into its slot,
+    where a pending keep transition or a frozen act grid would rebuild
+    the batch instead."""
+    from repro_torch.obs import Observability
+    attn = stream_attn(setup, table_dtype=table, act_bits=None)
+    runs = {}
+    for capture in (True, False):
+        runs[capture] = stream_pass(
+            setup, device, attn, list(range(STREAM_SESSIONS)),
+            keep_state=True, obs=Observability.create(), capture=capture,
+            churn_at=STREAM_CHURN_AT, reorder_before=STREAM_FRAMES - 1,
+            update_fwp=False)
+    got, want = runs[True], runs[False]
+    t0 = STREAM_CHURN_AT[0]
+    if not all(got["records"][t]["stats"]["admitted_slots"]
+               for t in STREAM_CHURN_AT):
+        raise AssertionError(f"stream churn {table}: no admission frame "
+                             f"({stream_frames(got)})")
+    traces = [r["traces"] for r in got["records"]]
+    if any(tr != traces[t0] for tr in traces[t0:]):
+        raise AssertionError(f"stream churn {table}: a path was called for "
+                             f"the first time after the admission: {traces}")
+    return {"churn_at": list(STREAM_CHURN_AT),
+            "captured_vs_eager": stream_bitwise(f"stream churn {table}",
+                                                got, want),
+            "traces_by_frame": traces,
+            "reorder": {k: {str(s): v for s, v in m.items()}
+                        for k, m in got["mapping"].items()},
+            "wall_ms_by_mode": {
+                "captured": wall_split(got["steps"], got["records"]),
+                "eager": wall_split(want["steps"], want["records"])},
+            "capture_frames": capture_frames(got)}
 
 
 def sorted_layout(run, t):
@@ -3277,76 +3474,105 @@ def sorted_layout(run, t):
 
 
 def stream_table(setup, device, table, obs_log=None):
-    """One table dtype at the config's INT12: a timed pass, a profiled
-    pass, outputs against scratch builds (DEFA's limits), launches, wall
-    clock by mode, busy and idle share, peak memory."""
+    """One table dtype at the config's INT12: a timed captured pass and an
+    eager pass (``capture=False``) on the same scenes, bitwise equal frame
+    by frame; the captured and the eager pass profiled; outputs against
+    scratch builds (DEFA's limits); launches, wall clock by mode, busy
+    and idle share, graph pool bytes, peak memory; the churn passes."""
     import torch
     from repro_torch.kernels import (flash_decode, matmul, msgs_decode,
                                      msgs_fused, msgs_windowed)
     from repro_torch.obs import Observability
     attn = stream_attn(setup, table_dtype=table)
+    n_layers = setup["dec_cfg"].n_layers
+    order = list(range(STREAM_SESSIONS))
     mods = {"msgs_decode": msgs_decode, "msgs_fused": msgs_fused,
             "msgs_windowed": msgs_windowed, "flash_decode": flash_decode,
             "matmul": matmul}
-    for m in mods.values():
-        m.LAUNCHES = 0
+
+    def launches(run, **kw):
+        for m in mods.values():
+            m.LAUNCHES = 0
+        out = run(**kw)
+        got = {n: m.LAUNCHES for n, m in mods.items()}
+        return out, got
     obs = Observability.default() if obs_log else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    timed = stream_pass(setup, device, attn, list(range(STREAM_SESSIONS)),
-                        keep_tables=True, obs=obs)
-    launches = {n: m.LAUNCHES for n, m in mods.items()}
-    peak = torch.cuda.max_memory_allocated() - base
+    timed, captured_launches = launches(
+        stream_pass, setup=setup, device=device, attn=attn, order=order,
+        keep_state=True, obs=obs)
+    memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated() - base,
+              "graph_pool_bytes": graph_pool_bytes(timed["engine"]),
+              "graphs": len(timed["engine"].mgr.graphs)}
     frames = len(timed["records"])
-    if launches != {"msgs_decode": setup["dec_cfg"].n_layers * frames,
-                    "msgs_fused": 0, "msgs_windowed": 0, "flash_decode": 0,
-                    "matmul": 0}:
-        raise AssertionError(f"stream {table}: launches {launches} over "
-                             f"{frames} frames; expected 6 K2 per frame only")
+    # on the card K2's wrapper runs only in the decode graph's warm-up and
+    # capture; the eager pass calls it on every frame
+    if captured_launches != {"msgs_decode": 2 * n_layers, "msgs_fused": 0,
+                             "msgs_windowed": 0, "flash_decode": 0,
+                             "matmul": 0}:
+        raise AssertionError(f"stream {table}: wrapper launches "
+                             f"{captured_launches} over {frames} captured "
+                             f"frames; expected 2 x 6 K2 (warm-up, capture)")
     log = None
     if obs_log:
         timed["engine"].obs.flush_metrics()
         timed["engine"].obs.close()
         log = validate_log(obs_log, STREAM_METRICS)
-    profiled = stream_pass(setup, device, attn, list(range(STREAM_SESSIONS)),
-                           profiled=True)
+    eager, eager_launches = launches(
+        stream_pass, setup=setup, device=device, attn=attn, order=order,
+        keep_state=True, capture=False)
+    if eager_launches["msgs_decode"] != n_layers * frames:
+        raise AssertionError(f"stream {table}: eager launches "
+                             f"{eager_launches} over {frames} frames")
+    bitwise = stream_bitwise(f"stream {table}", timed, eager)
+    # the profiled captured pass profiles the frames that capture nothing
+    # (the timed pass on the same scenes shows which)
+    warm = [t for t, s in enumerate(timed["steps"])
+            if not s["graphs_captured"]]
+    profiled = stream_pass(setup, device, attn, order, profiled=warm)
+    profiled_eager = stream_pass(setup, device, attn, order,
+                                 profiled=range(frames), capture=False)
     modes = [r["stats"]["mode"] for r in timed["records"]]
-    if modes != [r["stats"]["mode"] for r in profiled["records"]]:
-        raise AssertionError(f"stream {table}: the profiled pass took other "
-                             f"modes than the timed one: {modes}")
-    bad = [s["k2_launches"] for s in profiled["steps"]
-           if s["k2_launches"] != setup["dec_cfg"].n_layers]
-    if bad:
-        raise AssertionError(
-            f"stream {table}: K2 launches per frame "
-            f"{[s['k2_launches'] for s in profiled['steps']]}; device "
-            f"kernels per frame {[s['device_kernels'] for s in profiled['steps']]}")
+    for run in (profiled, profiled_eager):
+        if modes != [r["stats"]["mode"] for r in run["records"]]:
+            raise AssertionError(f"stream {table}: a profiled pass took "
+                                 f"other modes than the timed one: {modes}")
     compare = {}
     # an int8 scratch build quantizes against a FRESH per-channel scale,
     # which a keep transition can move far from the frozen one: its
     # distance is reported; the same-grid table is what the stream must hold
     scratch = stream_against_scratch(f"stream_{table}", timed, compare,
                                      fresh_limits=table != "int8")
+    staged, k2_calls = stream_staged_checks(timed)
+    # the profiler has recorded no host-to-device copy of these frames,
+    # pinned or pageable: that the staging buffers are pinned is checked
+    staging_pinned = all(b.is_pinned() for b in timed["engine"]._pinned)
+    if not staging_pinned:
+        raise AssertionError(f"stream {table}: staging buffers not pinned")
     report = timed["engine"].report()
-    busy = [s["device_busy_ms"] for s in profiled["steps"]]
+    walls = {"captured": wall_split(timed["steps"], timed["records"]),
+             "eager": wall_split(eager["steps"], eager["records"])}
+    prof = {"captured": stream_profiled(profiled, n_layers, True),
+            "eager": stream_profiled(profiled_eager, n_layers, False)}
     rec = {"table_dtype": table, "frames": stream_frames(timed),
-           "report": report, "launches": launches,
-           "k2_launches_per_frame": [s["k2_launches"]
-                                     for s in profiled["steps"]],
-           "htod_pageable_per_frame": [s["htod_pageable"]
-                                       for s in profiled["steps"]],
-           "wall_ms_by_mode": wall_split(timed["steps"], timed["records"]),
-           "profiled": {"wall_ms": [s["wall_ms"] for s in profiled["steps"]],
-                        "device_busy_ms": busy,
-                        "idle_share": [s["idle_share"]
-                                       for s in profiled["steps"]],
-                        "device_kernels": [s["device_kernels"]
-                                           for s in profiled["steps"]]},
-           "peak_allocated_bytes": peak, "against_scratch": scratch,
-           "defa_limits": compare, "staged": stream_staged_checks(timed),
-           "obs_log": log, "capacity": timed["engine"].capacity_estimate(),
+           "report": report,
+           "launches": {"captured_wrapper": captured_launches,
+                        "eager_wrapper": eager_launches},
+           "captured_vs_eager": bitwise,
+           "wall_ms_by_mode": walls,
+           "capture_frames": capture_frames(timed),
+           "profiled": prof,
+           "idle_share_at_median": {
+               k: idle_at_median(prof[k], walls[k]) for k in prof},
+           "memory": memory, "staging_pinned": staging_pinned,
+           "against_scratch": scratch,
+           "defa_limits": compare, "staged": staged, "obs_log": log,
+           "churn": stream_churn(setup, device, table),
+           "capacity": timed["engine"].capacity_estimate(),
            "plan": timed["engine"].describe()}
+    timed["k2_calls"] = k2_calls
     return rec, timed
 
 
@@ -3415,10 +3641,12 @@ def query_order_check(serve, device):
 def phase_stream(device, serve):
     """StreamingDetrEngine at full width: 2 sessions x 8 drifting-scene
     frames through K2 on persistent staged tables, f32 then int8 (the
-    config's INT12); the same with act_bits None (outputs within 1e-5 of
-    scratch builds); delta_threshold 0 (f32: bitwise a rebuild; int8:
-    what holds is reported); reorder_sessions; query ordering on the
-    512 px bucket; the stream log through the validator."""
+    config's INT12), each frame replayed from CUDA graphs and held bitwise
+    to the eager engine (``capture=False``), with and without session
+    churn; the same with act_bits None (outputs within 1e-5 of scratch
+    builds); delta_threshold 0 (f32: bitwise a rebuild; int8: what holds
+    is reported); reorder_sessions; query ordering on the 512 px bucket;
+    the stream log through the validator."""
     from repro_torch.stream import StreamConfig
     t_phase = time.perf_counter()
     setup = stream_setup(device)
@@ -3448,8 +3676,11 @@ def phase_stream(device, serve):
          float32=f32, int8=int8, act_bits_none_vs_scratch=no_int12,
          threshold0={"float32": thr0_f32, "int8": thr0_int8},
          reorder=reorder, query_order=order)
+    # K2 per frame of the main path: one per layer, from the decode
+    # graph's replay (the profiler's count, checked per frame) or, on the
+    # frame that captures it, its warm-up
     return {"int8_k2_calls": int8_run["k2_calls"],
-            "int8_launches": int8["launches"]["msgs_decode"],
+            "int8_launches": setup["dec_cfg"].n_layers * STREAM_FRAMES,
             "f32": f32, "int8": int8}
 
 

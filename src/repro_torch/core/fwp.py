@@ -7,7 +7,8 @@ keep-list per level and routes every pruned pixel to a zero sentinel
 slot. Streaming video integrates the counts in an EMA
 (:func:`ema_update`) and decides the keep set with hysteresis
 (:func:`build_fwp_state_hysteresis`), so the slot geometry stays stable
-between frames.
+between frames; :func:`copy_fwp_state` writes a new decision into the
+standing state a captured streaming graph reads.
 
 The per-level capacity top-k uses the stable sort of
 :func:`repro_torch.core.pap.topk_stable`, so ``keep_idx`` and
@@ -156,6 +157,24 @@ def build_fwp_state_hysteresis(ema: torch.Tensor, level_shapes, *,
     score = ema + keep_mask.to(torch.float32) * (2.0 * m) \
         + incumbent.to(torch.float32) * m
     return _compact_from_scores(ema, score, keep_mask, level_shapes, capacity)
+
+
+def copy_fwp_state(dst: Optional[FWPState], src: FWPState) -> FWPState:
+    """``src``'s values written into ``dst``'s tensors in place, so that
+    whatever reads ``dst`` (a captured streaming graph) keeps reading the
+    same addresses; returns ``dst``. Without a ``dst`` of ``src``'s
+    layout, an owned copy of ``src``."""
+    def same(a, b):
+        return (a is None) == (b is None) and (
+            a is None or (a.shape == b.shape and a.dtype == b.dtype))
+    if dst is None or not all(same(a, b) for a, b in zip(dst, src)):
+        return FWPState(*(None if t is None
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in src))
+    for d, s in zip(dst, src):
+        if d is not None:
+            d.copy_(s)
+    return dst
 
 
 def fwp_sparsity(state: FWPState) -> torch.Tensor:

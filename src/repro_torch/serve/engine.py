@@ -36,10 +36,13 @@ all decoder layers sample it. :meth:`DetrServeEngine.forward` is the
 public eager forward (no graph).
 
 :class:`StreamingDetrEngine` serves video sessions over persistent,
-incrementally updated value caches (``repro_torch/stream/``); its
-decoder forward is eager. Both engines apply their device's measured
-plan table (:func:`repro_torch.msda.autotune.ensure_applied`) before
-they plan. Left for a later slice: a CUDA graph per streaming engine.
+incrementally updated value caches (``repro_torch/stream/``). On the
+card every device path of its frame is a CUDA graph, as the reference
+jits each: the manager's build, frame, restage and hysteresis, and the
+engine's decoder forward (decoder, heads and summed frequencies), all
+in one memory pool (:mod:`repro_torch.stream.graphs`). Both engines
+apply their device's measured plan table
+(:func:`repro_torch.msda.autotune.ensure_applied`) before they plan.
 """
 from __future__ import annotations
 
@@ -454,25 +457,37 @@ class StreamingDetrEngine:
     ONE batched :class:`~repro_torch.stream.TemporalCacheManager`, which
     holds every slot's persistent value cache, diff reference, EMA
     scores and hysteresis keep state. Per :meth:`step`, each session's
-    next frame memory is stacked into the static batch (idle slots
-    replay their last memory: zero dirty tiles), the manager applies one
-    incremental update (or a partial restage, or a full rebuild), the
-    6-layer decoder and its heads run against the manager's cache
-    (``cuda_decode``: K2 samples the staged table the update rewrote in
-    place), and the sampled frequencies feed back into the EMA.
+    next frame memory is written into its row of the static batch
+    (idle slots keep their last memory: zero dirty tiles), the manager
+    applies one incremental update (or a partial restage, or a full
+    rebuild), the 6-layer decoder and its heads run against the
+    manager's cache (``cuda_decode``: K2 samples the staged table the
+    update rewrote in place), and the sampled frequencies feed back into
+    the EMA.
+
+    On the card each of these is a replay of a CUDA graph (the manager's
+    ``graphs``; the decoder's is keyed by the batch, ``decode``): the
+    frame's memory reaches the static batch from one of two pinned host
+    buffers that take turns. A frame costs three graph launches
+    (incremental frame or keep-transition rebuild), four (partial
+    restage, over-budget rebuild) and one more per admitted slot, and
+    host reads of the dirty count, the keep geometry (on a keep
+    transition also its levels) and the outputs. ``capture=False`` runs
+    the same bodies eagerly (the oracle the graphs are held to); on the
+    CPU they always run eagerly.
 
     Sessions join and leave slots between steps; admission builds only
     the joining slot's rows. Sessions submit encoder MEMORIES (N_in, D):
     the backbone and encoder run upstream, per frame. ``params`` holds
     ``decoder``, ``cls_head`` and ``box_head``; they are moved to
-    ``device``, the card unless the caller passes ``device="cpu"``. The
-    decoder forward is eager."""
+    ``device``, the card unless the caller passes ``device="cpu"``."""
 
     def __init__(self, attn_cfg, decoder_cfg, params: dict,
                  level_shapes, *, max_sessions: int = 2,
                  backend: Optional[str] = None, stream_cfg=None,
                  update_fwp: bool = True,
-                 obs: Optional[Observability] = None, device="cuda"):
+                 obs: Optional[Observability] = None, device="cuda",
+                 capture: bool = True):
         from repro_torch.msda import backend_info, make_plan
         from repro_torch.msda.autotune import ensure_applied
         from repro_torch.stream import (TemporalCacheManager,
@@ -508,12 +523,25 @@ class StreamingDetrEngine:
                               plan=self.plan.snapshot())
         self.mgr = TemporalCacheManager(
             self.plan, self.params["decoder"]["value"], scfg,
-            batch=self.max_sessions, obs=self.obs)
+            batch=self.max_sessions, obs=self.obs, capture=capture)
         self.sessions: dict = {}
         self._free_slots = list(range(self.max_sessions))
         self._next_sid = 0
-        self._last_memory: Optional[torch.Tensor] = None  # (B, N_in, D) on
-        #   the device: idle slots replay their row
+        # the static frame batch (B, N_in, D): the manager's standing
+        # input; idle slots keep their last row (zeros before a frame)
+        self._memory = torch.zeros(
+            (self.max_sessions, self.plan.n_in, attn_cfg.d_model),
+            dtype=attn_cfg.dtype, device=self.device)
+        self.mgr.bind_input(self._memory)
+        self._pinned = [torch.zeros(self._memory.shape,
+                                    dtype=self._memory.dtype, pin_memory=True)
+                        for _ in range(2)] if self.device.type == "cuda" \
+            else None
+        self._copied: list = [None, None]   # event after each buffer's copy
+        self._turn = 0
+        self.last_outputs = None         # (cls_logits, boxes) of the last
+        #   step on the device; a replay's static tensors, so valid until
+        #   the next step
         self._slot_centroid: dict = {}   # slot -> mean predicted (cx, cy)
         #   of its last frame: what reorder_sessions() sorts by
 
@@ -594,8 +622,9 @@ class StreamingDetrEngine:
 
     # ---- forward -------------------------------------------------------------
     def forward(self, memory: torch.Tensor, cache):
-        """The decoder stack and heads against ``cache`` (no autograd):
-        (cls_logits, boxes, summed sampling frequencies or None)."""
+        """The decoder stack and heads against ``cache``, eagerly (no
+        graph, no autograd): (cls_logits, boxes, summed sampling
+        frequencies or None)."""
         from repro_torch.core import nn
         from repro_torch.msda.decoder import decoder_apply
         with torch.inference_mode():
@@ -611,22 +640,33 @@ class StreamingDetrEngine:
                 freq = sum(s["freq"] for s in dstate.collected_stats())
         return cls_logits, boxes, freq
 
-    def _frame_memory(self, pending: dict) -> torch.Tensor:
-        """The (max_sessions, N_in, D) batch: each pending session's next
-        frame (one copy of its memory to the device), idle slots their
-        last memory (zeros before the first step)."""
-        if self._last_memory is None:
-            memory = torch.zeros((self.max_sessions, self.plan.n_in,
-                                  self.attn_cfg.d_model),
-                                 dtype=self.attn_cfg.dtype, device=self.device)
-        else:
-            memory = self._last_memory.clone()
+    def _decode_body(self):
+        """The decode graph's body, the reference's ``_fwd``: the decoder
+        and heads on the static batch against the manager's tables."""
+        return self.forward(self._memory, self.mgr.cache)
+
+    def _frame_memory(self, pending: dict) -> None:
+        """Write each pending session's next frame into its row of the
+        static batch. On the card the frames go through one of the two
+        pinned host buffers (refilled only after its previous copy has
+        left it) by copies that do not block."""
+        if self._pinned is None:
+            for slot, sess in pending.items():
+                self._memory[slot].copy_(torch.from_numpy(
+                    np.asarray(sess.queue.popleft(), np.float32)))
+                sess.t_queue.popleft()
+            return
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()
+        host = self._pinned[i]
         for slot, sess in pending.items():
-            frame = torch.from_numpy(np.asarray(sess.queue.popleft(),
-                                                np.float32))
+            host[slot].copy_(torch.from_numpy(
+                np.asarray(sess.queue.popleft(), np.float32)))
             sess.t_queue.popleft()
-            memory[slot].copy_(frame)
-        return memory
+            self._memory[slot].copy_(host[slot], non_blocking=True)
+        self._copied[i] = torch.cuda.Event()
+        self._copied[i].record()
 
     # ---- one engine step ---------------------------------------------------
     def step(self) -> int:
@@ -637,13 +677,14 @@ class StreamingDetrEngine:
         t_step0 = time.perf_counter()
         tr = self.obs.tracer
         with tr.span("frame_in", n=len(pending)):
-            memory = self._frame_memory(pending)
-        self._last_memory = memory
-        cache, fstats = self.mgr.step(memory)
+            self._frame_memory(pending)
+        _, fstats = self.mgr.step(self._memory)
         dec_span = tr.start("decode", n=len(pending))
-        cls_logits, boxes, freq = self.forward(memory, cache)
+        cls_logits, boxes, freq = self.mgr.graphs.run(
+            "decode", (self.max_sessions,), self._decode_body)
         if freq is not None:
             self.mgr.observe(freq)
+        self.last_outputs = (cls_logits, boxes)
         probs = torch.softmax(cls_logits, dim=-1).cpu().numpy()
         boxes = boxes.cpu().numpy()
         if dec_span:
@@ -692,9 +733,9 @@ class StreamingDetrEngine:
                 # gather semantics: new slot takes the state at perm[slot]
                 perm[slots_sorted[i]] = placed[int(j)].slot
             self.mgr.permute_slots(tuple(perm))
-            if self._last_memory is not None:
-                self._last_memory = self._last_memory[
-                    torch.tensor(perm, device=self.device)]
+            with torch.no_grad():
+                self._memory.copy_(self._memory[torch.tensor(
+                    perm, device=self.device)])
             old_cent = dict(self._slot_centroid)
             old_by_slot = {s.slot: s for s in placed}
             self._slot_centroid = {

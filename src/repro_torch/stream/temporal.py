@@ -10,9 +10,11 @@ The value cache is persistent state across the frames of a video:
   * **static update capacity** — an incremental frame re-projects
     ``update_rows`` table rows (the dirty slots first, then clean
     fillers) and writes them in place into the table and its decode
-    staging through the pix2slot geometry. A frame with more dirty slots
-    than the budget rebuilds the table. The decision is one host read
-    per frame (the dirty count), as the reference's is.
+    staging through the pix2slot geometry. The update runs speculatively
+    in the frame's program, as the reference's does; a frame with more
+    dirty slots than the budget rebuilds the table, which rewrites all
+    that the speculation wrote. The decision is one host read per frame
+    (the dirty count), as the reference's is.
   * **streaming FWP** — the sampled frequencies feed an EMA and the keep
     decision runs with hysteresis, so ``keep_idx`` churn stays bounded.
     A keep transition confined to some levels restages only those
@@ -22,13 +24,24 @@ The value cache is persistent state across the frames of a video:
     of the last full build, and an int8 table's rows are quantized
     against its frozen per-channel scale.
 
-The reference's two jitted paths (incremental frame and rebuild) are
-eager torch here. The tables (value table, staged table, scales,
-geometry, diff reference) are allocated once per manager layout and
-every path writes into them in place, so their addresses do not change
-from frame to frame. ``msda_traces_total{fn}`` counts the first call of
-each path per batch shape: where the reference traces, the port would
-capture.
+The reference jits four paths and the port captures each as a CUDA
+graph (:mod:`repro_torch.stream.graphs`), keyed as the jit retraces:
+the full build by batch and whether FWP state exists (the batch for a
+rebuild, batch 1 for an admission), the frame (the tile diff and a
+speculative incremental update in one program) and the hysteresis by
+batch, the partial restage by batch and the tuple of restaged levels.
+Every tensor a graph reads or writes keeps its address from frame to
+frame: the tables (value table, staged table, scales, geometry), the
+diff reference, the EMA, the activation scale, both FWP states (the
+current one and the one the cache was built under) and the frame input.
+The first full build allocates them and every path writes into them in
+place; a plan swap, or a table whose layout changes, drops every graph.
+The host decisions stay outside the graphs, as in the reference: the
+dirty count (one read after the frame), the transition levels and the
+geometry comparison. ``msda_traces_total{fn}`` counts the first call of
+each path per key, which on the card is its capture: flat after warm-up
+under session churn. On the CPU, and with ``capture=False``, the same
+bodies run eagerly.
 
 Accounting: every frame records its mode (``rebuild`` | ``partial`` |
 ``incremental``), the staged bytes it moved and what a full rebuild
@@ -53,6 +66,7 @@ from repro_torch.msda.cache import (MSDAValueCache, build_value_cache,
                                     cache_act_scale, update_value_cache_rows)
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.obs import Observability
+from repro_torch.stream.graphs import StreamGraphs
 from repro_torch.stream.tiles import (TileGeometry, changed_tiles,
                                       tile_geometry, tile_index)
 
@@ -141,26 +155,19 @@ def _fwp_rows(f: fwp_lib.FWPState, sel) -> fwp_lib.FWPState:
                             pix2slot=take(f.pix2slot), freq=take(f.freq))
 
 
-def _set_row(t: Optional[torch.Tensor], slot: int, row) -> Optional[torch.Tensor]:
-    """A copy of ``t`` with batch row ``slot`` replaced by ``row``."""
-    if t is None:
-        return None
-    out = t.clone()
-    out[slot] = row
-    return out
-
-
 class TemporalCacheManager:
     """Persistent, incrementally updated MSDAValueCache for one stream.
 
     ``batch`` is the number of concurrent sessions sharing the manager
     (the streaming engine maps sessions onto batch slots); every slot has
     its own diff reference, EMA scores and keep geometry rows. The
-    manager runs on the device of ``value_params``."""
+    manager runs on the device of ``value_params``; on the card its paths
+    run as CUDA graphs (``graphs``), unless the caller passes
+    ``capture=False`` for the eager oracle."""
 
     def __init__(self, plan, value_params: dict,
                  scfg: Optional[StreamConfig] = None, *, batch: int = 1,
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, capture: bool = True):
         self.device = value_params["value_w"].device
         scfg = resolve_stream_config(scfg, device=self.device)
         if scfg.diff_channel_stride < 1:
@@ -176,8 +183,8 @@ class TemporalCacheManager:
         m = self.obs.metrics
         self._m_traces = m.counter(
             "msda_traces_total",
-            "first call of each streaming path per batch shape (where the "
-            "reference traces): flat after warm-up under session churn")
+            "first call of each streaming path per key (on the card its "
+            "CUDA-graph capture): flat after warm-up under session churn")
         self._m_frames = m.counter(
             "stream_frames_total", "frames by update mode")
         self._m_rebuilds = m.counter(
@@ -188,8 +195,11 @@ class TemporalCacheManager:
             "stream_dirty_slots", "dirty slot count of the last frame")
         self._m_span = m.histogram(
             "stream_span_seconds", "per-stage frame latency (label span=)")
+        self.graphs = StreamGraphs(
+            self.device, capture=capture,
+            on_prepare=lambda fn: self._m_traces.inc(fn=fn))
 
-        # ---- mutable stream state ------------------------------------------
+        # ---- stream state: standing tensors, written in place ---------------
         self.cache: Optional[MSDAValueCache] = None
         self.x_ref: Optional[torch.Tensor] = None   # the probed diff
         #   reference (B, N_in, ceil(D/stride)) of each tile's last
@@ -197,8 +207,12 @@ class TemporalCacheManager:
         self.ema: Optional[torch.Tensor] = None
         self.fwp: Optional[fwp_lib.FWPState] = None
         self.act_scale: Optional[torch.Tensor] = None
-        self._cache_fwp: Optional[fwp_lib.FWPState] = None  # geometry the
-        #   current cache was built with
+        self._cache_fwp: Optional[fwp_lib.FWPState] = None  # keep state
+        #   the current cache was built with
+        self._x: Optional[torch.Tensor] = None      # the frame input
+        self._x1: Optional[torch.Tensor] = None     # an admitted slot's
+        self._fwp1: Optional[fwp_lib.FWPState] = None  # frame and keep rows
+        self._freq: Optional[torch.Tensor] = None   # observed frequencies
         self._cache_plan = None                     # plan of the current
         #   cache: ``step`` detects a mid-stream swap (``mgr.plan = p``)
         self._geometry_stale = True                 # first frame: full build
@@ -224,19 +238,15 @@ class TemporalCacheManager:
     @property
     def trace_counts(self) -> dict:
         """``msda_traces_total`` by path: moves only on the first call of
-        a path at a new batch shape (or after a plan swap)."""
+        a path at a new key (or after a plan swap)."""
         return {k: int(self._m_traces.value(fn=k))
                 for k in ("build", "frame", "restage")}
 
-    def _trace(self, fn: str, *key) -> None:
-        if (fn,) + key not in self._seen:
-            self._seen.add((fn,) + key)
-            self._m_traces.inc(fn=fn)
-
     def _reconfigure(self, plan) -> None:
-        """(Re-)derive every plan-dependent static. Called at construction
-        and when ``step`` sees the plan swapped mid-stream; the next frame
-        after a swap rebuilds (reason ``plan-change``)."""
+        """(Re-)derive every plan-dependent static and drop every graph.
+        Called at construction and when ``step`` sees the plan swapped
+        mid-stream; the next frame after a swap rebuilds (reason
+        ``plan-change``)."""
         cfg = plan.cfg
         if cfg.fwp_mode not in ("off", "mask", "compact"):
             raise ValueError(f"unknown fwp_mode {cfg.fwp_mode!r}")
@@ -267,23 +277,93 @@ class TemporalCacheManager:
             self.update_rows, with_indirection=False)
         starts, _ = fwp_lib.level_starts(plan.level_shapes)
         self._pix_starts = tuple(int(s) for s in starts)
-        self._seen: set = set()
+        self.graphs.clear()
 
-    # ---- device paths -------------------------------------------------------
-    def _build(self, x_flat: torch.Tensor,
-               fwp: Optional[fwp_lib.FWPState]) -> MSDAValueCache:
-        self._trace("build", x_flat.shape[0], fwp is None)
-        return build_value_cache(self.params, self.plan, x_flat,
-                                 MSDAPipelineState(fwp=fwp))
+    # ---- standing tensors -------------------------------------------------
+    def _own(self, cur: Optional[torch.Tensor],
+             new: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``new``'s values in the standing tensor ``cur``, in place; an
+        owned copy of ``new`` where ``cur`` is missing or of another
+        layout, which drops every graph (they read ``cur``'s address)."""
+        if cur is not None and new is not None and cur.shape == new.shape \
+                and cur.dtype == new.dtype:
+            return cur.copy_(new)
+        if cur is not None:
+            self.graphs.clear()
+        return None if new is None \
+            else new.clone(memory_format=torch.contiguous_format)
 
+    def _own_fwp(self, cur: Optional[fwp_lib.FWPState],
+                 new: Optional[fwp_lib.FWPState]
+                 ) -> Optional[fwp_lib.FWPState]:
+        """:meth:`_own` for a whole FWP state."""
+        out = None if new is None else fwp_lib.copy_fwp_state(cur, new)
+        if cur is not None and out is not cur:
+            self.graphs.clear()
+        return out
+
+    def bind_input(self, x: torch.Tensor) -> None:
+        """Take ``x`` (B, N_in, D), on the manager's device, as the
+        standing frame input: ``step(x)`` then reads it where it is. A
+        caller that refills ``x`` in place between steps (the streaming
+        engine) saves a copy of every frame."""
+        if self._x is not None and x is not self._x:
+            self.graphs.clear()
+        self._x = x
+
+    def _input(self, x_new) -> torch.Tensor:
+        x = torch.as_tensor(x_new, device=self.device)
+        if x.dim() != 3 or x.shape[1] != self.plan.n_in:
+            raise ValueError(f"frame memory {tuple(x.shape)}; expected "
+                             f"(B, {self.plan.n_in}, D)")
+        if x is not self._x:
+            self._x = self._own(self._x, x)
+        return self._x
+
+    # ---- device paths: the graphs' bodies -----------------------------------
     def _probe(self, x: torch.Tensor) -> torch.Tensor:
         s = self.scfg.diff_channel_stride
         return x if s == 1 else x[..., ::s]
 
+    def _build_body(self) -> None:
+        """The full build of the frame input under the current keep state
+        into the standing tables, activation scale, diff reference and
+        cache-geometry record (the reference's ``_build_impl`` and what
+        its ``_full_build`` sets from it)."""
+        x = self._x
+        self._persist(build_value_cache(self.params, self.plan, x,
+                                        MSDAPipelineState(fwp=self.fwp)))
+        self.act_scale = self._own(self.act_scale,
+                                   cache_act_scale(self.cache, self.plan.cfg))
+        self.x_ref = self._own(self.x_ref, self._probe(x))
+        self._cache_fwp = self._own_fwp(self._cache_fwp, self.fwp)
+
+    def _build1_body(self) -> tuple:
+        """A batch-1 build of an admitted slot's frame under its keep rows:
+        the graph's outputs are the batch-1 scratch cache."""
+        c = build_value_cache(self.params, self.plan, self._x1,
+                              MSDAPipelineState(fwp=self._fwp1))
+        st = c.staged
+        return (c.v, c.pix2slot, c.keep_idx, c.scale,
+                None if st is None else st.v, None if st is None else st.scale)
+
+    def _frame_body(self) -> torch.Tensor:
+        """ONE program per frame, as the reference's ``_frame_impl``: the
+        tile diff and a speculative incremental update of the table, its
+        staging and the diff reference, in place. Returns [max dirty slots
+        over the batch, tiles changed]; over budget the host rebuilds,
+        which rewrites each tensor the speculation wrote."""
+        x = self._x
+        keep_idx = self.cache.keep_idx if self._compact else None
+        keep_mask = self.fwp.keep_mask \
+            if self.plan.cfg.fwp_mode == "mask" else None
+        changed, slot_dirty, counts = self._diff(x, keep_idx)
+        self._update(x, keep_mask, changed, slot_dirty)
+        return counts
+
     def _diff(self, x_new: torch.Tensor, keep_idx: Optional[torch.Tensor]):
         """(changed (B, n_tiles), slot_dirty (B, n_slots), the pair
         [max dirty slots over the batch, tiles changed] as one tensor)."""
-        self._trace("frame", x_new.shape[0])
         changed = changed_tiles(self.geo, self._probe(x_new), self.x_ref,
                                 self.scfg.delta_threshold)
         t_of_p = tile_index(self.geo, x_new.device)
@@ -311,12 +391,55 @@ class TemporalCacheManager:
         self.x_ref.copy_(torch.where(pix_changed[..., None],
                                      self._probe(x_new), self.x_ref))
 
+    def _restage_body(self, levels: Tuple[int, ...]) -> None:
+        """The reference's ``_restage_impl`` and its geometry swap: the
+        changed levels' slot ranges re-projected from the frame through
+        the NEW keep geometry under the frozen scales, the geometry
+        (``keep_idx``, ``pix2slot``, which is also the staging's
+        ``remap``) copied in whole, those levels' diff reference
+        refreshed."""
+        x = self._x
+        bounds = tuple((self._slot_offs[l], self._slot_offs[l + 1])
+                       for l in levels)
+        slot_idx = _slot_ranges(bounds, x.shape[0], x.device)
+        update_value_cache_rows(self.params, self.plan,
+                                self.cache._replace(keep_idx=self.fwp.keep_idx),
+                                x, slot_idx, act_scale=self.act_scale)
+        self.cache.keep_idx.copy_(self.fwp.keep_idx)
+        self.cache.pix2slot.copy_(self.fwp.pix2slot)
+        probe = self._probe(x)
+        for l in levels:
+            h, w = self.plan.level_shapes[l]
+            p0 = self._pix_starts[l]
+            self.x_ref[:, p0:p0 + h * w].copy_(probe[:, p0:p0 + h * w])
+        self._cache_fwp = self._own_fwp(self._cache_fwp, self.fwp)
+
+    def _hyst_body(self) -> None:
+        """The EMA step and the reference's ``_jit_hyst``: the observed
+        frequencies into the EMA, the keep decision with hysteresis into
+        the standing keep state."""
+        self.ema.copy_(fwp_lib.ema_update(self.ema, self._freq,
+                                          self.scfg.ema_alpha))
+        self.fwp = self._own_fwp(self.fwp, self._hysteresis(self.fwp))
+
+    def _hysteresis(self, prev: Optional[fwp_lib.FWPState]
+                    ) -> fwp_lib.FWPState:
+        cfg = self.plan.cfg
+        k = float(cfg.fwp_k)
+        return fwp_lib.build_fwp_state_hysteresis(
+            self.ema, self.plan.level_shapes,
+            k_enter=k * self.scfg.hyst_enter, k_exit=k * self.scfg.hyst_exit,
+            mode=cfg.fwp_mode, capacity=cfg.fwp_capacity, prev=prev)
+
     def _persist(self, built: MSDAValueCache) -> None:
         """Take a full build's values into the manager's tables. The
-        first build (or one of another layout) becomes the tables: owned
-        copies, since a build's geometry is the FWP state's own tensors;
-        later builds are copied into them in place."""
+        first build, or one of another layout (which drops every graph),
+        becomes the tables: owned copies, since a build's geometry is the
+        FWP state's own tensors; later builds are copied into them in
+        place."""
         if self.cache is None or _layout(self.cache) != _layout(built):
+            if self.cache is not None:
+                self.graphs.clear()
             own = lambda t: None if t is None else t.clone()
             p2s = own(built.pix2slot)
             staged = built.staged
@@ -337,6 +460,7 @@ class TemporalCacheManager:
             if c.staged.scale is not None:
                 c.staged.scale.copy_(built.staged.scale)
 
+    # ---- host-side orchestration ------------------------------------------
     def _warm_fwp(self, batch: int) -> Optional[fwp_lib.FWPState]:
         """Warm-start keep state for fresh sessions: keep everything the
         capacity admits (k = 0), raster-first."""
@@ -349,20 +473,13 @@ class TemporalCacheManager:
                                        mode=cfg.fwp_mode,
                                        capacity=cfg.fwp_capacity)
 
-    def _full_build(self, x_new: torch.Tensor) -> None:
-        cfg = self.plan.cfg
-        if cfg.fwp_mode != "off" and self.fwp is None:
-            self.fwp = self._warm_fwp(x_new.shape[0])
-            self.ema = torch.ones((x_new.shape[0], self.plan.n_in),
-                                  dtype=torch.float32, device=self.device)
-        self._persist(self._build(x_new, self.fwp))
-        self.act_scale = cache_act_scale(self.cache, cfg)
-        probe = self._probe(x_new)
-        if self.x_ref is None or self.x_ref.shape != probe.shape:
-            self.x_ref = probe.clone(memory_format=torch.contiguous_format)
-        else:
-            self.x_ref.copy_(probe)
-        self._cache_fwp = self.fwp
+    def _full_build(self) -> None:
+        b = self._x.shape[0]
+        if self.plan.cfg.fwp_mode != "off" and self.fwp is None:
+            self.fwp = self._own_fwp(None, self._warm_fwp(b))
+            self.ema = self._own(self.ema, torch.ones(
+                (b, self.plan.n_in), dtype=torch.float32, device=self.device))
+        self.graphs.run("build", (b, self.fwp is None), self._build_body)
         self._cache_plan = self.plan
         self._geometry_stale = False
         self._pending_admit.clear()    # a full build covers every slot
@@ -389,70 +506,51 @@ class TemporalCacheManager:
             return None
         return tuple(changed)
 
-    def _partial_restage(self, x_new: torch.Tensor,
-                         levels: Tuple[int, ...]) -> int:
-        """Restage only the changed levels' contiguous slot ranges: the
-        rows are re-projected from this frame through the NEW keep
-        geometry under the frozen scales, the geometry (``keep_idx``,
-        ``pix2slot``, which is also the staging's ``remap``) is copied in
-        whole, and the diff reference of those levels' pixels is
-        refreshed. Returns the staged-bytes delta: the restaged rows plus
-        the changed levels' share of the pix2slot indirection."""
-        b = x_new.shape[0]
-        bounds = tuple((self._slot_offs[l], self._slot_offs[l + 1])
-                       for l in levels)
-        slot_idx = _slot_ranges(bounds, b, x_new.device)
-        self._trace("restage", b)
-        update_value_cache_rows(self.params, self.plan,
-                                self.cache._replace(keep_idx=self.fwp.keep_idx),
-                                x_new, slot_idx, act_scale=self.act_scale)
-        self.cache.keep_idx.copy_(self.fwp.keep_idx)
-        self.cache.pix2slot.copy_(self.fwp.pix2slot)
-        probe = self._probe(x_new)
-        pix_restaged = 0
-        for l in levels:
-            h, w = self.plan.level_shapes[l]
-            p0 = self._pix_starts[l]
-            self.x_ref[:, p0:p0 + h * w].copy_(probe[:, p0:p0 + h * w])
-            pix_restaged += h * w
-        self._cache_fwp = self.fwp
+    def _partial_restage(self, levels: Tuple[int, ...]) -> int:
+        """Restage only the changed levels' contiguous slot ranges (the
+        restage graph of these levels). Returns the staged-bytes delta:
+        the restaged rows plus the changed levels' share of the pix2slot
+        indirection."""
+        self.graphs.run("restage", (self._x.shape[0], levels),
+                        lambda: self._restage_body(levels))
         self._geometry_stale = False
+        rows = sum(self._slot_offs[l + 1] - self._slot_offs[l]
+                   for l in levels)
+        pix = sum(h * w for l, (h, w) in enumerate(self.plan.level_shapes)
+                  if l in levels)
         return self.plan.table_bytes_for_rows(
-            slot_idx.shape[1], with_indirection=False) + pix_restaged * 4
+            rows, with_indirection=False) + pix * 4
 
-    # ---- host-side orchestration ------------------------------------------
     @torch.no_grad()
     def permute_slots(self, perm) -> None:
         """Reorder the batch (session) slots of every per-slot array.
 
         ``perm`` has gather semantics: new slot ``i`` takes the state held
-        at slot ``perm[i]``. A pure state permutation: the tables are
-        permuted in place, no value changes and no rebuild is triggered;
-        stepping afterwards equals stepping the unpermuted manager with
-        permuted frame rows."""
+        at slot ``perm[i]``. A pure state permutation: every standing
+        tensor is permuted in place, no value changes and no rebuild is
+        triggered; stepping afterwards equals stepping the unpermuted
+        manager with permuted frame rows."""
         p = [int(i) for i in np.asarray(perm).reshape(-1)]
         if sorted(p) != list(range(self.batch)):
             raise ValueError(
                 f"permute_slots needs a permutation of range({self.batch}), "
                 f"got {p}")
         pj = _index(tuple(p), self.device)
-        take = lambda t: None if t is None else t[pj]
+        tables = [self.ema, self.x_ref]
         if self.cache is not None:
             c = self.cache
-            tables = [c.v, c.pix2slot, c.keep_idx, c.scale, self.x_ref]
+            tables += [c.v, c.pix2slot, c.keep_idx, c.scale]
             if c.staged is not None:          # its remap is c.pix2slot
                 tables += [c.staged.v, c.staged.scale]
-            for t in tables:
-                if t is not None:
-                    t.copy_(t[pj])
-        self.ema = take(self.ema)
         if self.act_scale is not None and self.act_scale.dim() > 0 \
                 and self.act_scale.shape[0] == self.batch:
-            self.act_scale = take(self.act_scale)
-        for name in ("fwp", "_cache_fwp"):
-            st = getattr(self, name)
+            tables.append(self.act_scale)
+        for st in (self.fwp, self._cache_fwp):
             if st is not None:
-                setattr(self, name, _fwp_rows(st, pj))
+                tables += list(st)
+        for t in tables:
+            if t is not None:
+                t.copy_(t[pj])
         if self._pending_admit:
             inv = {old: new for new, old in enumerate(p)}
             self._pending_admit = {inv[s] for s in self._pending_admit}
@@ -469,10 +567,7 @@ class TemporalCacheManager:
         happens on the first frame, on whole-geometry keep transitions,
         on ``force_full``, after a plan swap, or when the dirty-slot
         count exceeds the static update budget."""
-        x_new = torch.as_tensor(x_new, device=self.device)
-        if x_new.dim() != 3 or x_new.shape[1] != self.plan.n_in:
-            raise ValueError(f"frame memory {tuple(x_new.shape)}; expected "
-                             f"(B, {self.plan.n_in}, D)")
+        self._input(x_new)
         n_dirty = tiles_hit = 0
         plan_change = self.cache is not None \
             and self.plan is not self._cache_plan
@@ -500,7 +595,7 @@ class TemporalCacheManager:
                 restaged_levels = partial
                 with self._timed_span("scatter", kind="partial-restage",
                                       levels=partial):
-                    partial_bytes = self._partial_restage(x_new, partial)
+                    partial_bytes = self._partial_restage(partial)
         admitted: Tuple[int, ...] = ()
         admit_bytes = 0
         if self._pending_admit and self.cache is not None \
@@ -512,7 +607,7 @@ class TemporalCacheManager:
             self._pending_admit.clear()
             with self._timed_span("scatter", kind="admission",
                                   slots=admitted):
-                admit_bytes = self._admit_slots(x_new, admitted)
+                admit_bytes = self._admit_slots(admitted)
         if self.cache is None or self._geometry_stale or force_full \
                 or plan_change:
             mode, reason = "rebuild", (
@@ -520,27 +615,24 @@ class TemporalCacheManager:
                 "plan-change" if plan_change else
                 "keep-transition" if keep_transition else "forced")
             with self._timed_span("rebuild", reason=reason):
-                self._full_build(x_new)
+                self._full_build()
             staged_bytes = self._full_bytes
         else:
-            keep_idx = self.cache.keep_idx if self._compact else None
-            keep_mask = self.fwp.keep_mask \
-                if self.plan.cfg.fwp_mode == "mask" else None
             with self._timed_span("diff"):
-                changed, slot_dirty, counts = self._diff(x_new, keep_idx)
+                counts = self.graphs.run("frame", (self._x.shape[0],),
+                                         self._frame_body)
                 n_dirty, tiles_hit = (int(c) for c in counts.tolist())
             if n_dirty > self.update_rows:
-                # dirt exceeds the static budget: rebuild wholesale
+                # dirt exceeds the static budget: a wholesale rebuild
+                # overwrites the speculative update
                 mode, reason = "rebuild", "dirty>budget"
                 with self._timed_span("rebuild", reason=reason):
-                    self._full_build(x_new)
+                    self._full_build()
                 staged_bytes = partial_bytes + admit_bytes \
                     + self._full_bytes
             else:
                 mode = "partial" if restaged_levels else "incremental"
                 reason = "keep-transition" if restaged_levels else ""
-                with self._timed_span("scatter", kind="incremental"):
-                    self._update(x_new, keep_mask, changed, slot_dirty)
                 staged_bytes = partial_bytes + admit_bytes \
                     + self._incr_bytes
         self.frame_index += 1
@@ -570,20 +662,21 @@ class TemporalCacheManager:
     @torch.no_grad()
     def observe(self, freq) -> bool:
         """Feed back one frame's sampling frequencies (B, N_in): update
-        the EMA and re-derive the keep decision with hysteresis. Returns
-        True when the keep GEOMETRY differs from the cache's (the next
-        ``step`` then restages or rebuilds). No-op when FWP is off."""
-        cfg = self.plan.cfg
-        if cfg.fwp_mode == "off":
+        the EMA and re-derive the keep decision with hysteresis (the
+        hysteresis graph; before the first frame the frequencies seed the
+        EMA, eagerly). Returns True when the keep GEOMETRY differs from
+        the cache's (the next ``step`` then restages or rebuilds): one
+        host read. No-op when FWP is off."""
+        if self.plan.cfg.fwp_mode == "off":
             return False
         freq = torch.as_tensor(freq, dtype=torch.float32, device=self.device)
-        self.ema = freq if self.ema is None \
-            else fwp_lib.ema_update(self.ema, freq, self.scfg.ema_alpha)
-        k = float(cfg.fwp_k)
-        self.fwp = fwp_lib.build_fwp_state_hysteresis(
-            self.ema, self.plan.level_shapes,
-            k_enter=k * self.scfg.hyst_enter, k_exit=k * self.scfg.hyst_exit,
-            mode=cfg.fwp_mode, capacity=cfg.fwp_capacity, prev=self.fwp)
+        if self.ema is None or self.fwp is None:
+            self.ema = self._own(self.ema, freq)
+            self.fwp = self._own_fwp(self.fwp, self._hysteresis(self.fwp))
+        else:
+            self._freq = self._own(self._freq, freq)
+            self.graphs.run("hysteresis", (self.ema.shape[0],),
+                            self._hyst_body)
         stale = self._fwp_geometry_differs(self.fwp, self._cache_fwp)
         self._geometry_stale = stale
         return stale
@@ -598,36 +691,35 @@ class TemporalCacheManager:
                          | (a.pix2slot != b.pix2slot).any()).item())
         return bool((a.keep_mask != b.keep_mask).any().item())
 
-    def _admit_slots(self, x_new: torch.Tensor, slots: Tuple[int, ...]) -> int:
+    def _admit_slots(self, slots: Tuple[int, ...]) -> int:
         """Per-slot admission: build each admitted slot's rows from its
-        OWN frame (a batch-1 build) and copy them into that slot's rows
-        of the tables, the diff reference and the cache-geometry record.
-        Every other slot is untouched. Returns the admitted slots' share
-        of a full build's staged bytes."""
-        probe = self._probe(x_new)
+        OWN frame (the batch-1 build graph, on the slot's frame and keep
+        rows copied into standing batch-1 inputs) and copy them into that
+        slot's rows of the tables, the diff reference and the
+        cache-geometry record. Every other slot is untouched. Returns the
+        admitted slots' share of a full build's staged bytes."""
+        x = self._x
+        probe = self._probe(x)
         for slot in slots:
-            fwp1 = None if self.fwp is None \
-                else _fwp_rows(self.fwp, slice(slot, slot + 1))
-            built = self._build(x_new[slot:slot + 1], fwp1)
+            self._x1 = self._own(self._x1, x[slot:slot + 1])
+            self._fwp1 = self._own_fwp(
+                self._fwp1, None if self.fwp is None
+                else _fwp_rows(self.fwp, slice(slot, slot + 1)))
+            built = self.graphs.run("build", (1, self.fwp is None),
+                                    self._build1_body)
             c = self.cache
-            pairs = [(c.v, built.v), (c.pix2slot, built.pix2slot),
-                     (c.keep_idx, built.keep_idx), (c.scale, built.scale)]
-            if c.staged is not None:          # its remap is c.pix2slot
-                pairs += [(c.staged.v, built.staged.v),
-                          (c.staged.scale, built.staged.scale)]
-            for dst, src in pairs:
+            # the staging's remap is c.pix2slot
+            dsts = (c.v, c.pix2slot, c.keep_idx, c.scale,
+                    None if c.staged is None else c.staged.v,
+                    None if c.staged is None else c.staged.scale)
+            for dst, src in zip(dsts, built):
                 if dst is not None:
                     dst[slot].copy_(src[0])
             self.x_ref[slot].copy_(probe[slot])
             if self._cache_fwp is not None:
-                g, f = self._cache_fwp, self.fwp
-                self._cache_fwp = fwp_lib.FWPState(
-                    keep_mask=_set_row(g.keep_mask, slot, f.keep_mask[slot]),
-                    keep_idx=None if g.keep_idx is None
-                    else _set_row(g.keep_idx, slot, f.keep_idx[slot]),
-                    pix2slot=None if g.pix2slot is None
-                    else _set_row(g.pix2slot, slot, f.pix2slot[slot]),
-                    freq=_set_row(g.freq, slot, f.freq[slot]))
+                for g, f in zip(self._cache_fwp, self.fwp):
+                    if g is not None:
+                        g[slot].copy_(f[slot])
         # per (batch, head-group) accounting: k admitted slots cost their
         # k/batch share of a full build
         return (self._full_bytes * len(slots) + self.batch - 1) \
@@ -636,26 +728,20 @@ class TemporalCacheManager:
     @torch.no_grad()
     def reset_slot(self, slot: int) -> None:
         """Reset one batch slot for a newly admitted session: warm-start
-        its EMA and keep rows and schedule a per-slot build on the next
-        frame. Before the first frame, and under frozen per-tensor
-        activation quantization (the admitted build would re-derive the
-        shared grid), flag a full rebuild instead."""
+        its EMA and keep rows (in place) and schedule a per-slot build on
+        the next frame. Before the first frame, and under frozen
+        per-tensor activation quantization (the admitted build would
+        re-derive the shared grid), flag a full rebuild instead."""
         if self.cache is None or self.act_scale is not None:
             self._geometry_stale = True
         else:
             self._pending_admit.add(slot)
         if self.ema is None:
             return
-        self.ema = _set_row(self.ema, slot, 1.0)
-        warm = self._warm_fwp(1)
-        f = self.fwp
-        self.fwp = fwp_lib.FWPState(
-            keep_mask=_set_row(f.keep_mask, slot, warm.keep_mask[0]),
-            keep_idx=None if f.keep_idx is None
-            else _set_row(f.keep_idx, slot, warm.keep_idx[0]),
-            pix2slot=None if f.pix2slot is None
-            else _set_row(f.pix2slot, slot, warm.pix2slot[0]),
-            freq=_set_row(f.freq, slot, 1.0))
+        self.ema[slot] = 1.0
+        for dst, src in zip(self.fwp, self._warm_fwp(1)):
+            if dst is not None:
+                dst[slot].copy_(src[0])
 
     def pipeline_state(self) -> MSDAPipelineState:
         """The chain state a consumer threads through its layers: the

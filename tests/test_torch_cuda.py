@@ -764,23 +764,20 @@ def test_update_staged_rows_writes_the_cards_table_in_place(cuda):
     assert msgs_decode.LAUNCHES == before + 2
 
 
-def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
-    """A small StreamingDetrEngine through K2 on the card: every frame's
-    outputs within 1e-5 of decoder_apply on a cache built from scratch
-    under the same FWP state (no INT12 grid), one K2 launch per layer per
-    frame, and the tables written in place."""
+def _stream_engine(cuda, table="float32", capture=True):
+    """A small StreamingDetrEngine through K2 on the card (2 layers,
+    8 queries, the levels of tests/test_torch_stream.py, no INT12
+    grid)."""
     from repro_torch.core.msdeform_attn import MSDeformAttnConfig
-    from repro_torch.kernels import msgs_decode
     from repro_torch.msda import MSDADecoderConfig, init_decoder
-    from repro_torch.msda.cache import build_value_cache
-    from repro_torch.msda.pipeline import MSDAPipelineState
     from repro_torch.obs import Observability
     from repro_torch.serve import StreamingDetrEngine
-    from repro_torch.stream import StreamConfig, drifting_scene
+    from repro_torch.stream import StreamConfig
     levels = ((8, 10), (4, 5), (2, 3))
     cfg = MSDeformAttnConfig(d_model=32, n_heads=4, n_levels=3,
                              fwp_mode="compact", fwp_capacity=0.6,
-                             range_narrow=(4.0, 3.0, 2.0), pap_mode="topk")
+                             range_narrow=(4.0, 3.0, 2.0), pap_mode="topk",
+                             table_dtype=table)
     dec = MSDADecoderConfig(n_layers=2, n_queries=8, d_ffn=32)
     gen = torch.Generator().manual_seed(11)
     params = {"decoder": init_decoder(dec, cfg, gen, device=cuda),
@@ -788,38 +785,127 @@ def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
                            "b": torch.zeros((3,))},
               "box_head": {"w": torch.randn((32, 4), generator=gen) * 0.1,
                            "b": torch.zeros((4,))}}
-    engine = StreamingDetrEngine(
+    return StreamingDetrEngine(
         cfg, dec, params, levels, max_sessions=2, backend="cuda_decode",
         stream_cfg=StreamConfig(tile_rows=1, delta_threshold=1e-4,
                                 update_frac=0.5),
-        obs=Observability.disabled(), device=cuda)
-    seen = []
-    real = engine.forward
+        obs=Observability.create(), device=cuda, capture=capture), levels
 
-    def forward(memory, cache):
-        out = real(memory, cache)
-        seen.append((memory, engine.mgr.fwp, out[:2]))
-        return out
-    engine.forward = forward
+
+def _stream_snapshot(engine):
+    """Copies of what one step leaves: outputs, memory, tables, diff
+    reference, EMA and both keep states."""
+    mgr = engine.mgr
+    c = mgr.cache
+    ts = {"logits": engine.last_outputs[0], "boxes": engine.last_outputs[1],
+          "memory": engine._memory, "v": c.v, "staged": c.staged.v,
+          "scale": c.scale, "pix2slot": c.pix2slot, "keep_idx": c.keep_idx,
+          "x_ref": mgr.x_ref, "ema": mgr.ema}
+    for name, st in (("fwp", mgr.fwp), ("cache_fwp", mgr._cache_fwp)):
+        ts.update({f"{name}.{f}": t for f, t in zip(st._fields, st)})
+    out = {k: None if t is None else t.clone() for k, t in ts.items()}
+    out["mode"] = mgr.last_stats["mode"]
+    out["admitted"] = mgr.last_stats["admitted_slots"]
+    return out
+
+
+def test_streaming_engine_on_the_card_matches_scratch_builds(cuda):
+    """A small StreamingDetrEngine through K2 on the card, its frames
+    replayed from CUDA graphs: every frame's outputs within 1e-5 of
+    decoder_apply on a cache built from scratch under the keep state the
+    frame's cache was built with (no INT12 grid), the tables written in
+    place, and K2's wrapper called only by the decode graph's warm-up and
+    capture (once per layer each), never per replay."""
+    from repro_torch.kernels import msgs_decode
+    from repro_torch.msda.cache import build_value_cache
+    from repro_torch.msda.pipeline import MSDAPipelineState
+    from repro_torch.stream import drifting_scene
+    engine, levels = _stream_engine(cuda)
     sids = [engine.open_session() for _ in range(2)]
     scenes = [drifting_scene(s, levels, 32, 5) for s in (1, 2)]
     before = msgs_decode.LAUNCHES
-    where = None
+    where, seen = None, []
     for t in range(5):
         for sid, scene in zip(sids, scenes):
             engine.submit_frame(sid, scene[t][0])
         engine.step()
+        seen.append(_stream_snapshot(engine))
         where = where or engine.mgr.cache.staged.v.data_ptr()
         assert engine.mgr.cache.staged.v.data_ptr() == where
-    assert msgs_decode.LAUNCHES - before == 2 * 5
-    engine.forward = real
-    for memory, fwp, got in seen:
+    assert msgs_decode.LAUNCHES - before == 2 * 2
+    assert len(engine.mgr.graphs) >= 3
+    for snap in seen:
+        fwp = type(engine.mgr.fwp)(*(snap[f"cache_fwp.{f}"]
+                                     for f in engine.mgr.fwp._fields))
         cache = build_value_cache(engine.params["decoder"]["value"],
-                                  engine.plan, memory,
+                                  engine.plan, snap["memory"],
                                   MSDAPipelineState(fwp=fwp))
-        want = engine.forward(memory, cache)[:2]
-        for a, b in zip(got, want):
+        want = engine.forward(snap["memory"], cache)[:2]
+        for a, b in zip((snap["logits"], snap["boxes"]), want):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("table", ["float32", "int8"])
+def test_captured_stream_matches_eager_bitwise(cuda, table):
+    """The same sessions through a captured engine and one built with
+    ``capture=False``: every frame's outputs, tables, diff reference, EMA
+    and keep states bitwise equal, across a session closed and another
+    admitted mid-stream (at the first frame whose keep geometry is
+    settled, so that the slot is admitted and not rebuilt) and a
+    reorder; from the admission on, no path but a restage of a new level
+    tuple is called for the first time."""
+    from repro_torch.stream import drifting_scene
+    runs = []
+    for capture in (True, False):
+        engine, levels = _stream_engine(cuda, table, capture)
+        scenes = [drifting_scene(s, levels, 32, 10) for s in (1, 2, 3)]
+        sids = [engine.open_session() for _ in range(2)]
+        snaps, traces, churn = [], [], None
+        for t in range(10):
+            if t >= 3 and churn is None and not engine.mgr._geometry_stale:
+                churn = t
+                engine.close_session(sids[1])
+                sids[1] = engine.open_session()
+            if t == 8:
+                engine.reorder_sessions()
+            for k, sid in enumerate(sids):
+                scene = k if churn is None else 2 * k
+                engine.submit_frame(sid, scenes[scene][t][0])
+            engine.step()
+            snaps.append(_stream_snapshot(engine))
+            traces.append({fn: engine.mgr._m_traces.value(fn=fn)
+                           for fn in ("build", "frame", "hysteresis",
+                                      "decode")})
+        runs.append((snaps, engine))
+        assert churn is not None and snaps[churn]["admitted"] == (1,)
+        assert all(c == traces[churn] for c in traces[churn:])
+    (got, eng), (want, _) = runs
+    for t, (a, b) in enumerate(zip(got, want)):
+        assert a["mode"] == b["mode"], t
+        for k in a:
+            if isinstance(a[k], torch.Tensor):
+                assert torch.equal(a[k], b[k]), (t, k, a["mode"])
+    assert eng.mgr.graphs.capture and len(eng.mgr.graphs) >= 4
+
+
+def test_host_read_inside_a_stream_graph_raises(cuda, monkeypatch):
+    """A decoder body that reads the device from the host cannot be
+    captured: the step raises, and nothing runs it eagerly instead."""
+    from repro_torch.core import nn
+    from repro_torch.stream import drifting_scene
+    engine, levels = _stream_engine(cuda)
+    orig = nn.inverse_sigmoid
+
+    def syncing(x, eps=1e-5):
+        float(x.sum())                       # a device-to-host read
+        return orig(x, eps)
+    monkeypatch.setattr(nn, "inverse_sigmoid", syncing)
+    sid = engine.open_session()
+    engine.submit_frame(sid, drifting_scene(1, levels, 32, 1)[0][0])
+    with pytest.raises(RuntimeError):
+        engine.step()
+    monkeypatch.undo()
+    torch.cuda.synchronize()
 
 
 def test_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
