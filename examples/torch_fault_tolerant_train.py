@@ -24,16 +24,19 @@ from repro_torch.train.loop import (
 from repro_torch.train.step import build_train_step, make_train_state
 
 
-def run(device, log=print) -> dict:
+def run(device, log=print, capture=True) -> dict:
     """Crash at 13 of 24 steps, restart, and an uninterrupted run; returns
-    the restarted and the uninterrupted final states and losses."""
+    the restarted and the uninterrupted final states and losses. Runs A
+    and A' share one captured step (the restart lands in its standing
+    state); run B, the reference, has a step of its own, as another
+    process would (``capture=False``: both steps run eagerly)."""
     dev = resolve_device(device)
     cfg = get_smoke_config("deepseek-7b")
     data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                            global_batch=8, seed=1)
     opt = OptConfig(lr=3e-3, warmup_steps=3, total_steps=24)
     loop_cfg = TrainLoopConfig(total_steps=24, ckpt_every=8, log_every=4)
-    step_fn = build_train_step(cfg, opt)
+    step_fn = build_train_step(cfg, opt, capture=capture)
     batch_fn = lambda s: synth_token_batch(data, s, device=dev)
     fresh = lambda: make_train_state(cfg, torch.Generator().manual_seed(0),
                                      device=dev)
@@ -52,8 +55,9 @@ def run(device, log=print) -> dict:
                                     ckpt_dir=ckpt_dir, log=log)
 
         log("=== run B: uninterrupted reference ===")
-        ref, stats_ref = train_loop(fresh(), step_fn, batch_fn, loop_cfg,
-                                    ckpt_dir=None, log=log)
+        ref, stats_ref = train_loop(fresh(), build_train_step(
+            cfg, opt, capture=capture), batch_fn, loop_cfg, ckpt_dir=None,
+            log=log)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {"restarted": state2, "reference": ref,

@@ -181,12 +181,14 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> tuple[int, dic
     return manifest["step"], unflatten_dict(flat)
 
 
-def restore_into(template: Any, loaded: dict) -> Any:
+def restore_into(template: Any, loaded: dict, *, in_place: bool = False) -> Any:
     """Map a loaded nested dict back into the structure of ``template``
     (NamedTuples / tuples restored). A tensor leaf comes back on its
     template leaf's device and dtype: bitwise the saved values where the
     dtypes agree. A DTensor template leaf gives a DTensor on its mesh,
-    laid out as the template is."""
+    laid out as the template is. ``in_place``: every tensor leaf (not a
+    DTensor) is written into the template's own tensor, which the result
+    holds (a captured train step's standing state keeps its addresses)."""
     def rec(tmpl, node):
         if hasattr(tmpl, "_asdict"):
             return type(tmpl)(**{k: rec(v, node[k])
@@ -200,6 +202,9 @@ def restore_into(template: Any, loaded: dict) -> Any:
         if _is_dtensor(tmpl):
             return _place(t.to(tmpl.dtype), tmpl.device_mesh, tmpl.placements)
         if isinstance(tmpl, torch.Tensor):
+            if in_place:
+                with torch.no_grad():
+                    return tmpl.copy_(t.to(dtype=tmpl.dtype))
             return t.to(device=tmpl.device, dtype=tmpl.dtype)
         if hasattr(tmpl, "dtype"):
             return t.numpy().astype(tmpl.dtype)
@@ -235,7 +240,10 @@ def reshard(tree: Any, shardings: Any) -> Any:
 class AsyncCheckpointer:
     """Background writer: snapshot to the host synchronously, write in a
     thread (training continues during serialization), keep the newest
-    ``keep`` checkpoints. ``snapshot_s`` and ``write_s`` hold each save's
+    ``keep`` checkpoints. The snapshot is a blocking copy on the current
+    stream, so it has finished before the next step (a replay that
+    rewrites a standing state in place) is queued; only the file write
+    overlaps training. ``snapshot_s`` and ``write_s`` hold each save's
     snapshot and write seconds; ``busy`` says whether a write is queued
     or in flight."""
 

@@ -209,14 +209,37 @@ def detection_loss(params: dict, cfg: DetectorConfig, images: torch.Tensor,
 _INACTIVE_COST = 1e6
 
 
-def _hungarian_owners_host(cost: np.ndarray) -> np.ndarray:
-    """Host-side optimal assignment per batch element: owner[b, m] is the
-    query column assigned to gt row m (rows than columns or fewer)."""
+def hungarian_owners(cost: np.ndarray) -> np.ndarray:
+    """Host-side optimal assignment per batch element (the host stage of
+    :func:`decoder_detection_loss`): owner[b, m] is the query column
+    assigned to gt row m (rows than columns or fewer), int32."""
     owner = np.zeros(cost.shape[:2], np.int32)
     for b in range(cost.shape[0]):
         row, col = _linear_sum_assignment(cost[b])
         owner[b, row] = col.astype(np.int32)
     return owner
+
+
+def matcher_kind(matcher: Optional[str], n_gt: int, n_queries: int) -> str:
+    """The matcher :func:`match_queries` runs for ``n_gt`` gt rows and
+    ``n_queries`` queries: ``matcher=None`` picks hungarian when scipy is
+    installed; without scipy, or with more gts than queries, greedy."""
+    if matcher is None:
+        matcher = "hungarian" if _linear_sum_assignment is not None \
+            else "greedy"
+    if matcher not in ("hungarian", "greedy"):
+        raise ValueError(f"unknown matcher {matcher!r}")
+    if matcher == "greedy" or _linear_sum_assignment is None or n_gt > n_queries:
+        return "greedy"
+    return "hungarian"
+
+
+def hungarian_cost(cost: torch.Tensor, gt_active: torch.Tensor) -> torch.Tensor:
+    """The cost the host solver takes: inactive rows a constant, non-finite
+    entries large finite ones (the device side of the matcher)."""
+    cost = torch.where(gt_active[:, :, None], cost.detach(), _INACTIVE_COST)
+    return torch.nan_to_num(cost, nan=_INACTIVE_COST, posinf=_INACTIVE_COST,
+                            neginf=-_INACTIVE_COST)
 
 
 def match_queries(cost: torch.Tensor, gt_active: torch.Tensor,
@@ -231,20 +254,53 @@ def match_queries(cost: torch.Tensor, gt_active: torch.Tensor,
     finite ones); ``"greedy"`` is the per-gt argmin, collisions allowed,
     and the fallback without scipy or with more gts than queries.
     ``matcher=None`` picks hungarian when scipy is installed."""
-    if matcher is None:
-        matcher = "hungarian" if _linear_sum_assignment is not None \
-            else "greedy"
-    if matcher not in ("hungarian", "greedy"):
-        raise ValueError(f"unknown matcher {matcher!r}")
-    cost = cost.detach()
     _, m, nq = cost.shape
-    if matcher == "greedy" or _linear_sum_assignment is None or m > nq:
-        return torch.argmin(cost, dim=-1).to(torch.int32)
-    cost = torch.where(gt_active[:, :, None], cost, _INACTIVE_COST)
-    cost = torch.nan_to_num(cost, nan=_INACTIVE_COST, posinf=_INACTIVE_COST,
-                            neginf=-_INACTIVE_COST)
-    owner = _hungarian_owners_host(cost.cpu().numpy())
+    if matcher_kind(matcher, m, nq) == "greedy":
+        return torch.argmin(cost.detach(), dim=-1).to(torch.int32)
+    owner = hungarian_owners(hungarian_cost(cost, gt_active).cpu().numpy())
     return torch.from_numpy(owner).to(cost.device)
+
+
+def decoder_loss_device(params: dict, cfg: DetectorConfig,
+                        images: torch.Tensor, gt_box: torch.Tensor,
+                        gt_active: torch.Tensor, matcher: Optional[str] = None,
+                        *, backend: Optional[str] = None):
+    """The device stage of :func:`decoder_detection_loss`: the forward and
+    the matching cost. Returns (cls_logits, boxes, cost, kind): ``kind``
+    is :func:`matcher_kind`'s pick; for ``"hungarian"`` ``cost`` is
+    sanitised for the host solver (:func:`hungarian_cost`), for
+    ``"greedy"`` it is the raw L1 cost."""
+    if cfg.decoder is None:
+        raise ValueError("decoder_detection_loss needs a decoder head")
+    cls_logits, boxes, _ = detector_apply(params, cfg, images, backend=backend)
+    cost = torch.sum(torch.abs(boxes[:, None] - gt_box[:, :, None]), -1)
+    kind = matcher_kind(matcher, cost.shape[1], cost.shape[2])
+    if kind == "hungarian":
+        cost = hungarian_cost(cost, gt_active)
+    return cls_logits, boxes, cost, kind
+
+
+def decoder_loss_given_owner(cls_logits: torch.Tensor, boxes: torch.Tensor,
+                             owner: torch.Tensor, gt_cls: torch.Tensor,
+                             gt_box: torch.Tensor, gt_active: torch.Tensor,
+                             n_classes: int):
+    """The loss stage of :func:`decoder_detection_loss`: class and box
+    losses given the gt -> query assignment ``owner`` (B, M)."""
+    _, nq, _ = cls_logits.shape
+    queries = torch.arange(nq, device=owner.device)
+    claimed = (owner[:, :, None] == queries[None, None]) \
+        & gt_active[:, :, None]                                     # (B, M, Nq)
+    matched = torch.any(claimed, dim=1)                             # (B, Nq)
+    first_m = torch.argmax(claimed.to(torch.int32), dim=1)          # (B, Nq)
+    cls_of = torch.gather(gt_cls.long(), 1, first_m)
+    tgt_cls = torch.where(matched, cls_of, n_classes)
+    cls_loss = _class_loss(cls_logits, tgt_cls, n_classes)
+
+    matched_box = torch.gather(boxes, 1, owner.long()[..., None].expand(-1, -1, 4))
+    l1 = torch.sum(torch.abs(matched_box - gt_box), dim=-1)
+    act = gt_active.to(torch.float32)
+    box_loss = torch.sum(l1 * act) / torch.clamp(torch.sum(act), min=1.0)
+    return cls_loss + box_loss, {"cls_loss": cls_loss, "box_loss": box_loss}
 
 
 def decoder_detection_loss(params: dict, cfg: DetectorConfig,
@@ -260,28 +316,19 @@ def decoder_detection_loss(params: dict, cfg: DetectorConfig,
     an inactive gt never claims a query, and under the greedy matcher a
     collision goes to the lowest gt index.
 
+    The eager composition of three stages, as the reference's
+    ``pure_callback`` splits its program: :func:`decoder_loss_device`,
+    the host's :func:`hungarian_owners` (the greedy matcher has no host
+    stage), :func:`decoder_loss_given_owner`. A captured train step
+    replays the device stage and the loss stage as two graphs around the
+    host stage (``train.detr.detector_api``).
+
     gt_cls (B, M) int, gt_box (B, M, 4) cxcywh, gt_active (B, M) bool.
     ``backend=None`` is the reference's behaviour; see
     :func:`encoder_backend` for a decode-only request."""
-    if cfg.decoder is None:
-        raise ValueError("decoder_detection_loss needs a decoder head")
-    cls_logits, boxes, _ = detector_apply(params, cfg, images, backend=backend)
-    _, nq, _ = cls_logits.shape
-
-    cost = torch.sum(torch.abs(boxes[:, None] - gt_box[:, :, None]), -1)
-    owner = match_queries(cost, gt_active, matcher)                 # (B, M)
-
-    queries = torch.arange(nq, device=owner.device)
-    claimed = (owner[:, :, None] == queries[None, None]) \
-        & gt_active[:, :, None]                                     # (B, M, Nq)
-    matched = torch.any(claimed, dim=1)                             # (B, Nq)
-    first_m = torch.argmax(claimed.to(torch.int32), dim=1)          # (B, Nq)
-    cls_of = torch.gather(gt_cls.long(), 1, first_m)
-    tgt_cls = torch.where(matched, cls_of, cfg.n_classes)
-    cls_loss = _class_loss(cls_logits, tgt_cls, cfg.n_classes)
-
-    matched_box = torch.gather(boxes, 1, owner.long()[..., None].expand(-1, -1, 4))
-    l1 = torch.sum(torch.abs(matched_box - gt_box), dim=-1)
-    act = gt_active.to(torch.float32)
-    box_loss = torch.sum(l1 * act) / torch.clamp(torch.sum(act), min=1.0)
-    return cls_loss + box_loss, {"cls_loss": cls_loss, "box_loss": box_loss}
+    cls_logits, boxes, cost, _ = decoder_loss_device(
+        params, cfg, images, gt_box, gt_active, matcher, backend=backend)
+    # hungarian_cost is idempotent: the sanitised cost passes unchanged
+    owner = match_queries(cost, gt_active, matcher)
+    return decoder_loss_given_owner(cls_logits, boxes, owner, gt_cls, gt_box,
+                                    gt_active, cfg.n_classes)

@@ -7,7 +7,8 @@ cpu``) it trains over the world: the local mesh ``(world, 1)`` named
 ("data", "model"), or with ``--production-mesh`` the reference's 16x16
 mesh, which needs 256 ranks. The state is laid out by
 ``train_state_shardings`` and each rank trains on its rows of the batch
-(``train.step.build_sharded_train_step``).
+(``train.step.build_sharded_train_step``, eager). On one device the step
+is ``train.step.build_train_step``'s, a CUDA graph on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --device cpu --steps 30 --ckpt-dir /tmp/ckpt
@@ -47,6 +48,24 @@ def _join_world(device: str) -> torch.device:
     return resolve_device(dev)
 
 
+def train_batch(cfg, data_cfg: TokenDataConfig, step: int, device) -> dict:
+    """The launcher's batch of ``step``: data/tokens' batch, and for vlm
+    and encdec the stub frontend's embeddings, (batch, n, d_model)
+    normals keyed by (seed 7 / 8, step), as the reference folds its key."""
+    dev = resolve_device(device)
+    b = synth_token_batch(data_cfg, step, device=dev)
+
+    def stub_inputs(seed: int, n: int):
+        x = torch.randn((data_cfg.global_batch, n, cfg.d_model),
+                        generator=fold_in(seed, step))
+        return x.to(device=dev, dtype=cfg.dtype)
+    if cfg.family == "vlm":
+        b["img_embeds"] = stub_inputs(7, cfg.n_img_tokens)
+    if cfg.family == "encdec":
+        b["frames"] = stub_inputs(8, cfg.enc_seq_len)
+    return b
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -78,25 +97,15 @@ def main(argv=None) -> int:
     data_cfg = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch, seed=0)
 
-    def stub_inputs(seed: int, step: int, n: int):
-        """The stub frontend's embeddings: (batch, n, d_model) normals
-        keyed by (seed, step), as the reference folds its key."""
-        x = torch.randn((args.batch, n, cfg.d_model), generator=fold_in(seed, step))
-        return x.to(device=dev, dtype=cfg.dtype)
-
     def batch_fn(step: int):
-        b = synth_token_batch(data_cfg, step, device=dev)
-        if cfg.family == "vlm":
-            b["img_embeds"] = stub_inputs(7, step, cfg.n_img_tokens)
-        if cfg.family == "encdec":
-            b["frames"] = stub_inputs(8, step, cfg.enc_seq_len)
+        b = train_batch(cfg, data_cfg, step, dev)
         return b if mesh is None else local_batch(b, mesh)
 
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps)
     # weights drawn on the device itself: a published-width model on the card
     state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
-    if mesh is None:
+    if mesh is None:                 # captured on the card (CUDA graphs)
         step_fn = build_train_step(cfg, opt_cfg)
     else:
         specs = train_state_shardings(cfg, mesh, state)

@@ -171,8 +171,10 @@ def remat_active(cfg) -> bool:
 
 def remat(fn, *args):
     """``fn(*args)`` as a checkpointed region: only its inputs are kept
-    for backward, which runs it again."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    for backward, which runs it again. The layers draw no random numbers,
+    so no RNG state is stashed: reading the card's generator state is
+    refused while a train step is captured into a CUDA graph."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _layer_remat(p: dict, cfg: ModelConfig, x, positions, window):

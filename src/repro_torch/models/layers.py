@@ -285,9 +285,10 @@ def piece(cfg: ModelConfig, fn, *args):
     (backward recomputes it). A region cannot hold a collective: backward
     could not replay a rank body's step. ``fn`` reads nothing but its
     arguments, since backward may recompute it outside the rank's
-    context."""
+    context. As :func:`decoder.remat`, it stashes no RNG state."""
     if _PIECES.get() and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
 
 

@@ -9,7 +9,10 @@ entry keeps the reference's signature. ``prefill_body`` and
 (generators of ``distributed.collectives``, with the same arguments),
 which a serving cell's rank runs under the tensor-parallel context, and
 ``loss_body`` is ``loss_fn`` as a rank body, which a train cell's rank
-runs there (:mod:`repro_torch.train.step`). ``axes`` gives the params' logical
+runs there (:mod:`repro_torch.train.step`). ``loss_split`` is
+``loss_fn`` split around a host computation (the reference's
+``pure_callback``), which a captured train step replays as two graphs.
+``axes`` gives the params' logical
 sharding axes and :func:`rules_overrides` the per-arch rule adjustments
 that ``train/step.py``'s sharding rules apply on a device mesh."""
 from __future__ import annotations
@@ -35,6 +38,8 @@ class ModelAPI(NamedTuple):
     prefill_body: Optional[Callable] = None  # prefill as a rank body
     decode_body: Optional[Callable] = None   # decode_step as a rank body
     loss_body: Optional[Callable] = None     # loss_fn as a rank body
+    loss_split: Optional[Callable] = None    # (cfg, batch) -> the loss
+    #   split at a host stage (train.step.LossSplit), None: no host stage
 
 
 # --- decoder-only families ---------------------------------------------------

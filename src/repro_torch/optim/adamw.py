@@ -3,8 +3,10 @@ float32 moments, decoupled weight decay, global-norm clipping, linear
 warmup then cosine decay.
 
 Parameters, gradients and moments are trees of nested dicts and lists
-of tensors, as the detector's params are; the update is functional (new
-tensors, the inputs untouched), as in the reference. Dict leaves are
+of tensors, as the detector's params are; :func:`adamw_update` is
+functional (new tensors, the inputs untouched), as in the reference, and
+:func:`adamw_update_` writes the same values in place (a captured train
+step's standing state). Dict leaves are
 visited in sorted key order, as ``jax.tree.leaves`` visits them, so the
 global norm sums in the reference's order."""
 from __future__ import annotations
@@ -86,41 +88,71 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
+def _update_scalars(grads: Any, state: dict, cfg: OptConfig,
+                    grad_norm: Optional[torch.Tensor]):
+    """(grad_norm, clip scale, new step count, lr, bc1, bc2)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    bc1 = 1.0 - cfg.beta1 ** step.to(torch.float32)
+    bc2 = 1.0 - cfg.beta2 ** step.to(torch.float32)
+    return gnorm, scale, step, lr, bc1, bc2
+
+
+def _leaf_update(p, g, m, v, scale, lr, bc1, bc2, cfg: OptConfig, *,
+                 in_place: bool = False):
+    """One leaf's (p', m', v'):
+    m' = b1 m + (1 - b1) g;  v' = b2 v + (1 - b2) g^2;
+    p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p),
+    op for op, written in place into the step's own temporaries so that a
+    leaf of a few GB needs few copies (each in-place op rounds as its
+    out-of-place form does). ``in_place``: m and v are the moments
+    themselves (``mul_``), bitwise the new tensors the default makes."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.to(torch.float32) * scale
+    m_new = (m.mul_(b1) if in_place else torch.mul(m, b1)) \
+        .add_(torch.mul(g, 1 - b1))
+    v_new = (v.mul_(b2) if in_place else torch.mul(v, b2)) \
+        .add_(torch.square(g).mul_(1 - b2))
+    del g
+    den = torch.div(v_new, bc2).sqrt_().add_(cfg.eps)
+    update = torch.div(m_new, bc1).div_(den)
+    del den
+    p32 = p.to(torch.float32)
+    update.add_(torch.mul(p32, cfg.weight_decay)).mul_(lr)
+    p_new = update.neg_().add_(p32)                      # p32 - update
+    return p_new.to(p.dtype), m_new, v_new
+
+
 def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig,
                  grad_norm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, metrics {grad_norm, lr}).
     ``grad_norm`` is the global norm that clips the gradients, given
     where ``grads`` are one shard of them (a ZeRO update); by default
     the norm of ``grads``."""
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state["step"] + 1
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1.0 - b1 ** step.to(torch.float32)
-    bc2 = 1.0 - b2 ** step.to(torch.float32)
-
-    def upd(p, g, m, v):
-        # m' = b1 m + (1 - b1) g;  v' = b2 v + (1 - b2) g^2;
-        # p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p),
-        # op for op, written in place into the step's own temporaries so
-        # that a leaf of a few GB needs few copies (each in-place op rounds
-        # as its out-of-place form does)
-        g = g.to(torch.float32) * scale
-        m_new = torch.mul(m, b1).add_(torch.mul(g, 1 - b1))
-        v_new = torch.mul(v, b2).add_(torch.square(g).mul_(1 - b2))
-        del g
-        den = torch.div(v_new, bc2).sqrt_().add_(cfg.eps)
-        update = torch.div(m_new, bc1).div_(den)
-        del den
-        p32 = p.to(torch.float32)
-        update.add_(torch.mul(p32, cfg.weight_decay)).mul_(lr)
-        p_new = update.neg_().add_(p32)                  # p32 - update
-        return p_new.to(p.dtype), m_new, v_new
-
-    out = [upd(*leaves) for leaves in zip(
+    gnorm, scale, step, lr, bc1, bc2 = _update_scalars(grads, state, cfg,
+                                                       grad_norm)
+    out = [_leaf_update(*leaves, scale, lr, bc1, bc2, cfg) for leaves in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
         tree_leaves(state["v"]))]
     rebuild = lambda i: tree_unflatten(params, (o[i] for o in out))
     new_state = {"m": rebuild(1), "v": rebuild(2), "step": step}
     return rebuild(0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update_(params: Any, grads: Any, state: dict, cfg: OptConfig,
+                  grad_norm: Optional[torch.Tensor] = None) -> dict:
+    """:func:`adamw_update` written into the tensors it reads: every
+    parameter, both moments and ``state["step"]`` keep their address (a
+    captured train step's standing state, as the reference's jit writes
+    its donated state), bitwise the functional update. Returns the
+    metrics {grad_norm, lr}."""
+    gnorm, scale, step, lr, bc1, bc2 = _update_scalars(grads, state, cfg,
+                                                       grad_norm)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        p.copy_(_leaf_update(p, g, m, v, scale, lr, bc1, bc2, cfg,
+                             in_place=True)[0])
+    state["step"].copy_(step)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -40,7 +40,7 @@ incrementally updated value caches (``repro_torch/stream/``). On the
 card every device path of its frame is a CUDA graph, as the reference
 jits each: the manager's build, frame, restage and hysteresis, and the
 engine's decoder forward (decoder, heads and summed frequencies), all
-in one memory pool (:mod:`repro_torch.stream.graphs`). Both engines
+in one memory pool (:mod:`repro_torch.utils.graphs`). Both engines
 apply their device's measured plan table
 (:func:`repro_torch.msda.autotune.ensure_applied`) before they plan.
 """

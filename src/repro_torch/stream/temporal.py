@@ -25,7 +25,7 @@ The value cache is persistent state across the frames of a video:
     against its frozen per-channel scale.
 
 The reference jits four paths and the port captures each as a CUDA
-graph (:mod:`repro_torch.stream.graphs`), keyed as the jit retraces:
+graph (:mod:`repro_torch.utils.graphs`), keyed as the jit retraces:
 the full build by batch and whether FWP state exists (the batch for a
 rebuild, batch 1 for an admission), the frame (the tile diff and a
 speculative incremental update in one program) and the hysteresis by
@@ -66,7 +66,7 @@ from repro_torch.msda.cache import (MSDAValueCache, build_value_cache,
                                     cache_act_scale, update_value_cache_rows)
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.obs import Observability
-from repro_torch.stream.graphs import StreamGraphs
+from repro_torch.utils.graphs import CapturedGraphs
 from repro_torch.stream.tiles import (TileGeometry, changed_tiles,
                                       tile_geometry, tile_index)
 
@@ -195,7 +195,7 @@ class TemporalCacheManager:
             "stream_dirty_slots", "dirty slot count of the last frame")
         self._m_span = m.histogram(
             "stream_span_seconds", "per-stage frame latency (label span=)")
-        self.graphs = StreamGraphs(
+        self.graphs = CapturedGraphs(
             self.device, capture=capture,
             on_prepare=lambda fn: self._m_traces.inc(fn=fn))
 

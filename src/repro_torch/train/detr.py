@@ -34,8 +34,11 @@ from repro_torch.bridge import resolve_device
 from repro_torch.checkpoint.store import (latest_step, load_checkpoint,
                                           restore_into, save_checkpoint)
 from repro_torch.core.detector import (DetectorConfig, decoder_detection_loss,
+                                       decoder_loss_device,
+                                       decoder_loss_given_owner,
                                        detection_loss, detector_apply,
-                                       detector_logical_axes, init_detector)
+                                       detector_logical_axes, hungarian_owners,
+                                       init_detector, matcher_kind)
 from repro_torch.core.encoder import EncoderConfig
 from repro_torch.core.msdeform_attn import MSDeformAttnConfig
 from repro_torch.data import fold_in
@@ -45,8 +48,8 @@ from repro_torch.models.registry import ModelAPI
 from repro_torch.optim.adamw import OptConfig, adamw_update
 from repro_torch.train.loop import (FailureInjector, TrainLoopConfig,
                                     train_loop)
-from repro_torch.train.step import (build_train_step, make_train_state,
-                                    value_and_grad)
+from repro_torch.train.step import (LossSplit, build_train_step,
+                                    make_train_state, value_and_grad)
 
 #: The encoder's backend while training: differentiable.
 TRAIN_ENCODER_BACKEND = "torch_gather"
@@ -122,26 +125,54 @@ def loss_and_grads(params: Any, cfg: DetectorConfig, batch, *,
 
 def train_step(params: Any, opt: dict, batch, cfg: DetectorConfig,
                opt_cfg: OptConfig, *, backend: Optional[str] = None):
-    """One step: :func:`loss_and_grads`, then :func:`adamw_update`.
-    Returns (params, opt, metrics {loss, cls_loss, box_loss, grad_norm,
-    lr}, grads); metrics are 0-dim tensors on the params' device."""
+    """One functional step: :func:`loss_and_grads`, then
+    :func:`adamw_update` (new tensors, the inputs untouched). The
+    trainers run the captured step (``build_train_step`` with
+    :func:`detector_api`), which this is the oracle of. Returns (params,
+    opt, metrics {loss, cls_loss, box_loss, grad_norm, lr}, grads);
+    metrics are 0-dim tensors on the params' device."""
     loss, extras, grads = loss_and_grads(params, cfg, batch, backend=backend)
     params, opt, metrics = adamw_update(params, grads, opt, opt_cfg)
     return params, opt, {"loss": loss, **extras, **metrics}, grads
+
+
+def _loss_split(cfg: DetectorConfig, batch, backend) -> Optional[LossSplit]:
+    """The decoder head's loss split at the Hungarian matcher (the
+    reference's ``pure_callback``, ``repro/core/detector.py``); None for
+    the dense head and the greedy matcher, which have no host stage."""
+    gt = batch[3]
+    if cfg.decoder is None or matcher_kind(
+            None, gt["box"].shape[1], cfg.decoder.n_queries) != "hungarian":
+        return None
+
+    def device(params, cfg, batch):
+        img, _, _, gt = batch
+        cls_logits, boxes, cost, _ = decoder_loss_device(
+            params, cfg, img, gt["box"], gt["active"], backend=backend)
+        return (cls_logits, boxes), cost
+
+    def finish(carry, owner, cfg, batch):
+        gt = batch[3]
+        return decoder_loss_given_owner(*carry, owner, gt["cls"], gt["box"],
+                                        gt["active"], cfg.n_classes)
+    return LossSplit(device=device, host=hungarian_owners, finish=finish)
 
 
 def detector_api(backend: Optional[str] = "cuda_decode") -> ModelAPI:
     """The detector as :mod:`repro_torch.train.step` takes a model:
     ``init_detector`` and the detection loss through ``backend``, for
     ``make_train_state(cfg, gen, device=..., api=...)`` and
-    ``build_train_step(cfg, opt_cfg, api)``. A detector has no cache, so
-    the serving entries are None."""
+    ``build_train_step(cfg, opt_cfg, api)``; ``loss_split`` splits the
+    decoder head's loss at its host matcher, so that the captured step
+    replays two graphs around it. A detector has no cache, so the
+    serving entries are None."""
     return ModelAPI(
         init=init_detector,
         loss_fn=lambda params, cfg, batch: _detection_loss(params, cfg, batch,
                                                            backend),
         forward=None, init_cache=None, prefill=None, decode_step=None,
-        axes=detector_logical_axes)
+        axes=detector_logical_axes,
+        loss_split=lambda cfg, batch: _loss_split(cfg, batch, backend))
 
 
 def detection_batches(cfg: DetectorConfig, batch: int, seed: int = 0,
@@ -165,10 +196,11 @@ def train_detector(cfg: DetectorConfig, steps: int, batch: int,
                    log_every: int = 1):
     """Train from random weights drawn from ``gen`` (default seed 0) for
     ``steps`` steps through :func:`train_loop`, step i on the batch
-    :func:`detection_batches` draws for (seed, i). With ``ckpt_dir``,
-    resume from its newest checkpoint and write one every ``ckpt_every``
-    steps (default: at the end). Returns (final TrainState, the loop's
-    stats: per-step ``history`` rows with every metric and wall ms)."""
+    :func:`detection_batches` draws for (seed, i), each step the captured
+    step of ``build_train_step``. With ``ckpt_dir``, resume from its
+    newest checkpoint and write one every ``ckpt_every`` steps (default:
+    at the end). Returns (final TrainState, the loop's stats: per-step
+    ``history`` rows with every metric and wall ms)."""
     dev = resolve_device(device)
     api = detector_api(backend)
     state = make_train_state(cfg, gen, device=dev, api=api)
@@ -185,10 +217,11 @@ def train_detector(cfg: DetectorConfig, steps: int, batch: int,
 def train_toy(cfg: DetectorConfig, steps: int, batch: int = 8, seed: int = 0,
               *, backend: Optional[str] = "cuda_decode", device="cuda",
               log: Callable[[str], None] = print):
-    """The reference's toy recipe: weights from ``seed``, step i on the
-    batch drawn for (seed, i), AdamW at lr 2e-3 with 10 warmup steps and
-    no decay, the encoder through ``torch_gather``. Returns (state,
-    stats) as :func:`train_detector` does."""
+    """The reference's toy recipe (its jitted ``step_fn``,
+    benchmarks/detr_toy.py): weights from ``seed``, step i on the batch
+    drawn for (seed, i), AdamW at lr 2e-3 with 10 warmup steps and no
+    decay, the encoder through ``torch_gather``. Returns (state, stats)
+    as :func:`train_detector` does."""
     return train_detector(with_attn(cfg, backend=TRAIN_ENCODER_BACKEND),
                           steps, batch, torch.Generator().manual_seed(seed),
                           device, backend, log=log, seed=seed, log_every=20)

@@ -14,7 +14,10 @@ Contract:
     straggler event.
 
 A step's wall clock ends at a sync on its loss (``float``), the
-counterpart of the reference's ``jax.block_until_ready``."""
+counterpart of the reference's ``jax.block_until_ready``. A captured
+step (``train.step.TrainStep``) owns a standing state: the loop hands
+it the caller's state first and restores a checkpoint into it in place,
+so that its graphs read the restored values."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.checkpoint.store import (AsyncCheckpointer, latest_step,
                                           load_checkpoint, restore_into)
-from repro_torch.train.step import TrainState
+from repro_torch.train.step import TrainState, TrainStep
 
 
 class SimulatedNodeFailure(RuntimeError):
@@ -72,11 +75,18 @@ def train_loop(
     when the step began), and, with a ``ckpt_dir``, ``snapshot_s`` /
     ``write_s`` (each save's synchronous snapshot and threaded write)."""
     start = 0
+    # a step of build_train_step: a checkpoint is restored into its
+    # standing state, in place (no second state-sized copy, 17 GB for the
+    # 2-layer minitron-4b); any other step callable copies a state that
+    # is not its own in at its call
+    standing = isinstance(train_step, TrainStep)
+    if standing:
+        state = train_step.adopt(state)
     if ckpt_dir is not None:
         last = latest_step(ckpt_dir)
         if last is not None:
             _, loaded = load_checkpoint(ckpt_dir, last)
-            state = restore_into(state, loaded)
+            state = restore_into(state, loaded, in_place=standing)
             start = last
             log(f"[loop] restored checkpoint step={last}")
     ckpt = AsyncCheckpointer(ckpt_dir, keep=loop_cfg.keep_ckpts) \

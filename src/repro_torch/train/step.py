@@ -1,8 +1,9 @@
 """Train-step builder: gradient accumulation and AdamW (port of
 ``repro/train/step.py``).
 
-The step is eager PyTorch: autograd's gradient of the model's loss, then
-the functional :func:`~repro_torch.optim.adamw.adamw_update`. With
+The single-device step (:func:`build_train_step`) is autograd's gradient
+of the model's loss, then AdamW written into a standing state, captured
+as a CUDA graph on the card as the reference jits its step. With
 ``cfg.grad_accum > 1`` the batch splits into microbatches run one after
 another, so peak activation memory is 1/grad_accum of the full batch;
 float32 accumulators sum their losses and gradients, as the reference's
@@ -44,8 +45,9 @@ from repro_torch.distributed.sharding import tree_map as spec_tree_map
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import ModelAPI, get_api, rules_overrides
 from repro_torch.optim.adamw import (OptConfig, adamw_init, adamw_update,
-                                     global_norm, tree_leaves, tree_map,
-                                     tree_unflatten)
+                                     adamw_update_, global_norm, tree_leaves,
+                                     tree_map, tree_unflatten)
+from repro_torch.utils.graphs import CapturedGraphs
 
 
 class TrainState(NamedTuple):
@@ -164,28 +166,176 @@ def make_train_state(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def build_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
-                     api: Optional[ModelAPI] = None) -> Callable:
-    """Returns train_step(state, batch) -> (state, metrics).
+class LossSplit(NamedTuple):
+    """A loss split at a host computation, as the reference's
+    ``jax.pure_callback`` splits its program: ``device(params, cfg,
+    batch) -> (carry, to_host)`` on the device, ``host(array) -> array``
+    on the host (numpy in and out), then ``finish(carry, from_host, cfg,
+    batch) -> (loss, aux)`` on the device, ``from_host`` being the host
+    stage's result as a tensor on the device."""
+    device: Callable
+    host: Callable
+    finish: Callable
 
-    batch leaves have a leading global-batch dim; with cfg.grad_accum > 1
-    the batch splits into microbatches run in order (grad accumulation).
-    Metrics are 0-dim tensors: the loss function's own (averaged over
-    microbatches), ``loss``, ``grad_norm`` and ``lr``. A config without
-    ``grad_accum`` (the detector's) takes its batch whole."""
-    api = api or get_api(cfg)
-    grads_of = _loss_and_grads(cfg, api)
 
-    def train_step(state: TrainState, batch: dict):
-        loss, metrics, grads = grads_of(state.params, batch)
-        new_params, new_opt, opt_metrics = adamw_update(
-            state.params, grads, state.opt, opt_cfg)
+def _batch_key(batch: Any) -> tuple:
+    """The key a step's graph is replayed under: every batch leaf's shape
+    and dtype (the reference's jit retraces on these)."""
+    return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(batch))
+
+
+class TrainStep:
+    """``step(state, batch) -> (state, metrics)``: one train step on a
+    standing :class:`TrainState` (see :func:`build_train_step`)."""
+
+    def __init__(self, cfg, opt_cfg: OptConfig, api: ModelAPI, *,
+                 capture: bool = True):
+        self.cfg, self.opt_cfg, self.api = cfg, opt_cfg, api
+        self._capture = capture
+        self._grads_of = _loss_and_grads(cfg, api)
+        self.state: Optional[TrainState] = None   # the standing state
+        self.graphs: Optional[CapturedGraphs] = None
+        self._batches: dict = {}                  # key -> static batch
+        self._host_bufs: dict = {}                # key -> host stage buffers
+
+    def adopt(self, state: TrainState) -> TrainState:
+        """The standing state, holding ``state``'s values: at the first
+        call a copy of ``state`` (the caller's tensors stay untouched),
+        later ``state`` copied into it unless it is the standing state
+        itself (a fresh state after a restart in the same process)."""
+        leaves = tree_leaves(tuple(state))
+        if self.state is None:
+            self.graphs = CapturedGraphs(leaves[0].device,
+                                         capture=self._capture)
+            self.state = TrainState(*tree_map(torch.clone, tuple(state)))
+            return self.state
+        standing = tree_leaves(tuple(self.state))
+        if len(leaves) != len(standing) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                or a.device != b.device for a, b in zip(standing, leaves)):
+            raise ValueError("a train step's state keeps its structure, "
+                             "shapes, dtypes and device from call to call")
+        with torch.no_grad():
+            for a, b in zip(standing, leaves):
+                if a is not b:
+                    a.copy_(b)
+        return self.state
+
+    def __call__(self, state: TrainState, batch: Any):
+        st = self.adopt(state)
+        key = _batch_key(batch)
+        static = self._batches.get(key)
+        if static is None:
+            dev = self.graphs.device
+            static = self._batches[key] = tree_map(
+                lambda x: torch.empty_like(x, device=dev), batch)
+        for a, b in zip(tree_leaves(static), tree_leaves(batch)):
+            a.copy_(b)
+        split = self.api.loss_split(self.cfg, static) \
+            if self.api.loss_split is not None else None
+        if split is None:
+            out = self.graphs.run("train_step", key,
+                                  lambda: self._plain(st, static))
+        else:
+            out = self.graphs.run_split("train_step", key,
+                                        *self._split(st, static, split, key))
+        if self.graphs.capture:       # a replay rewrites its static outputs
+            out = {k: v.clone() for k, v in out.items()}
+        return st, out
+
+    def _update(self, st: TrainState, loss, metrics, grads) -> dict:
         metrics = dict(metrics) if isinstance(metrics, dict) else {"aux": metrics}
         metrics["loss"] = loss
-        metrics.update(opt_metrics)
-        return TrainState(new_params, new_opt, state.step + 1), metrics
+        with torch.no_grad():
+            metrics.update(adamw_update_(st.params, grads, st.opt,
+                                         self.opt_cfg))
+            st.step.add_(1)
+        return metrics
 
-    return train_step
+    def _plain(self, st: TrainState, batch) -> dict:
+        loss, metrics, grads = self._grads_of(st.params, batch)
+        return self._update(st, loss, metrics, grads)
+
+    def _split(self, st: TrainState, batch, split: LossSplit, key):
+        """The three stages of a split loss: the device stage ends in a
+        copy of its host operand into a pinned buffer; the host stage
+        writes its result into another; the loss stage copies that to
+        the card, takes the gradients through the device stage's
+        autograd graph and updates the state."""
+        bufs = self._host_bufs.setdefault(key, {})
+        dev = self.graphs.device
+        pinned = dev.type == "cuda"
+
+        def first():
+            live = [p.detach().requires_grad_() for p in tree_leaves(st.params)]
+            with torch.enable_grad():
+                carry, to_host = split.device(tree_unflatten(st.params, live),
+                                              self.cfg, batch)
+            if "to_host" not in bufs:
+                bufs["to_host"] = torch.empty(to_host.shape,
+                                              dtype=to_host.dtype,
+                                              pin_memory=pinned)
+            bufs["to_host"].copy_(to_host.detach(), non_blocking=True)
+            return live, carry
+
+        def host(_):
+            out = torch.from_numpy(split.host(bufs["to_host"].numpy()))
+            if "from_host" not in bufs:
+                bufs["from_host"] = torch.empty(out.shape, dtype=out.dtype,
+                                                pin_memory=pinned)
+                bufs["on_device"] = torch.empty(out.shape, dtype=out.dtype,
+                                                device=dev)
+            bufs["from_host"].copy_(out)
+
+        def second(carry):
+            live, carry = carry
+            from_host = bufs["on_device"].copy_(bufs["from_host"],
+                                                non_blocking=True)
+            with torch.enable_grad():
+                loss, aux = split.finish(carry, from_host, self.cfg, batch)
+                # under capture the device stage's autograd graph stays
+                # alive: graph B reads its saved tensors at every replay
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            retain_graph=self.graphs.capturing)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(live, grads)]
+            aux = tree_map(lambda x: x.detach()
+                           if isinstance(x, torch.Tensor) else x, aux)
+            return self._update(st, loss.detach(), aux,
+                                tree_unflatten(st.params, grads))
+        return first, host, second
+
+
+def build_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                     api: Optional[ModelAPI] = None, *,
+                     capture: bool = True) -> TrainStep:
+    """Returns ``train_step(state, batch) -> (state, metrics)``, the
+    reference's step under ``jax.jit`` with its state donated.
+
+    The step owns a **standing** :class:`TrainState`: params, AdamW
+    moments and step counts, each at a fixed address, and a static batch
+    for each batch shape. A call copies ``batch`` into the static batch
+    (and ``state`` into the standing state unless it is that state; see
+    :meth:`TrainStep.adopt`), runs the forward, the loss, its gradients
+    and :func:`~repro_torch.optim.adamw.adamw_update_`, which writes the
+    state in place, and returns the standing state: a state a caller
+    keeps across calls changes under it (clone it to keep it). Metrics
+    are 0-dim tensors of the caller's own: the loss function's
+    (averaged over microbatches), ``loss``, ``grad_norm`` and ``lr``.
+
+    Batch leaves have a leading global-batch dim; with
+    ``cfg.grad_accum > 1`` the batch splits into microbatches run in
+    order (gradient accumulation). A config without ``grad_accum`` (the
+    detector's) takes its batch whole.
+
+    On the card the step is a CUDA graph keyed by the batch's shapes and
+    dtypes (:class:`~repro_torch.utils.graphs.CapturedGraphs`: the first
+    call of a key warms up, then captures; later calls replay). A model
+    whose ``api.loss_split`` splits the loss at a host stage (the
+    detector's Hungarian matcher) is two graphs replayed around it. On
+    the CPU, or with ``capture=False`` (the eager oracle), the same
+    bodies run eagerly: bitwise the functional step."""
+    return TrainStep(cfg, opt_cfg, api or get_api(cfg), capture=capture)
 
 
 def _loss_and_grads(cfg, api: ModelAPI) -> Callable:

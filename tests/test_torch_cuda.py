@@ -953,16 +953,185 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
     cfg = get_smoke_config("deepseek-7b")
     data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                            global_batch=8, seed=1)
-    step = build_train_step(cfg, OptConfig(lr=3e-3, warmup_steps=3,
-                                           total_steps=24))
+    opt = OptConfig(lr=3e-3, warmup_steps=3, total_steps=24)
+    # a step owns a standing state on one device: one step per device
+    step, card_step = build_train_step(cfg, opt), build_train_step(cfg, opt)
     cpu = make_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = TrainState(*tree_to(tuple(cpu), cuda))
     for i in range(2):
         batch = synth_token_batch(data, i, device="cpu")
         cpu, m_cpu = step(cpu, batch)
-        card, m_card = step(card, {"tokens": batch["tokens"].to(cuda)})
+        card, m_card = card_step(card, {"tokens": batch["tokens"].to(cuda)})
         np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]),
                                    rtol=1e-5)
     for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=5e-4,
                                    atol=5e-4)
+
+
+# --------------------------------------------------------------------------
+# the train steps through CUDA graphs
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic():
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+#: the launcher's families at SMOKE size: dense, moe, ssm, hybrid, vlm, encdec
+TRAIN_ARCHS = ("deepseek-7b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b",
+               "llava-next-34b", "whisper-tiny")
+
+
+def _train_run(step, state, batches):
+    """Each step's metrics (on the host) and the final state, cloned."""
+    from repro_torch.optim.adamw import tree_leaves
+    metrics = []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append({k: v.cpu() for k, v in m.items()})
+    return metrics, [t.clone() for t in tree_leaves(tuple(state))]
+
+
+def _assert_runs_bitwise(got, want):
+    (m_got, s_got), (m_want, s_want) = got, want
+    assert len(m_got) == len(m_want)
+    for a, b in zip(m_got, m_want):
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    assert len(s_got) == len(s_want) > 0
+    for a, b in zip(s_got, s_want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_captured_lm_train_step_is_bitwise_eager(cuda, deterministic, arch,
+                                                 accum):
+    """The launcher's step at SMOKE size, captured against ``capture=False``
+    from the same state on the same batches: every metric and leaf
+    bitwise under deterministic algorithms, and the standing state's
+    addresses kept."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import build_train_step, make_train_state
+    cfg = dataclasses.replace(get_smoke_config(arch), grad_accum=accum)
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                           global_batch=4, seed=1)
+    batches = [train_batch(cfg, data, i, cuda) for i in range(4)]
+    opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    state = make_train_state(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    runs = {}
+    for capture in (True, False):
+        step = build_train_step(cfg, opt, capture=capture)
+        runs[capture] = _train_run(step, state, batches)
+        assert step.graphs.capture is capture
+        assert len(step.graphs) == int(capture)
+    _assert_runs_bitwise(runs[True], runs[False])
+
+
+@pytest.mark.parametrize("head", ["dense", "decoder"])
+def test_captured_detector_train_step_is_bitwise_eager(cuda, deterministic,
+                                                       head):
+    """The toy detector's step (the dense head: one graph; the decoder
+    head: two graphs around the Hungarian matcher) captured against
+    ``capture=False``: bitwise under deterministic algorithms."""
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import detr
+    from repro_torch.train.step import build_train_step, make_train_state
+    cfg = detr.with_attn(detr.toy_config() if head == "dense"
+                         else detr.toy_decoder_config(),
+                         backend=detr.TRAIN_ENCODER_BACKEND)
+    api = detr.detector_api("cuda_decode")
+    batches = [detr.detection_batches(cfg, 4, device=cuda)(i) for i in range(4)]
+    opt = OptConfig(lr=2e-3, warmup_steps=10, total_steps=400, weight_decay=0.0)
+    state = make_train_state(cfg, torch.Generator().manual_seed(0),
+                             device=cuda, api=api)
+    runs = {}
+    for capture in (True, False):
+        step = build_train_step(cfg, opt, api, capture=capture)
+        runs[capture] = _train_run(step, state, batches)
+        if capture:
+            assert step.graphs.captures == (2 if head == "decoder" else 1)
+    _assert_runs_bitwise(runs[True], runs[False])
+
+
+def _graph_launches(fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    count = lambda frag: sum(e.count for e in events if frag in e.key)  # noqa: E731
+    return count("cudaGraphLaunch"), count("Memcpy HtoD (Pageable")
+
+
+def test_train_steps_launch_one_graph_or_two_around_the_matcher(cuda):
+    """Graph launches per replayed step: 1 for the LM step and the dense
+    head, 2 for the decoder head (the matcher between them); no pageable
+    host-to-device copy inside a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import detr
+    from repro_torch.train.step import build_train_step, make_train_state
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    cfg = get_smoke_config("deepseek-7b")
+    batch = train_batch(cfg, TokenDataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=32, global_batch=4),
+                        0, cuda)
+    lm = build_train_step(cfg, opt)
+    box = [make_train_state(cfg, device=cuda)]
+
+    def lm_step():
+        box[0], _ = lm(box[0], batch)
+    assert _graph_launches(lm_step) == (1, 0)
+    for head, want in (("dense", 1), ("decoder", 2)):
+        dcfg = detr.with_attn(detr.toy_config() if head == "dense"
+                              else detr.toy_decoder_config(),
+                              backend=detr.TRAIN_ENCODER_BACKEND)
+        api = detr.detector_api("cuda_decode")
+        step = build_train_step(dcfg, opt, api)
+        dbatch = detr.detection_batches(dcfg, 4, device=cuda)(0)
+        box[0] = make_train_state(dcfg, device=cuda, api=api)
+
+        def det_step():
+            box[0], _ = step(box[0], dbatch)
+        assert _graph_launches(det_step) == (want, 0), head
+
+
+def test_host_read_inside_the_train_body_raises(cuda, monkeypatch):
+    """An LM body that reads the device from the host cannot be captured:
+    the step raises, and nothing runs it eagerly instead."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.launch.train import train_batch
+    from repro_torch.models import decoder
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import build_train_step, make_train_state
+    cfg = get_smoke_config("deepseek-7b")
+    orig = decoder.rms_norm
+
+    def syncing(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        float(out.sum())                     # a device-to-host read
+        return out
+    monkeypatch.setattr(decoder, "rms_norm", syncing)
+    step = build_train_step(cfg, OptConfig())
+    batch = train_batch(cfg, TokenDataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=16, global_batch=2),
+                        0, cuda)
+    with pytest.raises(RuntimeError):
+        step(make_train_state(cfg, device=cuda), batch)
+    monkeypatch.undo()
+    torch.cuda.synchronize()

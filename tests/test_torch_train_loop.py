@@ -192,9 +192,11 @@ def test_failure_injection_and_restart_determinism(tmp_path):
     """Crash at step 7, restart from the step-5 checkpoint, and land
     bitwise where an uninterrupted run lands."""
     loop_cfg = TrainLoopConfig(total_steps=12, ckpt_every=5, log_every=100)
+    # the uninterrupted run has a step of its own: a step's returned state
+    # is its standing state, which the crashed run's step would rewrite
+    ref, ref_stats = train_loop(_state(), build_train_step(CFG, OPT), _batch,
+                                loop_cfg, ckpt_dir=None, **QUIET)
     step_fn = build_train_step(CFG, OPT)
-    ref, ref_stats = train_loop(_state(), step_fn, _batch, loop_cfg,
-                                ckpt_dir=None, **QUIET)
 
     ckpt_dir = str(tmp_path / "ckpt")
     with pytest.raises(SimulatedNodeFailure):
@@ -336,11 +338,12 @@ def test_fault_tolerant_demo_is_bitwise_on_the_cpu():
 
 
 def test_update_frees_its_tensors_without_the_cycle_collector():
-    """A train step's gradients and superseded states are freed as soon as
-    the last reference goes, not when the cyclic garbage collector next
-    runs: on the card they are gigabytes (the LM step at minitron-4b's
-    widths ran out of memory while a reference cycle in ``tree_unflatten``
-    kept them)."""
+    """A train step's gradients and states are freed as soon as the last
+    reference goes, not when the cyclic garbage collector next runs: on
+    the card they are gigabytes (the LM step at minitron-4b's widths ran
+    out of memory while a reference cycle in ``tree_unflatten`` kept
+    them). The step writes its standing state in place, so no state is
+    superseded; dropping the step and its state frees every leaf."""
     import gc
     import weakref
     step = build_train_step(CFG, OPT)
@@ -350,7 +353,10 @@ def test_update_frees_its_tensors_without_the_cycle_collector():
     try:
         new, metrics = step(state, _batch(0))
         refs = [weakref.ref(t) for t in tree_leaves(tuple(new))]
-        del new, metrics
+        again, metrics = step(new, _batch(1))
+        assert all(a is b for a, b in zip(tree_leaves(tuple(again)),
+                                          tree_leaves(tuple(new))))
+        del new, again, metrics, step
         assert sum(r() is not None for r in refs) == 0
     finally:
         if enabled:
