@@ -44,7 +44,11 @@ Phases, each printing one JSON line:
                 shapes, minitron-4b's prefill and decode MLP-up products
                 and the wgmma route's edges (M 1 and 65, K 3000, int8 with
                 N % 16 == 0 or not), each with its route (the bf16 and int8
-                prefill products must take "wgmma");
+                prefill products must take "wgmma"); K5's partial mode
+                (float32 output and log-sum-exp, a row with no valid slot
+                exactly lse -inf and zero) on 4 slot shards merged in rank
+                order against the whole cache, and on one rank's 131,072
+                slots of hymba-1.5b's global layer;
   4. serve    — the port's DetrServeEngine on the full-width
                 deformable-DETR-DEFA detector at 512 px (random seeded
                 weights, float32) with backend="auto": the engine warms the
@@ -218,6 +222,13 @@ Phases, each printing one JSON line:
                 psum against the same ranks in-process (bitwise) and, on
                 2 or more ranks, EP over the wire; K1-K5 are not on this
                 path (their launch counts are recorded, 0);
+     tp_train — one train step on model-axis shards (in-process ranks):
+                deepseek-7b, minitron-8b and olmoe-1b-7b cut in depth,
+                gradients per leaf and loss against one card; then
+                deformable-detr-defa's serve (6 blocks, auto: K1) and
+                train (2 blocks) cells at 800 x 1333, float32, B 2 on
+                (data, model) = (1, 4), each rank on its quarter of the
+                encoder FFN, against one card's encoder and gradient;
      dryrun   — the port's dry run (``repro_torch.launch.dryrun``): (a)
                 fake traces (FakeTensorMode, a fake process group of 256
                 ranks, the 16 x 16 mesh) of minitron-4b train_4k,
@@ -240,7 +251,16 @@ Phases, each printing one JSON line:
                 formula; (d) lm_train's config with remat off, "nothing"
                 and "save_comm" (and off again): loss bitwise, gradient
                 leaves differing only where the second off run differs,
-                the step's peak and ms;
+                the step's peak and ms; the long_500k and DETR cells'
+                all-gather bytes beside the parent tree's;
+     tp       — serving on model-axis shards (in-process ranks):
+                deepseek-7b, minitron-8b and grok-1-314b against one card;
+                then hymba-1.5b uncut (bf16, B 1) decoding 4 tokens on
+                long_500k's 524,288-slot cache filled from the seed, the
+                length split over 4 data ranks (K5's partial mode on each
+                rank's slots, the ranks merged in order), tensor parallel
+                at tp 2, and both, against one card's decode on the whole
+                cache;
   5. times    — each kernel and its plain version on the operands its
                 path gave it, their bounds and the library call where one
                 exists (K2's backward: the whole call, every kernel it
@@ -251,7 +271,8 @@ Phases, each printing one JSON line:
                 table-gradient chain, one serve forward at B = 2 per path,
                 one train step, one LM decode step at B = 4 and one
                 512-token prefill, each with its idle share; K5 also on
-                hymba-1.5b's first served decode call.
+                hymba-1.5b's first served decode call, and its partial
+                mode on a long_500k rank's first call.
 
     python3 chip_smoke.py --table-grad-chain SRC
 
@@ -975,6 +996,15 @@ K5_MAP_CASES = [("straddle", 4, 3, 128, 1000, 512, "ring", (0, 1, 1)),
                  (0, 0, 1, 1, 2, 2, 2, 2)),
                 ("gap_empty_row", 2, 3, 32, 257, 64, "ring_empty",
                  (2, 2, 2, 0, 0))]
+# K5's partial mode (label, B, Hq, Hkv, Dh, W, mask, shards): the slice's
+# decode shape with row 0 empty, split into 4 slot shards (a shard holds no
+# valid slot of a row wherever that row's ring has not reached it: its lse
+# is -inf and its output zero), each shard's (output, lse) held to the
+# plain partial mode and the shards merged in rank order held to the plain
+# version on the whole cache; and one rank's call of hymba-1.5b's global
+# layer on its 131,072 of long_500k's 524,288 slots (4 data ranks)
+K5_PARTIAL_CASES = [("slice_4_shards", 4, 24, 8, 128, 4096, "ring_empty", 4),
+                    ("hymba_rank", 1, 25, 5, 64, 131072, "full", 1)]
 # cases whose route is fixed by the contract of this kernel
 K4_MUST_ROUTE = {"prefill_mlp_up/bfloat16": "wgmma", "prefill_mlp_up/int8": "wgmma",
                  "decode_mlp_up/bfloat16": "wgmma", "int8_n_mod16_8/int8_bf16x": "simt",
@@ -998,6 +1028,34 @@ def k5_mask(gen, b, w, mask):
     valid = torch.zeros((b, w), dtype=torch.bool)
     valid[:, w - 1] = True
     return valid
+
+
+def lse_tolerance(dtype):
+    """K5's partial mode, lse against the plain version's: float32 1e-5;
+    bf16 2^-7 absolute and relative: a score that rounds to the other
+    bf16 neighbour in the two sum orders moves the log-sum-exp by at most
+    its rounding step (2^-7 of a score, scaled by 1/sqrt(Dh) < 1)."""
+    import torch
+    return {"rtol": 2 ** -7, "atol": 2 ** -7} if dtype == torch.bfloat16 \
+        else {"rtol": 1e-5, "atol": 1e-5}
+
+
+def check_partial(name, got, want, dtype):
+    """K5's partial mode against its plain version: rows with no valid
+    slot must be exactly lse -inf and a zero output on both; the others
+    within ``tolerance`` (output) and ``lse_tolerance``. Returns the max
+    abs errors of output and lse."""
+    import torch
+    (out, lse), (w_out, w_lse) = got, want
+    empty = torch.isneginf(w_lse)
+    if not torch.equal(torch.isneginf(lse), empty) \
+            or bool(out[empty].any()) or bool(w_out[empty].any()):
+        raise AssertionError(f"{name}: rows with no valid slot differ")
+    keep = ~empty
+    return (check_close(f"{name} output", out[keep], w_out[keep],
+                        tolerance(dtype, None)),
+            check_close(f"{name} lse", lse[keep], w_lse[keep],
+                        lse_tolerance(dtype)))
 
 
 def off_by_two(t):
@@ -1059,6 +1117,43 @@ def phase_lm_kernels(device):
                            b, len(table), 1, w, sm_count(q.device))[0],
                        "rows_without_valid_slot": int((~valid.any(1)).sum()),
                        "max_abs_err": err})
+    for label, b, hq, hkv, dh, w, mask, shards in K5_PARTIAL_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, valid = k5_operands(gen, b, hq, hkv, dh, w, dtype, mask,
+                                         device)
+            case = f"partial/{label}/{str(dtype)[6:]}"
+            n = w // shards
+            outs, lses, errs, empty = [], [], [], 0
+            for r in range(shards):
+                part = [t[:, r * n:(r + 1) * n].contiguous()
+                        for t in (k, v, valid)]
+                got = flash_decode.flash_decode(q, *part[:2], part[2],
+                                                partial=True)
+                errs.append(check_partial(f"flash_decode {case} shard {r}", got,
+                                          flash_decode.flash_decode_plain(
+                                              q, *part[:2], part[2],
+                                              partial=True), dtype))
+                empty += int(torch.isneginf(got[1]).any(1).sum())
+                outs.append(got[0])
+                lses.append(got[1])
+            want = flash_decode.flash_decode_plain(q, k, v, valid)
+            merged = flash_decode.merge_rank_partials(outs, lses, dtype)
+            # rows with no valid slot at all: the merge gives zero, the
+            # whole cache's normal mode the mean of V (the TPU kernel's)
+            whole = valid.any(1)
+            tol = (k5_row_tolerance(want[whole]) if dtype == torch.bfloat16
+                   else tolerance(dtype, None))
+            err = check_close(f"flash_decode {case} merged", merged[whole],
+                              want[whole], tol)
+            if bool(merged[~whole].any()):
+                raise AssertionError(f"flash_decode {case}: a row with no valid "
+                                     "slot merged to a non-zero output")
+            k5.append({"case": case, "shards": shards,
+                       "shard_rows_without_valid_slot": empty,
+                       "rows_without_valid_slot": int((~whole).sum()),
+                       "max_abs_err_output": max(e[0] for e in errs),
+                       "max_abs_err_lse": max(e[1] for e in errs),
+                       "max_abs_err_merged": err})
     k4 = []
     for label, m, kk, n, kinds in K4_CASES:
         for kind in kinds:
@@ -1076,9 +1171,11 @@ def phase_lm_kernels(device):
                        if route == "wgmma" else None, "max_abs_err": err})
     emit("lm_kernels", checks=len(k5) + len(k4), flash_decode=k5, matmul=k4,
          tolerance="flash_decode: f32 1e-5, bf16 rtol 2^-7 atol 1e-5 (the split-"
-                   "edge cases in bf16: atol 2^-8 of each (b, h) row's largest "
-                   "|output|); matmul: atol 2^-20*max(|x|@|w|), bf16 output "
-                   "rtol 2^-7")
+                   "edge cases and the partial mode's merged shards in bf16: "
+                   "atol 2^-8 of each (b, h) row's largest |output|; the "
+                   "partial mode's lse: f32 1e-5, bf16 2^-7, rows with no "
+                   "valid slot exactly -inf with a zero output); matmul: "
+                   "atol 2^-20*max(|x|@|w|), bf16 output rtol 2^-7")
 
 
 # --------------------------------------------------------------------------
@@ -4513,22 +4610,24 @@ def k5_entries(hq, hkv, kv_heads):
 
 def flash_decode_bound(q, k, v, valid, out, kv_heads=None):
     """Least time for K5's function on these inputs: q, the mask and the
-    output once, and the K and V rows of the valid slots of the KV heads
-    the query heads read (``kv_heads``: of the heads the cache stores; a
-    row with no valid slot needs all its V rows and no K); 4 operations
-    per channel, query head and needed slot (the score's multiply-add and
-    P.V's)."""
+    output once (the partial mode's ``out``: its float32 output and lse),
+    and the K and V rows of the valid slots of the KV heads the query
+    heads read (``kv_heads``: of the heads the cache stores; a row with no
+    valid slot needs all its V rows and no K, in the partial mode
+    nothing); 4 operations per channel, query head and needed slot (the
+    score's multiply-add and P.V's)."""
     from repro_torch.kernels import flash_decode
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
     n_valid = valid.sum(1)
-    empty = n_valid == 0
+    empty = (n_valid == 0) & (not isinstance(out, tuple))
     k_rows = int(n_valid.sum())
     v_rows = k_rows + int(empty.sum()) * w
     read = len(set(flash_decode.default_kv_heads(hq, hkv) if kv_heads is None
                    else kv_heads))
     row = read * dh * k.element_size()
-    nbytes = nbytes_of(q, valid, out) + (k_rows + v_rows) * row
+    outs = out if isinstance(out, tuple) else (out,)   # partial: (out, lse)
+    nbytes = nbytes_of(q, valid, *outs) + (k_rows + v_rows) * row
     ops = 4 * dh * hq * (k_rows + int(empty.sum()) * w)
     return dict(roofline(nbytes, ops, q.dtype), valid_slots=k_rows,
                 slots=b * w)
@@ -4567,17 +4666,29 @@ K4_KERNELS = {"wgmma": ("matmul_wgmma_kernel", "matmul_splitk_reduce_kernel"),
 
 
 def k5_entry(args, kw, launches):
+    """K5 on a call's operands (``kw`` as the call had them): the kernel
+    against its plain version, times, bound and the library call. With
+    ``partial`` (a rank's call of the split-cache decode) the row is
+    ``flash_decode_partial``: its float32 output and lse held to the
+    plain partial mode and written once in the bound;
+    ``scaled_dot_product_attention`` on the same view of the rank's
+    slots."""
     from repro_torch.kernels import flash_decode
     from repro_torch.kernels.msgs_fused import sm_count
     call = lambda: flash_decode.flash_decode(*args, **kw)
     plain = lambda: flash_decode.flash_decode_plain(*args, **kw)
     out = call()
-    err = check_close("flash_decode timing operands", out, plain(),
-                      tolerance(args[0].dtype, None))
-    entry = {"name": "flash_decode", "route": "cuda",
-             "source": "src/repro_torch/csrc/flash_decode.cu",
+    partial = bool(kw.get("partial"))
+    if partial:
+        errs = check_partial("flash_decode partial timing operands", out,
+                             plain(), args[0].dtype)
+    else:
+        errs = (check_close("flash_decode timing operands", out, plain(),
+                            tolerance(args[0].dtype, None)),)
+    entry = {"name": "flash_decode_partial" if partial else "flash_decode",
+             "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_decode.py:69",
-             "launches": launches, "max_abs_err": err,
+             "launches": launches, "max_abs_err": max(errs),
              **kernel_times(call, plain, K5_KERNELS)}
     kv_heads = kw.get("kv_heads")
     library = sdpa_call(*args, kv_heads=kv_heads)
@@ -4591,7 +4702,9 @@ def k5_entry(args, kw, launches):
     return entry, dict(bound, shape=[list(t.shape) for t in args],
                        dtype=str(args[0].dtype), kernels=list(K5_KERNELS),
                        kv_heads=None if kv_heads is None else list(kv_heads),
-                       split_len=length, splits=n_splits)
+                       split_len=length, splits=n_splits,
+                       **({"max_abs_err_output": errs[0],
+                           "max_abs_err_lse": errs[1]} if partial else {}))
 
 
 def k4_entry(x, w, scale, launches, library=True):
@@ -4841,6 +4954,11 @@ def phase_times(serve, serve_w, train, lm, stream, families, tp):
     lm_kernels, lm_detail, lm_timing = lm_times(lm, families, tp)
     kernels += lm_kernels
     detail.update(lm_detail)
+    # K5's partial mode: rank 0's first call of the long_500k decode at
+    # (data, model) = (4, 1), hymba's global layer 0 on 131,072 slots
+    k5p, detail["flash_decode_partial"] = k5_entry(
+        *tp["k5_partial_call"], tp["partial_launches"])
+    kernels.append(k5p)
 
     step_ms, step = train_step_ms(train)
     times = {"train_step_ms_b2": step_ms["captured"],
@@ -4866,6 +4984,8 @@ def phase_times(serve, serve_w, train, lm, stream, families, tp):
          library_note={"msgs_*": LIBRARY_NOTE,
                        "flash_decode": "F.scaled_dot_product_attention with "
                                        "enable_gqa=True and the boolean mask",
+                       "flash_decode_partial": "the same call on the rank's "
+                                               "slots (it returns no lse)",
                        "matmul": "torch.matmul (bf16)"},
          **times, forward_profile=serve_profile(serve, "auto"),
          forward_profile_1024=serve_profile(serve_w, "cuda_windowed"),
@@ -5336,6 +5456,8 @@ def dist_rank_main():
         res["tp"] = dist_tp_serve(device, world, mesh_of)
         torch.cuda.empty_cache()
         res["tp_train"] = dist_tp_train(device, world, mesh_of)
+        torch.cuda.empty_cache()
+        res["long_500k"] = dist_long_decode(device, world, mesh_of)
     dist.barrier()
     if rank == 0:
         emit("distributed_nccl", **res)
@@ -5402,6 +5524,62 @@ def dist_tp_serve(device, world, mesh_of):
             "worst_max_abs": max(c["max_abs"] for c in cmps),
             "worst_median_abs": max(c["median_abs"] for c in cmps),
             "tp_step_ms": step_ms, "single_step_ms": single["ms"]}
+
+
+def dist_long_decode(device, world, mesh_of):
+    """One NCCL rank of hymba-1.5b's long_500k decode on a (world, 1)
+    mesh, the cache's length split over the data axis: every rank builds
+    the whole seeded cache, decodes it as one card, puts back what that
+    wrote, then runs the decode rank body (``collectives.run_spmd``) on
+    its view of its slots; the logits of each step within
+    ``logit_limits`` of its one-card run."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.input_specs import serving_program
+    from repro_torch.models.registry import get_api
+    cfg, _ = family_config(LONG_ARCH, None)
+    params = get_api(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    cache = long_cache(cfg, device)
+    saved = long_saved(cache)
+    single = long_single(cfg, params, cache, device)
+    long_restore(cache, saved)
+    del saved
+    mesh = mesh_of((world, 1))
+    body, pspecs, cspecs = serving_program(cfg, mesh, "decode", params, cache,
+                                           shard_len=True)
+    ctx = C.rank_context(mesh)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    mine = lambda t, sp: t[C.local_slices(sp, t.shape, ctx.size, ctx.index)]
+    rank_params = spec_map(mine, params, pspecs, is_leaf=is_t)
+    rank_cache = {n: long_shard(n, mine(t, cspecs[n]))
+                  for n, t in cache.items()}
+    cmps, step_ms = [], []
+    before = flash_decode.LAUNCHES_PARTIAL
+    with torch.inference_mode():
+        for i, tok in enumerate(single["tokens"]):
+            pos = torch.tensor([LONG_CACHE_LEN + i], dtype=torch.int32,
+                               device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = C.run_spmd(body(ctx, rank_params, rank_cache, tok, pos),
+                                   mesh)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            cmps.append(logit_limits(logits, single["logits"][i]))
+    launches = flash_decode.LAUNCHES_PARTIAL - before
+    bad = [c for c in cmps if not c["held"]]
+    if bad or launches != cfg.n_layers * LONG_STEPS:
+        raise AssertionError(f"distributed NCCL long_500k {world}: {bad[:1]}, "
+                             f"{launches} partial K5 launches")
+    del cache, rank_cache, params
+    return {"model": cfg.name, "mesh": [world, 1], "cache_len": LONG_CACHE_LEN,
+            "decode_steps": LONG_STEPS, "k5_partial_launches": launches,
+            "worst_max_abs": max(c["max_abs"] for c in cmps),
+            "worst_median_abs": max(c["median_abs"] for c in cmps),
+            "split_step_ms": step_ms, "single_step_ms": single["ms"]}
 
 
 def dist_tp_train(device, world, mesh_of):
@@ -5580,6 +5758,7 @@ def dryrun_summary(res):
             "collective_bytes": res["collectives"]["total_bytes"],
             "handed_bytes": res["collectives"]["handed_bytes"],
             "by_kind": res["collectives"]["by_kind"],
+            "requested": res["collectives"]["requested"],
             **{k: rf[k] for k in ("t_compute_s", "t_memory_s",
                                   "t_collective_s", "roofline_step_s",
                                   "dominant", "useful_flops_ratio")},
@@ -5588,15 +5767,36 @@ def dryrun_summary(res):
             "trace_s": res["timings"]["trace_s"]}
 
 
+# what the parent tree's rank bodies asked of the collectives in these
+# cells (single pod; ``python -m repro_torch.launch.dryrun --arch
+# hymba-1.5b --shape long_500k`` and ``--detr`` on the commit before the
+# split cache and the DETR cells' FFN shards): bytes a rank asked of each
+# all-gather by axis, its peak; printed beside this run's
+DRYRUN_BEFORE = {
+    "hymba-1.5b/long_500k": {"all_gather": {"model": 61_722_240,
+                                            "data": 1_346_371_584},
+                             "peak_bytes_per_chip": 35_392_059_144},
+    "deformable-detr-defa/serve": {"all_gather": {"model": 393_984},
+                                   "peak_bytes_per_chip": 3_763_194_872},
+    "deformable-detr-defa/train": {"all_gather": {"model": 404_808,
+                                                  "data": 198_240},
+                                   "peak_bytes_per_chip": 80_950_626_340}}
+# the split cache's merge gathers (B, Hq, Dh + 1) float32 a layer: under
+# 1 MB where the cache's gather asked 1.35 GB
+DRYRUN_LONG_DATA_GATHER_MAX = 2 ** 20
+
+
 def dryrun_fake_cells():
     """(a): each cell traced once on fake tensors on the card, in a fake
-    world of 256 ranks."""
+    world of 256 ranks; hymba's long_500k asks under a MB of all-gather
+    over the data axis, the DETR serve cell none over the model axis."""
     from repro_torch.launch import dryrun
     out = {}
     for arch, shape, opt in DRYRUN_LM_CELLS:
         res = dryrun.run_fake(dryrun.lm_cell(arch, shape, opt), "single")
         out[f"{arch}/{shape}" + ("/opt" if opt else "")] = dryrun_summary(res)
-    for kind, kw in (("serve", {"backend": "auto"}), ("banded", {})):
+    for kind, kw in (("serve", {"backend": "auto"}), ("train", {}),
+                     ("banded", {})):
         res = dryrun.run_fake(dryrun.detr_cell(DRYRUN_DETR, kind, **kw),
                                  "single")
         out[f"{DRYRUN_DETR}/{kind}"] = dryrun_summary(res)
@@ -5604,6 +5804,14 @@ def dryrun_fake_cells():
     if out[f"{DRYRUN_DETR}/serve"]["kernels"] != {"msgs_fused": 6} \
             or moe["kernels"] != {"flash_decode": 16}:
         raise AssertionError(f"dryrun: kernel operators {out}")
+    long = out["hymba-1.5b/long_500k"]["requested"]["all_gather"]
+    serve = out[f"{DRYRUN_DETR}/serve"]["requested"]
+    if long.get("data", 0) >= DRYRUN_LONG_DATA_GATHER_MAX \
+            or "all_gather" in serve:
+        raise AssertionError(f"dryrun: long_500k asked {long}, the DETR serve "
+                             f"cell {serve}")
+    for cell, before in DRYRUN_BEFORE.items():
+        out[cell]["before"] = before
     return out
 
 
@@ -6044,13 +6252,266 @@ def tp_check(cfg, single, got, tp, steps, picks=None):
             "compared": len(cmps)}
 
 
+# long_500k: hymba-1.5b uncut (bf16, B 1) decoding on a cache of the
+# shape's 524,288 slots split over the data axis, against one card's
+# decode on the whole cache
+LONG_ARCH = "hymba-1.5b"
+LONG_CACHE_LEN = 524_288
+LONG_STEPS = 4
+# (dtype, depth cut or None, {(data, model) mesh: what it is held to}):
+# the length split over 4 data ranks; tensor parallel alone (tp 2, the
+# whole cache on each rank); both. In bf16 the split is held to the one
+# card and the others reported: at tp 2 hymba's MLP sums two bf16 partial
+# products, which over 32 layers moves the median logit past 2^-8 of the
+# largest against the one card (0.035 of 4.0 on an NVIDIA H100 80GB HBM3
+# at 700 W) and, as a perturbation, against each other. In float32,
+# cut to 4 layers (the cache 5.4 GB), every mesh is held to the one card
+# within LONG_F32_TOL.
+LONG_RUNS = (("bfloat16", None, {(4, 1): "one_card", (1, 2): None,
+                                 (2, 2): None}),
+             ("float32", 4, {(4, 1): "one_card", (2, 2): "one_card"}))
+LONG_F32_TOL = 1e-4                      # of the largest |logit|
+LONG_SPLIT = ("k", "v", "kpos")          # the leaves split over the length
+
+
+def long_cache(cfg, device):
+    """A B = 1 cache of LONG_CACHE_LEN slots as if decoded through
+    position LONG_CACHE_LEN - 1 (a 500 K-token prefill is out of reach):
+    K and V drawn from the seed a layer at a time, ``kpos`` the
+    positions 0 .. LONG_CACHE_LEN - 1, the SSD states drawn."""
+    import torch
+    from repro_torch.models.registry import get_api
+    cache = get_api(cfg).init_cache(cfg, 1, LONG_CACHE_LEN, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    for name, t in cache.items():
+        if name == "kpos":
+            t.copy_(torch.arange(LONG_CACHE_LEN, dtype=torch.int32,
+                                 device=device).expand_as(t))
+            continue
+        for i in range(t.shape[0]):
+            t[i].normal_(generator=gen)
+    return cache
+
+
+def long_saved(cache):
+    """What LONG_STEPS decode steps from position LONG_CACHE_LEN write
+    (slots 0 .. LONG_STEPS - 1 of every layer, the SSD states), copied so
+    that every run starts from the same cache."""
+    return {n: t[:, :, :LONG_STEPS].clone() if n in LONG_SPLIT else t.clone()
+            for n, t in cache.items()}
+
+
+def long_restore(cache, saved):
+    for n, t in cache.items():
+        (t[:, :, :LONG_STEPS] if n in LONG_SPLIT else t).copy_(saved[n])
+
+
+def long_shard(name, view):
+    """A rank's cache leaf: its view of the one card's where that is a
+    slot range each layer holds contiguously (K, V and kpos at B = 1,
+    KV heads whole), else its own copy (the SSD states; KV heads split
+    over the model axis)."""
+    return view if name in LONG_SPLIT and view[0].is_contiguous() \
+        else view.clone()
+
+
+def long_single(cfg, params, cache, device):
+    """One card: LONG_STEPS greedy decode steps from position
+    LONG_CACHE_LEN over the whole cache (K5's normal mode); logits, fed
+    tokens, step ms, K5 launches."""
+    import torch
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    tok = torch.tensor([SEED + 1], dtype=torch.int32, device=device)
+    out = {"logits": [], "tokens": [], "ms": []}
+    before = flash_decode.LAUNCHES
+    with torch.inference_mode():
+        for i in range(LONG_STEPS):
+            out["tokens"].append(tok)
+            pos = torch.tensor([LONG_CACHE_LEN + i], dtype=torch.int32,
+                               device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = api.decode_step(params, cfg, cache, tok, pos)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+    out["k5_launches"] = flash_decode.LAUNCHES - before
+    return out
+
+
+def long_ranks(cfg, params, cache, tokens, mesh_shape, device):
+    """The decode rank bodies of a ``mesh_shape`` (data, model) mesh with
+    the cache's length split over the data axis
+    (``serving_program(..., shard_len=True)``), every rank in turn on this
+    card: parameters and the split K / V / kpos as views of the one
+    card's (at B = 1 a layer's slot range is contiguous: K5 reads it in
+    place), the SSD states each rank's own copy. Fed the one card's
+    tokens: assembled logits per step, step ms, K5 launches by mode, the
+    shapes of K5's calls, rank 0's first call kept for timing, the peak
+    above what was held."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.input_specs import logits_spec, serving_program
+    mesh = C.InProcessMesh(mesh_shape, ("data", "model"))
+    body, pspecs, cspecs = serving_program(cfg, mesh, "decode", params, cache,
+                                           shard_len=mesh_shape[0] > 1)
+    ctxs = [C.RankContext(mesh.coords(r), C.mesh_shape(mesh))
+            for r in range(mesh.size)]
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    view = lambda t, sp, c: t[C.local_slices(sp, t.shape, c.size, c.index)]
+    rank_params = [spec_map(lambda t, sp: view(t, sp, c), params, pspecs,
+                            is_leaf=is_t) for c in ctxs]
+    rank_cache = [{n: long_shard(n, view(t, cspecs[n], c))
+                   for n, t in cache.items()} for c in ctxs]
+    lspec = logits_spec(cfg, mesh, 1)
+    out = {"logits": [], "ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = (flash_decode.LAUNCHES, flash_decode.LAUNCHES_PARTIAL)
+    with torch.inference_mode(), K5Calls(keep=0) as k5:
+        for i, tok in enumerate(tokens):
+            pos = torch.tensor([LONG_CACHE_LEN + i], dtype=torch.int32,
+                               device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = C.run_in_process(lambda r, ctx: body(
+                ctx, rank_params[r], rank_cache[r], tok, pos), mesh)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(C.assemble(
+                {r: o[0] for r, o in enumerate(outs)}, lspec,
+                (1, cfg.vocab_size), mesh))
+    out["launches"] = {"flash_decode": flash_decode.LAUNCHES - before[0],
+                       "flash_decode_partial":
+                           flash_decode.LAUNCHES_PARTIAL - before[1]}
+    out["peak_above_held_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["k5_shapes"] = sorted({s for s in k5.shapes})
+    out["k5_kept"] = k5.kept
+    out["ranks"] = mesh.size
+    return out
+
+
+def long_agreement(got, want, f32):
+    """Per step ``logit_limits`` (bf16) or max |d| <= LONG_F32_TOL of the
+    largest |logit| (float32), summarized."""
+    cmps = [logit_limits(g, w) for g, w in zip(got, want)]
+    if f32:
+        for c in cmps:
+            c["tol_max"] = LONG_F32_TOL * c["max_logit"]
+            c["held"] = c["max_abs"] <= c["tol_max"]
+    return {"held": all(c["held"] for c in cmps),
+            "worst_max_abs": max(c["max_abs"] for c in cmps),
+            "worst_median_abs": max(c["median_abs"] for c in cmps),
+            "tol_max_min": min(c["tol_max"] for c in cmps),
+            "tol_median_min": min(c["tol_median"] for c in cmps),
+            "bitwise_steps": sum(c["bitwise_equal"] for c in cmps),
+            "compared": len(cmps)}
+
+
+def long_run(dtype, depth, meshes, device):
+    """One config of LONG_RUNS: the one card's decode over the whole
+    524,288-slot cache, then the rank bodies of each mesh from the same
+    cache and tokens, held as ``meshes`` says; on a split cache every
+    attention layer of every rank through K5's partial mode and none
+    through its normal mode."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api
+    cfg, reduced = family_config(LONG_ARCH, depth)
+    cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    if depth is not None:       # the first and last layers stay global
+        cut = (0, depth - 1)
+        reduced["global_layers"] = [list(cfg.global_layers), list(cut)]
+        cfg = dataclasses.replace(cfg, global_layers=cut)
+    f32 = cfg.dtype == torch.float32
+    memory_mark()
+    t0 = time.perf_counter()
+    params = get_api(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    cache = long_cache(cfg, device)
+    saved = long_saved(cache)
+    held = torch.cuda.memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    setup_s = time.perf_counter() - t0
+    single = long_single(cfg, params, cache, device)
+    if single["k5_launches"] != cfg.n_layers * LONG_STEPS:
+        raise AssertionError(f"long_500k one card: {single['k5_launches']} K5 "
+                             "launches")
+    runs, kept, logits = [], None, {}
+    for mesh_shape, held_to in meshes.items():
+        long_restore(cache, saved)
+        got = long_ranks(cfg, params, cache, single["tokens"], mesh_shape,
+                         device)
+        logits[mesh_shape] = got["logits"]
+        calls = cfg.n_layers * got["ranks"] * LONG_STEPS
+        split = mesh_shape[0] > 1
+        want = {"flash_decode": 0 if split else calls,
+                "flash_decode_partial": calls if split else 0}
+        if got["launches"] != want:
+            raise AssertionError(f"long_500k {mesh_shape}: K5 launches "
+                                 f"{got['launches']}, expected {want}")
+        slots = {k[1] for _, k in got["k5_shapes"]}
+        if slots != {LONG_CACHE_LEN // mesh_shape[0]}:
+            raise AssertionError(f"long_500k {mesh_shape}: K5 read {slots} "
+                                 "slots a call")
+        vs_single = long_agreement(got["logits"], single["logits"], f32)
+        if held_to is not None and not vs_single["held"]:
+            raise AssertionError(f"long_500k {dtype} {mesh_shape}: "
+                                 f"{vs_single}")
+        if split:
+            kept = kept or got["k5_kept"]
+        runs.append({"mesh": list(mesh_shape), "cache_split": split,
+                     "held": held_to is not None, "launches": got["launches"],
+                     "k5_calls_shapes": [list(map(list, s))
+                                         for s in got["k5_shapes"]],
+                     "against_one_card": vs_single,
+                     "split_step_ms": got["ms"],
+                     "peak_above_held_bytes": got["peak_above_held_bytes"]})
+    if (1, 2) in logits and (2, 2) in logits:
+        runs[-1]["against_tp2_whole_cache"] = long_agreement(
+            logits[(2, 2)], logits[(1, 2)], f32)
+    del cache, saved, params
+    memory_mark()
+    return {"dtype": dtype, "reduced": reduced, "cache_bytes": cache_bytes,
+            "held_bytes": held, "setup_s": setup_s,
+            "single_step_ms": single["ms"],
+            "single_k5_launches": single["k5_launches"], "runs": runs,
+            "k5_partial_call": kept,
+            "seconds": time.perf_counter() - t0}
+
+
+def long_context(device):
+    """hymba-1.5b at long_500k on this card (LONG_RUNS): B 1, LONG_STEPS
+    tokens from position LONG_CACHE_LEN on the cache split over the data
+    axis, against one card's decode on the whole cache."""
+    runs = [long_run(dtype, depth, meshes, device)
+            for dtype, depth, meshes in LONG_RUNS]
+    # the bf16 run's first split call (hymba's global layer 0) is timed
+    kept = [r.pop("k5_partial_call") for r in runs][0]
+    return {"model": LONG_ARCH, "batch": 1, "cache_len": LONG_CACHE_LEN,
+            "decode_steps": LONG_STEPS, "start_pos": LONG_CACHE_LEN,
+            "runs": runs, "k5_partial_call": kept,
+            "partial_launches": sum(m["launches"]["flash_decode_partial"]
+                                    for r in runs for m in r["runs"]),
+            "tolerance": "bf16: logit_limits per step (max 2^-4, median 2^-8 "
+                         "of the largest |logit|); float32: max 1e-4 of the "
+                         "largest |logit|; meshes with held false reported"}
+
+
 def phase_tp(device):
     """Serving on model-axis shards on this card: TP_RUNS through the
     serving rank bodies on in-process ranks, each against the one-card
     path on the same weights and tokens; K5 launched on each rank's heads;
-    the per-step and prefill times of both. With 2 or more cards the NCCL
-    world of ``phase_distributed`` ran the same bodies one rank per card
-    (``distributed_nccl``'s ``tp``)."""
+    the per-step and prefill times of both. Then long_500k on a cache
+    split over the data axis (:func:`long_context`). With 2 or more cards
+    the NCCL world of ``phase_distributed`` ran the same bodies one rank
+    per card (``distributed_nccl``'s ``tp`` and ``long_500k``)."""
     import torch
     from repro_torch.models.registry import get_api
     t0 = time.perf_counter()
@@ -6090,12 +6551,16 @@ def phase_tp(device):
                          "peak_above_params_bytes": got["peak_above_params_bytes"]})
         del params, single
     memory_mark()
-    emit("tp", runs=rows, k5_launches=launches,
+    long = long_context(device)
+    kept = long.pop("k5_partial_call")
+    emit("tp", runs=rows, k5_launches=launches, long_500k=long,
          tolerance="logit_limits (max 2^-4, median 2^-8 of the largest "
                    "|logit|) per prefill and decode step; MoE rows whose "
                    "router set flipped (first flip's gap < 1e-3): median only",
          seconds=time.perf_counter() - t0)
-    return {"launches": launches, "k5_call": first_call}
+    return {"launches": launches, "k5_call": first_call,
+            "k5_partial_call": kept,
+            "partial_launches": long["partial_launches"]}
 
 
 def tp_split_picks(picks, n_prompts, steps, cfg, tp=1):
@@ -6366,12 +6831,191 @@ def tp_train_run(cfg, tp, opt, device, single):
         "computed_whole": cell.computed_whole}
 
 
+# the DETR cells on model-axis shards: deformable-detr-defa at the 800 x
+# 1333 pyramid, float32, B 2, each rank on its quarter of the encoder
+# FFN; the train step cut to 2 of 6 blocks: the in-process ranks hold
+# their autograd graphs at once (about 3 GB of float32 activations a
+# block per rank at B 2)
+DETR_TP_ARCH = "deformable-detr-defa"
+DETR_TP_MESH = (1, 4)
+DETR_TP_BATCH = 2
+DETR_TP_TRAIN_BLOCKS = 2
+DETR_TP_LOSS_RTOL = 1e-4
+
+
+def detr_tp_inputs(enc, level_shapes, device):
+    """Seeded params (offsets drawn too), the pyramid (B, N, 256),
+    positions (N, 256) and each pixel's centre as its reference point."""
+    import torch
+    from repro_torch.launch.detr_cells import band_major_refs
+    gen = torch.Generator().manual_seed(SEED + 31)
+    params = dist_encoder(enc, gen, device)
+    n = sum(h * w for h, w in level_shapes)
+    x = torch.randn((DETR_TP_BATCH, n, enc.d_model), generator=gen).to(device)
+    pos = (torch.randn((n, enc.d_model), generator=gen) * 0.1).to(device)
+    refs = band_major_refs(level_shapes, 1, 1, device)[0].contiguous()
+    return params, x, pos, refs
+
+
+def detr_rank_inputs(cell, mesh, inputs):
+    """Each rank's slices of ``inputs`` by the cell's specs (views)."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    out = []
+    for r in range(mesh.size):
+        ctx = C.RankContext(mesh.coords(r), C.mesh_shape(mesh))
+        out.append(tuple(spec_map(lambda t, sp: t[C.local_slices(
+            sp, t.shape, ctx.size, ctx.index)], x, sp, is_leaf=is_t)
+            for x, sp in zip(inputs, cell.in_shardings)))
+    return out
+
+
+def detr_grads(params, enc, level_shapes, x, pos, refs):
+    """One card: the train cell's objective through ``encoder_apply``
+    (torch_gather) and its gradient tree."""
+    import torch
+    from repro_torch.core.encoder import encoder_apply
+    from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        out, _ = encoder_apply(live, enc, x, pos, refs, level_shapes,
+                               backend="torch_gather")
+        loss = torch.mean(torch.square(out - torch.roll(x, 1, dims=1)))
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def tp_detr(device):
+    """The DETR serve and train cells' rank bodies on in-process ranks of
+    a (1, 4) mesh (``launch.detr_cells.build_detr_cell``: the attention
+    whole, the FFN on each rank's quarter, the model axis's sum), against
+    one card: serve at ``auto`` (K1 in every block) within DEFA's
+    agreement limits (median 1e-3, max 0.5 of the LayerNorm'd output),
+    the train step's gradients within the train phase's gradient rule
+    (calibrated by a one-ulp nudge of the pyramid) and its loss within
+    DETR_TP_LOSS_RTOL; launches, step ms of both sides and peaks."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.detr_family import CONFIGS, with_dtype
+    from repro_torch.core.encoder import encoder_apply
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import msgs_fused
+    from repro_torch.launch.detr_cells import _loss_body, build_detr_cell
+    from repro_torch.models.registry import ModelAPI
+    from repro_torch.optim.adamw import (OptConfig, adamw_init, adamw_update,
+                                         tree_leaves, tree_unflatten)
+    from repro_torch.train.step import grads_rank_body, spec_leaves
+    acfg = CONFIGS[DETR_TP_ARCH]
+    levels = acfg.level_shapes
+    enc = with_dtype(acfg.encoder, torch.float32)
+    mesh = C.InProcessMesh(DETR_TP_MESH, ("data", "model"))
+    memory_mark()
+    params, x, pos, refs = detr_tp_inputs(enc, levels, device)
+    res = {"model": DETR_TP_ARCH, "mesh": list(DETR_TP_MESH), "dtype": "float32",
+           "batch": DETR_TP_BATCH, "queries": x.shape[1]}
+
+    def timed(fn):
+        """fn's second call: its result, host ms to a synchronize, and
+        the peak above what was allocated before it."""
+        fn()                                  # warm-up: plans, cuBLAS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated() - base
+
+    # serve: the whole encoder at auto
+    cell = build_detr_cell(DETR_TP_ARCH, "serve", mesh, batch=DETR_TP_BATCH,
+                           backend="auto", enc_cfg=enc)
+    ranks = detr_rank_inputs(cell, mesh, (params, x, pos, refs))
+    with torch.no_grad():
+        k1 = msgs_fused.LAUNCHES
+        (want, _), single_ms, single_peak = timed(lambda: encoder_apply(
+            params, enc, x, pos, refs, levels, backend="auto"))
+        single_k1 = (msgs_fused.LAUNCHES - k1) / 2      # warm-up and timed
+        k1 = msgs_fused.LAUNCHES
+        outs, tp_ms, tp_peak = timed(lambda: C.run_in_process(
+            lambda r, ctx: cell.body(ctx, *ranks[r]), mesh))
+        tp_k1 = (msgs_fused.LAUNCHES - k1) / 2
+    got = C.assemble(dict(enumerate(outs)), cell.in_shardings[1],
+                     tuple(want.shape), mesh)
+    err = (got - want).abs()
+    serve = {"blocks": enc.n_blocks, "max_abs": float(err.max()),
+             "median_abs": float(err.median()), "largest": float(want.abs().max()),
+             "single_k1_launches_per_call": single_k1,
+             "k1_launches_per_call": tp_k1,
+             "single_ms": single_ms, "tp_ms": tp_ms,
+             "single_peak_bytes": single_peak, "tp_peak_bytes": tp_peak}
+    if not (torch.isfinite(got).all() and serve["median_abs"] <= 1e-3
+            and serve["max_abs"] <= 0.5) or single_k1 != enc.n_blocks \
+            or tp_k1 != enc.n_blocks * mesh.size:
+        raise AssertionError(f"tp detr serve: {serve}")
+    res["serve"] = serve
+    del outs, got, want, err, ranks
+    # train: the gradients, then the cell's step
+    enc2 = dataclasses.replace(enc, n_blocks=DETR_TP_TRAIN_BLOCKS)
+    params2 = {"blocks": params["blocks"][:DETR_TP_TRAIN_BLOCKS]}
+    memory_mark()
+    (loss1, want), grad_ms, grad_peak = timed(
+        lambda: detr_grads(params2, enc2, levels, x, pos, refs))
+    _, spread = detr_grads(params2, enc2, levels,
+                           torch.nextafter(x, torch.full_like(x, math.inf)),
+                           pos, refs)
+    cell = build_detr_cell(DETR_TP_ARCH, "train", mesh, batch=DETR_TP_BATCH,
+                           enc_cfg=enc2)
+    api = ModelAPI(*(None,) * len(ModelAPI._fields))._replace(
+        loss_body=_loss_body(enc2, levels))
+    body = grads_rank_body(enc2, cell.in_shardings[0], api)
+    ranks = detr_rank_inputs(cell, mesh, (params2, adamw_init(params2), x,
+                                          pos, refs))
+    with torch.enable_grad():
+        outs, tp_grad_ms, tp_grad_peak = timed(lambda: C.run_in_process(
+            lambda r, ctx: body(ctx, ranks[r][0], dict(zip(
+                ("x", "pos", "refs"), ranks[r][2:]))), mesh))
+    got = [C.assemble({r: tree_leaves(o[2])[i] for r, o in enumerate(outs)},
+                      sp, tuple(w.shape), mesh)
+           for i, (w, sp) in enumerate(zip(tree_leaves(want),
+                                           spec_leaves(cell.in_shardings[0])))]
+    rule = gradient_rule(tree_unflatten(want, got), want, spread,
+                         "tp detr train gradients")
+    del outs, got, spread
+    opt = adamw_init(params2)
+    _, single_step_ms, _ = timed(lambda: adamw_update(params2, want, opt,
+                                                     OptConfig()))
+    with torch.enable_grad():
+        res_step, tp_step_ms, tp_step_peak = timed(lambda: C.run_in_process(
+            lambda r, ctx: cell.body(ctx, *ranks[r]), mesh))
+    losses = [float(o[2]) for o in res_step]
+    if not all(abs(l - float(loss1)) <= DETR_TP_LOSS_RTOL * abs(float(loss1))
+               for l in losses):
+        raise AssertionError(f"tp detr train: losses {losses} vs {float(loss1)}")
+    res["train"] = {"blocks": enc2.n_blocks, "reduced": {
+                        "n_blocks": [enc.n_blocks, enc2.n_blocks]},
+                    "gradient_rule": rule, "loss": losses[0],
+                    "single_loss": float(loss1),
+                    "single_grad_ms": grad_ms, "tp_grad_ms": tp_grad_ms,
+                    "single_adamw_ms": single_step_ms,
+                    "tp_step_ms": tp_step_ms,
+                    "single_grad_peak_bytes": grad_peak,
+                    "tp_grad_peak_bytes": tp_grad_peak,
+                    "tp_step_peak_bytes": tp_step_peak}
+    del res_step, ranks, want, params, params2
+    memory_mark()
+    return res
+
+
 def phase_tp_train(device):
     """Training on model-axis shards on this card: TP_TRAIN_RUNS, each
     TP_TRAIN_STEPS steps from one seeded state through the train cell's
     rank bodies on in-process ranks, against the one card's step on the
     same batches (``tp_train_run``): the gradients per leaf and the loss
-    within their limits. The train path launches none of K1-K5."""
+    within their limits. The LM train path launches none of K1-K5. Then
+    the DETR serve and train cells on the model axis (:func:`tp_detr`)."""
     import dataclasses
     import torch
     from repro_torch.optim.adamw import OptConfig
@@ -6400,14 +7044,18 @@ def phase_tp_train(device):
                          "tokens": [TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1], **got})
         del single
     memory_mark()
-    emit("tp_train", runs=rows, kernel_launches=counts_since(before),
+    launches = counts_since(before)
+    detr = tp_detr(device)
+    emit("tp_train", runs=rows, kernel_launches=launches, detr=detr,
          allocated_before_bytes=held,
          tolerance="per leaf: gradient max |d| <= 2^-4 and median <= 2^-8 "
                    "of the largest |g| of the one card's (median only in a "
                    "step whose MoE router flipped a token); else against "
                    "the float32 gradient: median within 1.5x and max within "
                    "4x the one card's bf16 distance; loss within 2^-7 "
-                   "relative",
+                   "relative; detr: serve median 1e-3 and max 0.5 of the "
+                   "one card's output, the train phase's gradient rule, "
+                   "loss 1e-4 relative",
          seconds=time.perf_counter() - t0)
     return rows
 

@@ -55,6 +55,14 @@
 // (b, h)'s splits in split order (no float atomics: the result does not
 // depend on block timing).
 //
+// The partial mode (out32 and lse given, out not): the merge writes each
+// row's float32 output, not rounded to the input dtype, and its
+// log-sum-exp lse = m + log(l) over the slots it saw, so that a caller
+// holding the cache split over several ranks merges the ranks' rows
+// itself (kernels/flash_decode.py merge_rank_partials): row r weighs
+// exp(lse_r - max lse). A row with no valid slot then carries no weight:
+// lse = -inf and a zero output, where the normal mode averages V.
+//
 // Why skipping invalid slots is exact: in a row with at least one valid
 // slot, an invalid slot weighs exp(-1e30 - m) = 0 once m is finite, and
 // whatever was summed before the first valid slot is wiped by the
@@ -446,12 +454,15 @@ __device__ __forceinline__ float block_reduce(float x, float* scratch) {
 // its W real and `pad` padded slots. The splits' counts, maxima and sums
 // are read in parallel (a thread per split), the weights exp(m_s - max)
 // kept in shared memory, then each thread sums its channel over the
-// splits in split order.
+// splits in split order. With out32 (the partial mode) the row goes to
+// out32 in float32 and its log-sum-exp to lse; a row with no valid slot
+// gets a zero output and lse = -inf.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ counts,
-                          const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv, int Dh,
-                          int W, int n_splits, int pad, const HeadTable table) {
+                          const T* __restrict__ v, T* __restrict__ out, float* __restrict__ out32,
+                          float* __restrict__ lse, int Hq, int Hkv, int Dh, int W, int n_splits,
+                          int pad, const HeadTable table) {
   __shared__ float weight[kMaxMergeSplits];
   __shared__ float scratch[kMergeThreads / kWarp];
   const int bh = blockIdx.x;
@@ -466,6 +477,12 @@ flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict_
   }
   total = block_reduce<false>(total, scratch);
   mx = block_reduce<true>(mx, scratch);
+  if (total == 0.f && out32 != nullptr) {   // no weight in a merge of partials
+    for (int ch = threadIdx.x; ch < Dh; ch += blockDim.x)
+      out32[static_cast<int64_t>(bh) * Dh + ch] = 0.f;
+    if (threadIdx.x == 0) lse[bh] = __int_as_float(0xff800000);   // -inf
+    return;
+  }
   if (total == 0.f) {
     int g = 0;                               // the KV head of h's entry
     for (int i = 0; i < table.n; ++i) {
@@ -493,8 +510,13 @@ flash_decode_merge_kernel(const float* __restrict__ part, const int* __restrict_
     float num = 0.f;
 #pragma unroll 8
     for (int s = 0; s < n_splits; ++s) num += src[s * row + 2 + ch] * weight[s];
-    store(out + static_cast<int64_t>(bh) * Dh + ch, num / fmaxf(den, 1e-20f));
+    const float o = num / fmaxf(den, 1e-20f);
+    if (out32 != nullptr)
+      out32[static_cast<int64_t>(bh) * Dh + ch] = o;
+    else
+      store(out + static_cast<int64_t>(bh) * Dh + ch, o);
   }
+  if (out32 != nullptr && threadIdx.x == 0) lse[bh] = mx + logf(den);
 }
 
 // ---------------------------------------------------------------------------
@@ -719,20 +741,28 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                  part);
 }
 
+// Where the merge writes: `out` (the input dtype), or in the partial
+// mode `out32` and `lse` (float32; out is null).
+struct MergeOut {
+  void* out;
+  float* out32;
+  float* lse;
+};
+
 template <typename T>
-int launch_merge(const float* part, const int* counts, const void* v, void* out, int B, int Hq,
-                 int Hkv, int Dh, int W, int n_splits, int pad, const HeadTable& table,
+int launch_merge(const float* part, const int* counts, const void* v, const MergeOut& o, int B,
+                 int Hq, int Hkv, int Dh, int W, int n_splits, int pad, const HeadTable& table,
                  cudaStream_t s) {
   flash_decode_merge_kernel<T><<<B * Hq, kMergeThreads, 0, s>>>(
-      part, counts, static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Dh, W, n_splits, pad,
-      table);
+      part, counts, static_cast<const T*>(v), static_cast<T*>(o.out), o.out32, o.lse, Hq, Hkv, Dh,
+      W, n_splits, pad, table);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC, bool kVecLoad>
-int launch(const void* q, const void* k, const void* v, const uint8_t* ok, void* out, float* part,
-           int* counts, int B, int Hq, int Hkv, int Dh, int W, int pad, int split_len, int lpr,
-           float scale, const HeadTable& table, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, const uint8_t* ok, const MergeOut& out,
+           float* part, int* counts, int B, int Hq, int Hkv, int Dh, int W, int pad,
+           int split_len, int lpr, float scale, const HeadTable& table, cudaStream_t s) {
   const int n_splits = (W + split_len - 1) / split_len;
   constexpr int smem = split_smem_bytes<T, VEC, kVecLoad>();
   cudaError_t e = cudaFuncSetAttribute(flash_decode_split_kernel<T, VEC, kVecLoad>,
@@ -747,9 +777,10 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* ok, void*
   return launch_merge<T>(part, counts, v, out, B, Hq, Hkv, Dh, W, n_splits, pad, table, s);
 }
 
-int launch_mma(const void* q, const void* k, const void* v, const uint8_t* ok, void* out,
-               float* part, int* counts, int B, int Hq, int Hkv, int Dh, int W, int pad,
-               int split_len, float scale, const HeadTable& table, cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, const uint8_t* ok,
+               const MergeOut& out, float* part, int* counts, int B, int Hq, int Hkv, int Dh,
+               int W, int pad, int split_len, float scale, const HeadTable& table,
+               cudaStream_t s) {
   const int n_splits = (W + split_len - 1) / split_len;
   cudaError_t e = cudaFuncSetAttribute(flash_decode_mma_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
@@ -774,8 +805,10 @@ int pow2_at_least(int x) {
 }  // namespace repro_torch
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out alike); valid is one byte
-// per slot (torch.bool). Hkv is the number of KV heads the cache row
-// stores. table: n_entries packed head-table entries in host memory (see
+// per slot (torch.bool). out (B, Hq, Dh) of the input dtype; or, in the
+// partial mode, out null and out32 (B, Hq, Dh) and lse (B, Hq) float32
+// (see the note on the partial mode). Hkv is the number of KV heads the
+// cache row stores. table: n_entries packed head-table entries in host memory (see
 // the note at HeadTable; kernels/flash_decode.py's head_table). pad = the
 // TPU kernel's padded slots, (-W) mod min(chunk, W); split_len a multiple of 32, at most 512. part:
 // float32 scratch (B, Hq, ceil(W / split_len), Dh + 2); counts: int32
@@ -783,7 +816,8 @@ int pow2_at_least(int x) {
 // table that does not cover each query head once with valid KV heads, else
 // the first non-zero cudaGetLastError() of the two launches.
 extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, const void* v,
-                                    const void* valid, void* out, void* part, void* counts,
+                                    const void* valid, void* out, void* out32, void* lse,
+                                    void* part, void* counts,
                                     int B, int Hq, int Hkv, int Dh, int W, int pad,
                                     int split_len, float scale, const void* table,
                                     int n_entries, void* stream) {
@@ -794,6 +828,9 @@ extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, con
     return static_cast<int>(cudaErrorInvalidValue);
   if (table == nullptr || n_entries < 1 || n_entries > kMaxEntries)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((out == nullptr) == (out32 == nullptr) || (out32 == nullptr) != (lse == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);   // one mode or the other
+  const MergeOut mo{out, static_cast<float*>(out32), static_cast<float*>(lse)};
   HeadTable ht;
   ht.n = n_entries;
   const auto* src = static_cast<const uint32_t*>(table);
@@ -819,19 +856,19 @@ extern "C" int flash_decode_forward(int dtype, const void* q, const void* k, con
   const int vec_ch = vec ? 16 / elem : 4;    // channels per lane
   const int lpr = pow2_at_least((Dh + vec_ch - 1) / vec_ch);
   if (dtype == 1 && vec && Dh % 32 == 0)
-    return launch_mma(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len, scale, ht, s);
+    return launch_mma(q, k, v, ok, mo, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len, scale, ht, s);
   switch (dtype * 2 + (vec ? 1 : 0)) {
     case 0:
-      return launch<float, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
+      return launch<float, 4, false>(q, k, v, ok, mo, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
                                      lpr, scale, ht, s);
     case 1:
-      return launch<float, 4, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
+      return launch<float, 4, true>(q, k, v, ok, mo, pt, ct, B, Hq, Hkv, Dh, W, pad, split_len,
                                     lpr, scale, ht, s);
     case 2:
-      return launch<__nv_bfloat16, 4, false>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad,
+      return launch<__nv_bfloat16, 4, false>(q, k, v, ok, mo, pt, ct, B, Hq, Hkv, Dh, W, pad,
                                              split_len, lpr, scale, ht, s);
     case 3:
-      return launch<__nv_bfloat16, 8, true>(q, k, v, ok, out, pt, ct, B, Hq, Hkv, Dh, W, pad,
+      return launch<__nv_bfloat16, 8, true>(q, k, v, ok, mo, pt, ct, B, Hq, Hkv, Dh, W, pad,
                                             split_len, lpr, scale, ht, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -25,6 +25,14 @@ launch layer.
   part), whose backward sums the ranks' cotangents, and :func:`model_sum`
   back into a replicated value, whose backward is the identity.
 
+* The **cache length split** (:func:`cache_split`, set by a decode
+  cell's rank body when the cell's specs split the KV cache's length
+  over the data axis, as the reference's ``shard_len`` does at
+  ``long_500k``): the rank holds one contiguous slice of every layer's
+  ring-buffer slots. Under it ``models.layers`` writes a token only on
+  the rank that owns its slot and merges the ranks' partial attentions
+  (K5's partial mode) instead of gathering the cache.
+
 The reference's ``constrain_*`` hints (and ``layers._constrain_attn``)
 are not ported: they pin the sharding of activations that XLA then
 propagates, where the port's rank bodies split each layer explicitly.
@@ -48,6 +56,8 @@ _TP: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
 _BATCH: contextvars.ContextVar = contextvars.ContextVar(
     "batch_split", default=())
+_CACHE: contextvars.ContextVar = contextvars.ContextVar(
+    "cache_split", default=None)
 
 
 @contextlib.contextmanager
@@ -149,6 +159,46 @@ def model_reduce(op: str, x, grad: bool):
             raise ValueError("a max over the model axis carries no gradient")
         return (yield C.pmax(tp.axis, x))
     return (yield C.row_sum(tp.axis, x))
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """A rank's slice of a KV cache whose length lies split over
+    ``axes``: slice ``index`` of ``size`` (row-major over the axes, as
+    ``collectives.local_slices`` cuts a dim split over several)."""
+    rank: C.RankContext
+    axes: tuple
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= self.rank.size[a]
+        return n
+
+    @property
+    def index(self) -> int:
+        i = 0
+        for a in self.axes:
+            i = i * self.rank.size[a] + self.rank.index[a]
+        return i
+
+
+@contextlib.contextmanager
+def cache_split(rank: C.RankContext, axes: tuple):
+    """Inside the block the KV cache a decode step is handed is this
+    rank's slice of its length, split over ``axes``; axes of one rank
+    (or none) set no context."""
+    split = CacheSplit(rank, tuple(axes))
+    token = _CACHE.set(split if split.size > 1 else None)
+    try:
+        yield
+    finally:
+        _CACHE.reset(token)
+
+
+def cache_split_context() -> Optional[CacheSplit]:
+    return _CACHE.get()
 
 
 def data_axes(rank: C.RankContext) -> tuple:

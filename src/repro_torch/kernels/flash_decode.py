@@ -32,24 +32,34 @@ are both such maps. The kernel takes it as a head table
 query heads on one KV head, passed by value in the launch's
 parameters. The launch is the operator
 ``repro_torch::flash_decode`` (:mod:`repro_torch.kernels.library`).
+
+The partial mode (``partial=True``) returns each row's float32 output,
+not rounded to the input dtype, and its log-sum-exp ``lse = m + log(l)``
+(B, Hq): a rank that holds a slice of the cache's slots decodes over
+its slice, and :func:`merge_rank_partials` merges the ranks' rows in
+rank order. A row with no valid slot carries no weight there: a zero
+output and ``lse = -inf`` (the normal mode averages V over it, as the
+TPU kernel does). ``LAUNCHES_PARTIAL`` counts that mode's launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import List
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.library import kernel_op, on_card
+from repro_torch.kernels.library import kernel_op, no_tensor, on_card
 from repro_torch.kernels.msgs_fused import (check_device, raise_on_error,
                                             sm_count, stream_ptr)
 
 #: Number of CUDA kernel launches made by :func:`flash_decode` (one per
 #: call: the split pass and its merge).
 LAUNCHES = 0
+#: Launches of the partial mode (``partial=True``), counted apart.
+LAUNCHES_PARTIAL = 0
 
 #: q / k / v dtype -> the C entry's ``dtype`` code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -173,7 +183,7 @@ def _check(q, k, v, valid, chunk, kv_heads=None) -> None:
 
 
 def flash_decode_plain(q, k, v, valid, *, chunk: int = 512,
-                       kv_heads=None) -> torch.Tensor:
+                       kv_heads=None, partial: bool = False):
     """Plain PyTorch version: the TPU kernel's function in one pass. The
     query heads are padded to ``Hkv * n_rep`` and grouped per KV head
     (the kernel's broadcast ``rep``), or with ``kv_heads`` each reads its
@@ -181,7 +191,8 @@ def flash_decode_plain(q, k, v, valid, *, chunk: int = 512,
     input dtype and scaled by ``1/sqrt(Dh)``, invalid and padded slots
     score -1e30, the softmax's max starts at -1e30, P.V is summed in
     float32 and the denominator is clamped at 1e-20. Returns (B, Hq, Dh)
-    in ``q.dtype``."""
+    in ``q.dtype``; with ``partial``, (the float32 output, lse (B, Hq)),
+    a row with no valid slot zero with lse -inf."""
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
     pad = chunk_padding(w, chunk)
@@ -201,27 +212,65 @@ def flash_decode_plain(q, k, v, valid, *, chunk: int = 512,
     p = torch.exp(s - mx)
     den = p.sum(-1, keepdim=True)
     acc = torch.einsum("bgrw,bwgd->bgrd", p[..., :w], vg)
-    out = acc / torch.clamp(den, min=1e-20)
-    return out.reshape(b, -1, dh)[:, :hq].to(q.dtype)
+    out = (acc / torch.clamp(den, min=1e-20)).reshape(b, -1, dh)[:, :hq]
+    if not partial:
+        return out.to(q.dtype)
+    lse = (mx + torch.log(den)).reshape(b, -1)[:, :hq]
+    empty = ~valid.any(1)[:, None]
+    return (torch.where(empty[..., None], 0.0, out),
+            torch.where(empty, -math.inf, lse))
+
+
+def merge_rank_partials(outs: Sequence[torch.Tensor],
+                        lses: Sequence[torch.Tensor],
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The attention over a cache whose slots lie split over ranks, from
+    each rank's partial (:func:`flash_decode` with ``partial=True``)
+    listed in rank order: ``outs`` (B, Hq, Dh) and ``lses`` (B, Hq),
+    float32. Each row weighs ``exp(lse_r - max lse)`` (a rank with no
+    valid slot weighs 0); the weighted outputs and the weights are summed
+    in float32 in rank order and the quotient is rounded once to
+    ``dtype``. Not a kernel: the reference's partitioner computes these
+    reductions with XLA's (a row no rank holds a valid slot of comes out
+    zero)."""
+    top = lses[0]
+    for lse in lses[1:]:
+        top = torch.maximum(top, lse)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    num, den = None, None
+    for out, lse in zip(outs, lses):
+        wgt = torch.exp(lse - top)
+        num = out * wgt[..., None] if num is None else num + out * wgt[..., None]
+        den = wgt if den is None else den + wgt
+    return (num / torch.clamp(den, min=1e-20)[..., None]).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The C entry ``flash_decode_forward``: dtype code, 7 pointers (q, k,
-    v, valid, out, the partials and the split counts), B, Hq, Hkv, Dh, W,
-    pad, the split length, the scale, the head table and its length, and
-    the stream."""
+    """The C entry ``flash_decode_forward``: dtype code, 9 pointers (q, k,
+    v, valid, out, the partial mode's float32 output and lse, the split
+    partials and the split counts), B, Hq, Hkv, Dh, W, pad, the split
+    length, the scale, the head table and its length, and the stream."""
     from repro_torch.kernels.build import load_library
     fn = load_library("flash_decode").flash_decode_forward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fake(q, k, v, valid, chunk, table):
-    return torch.empty_like(q)
+def _outputs(q, partial):
+    """(out, lse): the input dtype's output and a placeholder, or in the
+    partial mode the float32 output and (B, Hq) lse."""
+    if not partial:
+        return torch.empty_like(q), no_tensor(q.device)
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
+def _fake(q, k, v, valid, chunk, table, partial):
+    return _outputs(q, partial)
 
 
 def _flops(q, k, *_, out_shape=None, **__) -> int:
@@ -233,15 +282,16 @@ def _flops(q, k, *_, out_shape=None, **__) -> int:
 
 @kernel_op("flash_decode", fake=_fake, flops=_flops)
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            valid: torch.Tensor, chunk: int, table: List[int]) -> torch.Tensor:
-    global LAUNCHES
+            valid: torch.Tensor, chunk: int, table: List[int],
+            partial: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAUNCHES, LAUNCHES_PARTIAL
     b, hq, dh = q.shape
     _, w, hkv, _ = k.shape
     table = tuple(table)
     if len(table) > MAX_ENTRIES:
         raise ValueError(f"flash_decode: {len(table)} head-table entries; the "
                          f"kernel takes at most {MAX_ENTRIES}")
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, partial)
     length, n_splits = decode_splits(b, len(table), 1, w, sm_count(q.device))
     if n_splits > MAX_SPLITS:
         raise ValueError(f"flash_decode: W {w} needs {n_splits} splits of "
@@ -251,31 +301,41 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     counts = torch.empty((b, n_splits), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         code = _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                        v.data_ptr(), valid.data_ptr(),
+                        None if partial else out.data_ptr(),
+                        out.data_ptr() if partial else None,
+                        lse.data_ptr() if partial else None,
                         part.data_ptr(), counts.data_ptr(), b, hq, hkv, dh, w,
                         chunk_padding(w, chunk), length, 1.0 / math.sqrt(dh),
                         ctypes.addressof(_c_table(table)), len(table),
                         stream_ptr(q.device))
-    LAUNCHES += 1
+    if partial:
+        LAUNCHES_PARTIAL += 1
+    else:
+        LAUNCHES += 1
     raise_on_error(code, "flash_decode")
-    return out
+    return out, lse
 
 
-def flash_decode(q, k, v, valid, *, chunk: int = 512,
-                 kv_heads=None) -> torch.Tensor:
+def flash_decode(q, k, v, valid, *, chunk: int = 512, kv_heads=None,
+                 partial: bool = False):
     """Fused one-token GQA decode attention over a masked KV cache.
 
     ``q (B, Hq, Dh)``, ``k``/``v (B, W, Hkv, Dh)`` in float32 or bf16,
     ``valid (B, W)`` bool; ``chunk`` is the TPU kernel's KV chunk, which
     shows only in rows with no valid slot; ``kv_heads`` (Hq ints, default
     the TPU kernel's ``h // ceil(Hq / Hkv)``) names the stored KV head
-    each query head reads. Returns (B, Hq, Dh) in ``q.dtype``. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    each query head reads. Returns (B, Hq, Dh) in ``q.dtype``; with
+    ``partial``, the float32 output and its lse (B, Hq) (see the module
+    docstring). CUDA tensors launch the kernel; CPU tensors run the
+    plain version."""
     kv_heads = None if kv_heads is None else tuple(int(g) for g in kv_heads)
     _check(q, k, v, valid, chunk, kv_heads)
     if not on_card(q):
         return flash_decode_plain(q, k, v, valid, chunk=chunk,
-                                  kv_heads=kv_heads)
+                                  kv_heads=kv_heads, partial=partial)
     hq, hkv = q.shape[1], k.shape[2]
-    return _launch(q, k, v, valid, chunk, list(head_table(
-        default_kv_heads(hq, hkv) if kv_heads is None else kv_heads)))
+    out, lse = _launch(q, k, v, valid, chunk, list(head_table(
+        default_kv_heads(hq, hkv) if kv_heads is None else kv_heads)),
+        bool(partial))
+    return (out, lse) if partial else out

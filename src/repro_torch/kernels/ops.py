@@ -79,8 +79,11 @@ def matmul(x, w, w_scale=None, *, bm: int = 128, bn: int = 128, bk: int = 128):
     return _matmul.matmul(x, w, w_scale, bm=bm, bn=bn, bk=bk)
 
 
-def flash_decode(q, k, v, valid, *, chunk: int = 512, kv_heads=None):
+def flash_decode(q, k, v, valid, *, chunk: int = 512, kv_heads=None,
+                 partial: bool = False):
     """Fused one-token GQA decode attention over a masked KV cache (K5);
-    ``kv_heads`` names the stored KV head each query head reads."""
+    ``kv_heads`` names the stored KV head each query head reads; with
+    ``partial``, the float32 output and its log-sum-exp, for a merge of
+    ranks that each hold a slice of the slots."""
     return _flash_decode.flash_decode(q, k, v, valid, chunk=chunk,
-                                      kv_heads=kv_heads)
+                                      kv_heads=kv_heads, partial=partial)

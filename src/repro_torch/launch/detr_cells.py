@@ -11,12 +11,20 @@ exchange over the model axis (:func:`build_banded_detr_stack`, the
 function over a mesh, and :func:`build_banded_detr_cell`, its cell).
 
 Each cell's program stores the parameters as the rule table
-(:func:`_detr_rules`) shards them and gathers them whole to compute (the
-train cell through ``train.step.train_rank_body``, whose detector has no
-loss body on shards; the LM cells of ``launch.input_specs`` compute on
-their shards). The train cell's encoder
-samples through ``torch_gather``: the kernels K1 and K3 are forward-only
-(the reference's ``pallas_call`` has no autodiff rule either)."""
+(:func:`_detr_rules`) shards them: the encoder FFN's ``ffn1`` columns and
+``ffn2`` rows over the model axis, everything else (the 8 attention
+heads among it) whole. The serve and train cells compute on those shards,
+as the reference's partitioner does: each rank runs the attention whole
+and its slice of the FFN (``core.encoder.encoder_body`` under
+``act_sharding.tensor_parallel``: Megatron's copy into the FFN and the
+model axis's sum out of it), gathering no parameter. The train cell is
+``train.step.train_rank_body`` over a ``ModelAPI`` whose ``loss_body``
+is that encoder and the rolled-target MSE, so its gradients cross the
+same pair; its encoder samples through ``torch_gather``: the kernels K1
+and K3 are forward-only (the reference's ``pallas_call`` has no
+autodiff rule either). The banded cell keeps its gather: its model axis
+carries bands of tokens, so each rank's FFN needs the whole weights, as
+XLA's does."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,21 +38,21 @@ from repro_torch.configs.detr_family import CONFIGS as DETR_CONFIGS
 from repro_torch.core import nn as core_nn
 from repro_torch.core.distributed_msdeform import (band_layout,
                                                    msdeform_attn_banded)
-from repro_torch.core.encoder import (EncoderConfig, encoder_apply,
+from repro_torch.core.encoder import (EncoderConfig, encoder_body,
                                       encoder_logical_axes, init_encoder)
 from repro_torch.core.msdeform_attn import MSDeformAttnConfig
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import CommStats, mesh_shape
 from repro_torch.distributed.sharding import (AxisRules, P, _BASE, is_spec,
                                               is_logical_axes,
                                               logical_to_spec, tree_map)
 from repro_torch.launch.input_specs import (Cell, _batch_spec, _meta,
-                                            as_dtensors, gather_tree,
-                                            spmd_program,
-                                            traced_shapes)
+                                            _train_program, gather_tree,
+                                            spmd_program, traced_shapes)
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim.adamw import OptConfig, adamw_init
-from repro_torch.train.step import TrainState, build_sharded_train_step, zero_spec
+from repro_torch.train.step import TrainState, train_rank_body, zero_spec
 from repro_torch.utils.tree import tree_size
 
 
@@ -161,17 +169,34 @@ def _meta_of(arch: str, kind: str, n: int, b: int, mesh, params_sds) -> dict:
             "active_params": n_params}
 
 
+def _loss_body(enc_cfg: EncoderConfig, level_shapes) -> Callable:
+    """The train cell's objective as a rank body: the encoder on the
+    rank's FFN shard (sampling through ``torch_gather``) and the MSE to
+    the pyramid rolled by one token."""
+    def loss_body(p, _cfg, batch):
+        out, _ = yield from encoder_body(p, enc_cfg, batch["x"], batch["pos"],
+                                         batch["refs"], level_shapes,
+                                         backend="torch_gather")
+        tgt = torch.roll(batch["x"], 1, dims=1).detach()
+        return torch.mean(torch.square(out - tgt).float()), {}
+    return loss_body
+
+
 def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
-                    backend: Optional[str] = None) -> Cell:
-    """serve: ``encoder_apply`` on this rank's images; train: the
-    rolled-target MSE,
-    its gradient and AdamW on ``zero_spec`` moments (``train.step``'s
-    sharded step over a loss-only ``ModelAPI``). ``backend`` is the serve
-    encoder's sampling backend (default: the config's, ``torch_gather``
-    for the family's ``impl="jnp"``, as the reference's cells sample with
-    ``jnp_gather``; ``"auto"`` plans for the card, K1 there)."""
+                    backend: Optional[str] = None,
+                    enc_cfg: Optional[EncoderConfig] = None) -> Cell:
+    """serve: ``encoder_body`` on this rank's images and FFN shard;
+    train: the rolled-target MSE, its gradient and AdamW on
+    ``zero_spec`` moments (``train.step.train_rank_body`` over a
+    ``ModelAPI`` with that ``loss_body``; ``Cell.body`` the rank body
+    with args (params, opt, x, pos, refs) -> (params, opt, loss), run
+    with grad on; ``Cell.fn`` runs it on a ``DeviceMesh``). ``backend`` is the serve encoder's sampling backend (default:
+    the config's, ``torch_gather`` for the family's ``impl="jnp"``, as
+    the reference's cells sample with ``jnp_gather``; ``"auto"`` plans
+    for the card, K1 there). ``enc_cfg`` replaces the config's encoder
+    (another dtype or depth)."""
     acfg = DETR_CONFIGS[name]
-    enc_cfg = acfg.encoder
+    enc_cfg = enc_cfg or acfg.encoder
     level_shapes = acfg.level_shapes
     n_in = sum(h * w for h, w in level_shapes)
     d = enc_cfg.d_model
@@ -190,9 +215,10 @@ def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
 
     if kind == "serve":
         def body(ctx, params, x_flat, pos, refs):
-            full = yield from gather_tree(params, param_specs, ctx.size)
-            out, _ = encoder_apply(full, enc_cfg, x_flat, pos, refs,
-                                   level_shapes, backend=backend)
+            with acts.tensor_parallel(ctx):
+                out, _ = yield from encoder_body(params, enc_cfg, x_flat, pos,
+                                                 refs, level_shapes,
+                                                 backend=backend)
             return out
 
         return Cell(name=f"{name}/serve", fn=spmd_program(body, mesh),
@@ -207,27 +233,23 @@ def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
                        param_specs, params_sds, is_leaf=is_spec)
     opt_sh = {"m": m_specs, "v": m_specs, "step": P()}
 
-    def loss_fn(p, _cfg, batch):
-        out, _ = encoder_apply(p, enc_cfg, batch["x"], batch["pos"],
-                               batch["refs"], level_shapes,
-                               backend="torch_gather")
-        tgt = torch.roll(batch["x"], 1, dims=1).detach()
-        return torch.mean(torch.square(out - tgt).float()), {}
+    loss_body = _loss_body(enc_cfg, level_shapes)
+    api = ModelAPI(*(None,) * len(ModelAPI._fields))._replace(
+        loss_body=loss_body)
+    rank_step = train_rank_body(enc_cfg, opt_cfg,
+                                TrainState(param_specs, opt_sh, P()), api)
 
-    api = ModelAPI(*(None,) * len(ModelAPI._fields))._replace(loss_fn=loss_fn)
-    specs = TrainState(param_specs, opt_sh, P())
-    step = build_sharded_train_step(enc_cfg, opt_cfg, mesh, specs, api)
+    def body(ctx, params, opt, x_flat, pos, refs):
+        new_p, new_opt, _, metrics = yield from rank_step(
+            ctx, params, opt, opt["step"], {"x": x_flat, "pos": pos,
+                                            "refs": refs})
+        return new_p, new_opt, metrics["loss"]
 
-    def train_fn(params, opt, x_flat, pos, refs):
-        state = as_dtensors(TrainState(params, opt, opt["step"]), specs, mesh)
-        new, metrics = step(state, {"x": x_flat, "pos": pos, "refs": refs})
-        return new.params, new.opt, metrics["loss"]
-
-    return Cell(name=f"{name}/train", fn=train_fn,
+    return Cell(name=f"{name}/train", fn=_train_program(body, mesh),
                 in_specs=(params_sds, opt_sds, x_sds, pos_sds, ref_sds),
                 in_shardings=(param_specs, opt_sh, x_sh, rep, rep),
                 out_shardings=(param_specs, opt_sh, None), meta=meta,
-                donate=(0, 1))
+                donate=(0, 1), body=body)
 
 
 def build_banded_detr_cell(name: str, mesh, batch: Optional[int] = None

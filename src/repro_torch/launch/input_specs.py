@@ -24,15 +24,20 @@ programs are:
   * ``prefill`` / ``decode``: a rank body (:func:`_serve_body`, a
     generator of ``distributed.collectives``) that computes on its
     shards, as the partitioner splits the reference's: it all-gathers
-    only the dims FSDP puts on the data axes (and, at ``long_500k``,
-    the cache's length, which the reference's ``shard_len`` puts on the
-    data axis), then runs ``api.prefill_body`` or ``api.decode_body`` on
-    its rows under ``act_sharding.tensor_parallel``: its heads, KV
-    heads, FFN slice, experts and vocabulary rows, with the model axis's
-    sums where the reference's partitioner reduces
-    (``models/layers.py``). It returns its columns of the logits (the
-    vocabulary split over the model axis where the rules split it) and
-    keeps its own shard of the new cache. Two kinds of leaf are
+    only the parameter dims FSDP puts on the data axes, then runs
+    ``api.prefill_body`` or ``api.decode_body`` on its rows under
+    ``act_sharding.tensor_parallel``: its heads, KV heads, FFN slice,
+    experts and vocabulary rows, with the model axis's sums where the
+    reference's partitioner reduces (``models/layers.py``). It returns
+    its columns of the logits (the vocabulary split over the model axis
+    where the rules split it) and writes its own shard of the cache in
+    place. At ``long_500k`` (B 1) the reference's ``shard_len`` splits
+    the cache's length over the data axis; the decode body keeps it
+    split (``act_sharding.cache_split``): the rank that owns the new
+    token's slot writes it, each rank runs K5's partial mode over its
+    slots, and the ranks' (output, log-sum-exp) rows are gathered and
+    merged in rank order, where the partitioner reduces over the split
+    dim (no rank holds the cache whole). Two kinds of leaf are
     gathered over the model axis too, each named in
     :func:`model_gathered`: the SSD mixer's (its ``in_xbc`` concatenates
     x, B and C along the split dim, so no rank's slice is a block of
@@ -56,7 +61,7 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (P, sanitize_specs_tree,
-                                              spec_placements, specs_for_tree)
+                                              specs_for_tree)
 from repro_torch.distributed.sharding import tree_map as spec_tree_map
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import get_api
@@ -224,19 +229,13 @@ def _maybe_policy(fn: Callable, mesh, policy: bool) -> Callable:
 # --------------------------------------------------------------------------
 
 
-def gather_tree(tree: Any, specs: Any, sizes, dims=None):
+def gather_tree(tree: Any, specs: Any, sizes):
     """Rank body step: ``collectives.gather_dims`` over every leaf of
     ``tree`` (leaves in ``tree_leaves`` order)."""
     out = []
     for x, sp in zip(tree_leaves(tree), spec_leaves(specs)):
-        out.append((yield from C.gather_dims(x, sp, sizes, dims)))
+        out.append((yield from C.gather_dims(x, sp, sizes)))
     return tree_unflatten(tree, out)
-
-
-#: cache dims a serving rank gathers: the length (dim 2, split over the
-#: data axis at long_500k); the batch (dim 1) and the KV heads (dim 3)
-#: stay its own
-CACHE_GATHER_DIMS = (2,)
 
 
 def _map_specs(fn: Callable, specs, prefix: str = ""):
@@ -288,30 +287,35 @@ def _gather_specs(cfg: ModelConfig, param_specs) -> Any:
     return _map_specs(cut, param_specs)
 
 
+def _length_axes(cache_specs) -> tuple:
+    """The mesh axes the KV cache's length (dim 2 of ``k``) lies split
+    over: the reference's ``shard_len`` puts it on the data axis."""
+    found = []
+    _map_specs(lambda path, sp: found.append(C.spec_axes(sp[2]))
+               if path.split("/")[-1] == "k" else None, cache_specs)
+    return found[0] if found else ()
+
+
 def _serve_body(api, cfg: ModelConfig, kind: str, param_specs, cache_specs):
     """The rank body of a prefill or decode cell: args (params, cache,
     batch dict) for prefill, (params, cache, tokens, pos) for decode.
-    Returns (this rank's logits, its cache shard)."""
+    Returns (this rank's logits, its cache shard, written in place)."""
     gather_specs = _gather_specs(cfg, param_specs)
+    length_axes = _length_axes(cache_specs)
+    if length_axes and kind == "prefill":
+        raise ValueError(f"{cfg.name}: a prefill writes its prompt's slots "
+                         "whole; the cache's length may lie split over "
+                         f"{length_axes} only in a decode cell")
 
     def body(ctx: C.RankContext, params, cache, *rest):
         mine = yield from gather_tree(params, gather_specs, ctx.size)
-        need = yield from gather_tree(cache, cache_specs, ctx.size,
-                                      CACHE_GATHER_DIMS)
-        with acts.tensor_parallel(ctx):
+        with acts.tensor_parallel(ctx), acts.cache_split(ctx, length_axes):
             if kind == "prefill":
-                logits, need = yield from api.prefill_body(mine, cfg, need,
-                                                           rest[0])
+                logits, _ = yield from api.prefill_body(mine, cfg, cache,
+                                                        rest[0])
             else:
-                logits, need = yield from api.decode_body(mine, cfg, need,
-                                                          *rest)
-        for shard, new, sp in zip(tree_leaves(cache), tree_leaves(need),
-                                  spec_leaves(cache_specs)):
-            if shard is not new:          # the gathered dims cut back
-                cut = [s if d in CACHE_GATHER_DIMS else None
-                       for d, s in enumerate(sp)]
-                shard.copy_(new[C.local_slices(cut, new.shape, ctx.size,
-                                               ctx.index)])
+                logits, _ = yield from api.decode_body(mine, cfg, cache,
+                                                       *rest)
         return logits, cache
     return body
 
@@ -331,15 +335,6 @@ def spmd_program(body: Callable, mesh) -> Callable:
     return fn
 
 
-def as_dtensors(tree: Any, specs: Any, mesh) -> Any:
-    """This rank's slices of a tree, as DTensors laid out by ``specs``."""
-    from torch.distributed.tensor import DTensor
-    return spec_tree_map(
-        lambda t, sp: DTensor.from_local(t, mesh, spec_placements(sp, mesh),
-                                         run_check=False),
-        tree, specs, is_leaf=lambda x: isinstance(x, torch.Tensor))
-
-
 def _train_body(cfg: ModelConfig, opt_cfg: OptConfig, specs: TrainState,
                 api=None) -> Callable:
     """The rank body of a train cell: args (state, batch), this rank's
@@ -355,13 +350,14 @@ def _train_body(cfg: ModelConfig, opt_cfg: OptConfig, specs: TrainState,
 
 
 def _train_program(body: Callable, mesh) -> Callable:
-    """``fn(state, batch)`` on this rank's slices of ``mesh`` (a
-    ``DeviceMesh``): the train body under grad mode."""
+    """``fn(*rank_inputs)`` (a train cell's: state and batch) on this
+    rank's slices of ``mesh`` (a ``DeviceMesh``): the train body under
+    grad mode."""
     run = spmd_program(body, mesh)
 
-    def fn(state: TrainState, batch: dict):
+    def fn(*args):
         with torch.enable_grad():
-            return run(state, batch)
+            return run(*args)
     return fn
 
 

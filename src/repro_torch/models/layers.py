@@ -68,7 +68,8 @@ from repro_torch.core.pap import topk_stable
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import default_kv_heads
+from repro_torch.kernels.flash_decode import (default_kv_heads,
+                                              merge_rank_partials)
 from repro_torch.models.common import (ModelConfig, gelu, init_dense, rms_norm,
                                        rope)
 
@@ -415,42 +416,84 @@ def decode_kv_heads(cfg: ModelConfig, blk: HeadBlock, n_stored: int):
                        blk.nq, blk.kv_stored0, n_stored)
 
 
-def attn_decode(p, cfg, x1, cache, pos, window):
-    """One-token decode. x1 (B,1,D); pos (B,) int32 per-request positions
-    (continuous batching); ring-buffer cache, written in place. The
-    attention runs through ``ops.flash_decode`` (K5) with the model's
-    query-to-KV head map (:func:`decode_kv_heads`), which reads the rank's
-    KV heads in place in a cache that stores more; padded heads are
-    masked after it, as the reference masks them. Under the
-    tensor-parallel context it computes the rank's query heads and ``y``
-    is the rank's partial output."""
+def _ring_write(cache: dict, pos, k1, v1, split) -> None:
+    """Write each row's new token into slot ``pos % W`` of the ring
+    buffer, in place (k, v and kpos). On a cache split over its length
+    (``split``: this rank holds slots [index * Wl, (index + 1) * Wl) of W
+    = size * Wl) only the rank that owns the slot changes it: a rank
+    that does not rewrites its clamped slot with what that slot holds,
+    so no host read decides who writes. The reference's scatter into the
+    sharded dim writes the same (``src/repro/models/layers.py``)."""
+    b, wl = k1.shape[0], cache["k"].shape[1]
+    bidx = torch.arange(b, device=k1.device)
+    if split is None:
+        slot = (pos % wl).long()
+        cache["k"][bidx, slot] = k1
+        cache["v"][bidx, slot] = v1
+        cache["kpos"][bidx, slot] = pos
+        return
+    local = (pos % (wl * split.size)).long() - split.index * wl
+    mine = (local >= 0) & (local < wl)
+    local = local.clamp(0, wl - 1)
+    for name, new in (("k", k1), ("v", v1), ("kpos", pos)):
+        keep = mine.view((b,) + (1,) * (new.dim() - 1))
+        cache[name][bidx, local] = torch.where(keep, new,
+                                               cache[name][bidx, local])
+
+
+def _split_attention(q, kc, vc, valid, kv_heads, split, dtype):
+    """Rank body step: the attention over a cache split over its length:
+    K5's partial mode on the rank's slots, read in place, then the
+    (output, lse) rows of every rank of the split axes (one all-gather
+    of (B, Hq, Dh + 1) float32) merged in rank order
+    (``kernels.flash_decode.merge_rank_partials``)."""
+    out, lse = ops.flash_decode(q, kc, vc, valid, kv_heads=kv_heads,
+                                partial=True)
+    rows = yield C.all_gather(split.axes, torch.cat(
+        [out, lse[..., None]], -1)[None], 0)
+    return merge_rank_partials(rows[..., :-1].unbind(0),
+                               rows[..., -1].unbind(0), dtype)
+
+
+def attn_decode_body(p, cfg, x1, cache, pos, window):
+    """Rank body step: one-token decode. x1 (B,1,D); pos (B,) int32
+    per-request positions (continuous batching); ring-buffer cache,
+    written in place. The attention runs through ``ops.flash_decode``
+    (K5) with the model's query-to-KV head map (:func:`decode_kv_heads`),
+    which reads the rank's KV heads in place in a cache that stores more;
+    padded heads are masked after it, as the reference masks them. Under
+    the tensor-parallel context it computes the rank's query heads and
+    asks for the model axis's sum. Under ``act_sharding.cache_split`` the
+    cache is the rank's slice of the slots: the owner of the new slot
+    writes it and the ranks' partial attentions are merged
+    (:func:`_split_attention`), where the reference's partitioner
+    reduces over the split dim."""
     blk = head_block(cfg, p)
-    b = x1.shape[0]
-    w = cache["k"].shape[1]
+    split = acts.cache_split_context()
     q, k, v = _project_qkv(p, cfg, x1, pos[:, None])
-    slot = (pos % w).long()                                       # (B,)
-    bidx = torch.arange(b, device=x1.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["kpos"][bidx, slot] = pos
+    _ring_write(cache, pos, k[:, 0], v[:, 0], split)
     kpos = cache["kpos"]
     valid = (kpos <= pos[:, None]) & (kpos > pos[:, None] - _window(window))
     kc, vc = cache["k"], cache["v"]
-    out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, valid,
-                           kv_heads=decode_kv_heads(cfg, blk, kc.shape[2]))
+    kv_heads = decode_kv_heads(cfg, blk, kc.shape[2])
+    if split is None:
+        out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, valid,
+                               kv_heads=kv_heads)
+    else:
+        out = yield from _split_attention(q[:, 0].contiguous(), kc, vc, valid,
+                                          kv_heads, split, q.dtype)
     mask = _head_mask(cfg, out.dtype, out.device, blk)
     if mask is not None:
         out = out * mask[None, :, None]
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+    y = yield from row_sum(blk, y)
     return y, cache
 
 
-def attn_decode_body(p, cfg, x1, cache, pos, window):
-    """Rank body step: :func:`attn_decode` and the sum over the model
-    axis."""
-    y, cache = attn_decode(p, cfg, x1, cache, pos, window)
-    y = yield from row_sum(head_block(cfg, p), y)
-    return y, cache
+def attn_decode(p, cfg, x1, cache, pos, window):
+    """One-token decode off any mesh (:func:`attn_decode_body` run
+    locally); returns (y, cache), the cache written in place."""
+    return C.run_local(attn_decode_body(p, cfg, x1, cache, pos, window))
 
 
 # ===========================================================================

@@ -398,7 +398,7 @@ DATA_AXES = ("pod", "data")
 def model_gathered(cfg: ModelConfig, path: str) -> Optional[str]:
     """Why a rank gathers the parameter leaf at ``path`` over the model
     axis too (None: it computes on its shard)."""
-    if cfg.pure_dp:
+    if getattr(cfg, "pure_dp", False):
         return "pure_dp: ZeRO splits the embed dim over every axis"
     if "/ssd/" in f"/{path}/":
         return ("SSD mixer: in_xbc concatenates x, B and C along the split "
@@ -457,8 +457,9 @@ def grads_rank_body(cfg, param_specs: Any,
     accumulators sum the microbatches. The loss is each data group's,
     replicated over the model axis: a slice's gradient is then summed
     over the data axes the leaf is not split over and divided by their
-    ranks. A model with no ``loss_body`` (the detector) computes
-    ``loss_fn`` on leaves gathered whole."""
+    ranks. A model with no ``loss_body`` computes ``loss_fn`` on leaves
+    gathered whole (the DETR train cell's encoder has one:
+    ``launch.detr_cells``)."""
     api = api or get_api(cfg)
     accum = max(1, getattr(cfg, "grad_accum", 1))
     p_specs = spec_leaves(param_specs)

@@ -363,6 +363,56 @@ def test_flash_decode_head_map_matches_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_partial_mode_matches_plain(cuda, dtype):
+    """K5's partial mode on 4 slot shards of a (3, 1024, 2, 64) cache whose
+    row 0 has no valid slot and whose row 1 has valid slots only in its
+    first shard: each shard's float32 output and lse against the plain
+    partial mode (a row with no valid slot exactly lse -inf and a zero
+    output), counted apart from the normal mode; the shards merged in rank
+    order against the plain version on the whole cache. float32 1e-5;
+    bf16 rtol 2^-7 (output and lse: one bf16 rounding of a score), the
+    merge atol 2^-8 of the row's largest |output|."""
+    from repro_torch.kernels import flash_decode
+    g = torch.Generator().manual_seed(7)
+    tdt = getattr(torch, dtype)
+    b, hq, hkv, dh, w, n = 3, 8, 2, 64, 1024, 4
+    q = torch.randn((b, hq, dh), generator=g).to(tdt).to(cuda)
+    k, v = (torch.randn((b, w, hkv, dh), generator=g).to(tdt).to(cuda)
+            for _ in range(2))
+    valid = torch.rand((b, w), generator=g) < 0.5
+    valid[0] = False
+    valid[1, w // n:] = False
+    valid = valid.to(cuda)
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    outs, lses = [], []
+    for r in range(n):
+        part = [t[:, r * w // n:(r + 1) * w // n].contiguous()
+                for t in (k, v, valid)]
+        before = (flash_decode.LAUNCHES, flash_decode.LAUNCHES_PARTIAL)
+        out, lse = flash_decode.flash_decode(q, *part, partial=True)
+        torch.cuda.synchronize()
+        assert (flash_decode.LAUNCHES, flash_decode.LAUNCHES_PARTIAL) == \
+            (before[0], before[1] + 1)
+        w_out, w_lse = flash_decode.flash_decode_plain(q, *part, partial=True)
+        empty = torch.isneginf(w_lse)
+        assert torch.equal(torch.isneginf(lse), empty)
+        assert not out[empty].any()
+        torch.testing.assert_close(out[~empty], w_out[~empty], rtol=tol,
+                                   atol=1e-5)
+        torch.testing.assert_close(lse[~empty], w_lse[~empty], rtol=tol,
+                                   atol=tol)
+        outs.append(out)
+        lses.append(lse)
+    got = flash_decode.merge_rank_partials(outs, lses, tdt)
+    want = flash_decode.flash_decode_plain(q, k, v, valid)
+    got, want = got[1:].float(), want[1:].float()
+    atol = 1e-5 if dtype == "float32" else \
+        2 ** -8 * want.abs().amax(-1, keepdim=True)
+    assert ((got - want).abs() <= atol + tol * want.abs()).all()
+    assert not flash_decode.merge_rank_partials(outs, lses, tdt)[0].any()
+
+
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16", "int8"])
 def test_matmul_kernel_matches_plain(cuda, w_dtype):
     """K4 on ragged (70, 257) x (257, 65). atol 2^-20 of the largest
