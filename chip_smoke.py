@@ -5815,6 +5815,95 @@ def dryrun_fake_cells():
     return out
 
 
+# (e) the pure-DP archs' --opt train and prefill cells (single pod), each
+# traced on the card and on CPU tensors standing for it, in two child
+# the pure-DP ``--opt`` cells traced fake on the single-pod mesh, by the
+# card and by the CPU stand-in, each in two ``--opt-fakes`` children that
+# run at once (host-only traces; nothing is timed meanwhile); the groups
+# balance the traces' times (108 + 16 + 10 + 5 s against 55 + 53 + 22 +
+# 3 s on the card's host)
+DRYRUN_OPT_GROUPS = (
+    (("hymba-1.5b", "train_4k"), ("minitron-4b", "prefill_32k"),
+     ("whisper-tiny", "train_4k"), ("mamba2-130m", "prefill_32k")),
+    (("minitron-4b", "train_4k"), ("mamba2-130m", "train_4k"),
+     ("hymba-1.5b", "prefill_32k"), ("whisper-tiny", "prefill_32k")))
+DRYRUN_OPT_TIMEOUT_S = 900
+# the parent tree's figures of these cells, every model rank computing
+# its data group's whole sequence (``python -m repro_torch.launch.dryrun
+# --opt --mesh single`` on the commit before the split, on the card): FLOPs
+# and peak per rank; printed beside this run's
+DRYRUN_OPT_BEFORE = {                  # cell: (FLOPs, peak bytes) a rank
+    "hymba-1.5b/prefill_32k": (645_242_268_489_984, 24_778_611_016),
+    "hymba-1.5b/train_4k": (992_636_290_727_936, 44_131_161_292),
+    "mamba2-130m/prefill_32k": (14_386_147_418_112, 9_457_857_472),
+    "mamba2-130m/train_4k": (69_017_171_656_704, 17_558_028_316),
+    "minitron-4b/prefill_32k": (1_187_475_703_726_080, 23_112_169_472),
+    "minitron-4b/train_4k": (1_945_310_947_442_688, 99_568_351_444),
+    "whisper-tiny/prefill_32k": (14_957_723_948_544, 6_694_352_896),
+    "whisper-tiny/train_4k": (23_038_437_359_616, 35_022_767_884),
+}
+# the split cuts FLOPs per rank at least this many times (whisper-tiny's
+# train cell least: its 1,500 frames do not divide 16 and stay whole)
+DRYRUN_OPT_FLOPS_CUT = 6
+
+
+def opt_fakes_child(device_name, group, out):
+    """``--opt-fakes DEVICE GROUP OUT``: the fake traces of
+    DRYRUN_OPT_GROUPS[GROUP] with the fake tensors on ``DEVICE`` ("cuda"
+    or "cpu"), their summaries written to ``OUT`` as JSON."""
+    from repro_torch.launch import dryrun
+    Path(out).write_text(json.dumps({
+        f"{arch}/{shape}": dryrun_summary(dryrun.run_fake(
+            dryrun.lm_cell(arch, shape, True), "single", device=device_name))
+        for arch, shape in DRYRUN_OPT_GROUPS[int(group)]}))
+
+
+def dryrun_opt_fakes():
+    """(e): the cells traced by the card and by the CPU stand-in, in four
+    ``--opt-fakes`` children at once (this process waits; nothing is
+    timed meanwhile); the card's equal to the CPU's (FLOPs, peak, bytes
+    asked), beside the parent tree's figures (DRYRUN_OPT_BEFORE)."""
+    t0 = time.perf_counter()
+    res = {"cuda": {}, "cpu": {}}
+    with tempfile.TemporaryDirectory() as scratch:
+        procs = []
+        for dev in res:
+            for g in range(len(DRYRUN_OPT_GROUPS)):
+                out = os.path.join(scratch, f"opt_fakes_{dev}{g}.json")
+                with open(out + ".err", "w") as err:  # no pipe to fill up
+                    procs.append((dev, out, subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--opt-fakes", dev, str(g), out],
+                        stdout=subprocess.DEVNULL, stderr=err)))
+        try:
+            for dev, out, proc in procs:
+                proc.wait(timeout=DRYRUN_OPT_TIMEOUT_S)
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"dryrun --opt fakes ({dev}): "
+                        f"{Path(out + '.err').read_text()[-3000:]}")
+                res[dev].update(json.loads(Path(out).read_text()))
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    card, cpu = res["cuda"], res["cpu"]
+    keys = ("flops", "argument_bytes", "peak_bytes_per_chip", "requested")
+    for cell in card:
+        if any(card[cell][k] != cpu[cell][k] for k in keys):
+            raise AssertionError(f"dryrun --opt {cell}: card "
+                                 f"{[card[cell][k] for k in keys]} vs cpu "
+                                 f"{[cpu[cell][k] for k in keys]}")
+        flops, peak = DRYRUN_OPT_BEFORE[cell]
+        card[cell]["before"] = {"flops": flops, "peak_bytes_per_chip": peak}
+        if card[cell]["flops"] * DRYRUN_OPT_FLOPS_CUT > flops:
+            raise AssertionError(f"dryrun --opt {cell}: {card[cell]['flops']} "
+                                 f"FLOPs a rank, {flops} before")
+    return {"cells": card, "cpu_equals_card": list(keys),
+            "seconds": time.perf_counter() - t0}
+
+
 def dryrun_against_card(device):
     """(b): three cells traced fake and run for real on a mesh of one rank:
     argument bytes and FLOPs equal, the card's peak within the stated
@@ -6042,7 +6131,8 @@ def phase_dryrun(device, stacks):
     """The dry run (``repro_torch.launch.dryrun``) on the card: (a) fake
     traces on the single-pod mesh, (b) three cells fake and for real on a
     mesh of one rank, (c) the banded cell's bytes against the in-process
-    ranks', (d) remat off / nothing / save_comm on lm_train's config."""
+    ranks', (d) remat off / nothing / save_comm on lm_train's config,
+    (e) the pure-DP ``--opt`` cells, card and CPU (:func:`dryrun_opt_fakes`)."""
     import torch
     t0 = time.perf_counter()
     # in a fresh interpreter: importing the dry run's modules loads neither
@@ -6064,13 +6154,14 @@ def phase_dryrun(device, stacks):
     against = dryrun_against_card(device)
     banded = dryrun_banded(stacks)
     remat = dryrun_remat(device)
+    opt = dryrun_opt_fakes()
     torch.cuda.empty_cache()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if loaded:
         raise AssertionError(f"dryrun: the port loaded {loaded}")
     emit("dryrun", fake_single_pod=fake, against_card=against,
-         banded=banded, remat=remat, fake_seconds=t_fake,
+         banded=banded, remat=remat, opt_single_pod=opt, fake_seconds=t_fake,
          seconds=time.perf_counter() - t0)
 
 
@@ -6837,7 +6928,7 @@ def tp_train_run(cfg, tp, opt, device, single):
 # their autograd graphs at once (about 3 GB of float32 activations a
 # block per rank at B 2)
 DETR_TP_ARCH = "deformable-detr-defa"
-DETR_TP_MESH = (1, 4)
+DETR_TP_MESHES = ((1, 4), (2, 2))      # (2, 2): the INT12 scale over images
 DETR_TP_BATCH = 2
 DETR_TP_TRAIN_BLOCKS = 2
 DETR_TP_LOSS_RTOL = 1e-4
@@ -6887,10 +6978,12 @@ def detr_grads(params, enc, level_shapes, x, pos, refs):
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
-def tp_detr(device):
+def tp_detr(device, mesh_shape):
     """The DETR serve and train cells' rank bodies on in-process ranks of
-    a (1, 4) mesh (``launch.detr_cells.build_detr_cell``: the attention
-    whole, the FFN on each rank's quarter, the model axis's sum), against
+    a ``mesh_shape`` (data, model) mesh (``launch.detr_cells.build_detr_cell``:
+    the attention whole, the FFN on each rank's share, the model axis's
+    sum; on a data split each rank's images, their INT12 scales the whole
+    batch's, ``act_sharding.batch_max``), against
     one card: serve at ``auto`` (K1 in every block) within DEFA's
     agreement limits (median 1e-3, max 0.5 of the LayerNorm'd output),
     the train step's gradients within the train phase's gradient rule
@@ -6910,10 +7003,10 @@ def tp_detr(device):
     acfg = CONFIGS[DETR_TP_ARCH]
     levels = acfg.level_shapes
     enc = with_dtype(acfg.encoder, torch.float32)
-    mesh = C.InProcessMesh(DETR_TP_MESH, ("data", "model"))
+    mesh = C.InProcessMesh(mesh_shape, ("data", "model"))
     memory_mark()
     params, x, pos, refs = detr_tp_inputs(enc, levels, device)
-    res = {"model": DETR_TP_ARCH, "mesh": list(DETR_TP_MESH), "dtype": "float32",
+    res = {"model": DETR_TP_ARCH, "mesh": list(mesh_shape), "dtype": "float32",
            "batch": DETR_TP_BATCH, "queries": x.shape[1]}
 
     def timed(fn):
@@ -7009,6 +7102,361 @@ def tp_detr(device):
     return res
 
 
+# --------------------------------------------------------------------------
+# opt: the pure-DP archs' --opt train and prefill cells on a sequence split
+# --------------------------------------------------------------------------
+
+# (arch, depth cut or None): full widths in bf16, minitron-4b and
+# hymba-1.5b cut in depth, mamba2-130m and whisper-tiny whole
+OPT_RUNS = (("minitron-4b", 2), ("mamba2-130m", None), ("hymba-1.5b", 4),
+            ("whisper-tiny", None))
+OPT_MESHES = ((1, 4), (2, 2))
+OPT_SEQ = 4096
+OPT_TRAIN_BATCH = 8              # grad_accum 4 (whisper 2) x data 2
+OPT_PREFILL_BATCH = 4
+OPT_F32_LAYERS = 2               # the float32 run: depth 2, on (2, 2)
+OPT_F32_SEQ = 1024
+OPT_F32_TOL = 1e-4               # of the largest |value|
+# a prefill above 2 x attn_chunk (2,048): the blockwise attention, each
+# rank's queries offset into the gathered keys
+OPT_BLOCKWISE = ("minitron-4b", 2, 8192)
+# float32 train runs left out: what the card cannot hold
+OPT_F32_NO_TRAIN = {"minitron-4b": "not run in float32: four in-process "
+                    "ranks' float32 gathers of the 1.74 G parameters and "
+                    "their cotangents do not fit beside one card's (80 GB)"}
+
+
+def opt_config(arch, depth, kind, dtype=None):
+    """The reference's ``--opt`` config (``launch.dryrun._opt_cfg``) of the
+    published config cut to ``depth`` layers (its global layers among
+    them kept, hymba-1.5b's (0, 15, 31) -> (0,)) and cast to ``dtype``;
+    the cut as printed in ``reduced``."""
+    import dataclasses
+    from repro_torch.launch.dryrun import _opt_cfg
+    cfg, reduced = family_config(arch, depth)
+    kept = tuple(i for i in cfg.global_layers if i < cfg.n_layers)
+    if kept != tuple(cfg.global_layers):
+        reduced = dict(reduced, global_layers=[list(cfg.global_layers),
+                                               list(kept)])
+        cfg = dataclasses.replace(cfg, global_layers=kept)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    cfg, on = _opt_cfg(arch, cfg, kind)
+    if not (on and cfg.pure_dp):
+        raise AssertionError(f"opt: {arch} {kind} is no pure-DP cell")
+    return cfg, reduced
+
+
+def opt_batch(cfg, b, s, device, train):
+    """Seeded tokens (s + 1 a row to train) and, for whisper, frames."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + int(train)),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.enc_seq_len, cfg.d_model),
+                                      generator=gen, device=device
+                                      ).to(cfg.dtype)
+    return batch
+
+
+def opt_run(cell, mesh, inputs, grad):
+    """Every rank of ``mesh`` in turn on this card, each on its slices of
+    ``inputs`` by the cell's in-shardings: the cell's body, which enters
+    the cell's own policy (``seq_shard``); the ranks' outputs."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    ranks = detr_rank_inputs(cell, mesh, inputs)
+    with torch.set_grad_enabled(grad):
+        return C.run_in_process(lambda r, ctx: cell.body(ctx, *ranks[r]),
+                                mesh)
+
+
+def opt_timed(fn):
+    """fn() once: its result, host ms to a synchronize, and the peak above
+    what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def opt_f32_truth(cfg, params, batch):
+    """One card's float32 gradients of the same (bf16) parameters and
+    batch, on the host: what ``grad_limits`` holds a bf16 leaf to when it
+    falls outside the bf16 rule (one card's own bf16 gradient lies as far
+    from it)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.step import _loss_and_grads
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    b32 = {k: v.float() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    _, _, g = _loss_and_grads(cfg32, get_api(cfg32))(
+        tree_map(lambda t: t.float(), params), b32)
+    return [t.to("cpu") for t in tree_leaves(g)]
+
+
+def opt_arch(arch, depth, device, dtype=None, meshes=OPT_MESHES, seq=None,
+             train=True):
+    """One arch's ``--opt`` train and prefill cells on each mesh of
+    ``meshes`` against one card (:func:`opt_train`, :func:`opt_prefill`)."""
+    import torch
+    from repro_torch.models.registry import get_api
+    seq = seq or OPT_SEQ
+    cfg, reduced = opt_config(arch, depth, "train", dtype)
+    api = get_api(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {"model": arch, "reduced": reduced, "dtype": str(cfg.dtype),
+           "seq": seq, "grad_accum": cfg.grad_accum,
+           "remat_policy": cfg.remat_policy}
+    params = api.init(cfg, gen, device=device)
+    if train:
+        out["train"] = opt_train(arch, cfg, device, meshes, seq, params)
+    else:
+        out["train"] = OPT_F32_NO_TRAIN[arch]
+    return opt_prefill(arch, depth, device, dtype, meshes, seq, params, out)
+
+
+def opt_step_want(p, m, v, lr, bc1, bc2, opt):
+    """AdamW's new value of parameter ``p`` from the step's own moments
+    ``m`` and ``v``, op for op as ``optim.adamw._leaf_update`` forms it."""
+    import torch
+    den = torch.div(v, bc2).sqrt_().add_(opt.eps)
+    update = torch.div(m, bc1).div_(den)
+    p32 = p.to(torch.float32)
+    update.add_(torch.mul(p32, opt.weight_decay)).mul_(lr)
+    return update.neg_().add_(p32).to(p.dtype)
+
+
+def opt_train(arch, cfg, device, meshes, seq, params):
+    """The train cell's whole step (its ``body`` under its own policy:
+    the sequence split, the gradients, AdamW on the ZeRO slices and the
+    write-back) from zero moments on each mesh, against one card's
+    gradients of the same parameters and batch. After one step a first
+    moment is (1 - beta1) x the clipped gradient, so the gradient the
+    step used is m / ((1 - beta1) x clip scale): held per leaf by the
+    bf16 gradient rule (a leaf outside it against its float32 gradient,
+    as ``tp_train`` holds one), float32 within OPT_F32_TOL. The new
+    parameters are held to AdamW of the old ones with the step's own
+    moments (:func:`opt_step_want`): within one rounding of their dtype.
+    The loss and the global norm against one card's."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import (OptConfig, _update_scalars,
+                                         global_norm, tree_leaves, tree_map)
+    from repro_torch.train.step import TrainState, _loss_and_grads, spec_leaves
+    f32 = cfg.dtype == torch.float32
+    opt = OptConfig(warmup_steps=0)   # lr 3e-4 at once: a step above a bf16
+                                      # rounding of most parameters
+    batch = opt_batch(cfg, OPT_TRAIN_BATCH, seq, device, True)
+    memory_mark()
+    (loss1, _, want), single_ms, single_peak = opt_timed(
+        lambda: _loss_and_grads(cfg, get_api(cfg))(params, batch))
+    norm1 = float(global_norm(want))
+    want = [t.to("cpu") for t in tree_leaves(want)]   # off the card meanwhile
+    res = {"batch": OPT_TRAIN_BATCH, "single_loss": float(loss1),
+           "single_grad_norm": norm1, "single_grad_ms": single_ms,
+           "single_grad_peak_bytes": single_peak}
+    rtol = OPT_F32_TOL if f32 else TP_TRAIN_LOSS_RTOL
+    p_ulp = OPT_F32_TOL if f32 else 2.0 ** -7     # one rounding of p
+    truth = None
+    n = len(want)
+    for d, t in meshes:
+        mesh = C.InProcessMesh((d, t), ("data", "model"))
+        cell = build_cell(arch, cfg, ShapeSpec("t", "train", seq,
+                                               OPT_TRAIN_BATCH), mesh, opt,
+                          policy=True)
+        # zero moments as stride-0 views (AdamW reads them out of place):
+        # minitron-4b's 14 GB of them do not fit beside the ranks' step
+        # and the phases' held state
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        state = TrainState(params, {
+            "m": tree_map(lambda p: zero.expand(p.shape), params),
+            "v": tree_map(lambda p: zero.expand(p.shape), params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)},
+            torch.zeros((), dtype=torch.int32, device=device))
+        memory_mark()
+        outs, step_ms, step_peak = opt_timed(lambda: opt_run(
+            cell, mesh, (state, batch), True))
+        step0 = state.opt["step"]
+        del state
+        metrics = outs[0][1]
+        loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
+        _, scale, _, lr, bc1, bc2 = _update_scalars(
+            None, {"step": step0}, opt, gnorm)
+        specs = spec_leaves(cell.in_shardings[0])
+        whole = lambda i, ref: C.assemble(
+            {r: tree_leaves(o[0])[i] for r, o in enumerate(outs)}, specs[i],
+            tuple(ref.shape), mesh)
+        worst = {"max_rel": 0.0, "median_rel": 0.0, "leaf": None}
+        params_worst = {"max_rel": 0.0, "bitwise": True}
+        outside = {}
+        for j, (w, p) in enumerate(zip(want, tree_leaves(params))):
+            w = w.to(device)
+            m, v = whole(n + j, w), whole(2 * n + 1 + j, w)
+            got_p = whole(j, w)
+            p_want = opt_step_want(p, m, v, lr, bc1, bc2, opt)
+            err = (got_p.float() - p_want.float()).abs()
+            lim = p_want.float().abs() * p_ulp
+            params_worst["bitwise"] &= bool(torch.equal(got_p, p_want))
+            params_worst["max_rel"] = max(params_worst["max_rel"], float(
+                (err / p_want.float().abs().clamp(min=1e-30)).max()))
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"opt {arch} {d}x{t} step: parameter "
+                                     f"{j} is not AdamW of its moments")
+            del v, got_p, p_want, err, lim
+            g = m.div_((1 - opt.beta1) * scale)
+            if f32:
+                top = float(w.abs().max())
+                e = float((g - w).abs().max())
+                cmp = {"max_rel": e / max(top, 1e-30), "median_rel": 0.0,
+                       "held": bool(torch.isfinite(g).all())
+                       and e <= OPT_F32_TOL * top}
+                if not cmp["held"]:
+                    raise AssertionError(f"opt {arch} {d}x{t} gradient {j}: "
+                                         f"{cmp}")
+            else:
+                cmp = grad_limits(g, w)
+                if not cmp["held"]:
+                    outside[j] = g
+            if cmp["max_rel"] >= worst["max_rel"]:
+                worst.update(max_rel=cmp["max_rel"], leaf=j)
+            worst["median_rel"] = max(worst["median_rel"], cmp["median_rel"])
+            del g, m, w
+        del outs
+        if outside:
+            memory_mark()
+            truth = truth or opt_f32_truth(cfg, params, batch)
+            worst["against_f32"] = {}
+            for j, g in outside.items():
+                cmp = grad_limits(g, want[j].to(device),
+                                  truth=truth[j].to(device))
+                if not cmp["held"]:
+                    raise AssertionError(f"opt {arch} {d}x{t} gradient {j}: "
+                                         f"{cmp}")
+                worst["against_f32"][j] = cmp.get("against_f32")
+            del outside
+        if not abs(loss - float(loss1)) <= rtol * abs(float(loss1)):
+            raise AssertionError(f"opt {arch} {d}x{t}: loss {loss} vs "
+                                 f"{float(loss1)}")
+        if not abs(float(gnorm) - norm1) <= rtol * norm1:
+            raise AssertionError(f"opt {arch} {d}x{t}: grad_norm "
+                                 f"{float(gnorm)} vs {norm1}")
+        res[f"{d}x{t}"] = {"loss": loss, "grad_norm": float(gnorm),
+                           "grad_worst": worst, "params": params_worst,
+                           "tp_step_ms": step_ms,
+                           "tp_step_peak_bytes": step_peak}
+    del want, truth, batch
+    memory_mark()
+    return res
+
+
+def opt_prefill(arch, depth, device, dtype, meshes, seq, params, out):
+    """:func:`opt_arch`'s prefill half: the cell's last-position logits on
+    each mesh against one card's ``prefill``, into ``out["prefill"]``."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.registry import get_api
+    f32 = dtype is not None
+    cfg, _ = opt_config(arch, depth, "prefill", dtype)
+    api = get_api(cfg)
+    batch = opt_batch(cfg, OPT_PREFILL_BATCH, seq, device, False)
+    memory_mark()
+    with torch.no_grad():
+        (want, _), single_ms, single_peak = opt_timed(lambda: api.prefill(
+            params, cfg, api.init_cache(cfg, OPT_PREFILL_BATCH, seq,
+                                        device=device), batch))
+    out["prefill"] = {"batch": OPT_PREFILL_BATCH, "single_ms": single_ms,
+                      "single_peak_bytes": single_peak}
+    for d, t in meshes:
+        mesh = C.InProcessMesh((d, t), ("data", "model"))
+        cell = build_cell(arch, cfg, ShapeSpec("p", "prefill", seq,
+                                               OPT_PREFILL_BATCH), mesh,
+                          policy=True)
+        cache = api.init_cache(cfg, OPT_PREFILL_BATCH, seq, device=device)
+        memory_mark()
+        outs, ms, peak = opt_timed(lambda: opt_run(
+            cell, mesh, (params, cache, batch), False))
+        rows = cell.in_shardings[2]["tokens"][0]
+        got = C.assemble({r: o[0] for r, o in enumerate(outs)}, (rows, None),
+                         tuple(want.shape), mesh)
+        if f32:
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            cmp = {"max_rel": err / scale, "held": bool(
+                torch.isfinite(got).all()) and err <= OPT_F32_TOL * scale}
+        else:
+            cmp = logit_limits(got, want)
+        if not cmp["held"]:
+            raise AssertionError(f"opt {arch} {d}x{t} prefill: {cmp}")
+        out["prefill"][f"{d}x{t}"] = {"logits": cmp, "tp_ms": ms,
+                                      "tp_peak_bytes": peak}
+        del outs, got, cache
+    del params, want
+    memory_mark()
+    return out
+
+
+def opt_cells(device):
+    """The reference's ``--opt`` train and prefill cells of the four
+    pure-DP archs (OPT_RUNS) on in-process ranks of (1, 4) and (2, 2),
+    each rank on its block of its data group's token rows, against one
+    card (:func:`opt_arch`): bf16 at S OPT_SEQ, then float32 at
+    OPT_F32_LAYERS layers on (2, 2) (OPT_F32_NO_TRAIN: prefill only),
+    then OPT_BLOCKWISE's prefill. cuBLAS runs as the port sets it: the
+    train path under ``train.step.float32_reductions``, prefill at
+    PyTorch's default. No kernel of K1-K5 is on this path (the reference
+    computes these cells in plain jnp)."""
+    import torch
+    from repro_torch.models.registry import get_api
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    runs = []
+    for arch, depth in OPT_RUNS:
+        t1 = time.perf_counter()
+        runs.append(dict(opt_arch(arch, depth, device),
+                         seconds=time.perf_counter() - t1))
+    f32 = []
+    for arch, _ in OPT_RUNS:
+        t1 = time.perf_counter()
+        f32.append(dict(opt_arch(arch, OPT_F32_LAYERS, device, torch.float32,
+                                 meshes=((2, 2),), seq=OPT_F32_SEQ,
+                                 train=arch not in OPT_F32_NO_TRAIN),
+                        seconds=time.perf_counter() - t1))
+    arch, depth, seq = OPT_BLOCKWISE
+    t1 = time.perf_counter()
+    cfg, reduced = opt_config(arch, depth, "prefill")
+    if cfg.attn_impl == "dense" or seq <= 2 * cfg.attn_chunk \
+            or seq % cfg.attn_chunk:
+        raise AssertionError(f"opt: {arch} at S {seq} attends densely")
+    params = get_api(cfg).init(cfg, torch.Generator(device=device)
+                               .manual_seed(SEED), device=device)
+    blockwise = opt_prefill(arch, depth, device, None, OPT_MESHES, seq,
+                            params, {"model": arch, "reduced": reduced,
+                                     "seq": seq,
+                                     "attn_chunk": cfg.attn_chunk})
+    del params
+    return {"runs": runs, "float32": f32,
+            "blockwise_prefill": dict(blockwise,
+                                      seconds=time.perf_counter() - t1),
+            "kernel_launches": counts_since(before),
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_tp_train(device):
     """Training on model-axis shards on this card: TP_TRAIN_RUNS, each
     TP_TRAIN_STEPS steps from one seeded state through the train cell's
@@ -7045,8 +7493,9 @@ def phase_tp_train(device):
         del single
     memory_mark()
     launches = counts_since(before)
-    detr = tp_detr(device)
-    emit("tp_train", runs=rows, kernel_launches=launches, detr=detr,
+    detr = {f"{d}x{t}": tp_detr(device, (d, t)) for d, t in DETR_TP_MESHES}
+    opt = opt_cells(device)
+    emit("tp_train", runs=rows, kernel_launches=launches, detr=detr, opt=opt,
          allocated_before_bytes=held,
          tolerance="per leaf: gradient max |d| <= 2^-4 and median <= 2^-8 "
                    "of the largest |g| of the one card's (median only in a "
@@ -7055,7 +7504,14 @@ def phase_tp_train(device):
                    "4x the one card's bf16 distance; loss within 2^-7 "
                    "relative; detr: serve median 1e-3 and max 0.5 of the "
                    "one card's output, the train phase's gradient rule, "
-                   "loss 1e-4 relative",
+                   "loss 1e-4 relative; opt (the cell's whole step): "
+                   "bf16 gradients (first moment / ((1 - beta1) x clip)) "
+                   "2^-4 / 2^-8 of the largest |g| per leaf, loss and "
+                   "grad_norm 2^-7 relative, new parameters within one "
+                   "bf16 rounding (2^-7 relative) of AdamW of the step's "
+                   "moments, prefill logits logit_limits; float32 "
+                   "gradients, loss, grad_norm, parameters and logits "
+                   "within 1e-4 of the largest",
          seconds=time.perf_counter() - t0)
     return rows
 
@@ -7197,6 +7653,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--dist-rank"]:
         dist_rank_main()
+        return 0
+    if sys.argv[1:2] == ["--opt-fakes"] and len(sys.argv) == 5:
+        opt_fakes_child(*sys.argv[2:])
         return 0
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)

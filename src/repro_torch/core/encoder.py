@@ -12,7 +12,9 @@ the rank's columns of each block's ``ffn1`` and rows of its ``ffn2``
 keeps the 8 attention heads whole, ``launch.detr_cells``), the FFN's
 input enters through ``act_sharding.model_copy`` and its output leaves
 through ``act_sharding.model_sum``, as ``models.layers.mlp_body``
-does."""
+does. Under ``act_sharding.batch_split`` (a rank holding its images of
+a batch split over the data axes) each block's INT12 scales are the
+whole batch's (``msda.attention.msda_attention_body``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,7 +28,7 @@ from repro_torch.core.msdeform_attn import (MSDeformAttnConfig,
                                             init_msdeform_attn, logical_axes)
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
-from repro_torch.msda.attention import msda_attention
+from repro_torch.msda.attention import msda_attention_body
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.msda.plan import make_plan
 
@@ -109,9 +111,9 @@ def encoder_body(params: dict, cfg: EncoderConfig,
     state = MSDAPipelineState.initial()
     for blk in params["blocks"]:
         q = h + pos_embed[None]
-        attn_out, state = msda_attention(blk["attn"], plan, q, ref_points, h,
-                                         state=state,
-                                         collect_stats=collect_stats)
+        attn_out, state = yield from msda_attention_body(
+            blk["attn"], plan, q, ref_points, h, state=state,
+            collect_stats=collect_stats)
         h = nn.layer_norm(blk["ln1"], h + attn_out)
         ff = yield from ffn_body(blk, cfg, h)
         h = nn.layer_norm(blk["ln2"], h + ff)

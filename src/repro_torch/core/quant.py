@@ -4,6 +4,11 @@ Symmetric uniform quantization:  q = clip(round(x / s), -2^(b-1), 2^(b-1)-1),
 s = max|x| / (2^(b-1) - 1), per-tensor or per-channel. ``torch.round``
 rounds half to even, as ``jnp.round`` does. The straight-through
 estimator is ``x + (y - x).detach()``.
+
+:func:`maybe_fake_quant_body` is the per-tensor fake-quant as a rank
+body step: where a rank holds its rows of a batch split over the data
+axes (``act_sharding.batch_split``), its max is the whole batch's, as
+the reference's partitioner takes ``max|x|`` over the whole array.
 """
 from __future__ import annotations
 
@@ -63,6 +68,18 @@ def maybe_fake_quant(x: torch.Tensor, bits: Optional[int],
     if bits is None or bits <= 0:
         return x
     return fake_quant(x, bits, axis)
+
+
+def maybe_fake_quant_body(x: torch.Tensor, bits: Optional[int]):
+    """Rank body step: :func:`maybe_fake_quant` per tensor, its max over
+    the batch axes of a batch split (``act_sharding.batch_max``); off a
+    split the same bits as :func:`maybe_fake_quant`."""
+    if bits is None or bits <= 0:
+        return x
+    from repro_torch.distributed.act_sharding import batch_max
+    amax = yield from batch_max(x.abs().max())
+    return fake_quant_with_scale(x, bits,
+                                 torch.clamp(amax, min=1e-8) / qmax(bits))
 
 
 def table_quant_scale(v: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ launch layer.
 * The **policy** (the dry run's ``--opt`` cells, through
   ``launch.input_specs._maybe_policy``): the MoE reads
   :func:`model_axis_size` to take its expert-parallel path when it is
-  called on global tensors.
+  called on global tensors, and ``seq_shard`` (the pure-DP strategy,
+  ``cfg.pure_dp``) makes a cell's rank body split the sequence over the
+  model axis (:func:`seq_split`, below).
 * The **tensor-parallel context** (:func:`tensor_parallel`, set by a
   serving or training cell's rank body, ``launch.input_specs``): the
   rank's place on the model axis. Under it the paths of ``models/``
@@ -33,11 +35,28 @@ launch layer.
   the rank that owns its slot and merges the ranks' partial attentions
   (K5's partial mode) instead of gathering the cache.
 
-The reference's ``constrain_*`` hints (and ``layers._constrain_attn``)
-are not ported: they pin the sharding of activations that XLA then
-propagates, where the port's rank bodies split each layer explicitly.
-With them wait the reference's ``seq_shard`` flag and ``policy_active``
-(ROADMAP.md)."""
+* The **batch split** (:func:`batch_split`, set by a training rank body
+  and by the DETR serve body): a statistic of the whole batch asks for
+  the data axes' reduction (:func:`batch_mean`; :func:`batch_max` for the
+  DEFA INT12 scale, one max over the whole array in the reference).
+
+* The **sequence split** (:func:`seq_split`, set by a train or prefill
+  cell's rank body under a policy with ``seq_shard``): the rank holds
+  one contiguous block of the token rows of its data group, where the
+  reference's ``constrain_stream`` pins every (B, S, ...) stream's dim 1
+  to the model axis. ``_constrain``'s rule holds: a stream whose length
+  does not divide the axis stays whole on every rank
+  (:func:`stream_split`). Under it the models compute the rank's rows:
+  attention over K / V gathered over the axis (:func:`seq_gather`, whose
+  backward reduce-scatters the group's summed cotangents), the SSD scan
+  passing its state from rank to rank, and the loss as the axis's sum
+  of the ranks' token sums (:func:`seq_sum`).
+
+The reference's ``constrain_*`` hints themselves (and
+``layers._constrain_attn``) are not ported: they pin the sharding of
+activations that XLA then propagates, where the port's rank bodies
+split each layer explicitly; the pure-DP sequence split above is what
+they ask for under ``--opt``."""
 from __future__ import annotations
 
 import contextlib
@@ -58,19 +77,29 @@ _BATCH: contextvars.ContextVar = contextvars.ContextVar(
     "batch_split", default=())
 _CACHE: contextvars.ContextVar = contextvars.ContextVar(
     "cache_split", default=None)
+_SEQ: contextvars.ContextVar = contextvars.ContextVar(
+    "seq_split", default=None)
 
 
 @contextlib.contextmanager
-def activation_policy(mesh, batch_axes, model_axis: Optional[str] = "model"):
+def activation_policy(mesh, batch_axes, model_axis: Optional[str] = "model",
+                      seq_shard: bool = False):
     """Set the policy: batch dims over `batch_axes`, experts over
-    `model_axis` (None where the mesh has no such axis)."""
+    `model_axis` (None where the mesh has no such axis). ``seq_shard``
+    (pure-DP strategy): the model axis carries the SEQUENCE of the
+    (B, S, ...) streams and the weights stay replicated."""
     token = _POLICY.set({"mesh": mesh, "batch": batch_axes,
                          "model": model_axis if (model_axis in mesh_shape(mesh))
-                         else None})
+                         else None,
+                         "seq": seq_shard})
     try:
         yield
     finally:
         _POLICY.reset(token)
+
+
+def policy_active() -> bool:
+    return _POLICY.get() is not None
 
 
 def current_policy() -> Optional[dict]:
@@ -227,3 +256,99 @@ def batch_mean(x):
     if not axes:
         return x
     return (yield C.pmean(axes, x))
+
+
+def batch_max(x):
+    """Rank body step: the max of ``x`` over the batch axes under
+    :func:`batch_split`, taken on detached values (exact in any order;
+    a quantization scale sits inside the straight-through estimator's
+    detached term, so it needs no gradient); ``x`` itself elsewhere."""
+    axes = _BATCH.get()
+    if not axes:
+        return x
+    return (yield C.pmax(axes, x.detach()))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A rank's block of a stream of ``total`` rows split over ``axis``:
+    rows ``[start, start + rows)``. ``total`` 0: the cell's token stream
+    does not divide the axis and stays whole (:func:`stream_split` may
+    still split another stream)."""
+    rank: C.RankContext
+    total: int
+    axis: str = "model"
+
+    @property
+    def size(self) -> int:
+        return self.rank.size[self.axis]
+
+    @property
+    def index(self) -> int:
+        return self.rank.index[self.axis]
+
+    @property
+    def rows(self) -> int:
+        return self.total // self.size
+
+    @property
+    def start(self) -> int:
+        return self.index * self.rows
+
+    def cut(self, x: torch.Tensor, dim: int = 1, extra: int = 0):
+        """This rank's rows of ``x`` along ``dim`` (and ``extra`` more
+        after them: the labels' shift)."""
+        return x.narrow(dim, self.start, self.rows + extra)
+
+
+@contextlib.contextmanager
+def seq_split(rank: C.RankContext, total: int, axis: str = "model"):
+    """Inside the block (a train or prefill cell's rank body) the rank
+    holds its block of the ``total`` token rows where a policy with
+    ``seq_shard`` is active, ``axis`` has more than one rank and
+    ``total`` divides it (``_constrain``'s rule); yields the
+    :class:`SeqSplit` (None where the sequence stays whole). Where the
+    policy splits but ``total`` does not divide, the context still lets
+    :func:`stream_split` cut another stream."""
+    split = None
+    if policy_active() and current_policy().get("seq") \
+            and current_policy()["model"] == axis \
+            and rank.size.get(axis, 1) > 1:
+        split = SeqSplit(rank, total if total % rank.size[axis] == 0 else 0,
+                         axis)
+    token = _SEQ.set(split)
+    try:
+        yield split if split is not None and split.total else None
+    finally:
+        _SEQ.reset(token)
+
+
+def seq_split_context() -> Optional[SeqSplit]:
+    """The split of the cell's token stream (None: whole)."""
+    split = _SEQ.get()
+    return split if split is not None and split.total else None
+
+
+def stream_split(total: int) -> Optional[SeqSplit]:
+    """The split of another (B, ``total``, ...) stream under the sequence
+    split (whisper's encoder frames): None where it does not divide the
+    axis, as ``_constrain`` drops such a split."""
+    split = _SEQ.get()
+    if split is None or total % split.size:
+        return None
+    return dataclasses.replace(split, total=total)
+
+
+def seq_gather(split: SeqSplit, x, dim: int = 1):
+    """Rank body step: the ranks' blocks of ``x`` concatenated along
+    ``dim`` in rank order, an all-gather over the split's axis that the
+    ranks compute different rows from (not ``replicated``): its backward
+    hands each rank its block of the group's summed cotangents."""
+    return (yield C.all_gather(split.axis, x, dim))
+
+
+def seq_sum(split: SeqSplit, x):
+    """Rank body step: the axis's sum of the ranks' ``x`` (a token sum),
+    in float32 in rank order, one replicated value (``row_sum``'s
+    convention: each rank's ``x`` receives its own cotangent)."""
+    return (yield C.row_sum(split.axis, x.float()))

@@ -58,7 +58,8 @@ adjoint of its forward under that count:
   that every rank's region uses in part, so each rank's input receives
   the group's sum of the cotangents;
 * ``all_gather``: each input receives its slice of the group's summed
-  cotangents (a reduce-scatter: the FSDP gather over the data axes); with
+  cotangents (a reduce-scatter: the FSDP gather over the data axes, a
+  weight or a K / V block gathered over a sequence split); with
   ``replicated=True`` (a leaf gathered over the model axis to compute a
   replicated region whole) its slice of its own cotangent;
 * ``max`` and ``exchange`` carry no gradient: both runners raise if one

@@ -24,7 +24,9 @@ same pair; its encoder samples through ``torch_gather``: the kernels K1
 and K3 are forward-only (the reference's ``pallas_call`` has no
 autodiff rule either). The banded cell keeps its gather: its model axis
 carries bands of tokens, so each rank's FFN needs the whole weights, as
-XLA's does."""
+XLA's does. Both bodies run under ``act_sharding.batch_split``, so the
+DEFA config's INT12 scales are the whole batch's, as the reference's
+partitioner takes them over images split on the data axis."""
 from __future__ import annotations
 
 import dataclasses
@@ -215,7 +217,7 @@ def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
 
     if kind == "serve":
         def body(ctx, params, x_flat, pos, refs):
-            with acts.tensor_parallel(ctx):
+            with acts.tensor_parallel(ctx), acts.batch_split(ctx):
                 out, _ = yield from encoder_body(params, enc_cfg, x_flat, pos,
                                                  refs, level_shapes,
                                                  backend=backend)

@@ -9,6 +9,14 @@ Usage:
   python -m repro_torch.launch.dryrun --all [--mesh both] [--out results/dryrun_torch]
   python -m repro_torch.launch.dryrun --all --detr          # include DETR family
   python -m repro_torch.launch.dryrun --table --out results/dryrun_torch
+  python -m repro_torch.launch.dryrun --opt --arch mamba2-130m --device cpu --out DIR
+
+``--opt`` traces the reference's optimized configuration (:func:`_opt_cfg`)
+under the activation policy: the pure-DP archs' train and prefill cells
+split each data group's sequence over the model axis
+(``act_sharding.seq_split``). ``--device cpu`` traces on CPU tensors
+standing for the card's, also on a CUDA build (to hold the two traces
+against each other).
 
 Each cell writes ``<out>/<arch>__<shape>__<mesh>.json`` with the
 reference's top-level keys (``meta``, ``cost``, ``memory``,
@@ -359,9 +367,11 @@ def lm_cell(arch: str, shape, opt: bool = False, **cfg_fields):
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
              force: bool = False, verbose: bool = True,
-             mesh_shape=None, opt: bool = False) -> dict:
+             mesh_shape=None, opt: bool = False,
+             device: Optional[str] = None) -> dict:
     """Trace one LM cell (see the module docstring); ``opt`` the
-    ``--opt`` configuration."""
+    ``--opt`` configuration, ``device`` where the fake tensors lie
+    (default :func:`trace_device`)."""
     os.makedirs(out_dir, exist_ok=True)
     tag = f"{arch}__{shape_name}__{mesh_kind}"
     path = os.path.join(out_dir, tag + ".json")
@@ -369,7 +379,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         with open(path) as f:
             return json.load(f)
     result = run_fake(lm_cell(arch, shape_name, opt), mesh_kind,
-                         mesh_shape=mesh_shape)
+                      device=device, mesh_shape=mesh_shape)
     result["raw_cost_uncorrected"] = dict(result["cost"])
     result["collectives_corrected"] = {
         "total_bytes": result["collectives"]["total_bytes"],
@@ -481,6 +491,9 @@ def main(argv=None) -> None:
                     help="§Perf optimized config (O1-O6)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once, each in a process of its own")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="where the fake tensors lie (default: the card "
+                         "on a CUDA build, else CPU tensors standing for it)")
     ap.add_argument("--table", action="store_true",
                     help="print the cells under --out as a table and exit")
     args = ap.parse_args(argv)
@@ -499,7 +512,7 @@ def main(argv=None) -> None:
             get_config(args.arch).family)
         cells += [(args.arch, s) for s in shapes]
 
-    lm = functools.partial(run_cell, opt=True) if args.opt else run_cell
+    lm = functools.partial(run_cell, opt=args.opt, device=args.device)
     tasks = [(lm, (arch, shape, mk)) for arch, shape in cells
              for mk in meshes]
     if args.detr:

@@ -44,6 +44,15 @@ programs are:
     heads it could compute on) and every leaf of a ``pure_dp`` config
     (ZeRO splits the embed dim over every axis).
 
+Under the ``--opt`` policy (:func:`_maybe_policy`) a ``pure_dp`` config's
+train and prefill rank bodies split the sequence over the model axis,
+as the reference's ``seq_shard`` pins it: each rank cuts its contiguous
+block of its data group's token rows locally (the in-shardings stay the
+reference's) and computes only those (``act_sharding.seq_split``);
+attention gathers K / V, the SSD scan passes its state from rank to
+rank, and the loss is the group's, the model axis's sum of the ranks'
+token sums.
+
 ``Cell.fn`` takes this rank's tensors (plain tensors: the slices
 ``distributed.collectives.local_slices`` gives of each global leaf) and
 runs on a named ``DeviceMesh``; ``Cell.body``, where the program is one
@@ -204,23 +213,28 @@ def serving_program(cfg: ModelConfig, mesh, kind: str, params, cache,
     return body, param_specs, cache_specs
 
 
-def _maybe_policy(fn: Callable, mesh, policy: bool) -> Callable:
-    """O1-O4: wrap a cell fn so it runs under the activation-sharding
-    policy when ``policy`` is set (the --opt dry run's cells); baseline
-    runs stay without. In the port the policy moves only a train cell's
-    MoE (onto its expert-parallel path, where the model axis divides the
-    experts): a serving cell's rank body takes that path whenever the
-    rules split the experts. The ``constrain_*`` hints are not ported
-    (``distributed.act_sharding``)."""
+def _maybe_policy(body: Callable, mesh, policy: bool,
+                  cfg: ModelConfig) -> Callable:
+    """O1-O4: wrap a cell's rank body so it runs under the
+    activation-sharding policy when ``policy`` is set (the --opt dry
+    run's cells); baseline runs stay without. The cell's ``fn`` and
+    ``body`` are then both under it, whichever runner drives them.
+    ``seq_shard`` is ``cfg.pure_dp``, as in the reference. In the port
+    the policy moves a train cell's MoE (onto its expert-parallel path,
+    where the model axis divides the experts) and, with ``seq_shard``,
+    makes a train or prefill cell's rank body split its token rows over
+    the model axis (:func:`_train_body`, :func:`_serve_body`;
+    ``act_sharding.seq_split``): the split the reference's
+    ``constrain_stream`` pins, computed explicitly."""
     if not policy:
-        return fn
+        return body
     from repro_torch.distributed.act_sharding import activation_policy
     baxes = _batch_axes(mesh)
     baxes = baxes if len(baxes) > 1 else baxes[0]
 
-    def wrapped(*args, **kw):
-        with activation_policy(mesh, baxes):
-            return fn(*args, **kw)
+    def wrapped(ctx: C.RankContext, *args):
+        with activation_policy(mesh, baxes, seq_shard=cfg.pure_dp):
+            return (yield from body(ctx, *args))
     return wrapped
 
 
@@ -296,10 +310,25 @@ def _length_axes(cache_specs) -> tuple:
     return found[0] if found else ()
 
 
+def _cut_tokens(cfg: ModelConfig, batch: dict, split, extra: int) -> dict:
+    """The batch with the rank's block of token rows of a sequence split
+    (``extra`` rows more after it: the shifted labels of a train batch),
+    cut locally: the cell's in-shardings stay the reference's (batch over
+    the data axes only). Other leaves (whisper's frames) stay whole."""
+    if cfg.family == "vlm":
+        raise ValueError(f"{cfg.name}: a sequence split cuts token rows, and "
+                         "a vlm stream starts with image embeddings")
+    return dict(batch, tokens=split.cut(batch["tokens"], 1, extra))
+
+
 def _serve_body(api, cfg: ModelConfig, kind: str, param_specs, cache_specs):
     """The rank body of a prefill or decode cell: args (params, cache,
     batch dict) for prefill, (params, cache, tokens, pos) for decode.
-    Returns (this rank's logits, its cache shard, written in place)."""
+    Returns (this rank's logits, its cache shard, written in place).
+    Under a policy with ``seq_shard`` a prefill rank computes its block
+    of the prompt's rows (``act_sharding.seq_split``) and returns the
+    last position's logits, as every rank of the reference's replicated
+    output holds them."""
     gather_specs = _gather_specs(cfg, param_specs)
     length_axes = _length_axes(cache_specs)
     if length_axes and kind == "prefill":
@@ -311,8 +340,12 @@ def _serve_body(api, cfg: ModelConfig, kind: str, param_specs, cache_specs):
         mine = yield from gather_tree(params, gather_specs, ctx.size)
         with acts.tensor_parallel(ctx), acts.cache_split(ctx, length_axes):
             if kind == "prefill":
-                logits, _ = yield from api.prefill_body(mine, cfg, cache,
-                                                        rest[0])
+                batch = rest[0]
+                with acts.seq_split(ctx, batch["tokens"].shape[1]) as split:
+                    if split is not None:
+                        batch = _cut_tokens(cfg, batch, split, 0)
+                    logits, _ = yield from api.prefill_body(mine, cfg, cache,
+                                                            batch)
             else:
                 logits, _ = yield from api.decode_body(mine, cfg, cache,
                                                        *rest)
@@ -339,12 +372,17 @@ def _train_body(cfg: ModelConfig, opt_cfg: OptConfig, specs: TrainState,
                 api=None) -> Callable:
     """The rank body of a train cell: args (state, batch), this rank's
     slices of each; returns (its slices of the new state, metrics)
-    (``train.step.train_rank_body``)."""
+    (``train.step.train_rank_body``). Under a policy with ``seq_shard``
+    the rank takes its block of the input rows ``tokens[:, :-1]`` and of
+    their labels (``act_sharding.seq_split``)."""
     step = train_rank_body(cfg, opt_cfg, specs, api)
 
     def body(ctx: C.RankContext, state: TrainState, batch: dict):
-        params, opt, n, metrics = yield from step(ctx, state.params,
-                                                  state.opt, state.step, batch)
+        with acts.seq_split(ctx, batch["tokens"].shape[1] - 1) as split:
+            if split is not None:
+                batch = _cut_tokens(cfg, batch, split, 1)
+            params, opt, n, metrics = yield from step(
+                ctx, state.params, state.opt, state.step, batch)
         return TrainState(params, opt, n), metrics
     return body
 
@@ -378,9 +416,10 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
         state_sds = traced_shapes(lambda: make_train_state(cfg, device="cpu"))
         state_specs = train_state_shardings(cfg, mesh, state_sds)
         batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=True)
-        body = _train_body(cfg, opt_cfg, state_specs, api)
-        fn = _maybe_policy(_train_program(body, mesh), mesh, policy)
-        return Cell(name=f"{arch}/{shape.name}", fn=fn,
+        body = _maybe_policy(_train_body(cfg, opt_cfg, state_specs, api),
+                             mesh, policy, cfg)
+        return Cell(name=f"{arch}/{shape.name}",
+                    fn=_train_program(body, mesh),
                     in_specs=(state_sds, batch_sds),
                     in_shardings=(state_specs, batch_sh),
                     out_shardings=(state_specs, None), meta=meta, donate=(0,),
@@ -396,9 +435,10 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
         cache_sds, cache_sh = _cache_sds_and_shardings(
             cfg, mesh, b, cache_len=seq, shard_len=False)
         batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=False)
-        body = _serve_body(api, cfg, "prefill", param_specs, cache_sh)
+        body = _maybe_policy(_serve_body(api, cfg, "prefill", param_specs,
+                                         cache_sh), mesh, policy, cfg)
         return Cell(name=f"{arch}/{shape.name}",
-                    fn=_maybe_policy(spmd_program(body, mesh), mesh, policy),
+                    fn=spmd_program(body, mesh),
                     in_specs=(params_sds, cache_sds, batch_sds),
                     in_shardings=(param_specs, cache_sh, batch_sh),
                     out_shardings=(None, cache_sh), meta=meta, donate=(1,),
@@ -411,9 +451,10 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
     bspec = _batch_spec(mesh, b)
     tok_sds = _meta((b,), torch.int32)
     pos_sds = _meta((b,), torch.int32)
-    body = _serve_body(api, cfg, "decode", param_specs, cache_sh)
+    body = _maybe_policy(_serve_body(api, cfg, "decode", param_specs,
+                                     cache_sh), mesh, policy, cfg)
     return Cell(name=f"{arch}/{shape.name}",
-                fn=_maybe_policy(spmd_program(body, mesh), mesh, policy),
+                fn=spmd_program(body, mesh),
                 in_specs=(params_sds, cache_sds, tok_sds, pos_sds),
                 in_shardings=(param_specs, cache_sh, bspec, bspec),
                 out_shardings=(None, cache_sh), meta=meta, donate=(1,),

@@ -189,10 +189,25 @@ def cross_entropy_body(logits: torch.Tensor, labels: torch.Tensor,
     the axis without gradient; the exp-sum, summed over the axis; the gold
     logit, taken on the rank whose block holds the label and summed.
     Those sums are replicated values (``act_sharding.model_reduce``), so
-    each rank's logits receive their own columns' gradient."""
+    each rank's logits receive their own columns' gradient.
+
+    Under a sequence split (``act_sharding.seq_split``: the rank holds its
+    rows of its data group's tokens, the vocabulary whole) the mean over
+    the group's tokens: the axis's sum of the ranks' float32 token sums
+    (``act_sharding.seq_sum``, a replicated value) over the group's token
+    count."""
     n = logits.shape[-1]
+    split = acts.seq_split_context()
+    if n == vocab_size and split is not None:
+        z = logits.float()
+        gold = torch.gather(z, -1, labels[..., None].long())[..., 0]
+        nll = torch.logsumexp(z, dim=-1) - gold
+        total = yield from acts.seq_sum(split, nll.sum())
+        return total / (nll.numel() * split.size)
     if n == vocab_size:
         return cross_entropy_loss(logits, labels)
+    if split is not None:
+        raise ValueError("a sequence split keeps the vocabulary whole")
     tp = acts.tensor_parallel_context()
     z = logits.float()
     m = yield from acts.model_reduce("max", z.amax(-1), grad=False)

@@ -192,7 +192,17 @@ def _mixer_body(p, cfg, x, positions, window):
     """Rank body step of :func:`_mixer_out` (training): the attention on
     the rank's heads (``layers.attn_body``, the norm inside its region);
     the SSD mixer whole, its leaves gathered over the model axis by the
-    train step."""
+    train step. Under a sequence split both compute the rank's rows
+    (``layers.attn_body``, ``layers.ssd_split_body``) and the hybrid
+    mixes them there."""
+    split = acts.seq_split_context()
+    if split is not None and cfg.family in _SSD:
+        ym = yield from L.ssd_split_body(p["ssd"], cfg, x, p["ln1"], split)
+        if cfg.family == "ssm":
+            return ym
+        ya = yield from L.attn_body(p["attn"], cfg, x, positions, window,
+                                    p["ln1"])
+        return L.piece(cfg, _hybrid_mix, p, cfg, ya, ym)
     if cfg.family == "ssm":
         return L.piece(cfg, _ssd_core, p, cfg, x)
     ya = yield from L.attn_body(p["attn"], cfg, x, positions, window, p["ln1"])
@@ -219,12 +229,12 @@ def _layer_body(p: dict, cfg: ModelConfig, x, positions, window):
 def _layer_prefill(p, cfg, x, positions, cache, window):
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "ssm":
-        y, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
+        y, cache = yield from L.ssd_prefill_body(p["ssd"], cfg, h, cache)
         return x + y, cache
     ya, cache = yield from L.attn_prefill_body(p["attn"], cfg, h, positions,
                                                cache, window)
     if cfg.family == "hybrid":
-        ym, cache = L.ssd_prefill(p["ssd"], cfg, h, cache)
+        ym, cache = yield from L.ssd_prefill_body(p["ssd"], cfg, h, cache)
         ya = _hybrid_mix(p, cfg, ya, ym)
     x = x + ya
     return x + (yield from _ffn_out_body(p, cfg, x))[0], cache
@@ -329,11 +339,15 @@ def forward_body(params: dict, cfg: ModelConfig,
     Both ``remat_policy`` values map onto that: ``save_comm`` keeps the
     collectives' outputs, as the reference keeps its tagged ones, and
     ``nothing`` keeps them too, since no region may span a collective
-    (the reference recomputes the whole layer from its input)."""
+    (the reference recomputes the whole layer from its input).
+
+    Under a sequence split (``act_sharding.seq_split``) ``tokens`` are
+    the rank's rows of its data group's sequence: positions start at the
+    rank's first row and the logits are those of its rows."""
     check_family(cfg)
     x = embeds if embeds is not None else \
         (yield from embed_lookup(params["embed"], cfg, tokens))
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = _positions(x)
     auxs = []
     with L.remat_pieces(remat_active(cfg)):
         for i, win in enumerate(window_schedule(cfg)):
@@ -344,6 +358,26 @@ def forward_body(params: dict, cfg: ModelConfig,
     aux = torch.stack(auxs).sum() if cfg.family == "moe" else \
         torch.zeros((), dtype=torch.float32, device=x.device)
     return (yield from head_logits(params, cfg, x)), aux
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """The int32 positions of ``x``'s rows: from 0, or from the rank's
+    first row under a sequence split."""
+    split = acts.seq_split_context()
+    first = 0 if split is None else split.start
+    return torch.arange(first, first + x.shape[1], dtype=torch.int32,
+                        device=x.device)
+
+
+def last_row(x: torch.Tensor):
+    """Rank body step: the last position's row (B, 1, D) of the stream;
+    under a sequence split it lies on the axis's last rank, so every
+    rank takes it from an all-gather of the ranks' last rows."""
+    x = x[:, -1:]
+    split = acts.seq_split_context()
+    if split is not None:
+        x = (yield from acts.seq_gather(split, x))[:, -1:]
+    return x
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -381,18 +415,24 @@ def prefill_body(params: dict, cfg: ModelConfig, cache: dict,
                  embeds: Optional[torch.Tensor] = None,
                  prefix: Optional[torch.Tensor] = None):
     """Rank body of :func:`prefill`; ``prefix`` (B, P, D) embeddings go
-    before the tokens' (the vlm's image patches)."""
+    before the tokens' (the vlm's image patches). Under a sequence split
+    the rank's rows of the prompt (no ``prefix``): every rank writes the
+    whole cache and returns the last position's logits (the final norm
+    and the head of that one row, :func:`last_row`)."""
     check_family(cfg)
     x = embeds if embeds is not None else \
         (yield from embed_lookup(params["embed"], cfg, tokens))
     if prefix is not None:
+        if acts.seq_split_context() is not None:
+            raise ValueError(f"{cfg.name}: a sequence split cuts the tokens, "
+                             "not a prefix of embeddings")
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = _positions(x)
     for i, win in enumerate(window_schedule(cfg)):
         x, _ = yield from _layer_prefill(layer_slice(params["layers"], i),
                                          cfg, x, positions,
                                          layer_slice(cache, i), win)
-    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    x = rms_norm(params["final_norm"], (yield from last_row(x)), cfg.norm_eps)
     return (yield from head_logits(params, cfg, x))[:, 0].float(), cache
 
 

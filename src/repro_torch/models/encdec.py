@@ -18,7 +18,11 @@ reference. The serving paths are rank bodies (:func:`prefill_body`,
 attention, the cross-attention and the MLPs compute on the rank's heads
 and FFN slice and sum over the model axis, and ``mem_k`` / ``mem_v``
 hold the rank's KV heads. :func:`forward_body` is the training forward
-as a rank body."""
+as a rank body. Under a sequence split (``act_sharding.seq_split``, the
+pure-DP ``--opt`` cells) the decoder computes the rank's token rows and
+the encoder the rank's frames where their count divides the model axis
+(else all of them, on every rank, as the reference's ``_constrain``
+leaves a stream that does not divide)."""
 from __future__ import annotations
 
 import math
@@ -31,8 +35,9 @@ from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, init_dense, rms_norm
-from repro_torch.models.decoder import (embed_lookup, head_logits,
-                                        layer_slice, remat, remat_active)
+from repro_torch.models.decoder import (_positions, embed_lookup,
+                                        head_logits, last_row, layer_slice,
+                                        remat, remat_active)
 
 
 # --- encoder ---------------------------------------------------------------
@@ -60,12 +65,27 @@ def _softmax_attn(cfg, blk, q, k, v):
 
 def _enc_attn_core(p, cfg, x, positions, blk, ln):
     q, k, v = L._project_qkv(p, cfg, L.prenorm(ln, cfg, x), positions[None])
+    return _enc_attend_out(p, cfg, q, k, v, blk)
+
+
+def _enc_attend_out(p, cfg, q, k, v, blk):
     return torch.einsum("bshk,hkd->bsd", _softmax_attn(cfg, blk, q, k, v),
                         p["wo"])
 
 
-def _enc_layer_body(p, cfg, x, positions):
+def _enc_layer_body(p, cfg, x, positions, split=None):
+    """Rank body step of one encoder layer; under ``split`` (the frames'
+    sequence split) the rank's frames attend over K / V gathered over the
+    split's axis."""
     blk = L.head_block(cfg, p["attn"])
+    if split is not None:
+        L._check_split_heads(cfg, blk)
+        q, k, v = L.piece(cfg, L._qkv_core, p["attn"], cfg, x, positions,
+                          p["ln1"])
+        k = yield from acts.seq_gather(split, k)
+        v = yield from acts.seq_gather(split, v)
+        x = x + L.piece(cfg, _enc_attend_out, p["attn"], cfg, q, k, v, blk)
+        return x + (yield from L.mlp_body(p["mlp"], cfg, x, p["ln2"]))
     pa, xa, ln = yield from L.enter_heads(p["attn"], cfg, x, blk, p["ln1"])
     x = x + (yield from L.row_sum(blk, L.piece(cfg, _enc_attn_core, pa, cfg,
                                                 xa, positions, blk, ln)))
@@ -103,17 +123,38 @@ def _cross_attn(p, cfg, h, mem_k, mem_v):
 
 
 def _xattn_core(p, cfg, h, mem, blk, ln):
+    return _xattn_kv_core(p, cfg, h, *_mem_kv(p, mem), blk, ln)
+
+
+def _xattn_kv_core(p, cfg, h, mem_k, mem_v, blk, ln):
     q = torch.einsum("bsd,dhk->bshk", L.prenorm(ln, cfg, h), p["wq"])
-    out = _softmax_attn(cfg, blk, q, *_mem_kv(p, mem))
+    out = _softmax_attn(cfg, blk, q, mem_k, mem_v)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def _cross_attn_body(p, cfg, h, mem, ln):
+def _mem_kv_body(p, mem, msplit):
+    """Rank body step: the cross-attention's K / V of the memory, those of
+    the rank's frames gathered over the split's axis where the frames are
+    split (``msplit``)."""
+    mk, mv = _mem_kv(p, mem)
+    if msplit is not None:
+        mk = yield from acts.seq_gather(msplit, mk)
+        mv = yield from acts.seq_gather(msplit, mv)
+    return mk, mv
+
+
+def _cross_attn_body(p, cfg, h, mem, ln, msplit=None):
     """Rank body step of the training forward's cross-attention over the
     norm (scale ``ln``) of ``h``: the KV projections of the encoder memory
     computed here, ``h``, ``ln`` and ``mem`` entering the rank's heads
-    through the model axis's copy."""
+    through the model axis's copy. Under a sequence split of the frames
+    (``msplit``) the rank's frames' K / V are gathered; ``h`` holds the
+    rank's token rows (or all of them) either way."""
     blk = L.head_block(cfg, p)
+    if msplit is not None:
+        L._check_split_heads(cfg, blk)
+        mk, mv = yield from _mem_kv_body(p, mem, msplit)
+        return L.piece(cfg, _xattn_kv_core, p, cfg, h, mk, mv, blk, ln)
     p, h, ln = yield from L.enter_heads(p, cfg, h, blk, ln)
     if blk.split:
         mem = yield from acts.model_copy(mem)
@@ -121,11 +162,12 @@ def _cross_attn_body(p, cfg, h, mem, ln):
                                               mem, blk, ln)))
 
 
-def _dec_layer_body(lp, cfg, h, positions, mem):
+def _dec_layer_body(lp, cfg, h, positions, mem, msplit=None):
     """Rank body step of one decoder layer of the training forward."""
     h = h + (yield from L.attn_body(lp["attn"], cfg, h, positions, 0,
                                     lp["ln1"]))
-    h = h + (yield from _cross_attn_body(lp["xattn"], cfg, h, mem, lp["lnx"]))
+    h = h + (yield from _cross_attn_body(lp["xattn"], cfg, h, mem, lp["lnx"],
+                                         msplit))
     return h + (yield from L.mlp_body(lp["mlp"], cfg, h, lp["ln2"]))
 
 
@@ -194,14 +236,21 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_body(params, cfg: ModelConfig, frames: torch.Tensor):
-    """Rank body of :func:`encode`."""
-    positions = torch.arange(frames.shape[1], dtype=torch.int32,
+    """Rank body of :func:`encode`: (memory, its split). Under a policy
+    that splits the sequence (``act_sharding.stream_split``) the frames
+    split over the model axis where their count divides it, and the
+    memory returned is the rank's frames; else every rank encodes them
+    all, as the reference's ``_constrain`` drops a split that does not
+    divide (whisper-tiny's 1,500 frames on 16)."""
+    msplit = acts.stream_split(frames.shape[1])
+    x = frames if msplit is None else msplit.cut(frames)
+    first = 0 if msplit is None else msplit.start
+    positions = torch.arange(first, first + x.shape[1], dtype=torch.int32,
                              device=frames.device)
-    x = frames
     for i in range(cfg.n_enc_layers):
         x = yield from _enc_layer_body(layer_slice(params["enc_layers"], i),
-                                       cfg, x, positions)
-    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+                                       cfg, x, positions, msplit)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps), msplit
 
 
 def forward(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -224,15 +273,17 @@ def forward_body(params, cfg: ModelConfig, frames: torch.Tensor,
                  tokens: torch.Tensor):
     """Rank body of :func:`forward` for training (``decoder.forward_body``
     says how it splits over the model axis and how remat maps onto its
-    local pieces). Returns (the rank's columns of the logits, aux=0)."""
+    local pieces). Returns (the rank's columns of the logits, aux=0).
+    Under a sequence split ``tokens`` are the rank's rows (positions from
+    its first) and the frames split where their count divides the axis
+    (:func:`_encode_body`)."""
     with L.remat_pieces(remat_active(cfg)):
-        mem = yield from _encode_body(params, cfg, frames)
+        mem, msplit = yield from _encode_body(params, cfg, frames)
         h = yield from embed_lookup(params["embed"], cfg, tokens)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=h.device)
+        positions = _positions(h)
         for i in range(cfg.n_layers):
             h = yield from _dec_layer_body(layer_slice(params["dec_layers"], i),
-                                           cfg, h, positions, mem)
+                                           cfg, h, positions, mem, msplit)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return (yield from head_logits(params, cfg, h)), torch.zeros(
         (), dtype=torch.float32, device=h.device)
@@ -252,22 +303,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def prefill_body(params, cfg: ModelConfig, cache: dict, frames: torch.Tensor,
                  tokens: torch.Tensor):
-    """Rank body of :func:`prefill`."""
-    mem = yield from _encode_body(params, cfg, frames)
+    """Rank body of :func:`prefill`; under a sequence split as
+    ``decoder.prefill_body`` (every rank writes the whole caches) and
+    :func:`forward_body` (the frames)."""
+    mem, msplit = yield from _encode_body(params, cfg, frames)
     h = yield from embed_lookup(params["embed"], cfg, tokens)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=h.device)
+    positions = _positions(h)
     for i in range(cfg.n_layers):
         lp, lc = layer_slice(params["dec_layers"], i), layer_slice(cache, i)
         hh = rms_norm(lp["ln1"], h, cfg.norm_eps)
         y, lc = yield from L.attn_prefill_body(lp["attn"], cfg, hh, positions,
                                                lc, 0)
         h = h + y
-        mk, mv = _mem_kv(lp["xattn"], mem)
-        lc["mem_k"].copy_(mk)
-        lc["mem_v"].copy_(mv)
+        mk, mv = yield from _mem_kv_body(lp["xattn"], mem, msplit)
+        split = acts.seq_split_context()
+        for name, kv in (("mem_k", mk), ("mem_v", mv)):
+            lc[name].copy_(kv if split is None
+                           else L.stored_heads(kv, lc[name], split))
         h = yield from _dec_tail(lp, cfg, h, mk, mv)
-    h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    h = rms_norm(params["final_norm"], (yield from last_row(h)), cfg.norm_eps)
     return (yield from head_logits(params, cfg, h))[:, 0].float(), cache
 
 

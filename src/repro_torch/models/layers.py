@@ -5,7 +5,14 @@ the capacity-based MoE and the Mamba2 SSD mixer (port of
 Per-layer params are plain dicts, stacked by the decoder on a leading
 layer axis. The reference's sharding hints (``_constrain_attn`` and the
 ``acts.constrain_*`` calls) pin activation shardings on a device mesh;
-the port has none.
+the port computes the splits they ask for explicitly. Under the pure-DP
+strategy's sequence split (``act_sharding.seq_split``, the reference's
+``seq_shard``: ``constrain_stream`` on every (B, S, ...) stream, q on
+the rank's rows and K / V over the batch only) a layer computes the
+rank's rows: attention gathers K and V over the model axis
+(:func:`_attn_split_body`, :func:`attn_prefill_body`; the blockwise
+pass takes queries offset into the keys), the MLP is row-wise, and the
+SSD mixer passes its state from rank to rank (:func:`ssd_split_body`).
 
 Tensor parallelism (the reference's SPMD partition of a serving cell):
 under ``act_sharding.tensor_parallel`` a layer computes on the rank's
@@ -202,30 +209,37 @@ def _attn_dense(q, k, v, qpos, kpos, window):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _attn_blockwise(q, k, v, window, chunk: int):
+def _attn_blockwise(q, k, v, window, chunk: int, q0: int = 0):
     """Flash-style online-softmax attention, O(chunk²) memory per step.
 
-    q,k,v: (B,S,Hq,Dh) (kv already repeated). Every q chunk scans every
-    kv chunk, masked by causality and the window, as the reference's
-    ``lax.scan`` does."""
-    b, s, h, dh = q.shape
-    assert s % chunk == 0, (s, chunk)
-    nc = s // chunk
+    q (B,Sq,Hq,Dh) at positions ``q0 .. q0 + Sq``, k/v (B,Sk,Hq,Dh) at
+    ``0 .. Sk`` (kv already repeated; Sq = Sk and q0 = 0 off a sequence
+    split). Every q chunk (``chunk`` rows, or all Sq where fewer) scans
+    every kv chunk, masked by causality and the window, as the
+    reference's ``lax.scan`` does."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    assert sk % chunk == 0, (sk, chunk)
+    qc = min(chunk, sq)
+    assert sq % qc == 0, (sq, qc)
+    nk = sk // chunk
     scale = 1.0 / math.sqrt(dh)
-    ar = torch.arange(chunk, dtype=torch.int32, device=q.device)
+    ar_q = torch.arange(qc, dtype=torch.int32, device=q.device)
+    ar_k = torch.arange(chunk, dtype=torch.int32, device=q.device)
     outs = []
-    for qi in range(nc):
-        q_i = q[:, qi * chunk:(qi + 1) * chunk]
-        m = torch.full((b, h, chunk), BIG_NEG, dtype=torch.float32,
+    for qi in range(sq // qc):
+        q_i = q[:, qi * qc:(qi + 1) * qc]
+        m = torch.full((b, h, qc), BIG_NEG, dtype=torch.float32,
                        device=q.device)
-        l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, chunk, dh), dtype=torch.float32,
+        l = torch.zeros((b, h, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, qc, dh), dtype=torch.float32,
                           device=q.device)
-        for kj in range(nc):
+        for kj in range(nk):
             k_j = k[:, kj * chunk:(kj + 1) * chunk]
             v_j = v[:, kj * chunk:(kj + 1) * chunk]
             s_ij = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j).float() * scale
-            mask = _causal_window_mask(qi * chunk + ar, kj * chunk + ar, window)
+            mask = _causal_window_mask(q0 + qi * qc + ar_q, kj * chunk + ar_k,
+                                       window)
             s_ij = torch.where(mask[None, None], s_ij, BIG_NEG)
             m_new = torch.maximum(m, s_ij.amax(-1))
             p = torch.exp(s_ij - m_new[..., None])
@@ -247,18 +261,25 @@ def _project_qkv(p, cfg, x, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _attend(cfg, q, k, v, positions, window, blk=None):
+def _attend(cfg, q, k, v, positions, window, blk=None, split=None):
     """The full-sequence attention of forward and prefill over the q
     heads of ``blk``: blockwise when the sequence is long and divides
-    into ``attn_chunk``, else dense; padded heads masked."""
-    s = q.shape[1]
+    into ``attn_chunk``, else dense; padded heads masked. Under a
+    sequence split (``split``, an ``act_sharding.SeqSplit``) q holds the
+    rank's rows at ``positions`` and k / v the whole sequence."""
+    s = k.shape[1]
+    q0, kpos = 0, positions
+    if split is not None:
+        q0 = split.start
+        kpos = torch.arange(s, dtype=torch.int32, device=q.device)
     if cfg.attn_impl != "dense" and s > 2 * cfg.attn_chunk \
             and s % cfg.attn_chunk == 0:
         out = _attn_blockwise(q, _kv_for_q(cfg, k, blk),
-                              _kv_for_q(cfg, v, blk), window, cfg.attn_chunk)
+                              _kv_for_q(cfg, v, blk), window, cfg.attn_chunk,
+                              q0)
     else:
         out = _attn_dense(q, _kv_for_q(cfg, k, blk), _kv_for_q(cfg, v, blk),
-                          positions, positions, window)
+                          positions, kpos, window)
     mask = _head_mask(cfg, out.dtype, out.device, blk)
     if mask is not None:
         out = out * mask[None, None, :, None]
@@ -298,12 +319,23 @@ def prenorm(ln, cfg, x):
     return x if ln is None else rms_norm(ln, x, cfg.norm_eps)
 
 
+def _qkv_core(p, cfg, x, positions, ln):
+    """The norm (``ln``) and the rotated q, k, v of ``x``'s rows."""
+    return _project_qkv(p, cfg, prenorm(ln, cfg, x), positions[None])
+
+
+def _attend_out(p, cfg, q, k, v, positions, window, blk, split):
+    """:func:`_attend` and the product by ``wo`` (under a sequence split
+    ``split``, the rank's rows against the whole K / V)."""
+    out = _attend(cfg, q, k, v, positions, window, blk, split)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 def _attn_core(p, cfg, x, positions, window, blk, ln=None):
     """The norm (``ln``), the projections, the attention over the q heads
     of ``blk`` and the product by the rank's rows of ``wo``."""
-    q, k, v = _project_qkv(p, cfg, prenorm(ln, cfg, x), positions[None])
-    out = _attend(cfg, q, k, v, positions, window, blk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    q, k, v = _qkv_core(p, cfg, x, positions, ln)
+    return _attend_out(p, cfg, q, k, v, positions, window, blk, None)
 
 
 def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -342,9 +374,35 @@ def attn_body(p: dict, cfg: ModelConfig, x: torch.Tensor,
     region, so one remat piece (:func:`piece`) runs from the layer's
     input to the partial output and keeps only that input."""
     blk = head_block(cfg, p)
+    split = acts.seq_split_context()
+    if split is not None:
+        return (yield from _attn_split_body(p, cfg, x, positions, window, ln,
+                                            blk, split))
     p, x, ln = yield from enter_heads(p, cfg, x, blk, ln)
     y = piece(cfg, _attn_core, p, cfg, x, positions, window, blk, ln)
     return (yield from row_sum(blk, y))
+
+
+def _check_split_heads(cfg, blk):
+    if blk.split:
+        raise ValueError(f"{cfg.name}: a sequence split computes every head "
+                         "on the rank's rows; the query heads are split")
+
+
+def _attn_split_body(p, cfg, x, positions, window, ln, blk, split):
+    """Rank body step: the attention of the rank's rows of a sequence
+    split (``act_sharding.seq_split``, the reference's ``seq_shard``):
+    q, k, v of its rows at their global ``positions``, K and V gathered
+    over the split's axis (``act_sharding.seq_gather``: backward, the
+    group's summed cotangents of the rank's rows), then its queries
+    against the whole sequence, causal with ``window`` on global
+    positions. Two remat pieces, either side of the gather."""
+    _check_split_heads(cfg, blk)
+    q, k, v = piece(cfg, _qkv_core, p, cfg, x, positions, ln)
+    k = yield from acts.seq_gather(split, k)
+    v = yield from acts.seq_gather(split, v)
+    return piece(cfg, _attend_out, p, cfg, q, k, v, positions, window, blk,
+                 split)
 
 
 def row_sum(blk: HeadBlock, y: torch.Tensor):
@@ -384,9 +442,36 @@ def attn_prefill(p, cfg, x, positions, cache, window):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
+def stored_heads(kv: torch.Tensor, leaf: torch.Tensor, split) -> torch.Tensor:
+    """The KV heads of ``kv`` (B, S, Hkv, Dh) that a cache ``leaf`` of a
+    sequence-split rank stores: all of them, or the rank's block where the
+    cache's spec splits the KV heads over the split's axis."""
+    hc = leaf.shape[2]
+    if hc == kv.shape[2]:
+        return kv
+    return kv[:, :, split.index * hc:(split.index + 1) * hc]
+
+
 def attn_prefill_body(p, cfg, x, positions, cache, window):
     """Rank body step: :func:`attn_prefill` and the sum over the model
-    axis."""
+    axis. Under a sequence split (``act_sharding.seq_split``) the rank's
+    rows attend over K / V gathered over the split's axis, and every rank
+    writes the whole cache from the gathered K / V (its stored KV heads
+    where the cache's spec splits them)."""
+    split = acts.seq_split_context()
+    if split is not None:
+        blk = head_block(cfg, p)
+        _check_split_heads(cfg, blk)
+        q, k, v = _project_qkv(p, cfg, x, positions[None])
+        k = yield from acts.seq_gather(split, k)
+        v = yield from acts.seq_gather(split, v)
+        y = _attend_out(p, cfg, q, k, v, positions, window, blk, split)
+        kpos = torch.arange(split.total, dtype=torch.int32, device=x.device)
+        slots = (kpos % cache["k"].shape[1]).long()
+        cache["k"][:, slots] = stored_heads(k, cache["k"], split)
+        cache["v"][:, slots] = stored_heads(v, cache["v"], split)
+        cache["kpos"][:, slots] = kpos[None]
+        return y, cache
     y, cache = attn_prefill(p, cfg, x, positions, cache, window)
     y = yield from row_sum(head_block(cfg, p), y)
     return y, cache
@@ -862,10 +947,13 @@ def _project_zxbcdt(p, x):
     return x @ p["in_z"], x @ p["in_xbc"], x @ p["in_dt"]
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. xbc (B,S,C); w (K,C)."""
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv1d. xbc (B,S,C); w (K,C); ``prefix`` (B,K-1,C)
+    the rows before xbc's first (zeros where None)."""
     k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = F.pad(xbc, (0, 0, k - 1, 0)) if prefix is None \
+        else torch.cat([prefix.to(xbc.dtype), xbc], dim=1)
     out = 0
     for i in range(k):
         out = out + pad[:, i:i + s] * w[i]
@@ -967,6 +1055,110 @@ def ssd_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     y, state = ssd_forward(p, cfg, x, return_state=True)
     cache["ssm"].copy_(state["ssm"])
     cache["conv"].copy_(state["conv"])
+    return y, cache
+
+
+def _ssd_in(p, cfg, x, ln):
+    """The norm (``ln``) and the input projections of ``x``'s rows."""
+    return _project_zxbcdt(p, prenorm(ln, cfg, x))
+
+
+def _ssd_local_scan(p, cfg, xbc_raw, prefix, dt):
+    """The conv (``prefix``: the rows before the rank's first), then the
+    chunked scan of the rank's rows from a zero state: (y, xs, C, the
+    cumulative log-decay from the rank's first row (B,R,H), the final
+    state (B,H,N,P) and the span's total log-decay (B,H)), float32."""
+    di, n, hs, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"], prefix))
+    xs = xbc[..., :di].reshape(*xbc.shape[:2], hs, pdim)
+    b_in = xbc[..., di:di + n].float()
+    c_in = xbc[..., di + n:].float()
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    y, final = _ssd_chunked(xs.float(), b_in, c_in, dt, p["a_log"],
+                            cfg.ssm_chunk)
+    cum = torch.cumsum(-torch.exp(p["a_log"])[None, None] * dt, dim=1)
+    return y, xs, c_in, cum, final, cum[:, -1]
+
+
+def _ssd_out(p, cfg, x, z, y, xs, c_in, cum, s_in):
+    """The incoming state's term C_t . exp(cum_t) . s_in added to the
+    rank's scan, the skip, the gated norm and ``out_proj``."""
+    di = cfg.d_inner
+    y = y + torch.einsum("bsn,bhnp->bshp", c_in, s_in) \
+        * torch.exp(cum)[..., None]
+    y = y + p["d_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(*x.shape[:2], di).to(x.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def _combine_states(states, upto: int):
+    """The state entering rank ``upto`` of a split: the ranks' (final
+    state, total log-decay) before it folded in rank order, float32
+    (``s = s * exp(total_j) + final_j``); zeros for rank 0 (read from the
+    gathered states times 0, as the tails in :func:`ssd_split_body`)."""
+    s = states[0][0] * 0
+    for final, total in states[:upto]:
+        s = s * torch.exp(total)[..., None, None] + final
+    return s
+
+
+def ssd_split_body(p: dict, cfg: ModelConfig, x: torch.Tensor, ln, split,
+                   cache: dict | None = None):
+    """Rank body step: the SSD mixer of the rank's rows of a sequence
+    split (``act_sharding.seq_split``), over the norm (scale ``ln``) of
+    ``x``. No rank computes the mixer whole:
+
+    * the causal conv takes the previous rank's last ``ssm_conv - 1``
+      pre-activation rows from an all-gather of every rank's tail
+      (rank 0: zeros);
+    * each rank scans its rows from a zero state; the ranks' final
+      states and total log-decays, (B, H, N, P) and (B, H) float32, are
+      gathered in one all-gather, and each rank folds those of the ranks
+      before it, in rank order, into its incoming state
+      (:func:`_combine_states`);
+    * the incoming state's term, linear in it, is added to the rank's
+      outputs (:func:`_ssd_out`).
+
+    The rank asks for its tail rows and its state, never the sequence.
+    Both gathers carry gradient (backward: the group's summed
+    cotangents), so three remat pieces lie between them. With ``cache``
+    (prefill) every rank writes the last rank's final state (all ranks
+    folded) and the last ``ssm_conv - 1`` rows of the sequence."""
+    kc = cfg.ssm_conv - 1
+    z, xbc_raw, dt = piece(cfg, _ssd_in, p, cfg, x, ln)
+    if xbc_raw.shape[1] < kc:
+        raise ValueError(f"{cfg.name}: a rank's {xbc_raw.shape[1]} rows are "
+                         f"fewer than the conv's {kc}-row tail")
+    tails = yield from acts.seq_gather(split, xbc_raw[:, -kc:])
+    # rank 0's zeros read the gathered tails too (times 0), so that every
+    # rank's backward runs the gathers' reduce-scatters (on a process
+    # group a rank whose graph skipped one would desert the collective)
+    prefix = tails[:, :kc] * 0 if split.index == 0 \
+        else tails[:, (split.index - 1) * kc:split.index * kc]
+    y, xs, c_in, cum, final, total = piece(cfg, _ssd_local_scan, p, cfg,
+                                           xbc_raw, prefix, dt)
+    b, h, n, pdim = final.shape
+    packed = torch.cat([final.reshape(b, h, n * pdim), total[..., None]], -1)
+    every = yield from acts.seq_gather(split, packed[None], 0)
+    states = [(r[..., :-1].reshape(b, h, n, pdim), r[..., -1])
+              for r in every.unbind(0)]
+    s_in = _combine_states(states, split.index)
+    out = piece(cfg, _ssd_out, p, cfg, x, z, y, xs, c_in, cum, s_in)
+    if cache is not None:
+        cache["ssm"].copy_(_combine_states(states, split.size))
+        cache["conv"].copy_(tails[:, -kc:].float())
+    return out
+
+
+def ssd_prefill_body(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict):
+    """Rank body step of :func:`ssd_prefill` (x already normed): under a
+    sequence split :func:`ssd_split_body`, else the whole mixer."""
+    split = acts.seq_split_context()
+    if split is None:
+        return ssd_prefill(p, cfg, x, cache)
+    y = yield from ssd_split_body(p, cfg, x, None, split, cache)
     return y, cache
 
 

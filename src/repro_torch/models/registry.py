@@ -14,7 +14,14 @@ runs there (:mod:`repro_torch.train.step`). ``loss_split`` is
 ``pure_callback``), which a captured train step replays as two graphs.
 ``axes`` gives the params' logical
 sharding axes and :func:`rules_overrides` the per-arch rule adjustments
-that ``train/step.py``'s sharding rules apply on a device mesh."""
+that ``train/step.py``'s sharding rules apply on a device mesh.
+
+A sequence split (``act_sharding.seq_split``, the pure-DP ``--opt``
+cells) reaches the bodies through its context: ``loss_body`` computes
+the rank's rows of the tokens it is handed and the loss of its data
+group (``common.cross_entropy_body``), ``prefill_body`` the rank's rows
+of the prompt and the last position's logits. The vlm's bodies refuse
+it (its stream starts with image embeddings)."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional

@@ -6,6 +6,20 @@
     prebuilt value cache;
   * :func:`msda_attention` — build a fresh cache from ``x_flat`` and
     sample it (encoder blocks, whose memory changes every block).
+
+Both are ``collectives.run_local`` of their rank body steps
+(:func:`msda_attention_cached_body`, :func:`msda_attention_body`): under
+``act_sharding.batch_split`` (a DETR cell's rank holding its images of
+the batch) the per-tensor INT12 scales of the value table, the
+probabilities and the offsets are the whole batch's, one max over the
+data axes each, as the reference's partitioner takes them.
+
+FWP needs no such max. Its tier score ``freq + keep * (max freq + 1)``
+(``core.fwp.build_fwp_state``) picks the same rows whether the max is
+the rank's or the batch's: the counts are integers, exact in float32,
+and any offset above a row's own max puts every kept pixel above every
+pruned one and leaves the order among the kept, so the per-row top-k is
+the same. The thresholds are per-row means.
 """
 from __future__ import annotations
 
@@ -15,12 +29,13 @@ import torch
 
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core.quant import maybe_fake_quant
+from repro_torch.distributed.collectives import run_local
 from repro_torch.msda import backends as backend_registry
 from repro_torch.msda import ordering as ordering_lib
-from repro_torch.msda.cache import MSDAValueCache, build_value_cache
+from repro_torch.msda.cache import MSDAValueCache, build_value_cache_body
 from repro_torch.msda.pipeline import MSDAPipelineState
 from repro_torch.msda.plan import MSDAPlan
-from repro_torch.msda.sampling import corner_data, generate_points
+from repro_torch.msda.sampling import corner_data, generate_points_body
 
 
 def msda_attention_cached(
@@ -47,6 +62,23 @@ def msda_attention_cached(
     derive their tile windows from raster query position and stay
     unpermuted. A decoder layer derives its permutation from its own
     incoming reference points."""
+    return run_local(msda_attention_cached_body(
+        params, plan, query, ref_points, cache, state,
+        collect_stats=collect_stats, update_fwp=update_fwp))
+
+
+def msda_attention_cached_body(
+    params: dict,
+    plan: MSDAPlan,
+    query: torch.Tensor,
+    ref_points: torch.Tensor,
+    cache: MSDAValueCache,
+    state: Optional[MSDAPipelineState] = None,
+    *,
+    collect_stats: bool = False,
+    update_fwp: bool = True,
+):
+    """Rank body step of :func:`msda_attention_cached`."""
     cfg = plan.cfg
     b = query.shape[0]
     if state is None:
@@ -60,9 +92,9 @@ def msda_attention_cached(
         query = ordering_lib.permute_queries(query, perm)
         ref_points = ordering_lib.permute_queries(ref_points, perm)
 
-    sel, pts = generate_points(params, cfg, query, ref_points,
-                               plan.level_shapes, pix2slot=cache.pix2slot,
-                               keep_idx=cache.keep_idx)
+    sel, pts = yield from generate_points_body(
+        params, cfg, query, ref_points, plan.level_shapes,
+        pix2slot=cache.pix2slot, keep_idx=cache.keep_idx)
     backend = backend_registry.get_backend(plan.backend)
     out_h = backend(plan, cache.v, pts, sel.probs, cache=cache)
 
@@ -113,11 +145,28 @@ def msda_attention(
     collect_stats: bool = False,
 ) -> Tuple[torch.Tensor, MSDAPipelineState]:
     """One planned MSDA block: build the value cache, then sample it."""
+    return run_local(msda_attention_body(params, plan, query, ref_points,
+                                         x_flat, state,
+                                         collect_stats=collect_stats))
+
+
+def msda_attention_body(
+    params: dict,
+    plan: MSDAPlan,
+    query: torch.Tensor,
+    ref_points: torch.Tensor,
+    x_flat: torch.Tensor,
+    state: Optional[MSDAPipelineState] = None,
+    *,
+    collect_stats: bool = False,
+):
+    """Rank body step of :func:`msda_attention`."""
     if x_flat.shape[1] != plan.n_in:
         raise ValueError(f"x_flat has {x_flat.shape[1]} pixels, the plan "
                          f"{plan.n_in}")
     if state is None:
         state = MSDAPipelineState.initial()
-    cache = build_value_cache(params, plan, x_flat, state)
-    return msda_attention_cached(params, plan, query, ref_points, cache,
-                                 state, collect_stats=collect_stats)
+    cache = yield from build_value_cache_body(params, plan, x_flat, state)
+    return (yield from msda_attention_cached_body(
+        params, plan, query, ref_points, cache, state,
+        collect_stats=collect_stats))

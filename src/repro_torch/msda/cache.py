@@ -25,9 +25,10 @@ import torch
 
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core import nn
-from repro_torch.core.quant import (maybe_fake_quant,
+from repro_torch.core.quant import (maybe_fake_quant, maybe_fake_quant_body,
                                     maybe_fake_quant_with_scale, quant_scale,
                                     quantize_table_rows, table_quant_scale)
+from repro_torch.distributed.collectives import run_local
 
 
 class MSDAValueCache(NamedTuple):
@@ -56,6 +57,14 @@ def project_values(params: dict, cfg, x_flat: torch.Tensor,
     """FWP-pruned value projection V = X W^V.
 
     Returns (v (B, N_rows, H, Dh), pix2slot or None, n_rows)."""
+    return run_local(project_values_body(params, cfg, x_flat, fwp_state))
+
+
+def project_values_body(params: dict, cfg, x_flat: torch.Tensor,
+                        fwp_state: Optional[fwp_lib.FWPState]):
+    """Rank body step of :func:`project_values`: the INT12 scale of the
+    table is the whole batch's under a batch split (``core.quant.
+    maybe_fake_quant_body``)."""
     b, n_in, d = x_flat.shape
     h, dh = cfg.n_heads, cfg.head_dim
     if fwp_state is not None and cfg.fwp_mode == "compact":
@@ -76,7 +85,8 @@ def project_values(params: dict, cfg, x_flat: torch.Tensor,
         v = _project(x_flat, params, cfg)
         pix2slot = None
         n_rows = n_in
-    return maybe_fake_quant(v, cfg.act_bits), pix2slot, n_rows
+    v = yield from maybe_fake_quant_body(v, cfg.act_bits)
+    return v, pix2slot, n_rows
 
 
 def build_value_cache(params: dict, plan, x_flat: torch.Tensor,
@@ -91,6 +101,13 @@ def build_value_cache(params: dict, plan, x_flat: torch.Tensor,
     (repro/msda/cache.py:111-119). This body runs on the host: under
     CUDA-graph capture it runs once, while the graph is recorded, and a
     replay never runs it, so the counter stays flat under replay."""
+    return run_local(build_value_cache_body(params, plan, x_flat, state))
+
+
+def build_value_cache_body(params: dict, plan, x_flat: torch.Tensor,
+                           state=None):
+    """Rank body step of :func:`build_value_cache`
+    (:func:`project_values_body`)."""
     from repro_torch.obs.metrics import default_registry
     default_registry().counter(
         "msda_cache_build_traces_total",
@@ -98,7 +115,8 @@ def build_value_cache(params: dict, plan, x_flat: torch.Tensor,
     ).inc(backend=plan.backend, table_dtype=plan.table_dtype)
     cfg = plan.cfg
     fwp_state = getattr(state, "fwp", None)
-    v, pix2slot, n_rows = project_values(params, cfg, x_flat, fwp_state)
+    v, pix2slot, n_rows = yield from project_values_body(params, cfg, x_flat,
+                                                         fwp_state)
     keep_idx = fwp_state.keep_idx if pix2slot is not None else None
 
     scale = None

@@ -18,7 +18,8 @@ from repro_torch.bridge import host_constant
 from repro_torch.core import fwp as fwp_lib
 from repro_torch.core import nn
 from repro_torch.core import pap as pap_lib
-from repro_torch.core.quant import maybe_fake_quant
+from repro_torch.core.quant import maybe_fake_quant, maybe_fake_quant_body
+from repro_torch.distributed.collectives import run_local
 
 
 class SamplingPoints(NamedTuple):
@@ -102,6 +103,13 @@ def select_points(params: dict, cfg, query: torch.Tensor):
 
     Returns (sel: PAPSelection, offs_k (B,Nq,H,K,2) range-narrowed and
     quantized, lvl_of_pt (B,Nq,H,K) int32)."""
+    return run_local(select_points_body(params, cfg, query))
+
+
+def select_points_body(params: dict, cfg, query: torch.Tensor):
+    """Rank body step of :func:`select_points`: the INT12 scales of the
+    probabilities and the offsets are the whole batch's under a batch
+    split (``core.quant.maybe_fake_quant_body``)."""
     b, nq, _ = query.shape
     h, p, lp = cfg.n_heads, cfg.n_points, cfg.n_lp
     wq = lambda w: maybe_fake_quant(w, cfg.weight_bits)
@@ -110,7 +118,7 @@ def select_points(params: dict, cfg, query: torch.Tensor):
                           *nn.promoted(query, wq(params["attn_w"]))) \
         + params["attn_b"]
     probs = torch.softmax(logits, dim=-1)
-    probs = maybe_fake_quant(probs, cfg.act_bits)
+    probs = yield from maybe_fake_quant_body(probs, cfg.act_bits)
     sel = pap_lib.pap_select(probs, cfg.pap_mode,
                              threshold=cfg.pap_threshold, k=cfg.pap_keep)
 
@@ -125,7 +133,7 @@ def select_points(params: dict, cfg, query: torch.Tensor):
         bounds = level_bounds(cfg.range_narrow, query.dtype,
                               query.device)[lvl_of_pt][..., None]
         offs_k = nn.clip(offs_k, -bounds, bounds)      # jnp.clip's gradient
-    offs_k = maybe_fake_quant(offs_k, cfg.act_bits)     # INT12 BI datapath input
+    offs_k = yield from maybe_fake_quant_body(offs_k, cfg.act_bits)  # INT12 BI input
     return sel, offs_k, lvl_of_pt.to(torch.int32)
 
 
@@ -137,8 +145,19 @@ def generate_points(params: dict, cfg, query: torch.Tensor,
     """Full point generation: PAP + offsets + flat-level geometry.
 
     Returns (sel: PAPSelection, pts: SamplingPoints)."""
+    return run_local(generate_points_body(params, cfg, query, ref_points,
+                                          level_shapes, pix2slot, keep_idx))
+
+
+def generate_points_body(params: dict, cfg, query: torch.Tensor,
+                         ref_points: torch.Tensor,
+                         level_shapes: Sequence[Tuple[int, int]],
+                         pix2slot: Optional[torch.Tensor] = None,
+                         keep_idx: Optional[torch.Tensor] = None):
+    """Rank body step of :func:`generate_points`
+    (:func:`select_points_body`)."""
     starts, ws, hs, _ = level_meta(level_shapes, device=query.device)
-    sel, offs_k, lvl_of_pt = select_points(params, cfg, query)
+    sel, offs_k, lvl_of_pt = yield from select_points_body(params, cfg, query)
     lvl = lvl_of_pt.long()
     wl, hl, st = ws[lvl], hs[lvl], starts[lvl]
     x_px = ref_points[:, :, None, None, 0] * wl.to(query.dtype) \

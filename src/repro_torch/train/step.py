@@ -27,9 +27,15 @@ split product), takes its gradients through every collective, sums them
 over the data axes (the FSDP gathers' backward is a reduce-scatter),
 takes the global norm with each element counted once and updates its
 moment slices. :func:`build_sharded_train_step` runs that body on a
-``DeviceMesh`` over DTensor states."""
+``DeviceMesh`` over DTensor states.
+
+Every gradient path (:func:`value_and_grad`, :class:`TrainStep`,
+:func:`grads_rank_body`) runs under :func:`float32_reductions`: the
+reference's bf16 products accumulate in float32, and cuBLAS's default
+lets a bf16 GEMM sum its split-K partials in bf16."""
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -56,13 +62,38 @@ class TrainState(NamedTuple):
     step: torch.Tensor
 
 
+_REDUCTIONS = {"depth": 0, "saved": None}
+
+
+@contextlib.contextmanager
+def float32_reductions():
+    """Inside the block cuBLAS sums the partial products of a bf16 GEMM
+    in float32 (``allow_bf16_reduced_precision_reduction`` off), as the
+    reference's dots accumulate; the setting is restored when the
+    outermost block ends. Blocks nest, and rank bodies run in turn by
+    ``collectives.run_in_process`` interleave theirs: the last to end
+    restores it. No effect on the CPU."""
+    matmul = torch.backends.cuda.matmul
+    if _REDUCTIONS["depth"] == 0:
+        _REDUCTIONS["saved"] = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+    _REDUCTIONS["depth"] += 1
+    try:
+        yield
+    finally:
+        _REDUCTIONS["depth"] -= 1
+        if _REDUCTIONS["depth"] == 0:
+            matmul.allow_bf16_reduced_precision_reduction = \
+                _REDUCTIONS["saved"]
+
+
 def value_and_grad(loss_fn: Callable, params: Any, *args, **kwargs):
     """``jax.value_and_grad(loss_fn, has_aux=True)(params, *args)``:
     returns ((loss, aux), grads shaped like params), loss and aux
     detached; a leaf the loss does not reach gets zeros, as ``jax.grad``
     gives."""
     live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), float32_reductions():
         loss, aux = loss_fn(tree_unflatten(params, live), *args, **kwargs)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -222,6 +253,10 @@ class TrainStep:
         return self.state
 
     def __call__(self, state: TrainState, batch: Any):
+        with float32_reductions():
+            return self._call(state, batch)
+
+    def _call(self, state: TrainState, batch: Any):
         st = self.adopt(state)
         key = _batch_key(batch)
         static = self._batches.get(key)
@@ -459,14 +494,28 @@ def grads_rank_body(cfg, param_specs: Any,
     over the data axes the leaf is not split over and divided by their
     ranks. A model with no ``loss_body`` computes ``loss_fn`` on leaves
     gathered whole (the DETR train cell's encoder has one:
-    ``launch.detr_cells``)."""
+    ``launch.detr_cells``).
+
+    Under a sequence split (``act_sharding.seq_split``, entered by the
+    cell's body) the model ranks compute different token rows, so a
+    gradient is the sum of theirs: a leaf's gathers over the model axis
+    are not ``replicated`` (backward, the reduce-scatter of the group's
+    summed cotangents) and a leaf the spec does not split over the model
+    axis sums its gradient over it too. The loss stays the data group's,
+    replicated (``common.cross_entropy_body``)."""
     api = api or get_api(cfg)
     accum = max(1, getattr(cfg, "grad_accum", 1))
     p_specs = spec_leaves(param_specs)
     loss_body = api.loss_body or _no_steps(api.loss_fn)
 
     def body(ctx: C.RankContext, params, batch):
+        with float32_reductions():
+            return (yield from rank_grads(ctx, params, batch))
+
+    def rank_grads(ctx: C.RankContext, params, batch):
         sizes = ctx.size
+        split = acts.seq_split_context()
+        replicated = () if split is not None else ("model",)
         paths = leaf_paths(params)
         dp = tuple(a for a in DATA_AXES if sizes.get(a, 1) > 1)
         n_dp = int(np.prod([sizes[a] for a in dp]))
@@ -482,7 +531,7 @@ def grads_rank_body(cfg, param_specs: Any,
             mine = []
             for x, sp, keep in zip(live, p_specs, keeps):
                 mine.append((yield from C.gather_dims(
-                    x, sp, sizes, keep=keep, replicated=("model",))))
+                    x, sp, sizes, keep=keep, replicated=replicated)))
             with acts.tensor_parallel(ctx), acts.batch_split(ctx):
                 li, mi = yield from loss_body(tree_unflatten(params, mine),
                                               cfg, mb)
@@ -506,6 +555,8 @@ def grads_rank_body(cfg, param_specs: Any,
         for g, sp in zip(grads, p_specs):
             used = {a for e in sp for a in C.spec_axes(e)}
             over = tuple(a for a in dp if a not in used)
+            if split is not None and split.axis not in used:
+                over += (split.axis,)
             if over:                          # in float32, as AdamW reads it
                 g = yield C.psum(over, g.float())
             out.append(g / n_dp if n_dp > 1 else g)

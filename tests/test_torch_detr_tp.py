@@ -10,12 +10,15 @@ Configs, at ``SMALL_LEVELS`` (850 queries, B = 2) in float32 with
   * ``baseline``: deformable-detr, 2 blocks, on (data, model) = (1, 2),
     (1, 4) and (2, 2);
   * ``defa``: deformable-detr-defa (PAP, FWP, range narrowing, INT12), 1
-    block, on (1, 2) and (1, 4). One block, because a later block
-    amplifies the FFN's float32 sum order through INT12 rounding and
-    PAP / FWP choices (2 blocks: 7e-5 of the largest output at (1, 4));
-    no data split, because the rank body quantizes its own rows on the
-    scale of its own rows where the reference's scale is the global
-    batch's (ROADMAP.md §3).
+    block, on (1, 2), (1, 4), (2, 1) and (2, 2). One block, because a
+    later block amplifies the FFN's float32 sum order through INT12
+    rounding and PAP / FWP choices (2 blocks: 7e-5 of the largest output
+    at (1, 4)). On a data split each rank quantizes its images on the
+    scale of the whole batch (``act_sharding.batch_max``: one max over
+    the data axes), as the reference's partitioner does;
+    ``test_defa_int12_scale_is_the_whole_batchs`` holds one block at
+    (2, 2) to 1e-5 of the largest output and shows that a scale of the
+    rank's own images lies far outside it.
 
 Checks:
 
@@ -80,7 +83,8 @@ N = sum(h * w for h, w in SMALL_LEVELS)
 B = 2
 CONFIGS = {"baseline": ("deformable-detr", 2), "defa": ("deformable-detr-defa", 1)}
 CASES = [("baseline", (1, 2)), ("baseline", (1, 4)), ("baseline", (2, 2)),
-         ("defa", (1, 2)), ("defa", (1, 4))]
+         ("defa", (1, 2)), ("defa", (1, 4)), ("defa", (2, 1)),
+         ("defa", (2, 2))]
 IDS = [f"{c}-{d}x{t}" for c, (d, t) in CASES]
 
 # the reference's serve and train cells on 8 virtual devices, per case;
@@ -330,6 +334,32 @@ def test_train_cell_matches_one_device_and_reference(world, which, mesh_shape,
         want = p.double() - lr * ((m.double() / b1c) / (
             (v.double() / b2c).sqrt() + cfg.eps) + cfg.weight_decay * p)
         _close(got, want, want.abs().max(), 1e-6)
+
+
+def test_defa_int12_scale_is_the_whole_batchs(world, monkeypatch):
+    """One DEFA block at (data, model) = (2, 2): within 1e-5 of the
+    largest output of ``encoder_apply`` on the whole batch; with each
+    rank's INT12 scales taken over its own image only (``batch_max``
+    made the identity), more than 1e-3 away."""
+    import contextlib
+    from repro_torch.distributed import act_sharding as acts
+    name, enc = _patch(monkeypatch, "defa")
+    params, arrays = world["data"]["defa"]
+    mesh = C.InProcessMesh((2, 2), ("data", "model"))
+    with torch.no_grad():
+        want, _ = encoder_apply(params, enc, *_batch(arrays), SMALL_LEVELS)
+    scale = float(want.abs().max())
+
+    def error():
+        cell = detr_cells.build_detr_cell(name, "serve", mesh)
+        outs, _ = _run(cell, mesh, (params,) + _batch(arrays))
+        got = C.assemble(dict(enumerate(outs)), cell.in_shardings[1],
+                         (B, N, 256), mesh)
+        return float((got - want).abs().max()) / scale
+    assert error() <= 1e-5
+    monkeypatch.setattr(acts, "batch_split",
+                        lambda ctx: contextlib.nullcontext())
+    assert error() > 1e-3
 
 
 def _train_api(enc):

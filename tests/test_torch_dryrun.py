@@ -220,8 +220,15 @@ def test_detr_serve_cell_calls_k1_per_block(small_detr):
     res = dryrun.run_fake(dryrun.detr_cell(name, "train"), None,
                              device="cpu", mesh_shape=MESH22)
     assert res["trace"]["kernels"] == {}
-    # the train step's sums are rank-order sums (all-to-all + all-gather)
-    assert set(res["collectives"]["by_kind"]) == {"all-gather", "all-to-all"}
+    # the train step's sums are rank-order sums (all-to-all + all-gather);
+    # the one all-reduce is the INT12 scales' max over the data axis (the
+    # value table's, the probabilities' and the offsets' per block, exact
+    # in any order), one scalar each
+    coll = res["collectives"]
+    assert set(coll["by_kind"]) == {"all-gather", "all-to-all", "all-reduce"}
+    n_blocks = small_detr[1].encoder.n_blocks
+    assert set(coll["requested"]["max"]) == {"data"}
+    assert coll["by_kind"]["all-reduce"]["count"] == 3 * n_blocks
 
 
 # --------------------------------------------------------------------------

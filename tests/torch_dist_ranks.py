@@ -257,3 +257,41 @@ def tp_train_ranks(rank, world, init_file, inputs_file, out_dir):
         out[name] = {"state": list(tree_leaves(state)), "metrics": metrics}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def seq_shard_ranks(rank, world, init_file, inputs_file, out_dir):
+    """The pure-DP ``--opt`` train and prefill cells of
+    tests/test_torch_seq_shard.py on a world of gloo ranks: each cell's
+    rank program (``Cell.fn``, under the cell's policy) on this rank's
+    slices; this rank's slices of the new state and its metrics, and its
+    prefill logits and cache."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.launch.dryrun import _opt_cfg
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.optim.adamw import OptConfig, tree_leaves
+    _join(rank, world, init_file)
+    inputs = torch.load(inputs_file, weights_only=False)
+    mesh = _mesh(inputs["mesh"], ("data", "model"))
+    is_t = lambda v: isinstance(v, torch.Tensor)
+    out = {}
+    for name, case in inputs["cases"].items():
+        base = ModelConfig(name=case["arch"], dtype=torch.float32, remat=True,
+                           **case["cfg_kw"])
+        s, b = case["s_b"]
+        got = {}
+        for kind in ("train", "prefill"):
+            cfg, _ = _opt_cfg(case["arch"], base, kind)
+            cell = build_cell(case["arch"], cfg, ShapeSpec("c", kind, s, b),
+                              mesh, OptConfig(**case["opt"]), policy=True)
+            args = tuple(spec_map(lambda t, sp: _local(t, sp, mesh).clone(),
+                                  x, sp, is_leaf=is_t)
+                         for x, sp in zip(case[kind], cell.in_shardings))
+            first, second = cell.fn(*args)
+            got[kind] = {"state": list(tree_leaves(first)),
+                         "metrics": second} if kind == "train" else \
+                {"logits": first, "cache": list(tree_leaves(second))}
+        out[name] = got
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
