@@ -473,6 +473,9 @@ def phase_build():
     sass = {n: sass_counts(info[n]["path"]) for n in ("matmul", "flash_decode")}
     if not (sass["matmul"]["HGMMA"] and sass["matmul"]["UTMALDG"]):
         raise AssertionError(f"libmatmul.so lacks wgmma or TMA: {sass['matmul']}")
+    if not sass["flash_decode"]["UTMALDG"]:
+        raise AssertionError("libflash_decode.so lacks its TMA loader: "
+                             f"{sass['flash_decode']}")
     emit("build", seconds=round(seconds, 3),
          per_kernel_seconds={n: round(i["seconds"], 3) for n, i in info.items()},
          dir=str(build_dir()), sass=sass,
@@ -936,9 +939,10 @@ def matmul_tolerance(x, w, scale):
 # the LM's shape with K and V two bytes off a 16-byte boundary (the split
 # pass that reads rows element by element, in both dtypes); then the
 # served head maps of hymba-1.5b (25 query heads over 5 KV heads at Dh 64:
-# in bf16 the tensor-core pass with head groups of 4 and 1, a 1,365-slot
-# window) and llava-next-34b (56 over 8 at Dh 128: n_rep 7, groups of 4
-# and 3)
+# in bf16 the tensor-core pass with a block per group of 5, a 1,365-slot
+# window; in float32 the CUDA-core pass, groups of 4 and 1) and
+# llava-next-34b (56 over 8 at Dh 128: n_rep 7, one block per group in
+# bf16, 4 and 3 in float32)
 K5_CASES = [("sweep_a", 2, 8, 2, 32, 100, 64, "sweep"),
             ("sweep_b", 1, 4, 4, 64, 513, 64, "sweep"),
             ("sweep_c", 3, 25, 5, 16, 64, 64, "sweep"),
@@ -989,22 +993,45 @@ K5_SPLIT_EDGE_CASES = {"w_not_split_multiple", "empty_splits", "last_slot_only",
 # KV head 5 of the 8 its cache stores, read in place at that offset);
 # 6 real query heads padded to 8 over 3 KV heads (the padded ones clamp
 # to the last); a map that leaves KV head 1 unread and has a row with no
-# valid slot (its V average comes from each head's own KV head)
+# valid slot (its V average comes from each head's own KV head); then
+# whole GQA groups on the tensor-core pass (bf16): grok-1's 48 query heads
+# over 8 KV heads (groups of 6), llava-next-34b's 56 over 8 (groups of 7),
+# a run of 17 heads on one KV head (entries of 16 and 1) and a full cache
+# of hymba-1.5b's 25 over 5 at a ragged W (the TMA loader's zero-filled
+# last tile)
 K5_MAP_CASES = [("straddle", 4, 3, 128, 1000, 512, "ring", (0, 1, 1)),
                 ("in_place_offset", 4, 8, 128, 1024, 512, "ring", (5, 5)),
                 ("padded_heads", 2, 3, 64, 300, 64, "ring_window",
                  (0, 0, 1, 1, 2, 2, 2, 2)),
                 ("gap_empty_row", 2, 3, 32, 257, 64, "ring_empty",
-                 (2, 2, 2, 0, 0))]
+                 (2, 2, 2, 0, 0)),
+                ("grok_groups", 2, 8, 128, 2048, 512, "ring",
+                 tuple(h // 6 for h in range(48))),
+                ("llava_groups", 1, 8, 128, 4096, 512, "ring",
+                 tuple(h // 7 for h in range(56))),
+                ("run_of_17", 2, 2, 64, 1000, 512, "ring_window",
+                 (0,) * 17 + (1,) * 3),
+                ("hymba_full_ragged", 2, 5, 64, 1000, 512, "full",
+                 tuple(h // 5 for h in range(25)))]
+# The grouped cases hold a bf16 run to k5_row_tolerance, as the split-edge
+# cases do: with 6 to 17 query heads a call has that many more scores that
+# may round to the other bf16 neighbour (on an H100, at 17 heads and Dh
+# 128, one moved a float32 partial output by 9.3e-5).
+K5_GROUPED_CASES = {"grok_groups", "llava_groups", "run_of_17",
+                    "hymba_full_ragged", "grok_shards", "run_of_17_shards"}
 # K5's partial mode (label, B, Hq, Hkv, Dh, W, mask, shards): the slice's
 # decode shape with row 0 empty, split into 4 slot shards (a shard holds no
 # valid slot of a row wherever that row's ring has not reached it: its lse
 # is -inf and its output zero), each shard's (output, lse) held to the
 # plain partial mode and the shards merged in rank order held to the plain
-# version on the whole cache; and one rank's call of hymba-1.5b's global
-# layer on its 131,072 of long_500k's 524,288 slots (4 data ranks)
+# version on the whole cache; one rank's call of hymba-1.5b's global layer
+# on its 131,072 of long_500k's 524,288 slots (4 data ranks, every split
+# all valid: the TMA loader); grok-1's groups of 6 over 2 shards with an
+# empty row; a run of 17 heads (entries of 16 and 1) on 2 full shards
 K5_PARTIAL_CASES = [("slice_4_shards", 4, 24, 8, 128, 4096, "ring_empty", 4),
-                    ("hymba_rank", 1, 25, 5, 64, 131072, "full", 1)]
+                    ("hymba_rank", 1, 25, 5, 64, 131072, "full", 1),
+                    ("grok_shards", 2, 48, 8, 128, 4096, "ring_empty", 2),
+                    ("run_of_17_shards", 2, 17, 1, 64, 2048, "full", 2)]
 # cases whose route is fixed by the contract of this kernel
 K4_MUST_ROUTE = {"prefill_mlp_up/bfloat16": "wgmma", "prefill_mlp_up/int8": "wgmma",
                  "decode_mlp_up/bfloat16": "wgmma", "int8_n_mod16_8/int8_bf16x": "simt",
@@ -1040,11 +1067,12 @@ def lse_tolerance(dtype):
         else {"rtol": 1e-5, "atol": 1e-5}
 
 
-def check_partial(name, got, want, dtype):
+def check_partial(name, got, want, dtype, rows=False):
     """K5's partial mode against its plain version: rows with no valid
     slot must be exactly lse -inf and a zero output on both; the others
-    within ``tolerance`` (output) and ``lse_tolerance``. Returns the max
-    abs errors of output and lse."""
+    within ``tolerance`` (output; with ``rows`` in bf16,
+    ``k5_row_tolerance``) and ``lse_tolerance``. Returns the max abs errors
+    of output and lse."""
     import torch
     (out, lse), (w_out, w_lse) = got, want
     empty = torch.isneginf(w_lse)
@@ -1052,8 +1080,11 @@ def check_partial(name, got, want, dtype):
             or bool(out[empty].any()) or bool(w_out[empty].any()):
         raise AssertionError(f"{name}: rows with no valid slot differ")
     keep = ~empty
-    return (check_close(f"{name} output", out[keep], w_out[keep],
-                        tolerance(dtype, None)),
+    if not bool(keep.any()):                 # a shard no row has a valid slot in
+        return 0.0, 0.0
+    tol = (k5_row_tolerance(w_out[keep]) if rows and dtype == torch.bfloat16
+           else tolerance(dtype, None))
+    return (check_close(f"{name} output", out[keep], w_out[keep], tol),
             check_close(f"{name} lse", lse[keep], w_lse[keep],
                         lse_tolerance(dtype)))
 
@@ -1090,11 +1121,13 @@ def phase_lm_kernels(device):
             err = check_close(f"flash_decode {case}",
                               flash_decode.flash_decode(q, k, v, valid, chunk=chunk),
                               want, tol)
+            table = flash_decode.launch_table(q, k, v)
             length, n_splits = flash_decode.decode_splits(
-                b, k5_entries(hq, hkv, None), 1, w, sm_count(q.device))
+                b, len(table), 1, w, sm_count(q.device))
             per_split = torch.nn.functional.pad(
                 valid, (0, n_splits * length - w)).reshape(b, n_splits, length).any(-1)
             k5.append({"case": case, "pad": flash_decode.chunk_padding(w, chunk),
+                       "pass": k5_pass(q, k), "table_entries": len(table),
                        "split_len": length, "splits": n_splits,
                        "rows_without_valid_slot": int((~valid.any(1)).sum()),
                        "empty_splits_in_rows_with_valid_slots":
@@ -1107,12 +1140,14 @@ def phase_lm_kernels(device):
             case = f"{label}/{str(dtype)[6:]}"
             want = flash_decode.flash_decode_plain(q, k, v, valid, chunk=chunk,
                                                    kv_heads=kv_heads)
+            tol = (k5_row_tolerance(want) if label in K5_GROUPED_CASES
+                   and dtype == torch.bfloat16 else tolerance(dtype, None))
             err = check_close(f"flash_decode {case}", flash_decode.flash_decode(
-                q, k, v, valid, chunk=chunk, kv_heads=kv_heads), want,
-                tolerance(dtype, None))
-            table = flash_decode.head_table(kv_heads)
+                q, k, v, valid, chunk=chunk, kv_heads=kv_heads), want, tol)
+            table = flash_decode.launch_table(q, k, v, kv_heads)
             k5.append({"case": case, "kv_heads": list(kv_heads),
-                       "stored_kv_heads": hkv, "table_entries": len(table),
+                       "stored_kv_heads": hkv, "pass": k5_pass(q, k),
+                       "table_entries": len(table),
                        "split_len": flash_decode.decode_splits(
                            b, len(table), 1, w, sm_count(q.device))[0],
                        "rows_without_valid_slot": int((~valid.any(1)).sum()),
@@ -1132,7 +1167,8 @@ def phase_lm_kernels(device):
                 errs.append(check_partial(f"flash_decode {case} shard {r}", got,
                                           flash_decode.flash_decode_plain(
                                               q, *part[:2], part[2],
-                                              partial=True), dtype))
+                                              partial=True), dtype,
+                                          rows=label in K5_GROUPED_CASES))
                 empty += int(torch.isneginf(got[1]).any(1).sum())
                 outs.append(got[0])
                 lses.append(got[1])
@@ -1148,7 +1184,8 @@ def phase_lm_kernels(device):
             if bool(merged[~whole].any()):
                 raise AssertionError(f"flash_decode {case}: a row with no valid "
                                      "slot merged to a non-zero output")
-            k5.append({"case": case, "shards": shards,
+            k5.append({"case": case, "shards": shards, "pass": k5_pass(q, k),
+                       "table_entries": len(flash_decode.launch_table(q, k, v)),
                        "shard_rows_without_valid_slot": empty,
                        "rows_without_valid_slot": int((~whole).sum()),
                        "max_abs_err_output": max(e[0] for e in errs),
@@ -4600,12 +4637,11 @@ def nbytes_of(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def k5_entries(hq, hkv, kv_heads):
-    """Blocks per (split, b) of K5's grid: its head table's entries."""
+def k5_pass(q, *kv):
+    """The split pass K5 runs on these operands (``kv``: K and V)."""
     from repro_torch.kernels import flash_decode
-    return len(flash_decode.head_table(
-        flash_decode.default_kv_heads(hq, hkv) if kv_heads is None
-        else tuple(kv_heads)))
+    return flash_decode.split_pass(q.dtype, q.shape[2],
+                                   all(t.data_ptr() % 16 == 0 for t in kv))
 
 
 def flash_decode_bound(q, k, v, valid, out, kv_heads=None):
@@ -4627,10 +4663,11 @@ def flash_decode_bound(q, k, v, valid, out, kv_heads=None):
                    else kv_heads))
     row = read * dh * k.element_size()
     outs = out if isinstance(out, tuple) else (out,)   # partial: (out, lse)
-    nbytes = nbytes_of(q, valid, *outs) + (k_rows + v_rows) * row
+    kv_bytes = (k_rows + v_rows) * row
+    nbytes = nbytes_of(q, valid, *outs) + kv_bytes
     ops = 4 * dh * hq * (k_rows + int(empty.sum()) * w)
     return dict(roofline(nbytes, ops, q.dtype), valid_slots=k_rows,
-                slots=b * w)
+                slots=b * w, kv_bytes=kv_bytes)
 
 
 def matmul_bound(x, w, scale, out):
@@ -4672,7 +4709,11 @@ def k5_entry(args, kw, launches):
     ``flash_decode_partial``: its float32 output and lse held to the
     plain partial mode and written once in the bound;
     ``scaled_dot_product_attention`` on the same view of the rank's
-    slots."""
+    slots. The detail gives the split pass's and the merge's device ms
+    apart, the pass, its head table's entries, and the K / V bytes the
+    split grid reads (each entry reads its KV head's valid rows; a row
+    with no valid slot in the normal mode reads its V rows in the merge)
+    beside the bound's (each KV head read once)."""
     from repro_torch.kernels import flash_decode
     from repro_torch.kernels.msgs_fused import sm_count
     call = lambda: flash_decode.flash_decode(*args, **kw)
@@ -4695,13 +4736,23 @@ def k5_entry(args, kw, launches):
     entry["library_ms"] = None if library is None else cuda_ms(library, 11, 20)
     bound = flash_decode_bound(*args, out, kv_heads=kv_heads)
     entry.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
-    q, k = args[0], args[1]
+    q, k, v, valid = args[:4]
+    table = flash_decode.launch_table(q, k, v, kv_heads)
     length, n_splits = flash_decode.decode_splits(
-        q.shape[0], k5_entries(q.shape[1], k.shape[2], kv_heads), 1,
-        k.shape[1], sm_count(q.device))
+        q.shape[0], len(table), 1, k.shape[1], sm_count(q.device))
+    by = entry["by_kernel"] or {}
+    empty_rows = 0 if partial else int((~valid.any(1)).sum())
+    grid_kv_bytes = (len(table) * bound["valid_slots"] * 2 + empty_rows
+                     * q.shape[1] * k.shape[1]) * q.shape[2] * k.element_size()
     return entry, dict(bound, shape=[list(t.shape) for t in args],
                        dtype=str(args[0].dtype), kernels=list(K5_KERNELS),
                        kv_heads=None if kv_heads is None else list(kv_heads),
+                       split_pass=k5_pass(q, k, v), table_entries=len(table),
+                       split_pass_ms=sum(t for n, t in by.items()
+                                         if n != "flash_decode_merge_kernel")
+                       if by else None,
+                       merge_ms=by.get("flash_decode_merge_kernel"),
+                       grid_kv_bytes=grid_kv_bytes,
                        split_len=length, splits=n_splits,
                        **({"max_abs_err_output": errs[0],
                            "max_abs_err_lse": errs[1]} if partial else {}))
@@ -4766,7 +4817,7 @@ def lm_times(lm, families, tp):
     keep = ("ms", "ms_source", "by_kernel", "profile_calls", "call_ms",
             "plain_ms", "library_ms", "max_abs_err")
     # hymba-1.5b: 25 query heads over 5 KV heads at Dh 64 (the tensor-core
-    # pass, head groups of 4 and 1), window 1,024 in most layers
+    # pass, one block per group of 5), window 1,024 in most layers
     e, bd = k5_entry(*families["k5_call"], families["launches"])
     d5["hymba_served"] = {k: e[k] for k in keep + ("launches", "bound_ms",
                                                     "bound_by")} | bd

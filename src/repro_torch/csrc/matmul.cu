@@ -51,12 +51,13 @@
 // shared memory (bf16 w: 5 x (16 KB x + 16 KB w) + barriers + alignment
 // slack) or 205,944 (int8 w: 5 x (16 KB x + 8 KB codes + 16 KB widened)),
 // one block per SM; matmul_kernel 64 registers, 8,704 bytes.
-#include <cuda.h>          // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "tma.cuh"
 
 namespace repro_torch {
 
@@ -170,58 +171,7 @@ constexpr int smem_bytes(bool int8) {
          kStages * (int8 ? kWTile8 + kWTile16 : kWTile16) + 3 * kStages * 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that
-// never ends (a pipeline fault) traps after about 2^30 polls, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
+using namespace tma;
 
 // A wgmma shared-memory descriptor with 128-byte swizzle: start address,
 // leading and stride byte offsets, all in 16-byte units.
@@ -360,7 +310,7 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       mbar_init(&empty[s], kConsumers);
       if (kInt8) mbar_init(&ready[s], kWideners);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -372,9 +322,9 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], kXTile + kWTile);
         const int kc = (kt0 + j) * wg::kBK;
-        tma_load(xs + s * kXTile, &x_map, &full[s], kc, m0);
-        tma_load(ws + s * kWTile, &w_map, &full[s], n0, kc);
-        if (!kInt8) tma_load(ws + s * kWTile + kWChunk, &w_map, &full[s], n0 + 64, kc);
+        load_2d(xs + s * kXTile, &x_map, &full[s], kc, m0);
+        load_2d(ws + s * kWTile, &w_map, &full[s], n0, kc);
+        if (!kInt8) load_2d(ws + s * kWTile + kWChunk, &w_map, &full[s], n0 + 64, kc);
       }
     } else if (kInt8 && t >= 32) {            // the wideners
       for (int j = 0; j < n_k; ++j) {
@@ -468,44 +418,14 @@ __global__ void matmul_splitk_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library links no libcuda; null when the driver does not provide it.
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A 2-D row-major (rows, cols) tensor map with a (box_rows, box_cols) box;
 // elements past the edges read as zero.
 static bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
                       int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma::encode(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 template <bool kInt8>

@@ -19,7 +19,8 @@ reference's oracle ``flash_decode_ref`` computes:
 version :func:`flash_decode_plain` only when the tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernel splits W
 over blocks (:func:`decode_splits`), reads the K and V rows of the valid
-slots only, and merges the splits in a second pass; ``LAUNCHES`` counts
+slots only (a split whose slots are all valid as whole TMA tiles), and
+merges the splits in a second, parallel pass; ``LAUNCHES`` counts
 wrapper calls that launched.
 
 ``kv_heads`` gives the model's own map: query head ``h`` reads the
@@ -28,10 +29,13 @@ cache row's head count. Padded query heads that clamp to the last KV
 head, and a tensor-parallel rank's query heads reading a block of KV
 heads from the middle of a cache that stores more (in place, no copy),
 are both such maps. The kernel takes it as a head table
-(:func:`head_table`): one entry per run of at most MAX_REP consecutive
-query heads on one KV head, passed by value in the launch's
-parameters. The launch is the operator
-``repro_torch::flash_decode`` (:mod:`repro_torch.kernels.library`).
+(:func:`head_table`): one entry per run of consecutive query heads on
+one KV head, passed by value in the launch's parameters. A run is cut
+at the width of the split pass that serves the call
+(:func:`split_pass`): MAX_REP_MMA = 16 query heads on the tensor-core
+pass (bf16, Dh a multiple of 32: one block reads a KV head once for its
+whole GQA group), MAX_REP = 4 on the CUDA-core pass. The launch is the
+operator ``repro_torch::flash_decode`` (:mod:`repro_torch.kernels.library`).
 
 The partial mode (``partial=True``) returns each row's float32 output,
 not rounded to the input dtype, and its log-sum-exp ``lse = m + log(l)``
@@ -65,7 +69,8 @@ LAUNCHES_PARTIAL = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128               # kMaxDh in flash_decode.cu
 NEG = -1e30                      # the TPU kernel's mask and initial max
-MAX_REP = 4                      # kMaxRep: query heads per block
+MAX_REP = 4                      # kMaxRep: query heads per CUDA-core block
+MAX_REP_MMA = 16                 # kMmaRows: query heads per tensor-core block
 MAX_SPLIT = 512                  # kMaxSplit: slots per split, at most
 MIN_SPLIT = 64                   # the shortest split decode_splits picks
 MAX_SPLITS = 1024                # kMaxMergeSplits: splits the merge takes
@@ -90,8 +95,25 @@ def decode_splits(b: int, hkv: int, n_groups: int, w: int, sms: int) -> tuple:
 
 
 def head_groups(hq: int, hkv: int) -> int:
-    """Blocks per KV head: its ``n_rep`` query heads in groups of MAX_REP."""
+    """Blocks per KV head on the CUDA-core pass: its ``n_rep`` query heads
+    in groups of MAX_REP (the tensor-core pass takes a group of up to
+    MAX_REP_MMA in one block)."""
     return -(-n_rep_of(hq, hkv) // MAX_REP)
+
+
+def split_pass(dtype: torch.dtype, dh: int, aligned: bool = True) -> str:
+    """The split pass the kernel runs for operands of ``dtype`` and head
+    dim ``dh`` (``aligned``: K and V start on 16 bytes), as
+    ``flash_decode_forward`` picks it: "tensor_core" for bf16 rows whose
+    Dh is a multiple of 32, else "cuda_core"."""
+    return ("tensor_core" if dtype == torch.bfloat16 and dh % 32 == 0
+            and aligned else "cuda_core")
+
+
+def pass_max_rep(dtype: torch.dtype, dh: int, aligned: bool = True) -> int:
+    """Query heads per head-table entry on the pass that serves the call."""
+    return (MAX_REP_MMA if split_pass(dtype, dh, aligned) == "tensor_core"
+            else MAX_REP)
 
 
 def n_rep_of(hq: int, hkv: int) -> int:
@@ -106,19 +128,33 @@ def default_kv_heads(hq: int, hkv: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def head_table(kv_heads: tuple) -> tuple:
+def head_table(kv_heads: tuple, max_rep: int = MAX_REP) -> tuple:
     """K5's head table for the map ``kv_heads`` (query head -> stored KV
-    head): entries ``(g << 16) | (h0 << 4) | nh``, one per run of at most
-    MAX_REP consecutive query heads h0 .. h0 + nh - 1 that all read KV
-    head g, in query-head order."""
+    head): entries ``(g << 16) | (h0 << 4) | (nh % 16)``, one per run of
+    at most ``max_rep`` (<= 16) consecutive query heads h0 .. h0 + nh - 1
+    that all read KV head g, in query-head order (a run of 16 stores 0 in
+    its low bits)."""
     out, h = [], 0
     while h < len(kv_heads):
         g, nh = kv_heads[h], 1
-        while nh < MAX_REP and h + nh < len(kv_heads) and kv_heads[h + nh] == g:
+        while nh < max_rep and h + nh < len(kv_heads) and kv_heads[h + nh] == g:
             nh += 1
-        out.append((int(g) << 16) | (h << 4) | nh)
+        out.append((int(g) << 16) | (h << 4) | (nh % 16))
         h += nh
     return tuple(out)
+
+
+def launch_table(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_heads=None) -> tuple:
+    """The head table a launch on these operands takes: the map
+    ``kv_heads`` (default the TPU kernel's) in runs of the serving pass's
+    width. Alignment is read from the storage offsets (PyTorch's
+    allocations start on 16 bytes), so fake tensors plan alike."""
+    aligned = all(t.storage_offset() * t.element_size() % 16 == 0
+                  for t in (k, v))
+    kv = (default_kv_heads(q.shape[1], k.shape[2]) if kv_heads is None
+          else tuple(kv_heads))
+    return head_table(kv, pass_max_rep(q.dtype, q.shape[2], aligned))
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,8 +370,6 @@ def flash_decode(q, k, v, valid, *, chunk: int = 512, kv_heads=None,
     if not on_card(q):
         return flash_decode_plain(q, k, v, valid, chunk=chunk,
                                   kv_heads=kv_heads, partial=partial)
-    hq, hkv = q.shape[1], k.shape[2]
-    out, lse = _launch(q, k, v, valid, chunk, list(head_table(
-        default_kv_heads(hq, hkv) if kv_heads is None else kv_heads)),
-        bool(partial))
+    out, lse = _launch(q, k, v, valid, chunk,
+                       list(launch_table(q, k, v, kv_heads)), bool(partial))
     return (out, lse) if partial else out

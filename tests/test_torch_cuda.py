@@ -413,6 +413,51 @@ def test_flash_decode_partial_mode_matches_plain(cuda, dtype):
     assert not flash_decode.merge_rank_partials(outs, lses, tdt)[0].any()
 
 
+@pytest.mark.parametrize("rep", [5, 7, 16, 17])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("partial", [False, True], ids=["normal", "partial"])
+def test_flash_decode_whole_groups_on_the_tensor_core_pass(cuda, rep, dh, partial):
+    """bf16 GQA groups of 5, 7, 16 and 17 query heads per KV head (17:
+    entries of 16 and 1) on the tensor-core pass, each group one block per
+    split, against the plain version: a shard whose slots are all valid
+    (the TMA loader; W 1,000, a ragged last tile) and one with holes and a
+    row with no valid slot (the compacted gather). Outputs rtol 2^-7 and
+    atol 2^-8 of the row's largest |output| (chip_smoke.py's
+    k5_row_tolerance: with up to 17 heads a call has more scores that may
+    round to the other bf16 neighbour, which moved a float32 partial
+    output by 9.3e-5 at 17 heads, Dh 128); lse rtol = atol = 2^-7."""
+    from repro_torch.kernels import flash_decode
+    g = torch.Generator().manual_seed(rep * dh)
+    b, hkv, w = 2, 3, 1000
+    hq = rep * hkv
+    q = torch.randn((b, hq, dh), generator=g).to(torch.bfloat16).to(cuda)
+    k, v = (torch.randn((b, w, hkv, dh), generator=g).to(torch.bfloat16).to(cuda)
+            for _ in range(2))
+    table = flash_decode.launch_table(q, k, v)
+    assert len(table) == hkv * -(-rep // 16)
+    holes = torch.rand((b, w), generator=g) < 0.6
+    holes[0] = False
+    tol = 2 ** -7
+    for valid in (torch.ones((b, w), dtype=torch.bool), holes):
+        valid = valid.to(cuda)
+        got = flash_decode.flash_decode(q, k, v, valid, partial=partial)
+        want = flash_decode.flash_decode_plain(q, k, v, valid, partial=partial)
+        torch.cuda.synchronize()
+        if not partial:
+            got, want = got.float(), want.float()
+            atol = 2 ** -8 * want.abs().amax(-1, keepdim=True)
+            assert ((got - want).abs() <= atol + tol * want.abs()).all()
+            continue
+        (out, lse), (w_out, w_lse) = got, want
+        empty = torch.isneginf(w_lse)
+        assert torch.equal(torch.isneginf(lse), empty)
+        assert not out[empty].any()
+        out, w_out = out[~empty], w_out[~empty]
+        atol = 2 ** -8 * w_out.abs().amax(-1, keepdim=True)
+        assert ((out - w_out).abs() <= atol + tol * w_out.abs()).all()
+        torch.testing.assert_close(lse[~empty], w_lse[~empty], rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16", "int8"])
 def test_matmul_kernel_matches_plain(cuda, w_dtype):
     """K4 on ragged (70, 257) x (257, 65). atol 2^-20 of the largest

@@ -141,6 +141,79 @@ def test_head_table_runs_and_in_place_block():
     assert unpack(head_table((0, 0, 1, 1, 1, 1))) == [(0, 0, 2), (1, 2, 4)]
 
 
+def _unpack16(table):
+    """(g, h0, nh) of each entry; a run of 16 stores 0 in its low bits."""
+    return [(e >> 16, (e >> 4) & 0xfff, (e & 0xf) or 16) for e in table]
+
+
+@pytest.mark.parametrize("hq,hkv,nh", [(25, 5, 5), (48, 8, 6), (56, 8, 7)],
+                         ids=["hymba", "grok", "llava"])
+def test_head_table_whole_groups_on_the_tensor_core_pass(hq, hkv, nh):
+    """With ``max_rep=16`` (the tensor-core pass) a GQA group of up to 16
+    query heads is one entry: hymba-1.5b's 25 over 5 KV heads give 5
+    entries (10 at MAX_REP 4), grok-1's 48 over 8 and llava-next's 56
+    over 8 give 8 each."""
+    from repro_torch.kernels.flash_decode import (MAX_REP_MMA,
+                                                  default_kv_heads, head_table)
+    kv = default_kv_heads(hq, hkv)
+    assert _unpack16(head_table(kv, MAX_REP_MMA)) == [(g, g * nh, nh)
+                                                      for g in range(hkv)]
+    assert len(head_table(kv)) == 2 * hkv
+
+
+def test_head_table_max_rep_16_runs_padding_and_rank_offsets():
+    """Runs longer than 16 split into 16 + the rest; padded heads clamp to
+    the last KV head and join its run; a tensor-parallel rank whose heads
+    start inside a group reads that group's tail first."""
+    from repro_torch.kernels.flash_decode import head_table
+    assert _unpack16(head_table((0,) * 17, 16)) == [(0, 0, 16), (0, 16, 1)]
+    assert _unpack16(head_table((3,) * 33, 16)) == [(3, 0, 16), (3, 16, 16),
+                                                    (3, 32, 1)]
+    # 10 real heads over 2 KV heads (groups of 5) padded to 16: the 6
+    # padded heads clamp to KV head 1
+    padded = tuple(min(h // 5, 1) for h in range(16))
+    assert _unpack16(head_table(padded, 16)) == [(0, 0, 5), (1, 5, 11)]
+    # rank 1 of 4 over grok-like groups of 6: heads 12..23 of 48 start on
+    # KV head 2, in a cache that stores all 8
+    rank = tuple(h // 6 for h in range(12, 24))
+    assert _unpack16(head_table(rank, 16)) == [(2, 0, 6), (3, 6, 6)]
+    straddle = (1, 1, 2, 2, 2, 2, 2, 2)
+    assert _unpack16(head_table(straddle, 16)) == [(1, 0, 2), (2, 2, 6)]
+    assert _unpack16(head_table(straddle)) == [(1, 0, 2), (2, 2, 4), (2, 6, 2)]
+
+
+@pytest.mark.parametrize("dtype,dh,aligned,split,rep", [
+    ("bfloat16", 64, True, "tensor_core", 16), ("bfloat16", 128, True, "tensor_core", 16),
+    ("bfloat16", 32, True, "tensor_core", 16), ("bfloat16", 96, True, "tensor_core", 16),
+    ("bfloat16", 16, True, "cuda_core", 4), ("bfloat16", 80, True, "cuda_core", 4),
+    ("bfloat16", 128, False, "cuda_core", 4), ("float32", 128, True, "cuda_core", 4),
+    ("float32", 64, True, "cuda_core", 4)])
+def test_split_pass_picks_the_head_table(dtype, dh, aligned, split, rep):
+    """The pass (and with it the table's run width) follows the kernel's
+    own choice: bf16 with Dh % 32 == 0 and 16-byte aligned K / V take the
+    tensor-core pass and runs of 16, everything else runs of 4."""
+    from repro_torch.kernels.flash_decode import pass_max_rep, split_pass
+    tdt = getattr(torch, dtype)
+    assert split_pass(tdt, dh, aligned) == split
+    assert pass_max_rep(tdt, dh, aligned) == rep
+
+
+def test_launch_table_reads_alignment_from_the_storage_offset():
+    """``launch_table`` plans from the operands: hymba's map in bf16 is 5
+    entries; the same cache two bytes off a 16-byte boundary (a view one
+    element into its storage) takes the CUDA-core pass and 10 entries;
+    float32 likewise 10."""
+    from repro_torch.kernels.flash_decode import launch_table
+    q = torch.zeros((1, 25, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 32, 5, 64), dtype=torch.bfloat16)
+    assert len(launch_table(q, k, k)) == 5
+    flat = torch.zeros(k.numel() + 8, dtype=torch.bfloat16)
+    off = flat[1:1 + k.numel()].view(k.shape)
+    assert len(launch_table(q, off, off)) == 10
+    assert len(launch_table(q.float(), k.float(), k.float())) == 10
+    assert len(launch_table(q, k, k, kv_heads=(4,) * 25)) == 2
+
+
 @pytest.mark.parametrize("kv_heads", [(1, 1, 2), (2, 2, 2, 2, 2, 0),
                                       (0, 0, 1, 1, 1, 1)],
                          ids=["straddle", "offset", "padded"])

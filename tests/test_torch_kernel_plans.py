@@ -7,12 +7,18 @@ reference's Pallas kernels, run as the JAX tests run them on the CPU
   describe to the wgmma kernel and everything else to the SIMT kernel;
   ``matmul_splits`` splits K only for narrow products.
 * ``decode_splits`` cuts W into splits that cover it exactly and give at
-  least two blocks per SM at the LM's decode shape.
+  least two blocks per SM at the LM's decode shape, and four at the
+  ``long_500k`` rank call.
 * K5's split-skip-merge (per split: only the valid slots; then a merge of
   the splits in order; a row with no valid slot averages V over real and
-  padded slots) equals the TPU kernel. Tolerances: float32 rtol = atol =
-  2e-5 (the reference's own sweep tolerance: the sums run in another
-  order); bf16 rtol = atol = 4e-2 (the reference's own bf16 tolerance).
+  padded slots) equals the TPU kernel, and so does its tensor-core pass
+  as the kernel runs it (whole GQA groups of up to 16 query heads per
+  block, 16-slot warp steps, the warps' states merged in warp order, the
+  splits merged by 16 warps over fixed ranges, P.V with P in bf16 hi + lo
+  parts), in the normal and the partial mode. Tolerances: float32 rtol =
+  atol = 2e-5 (the reference's own sweep tolerance: the sums run in
+  another order); bf16 rtol = atol = 4e-2 (the reference's own bf16
+  tolerance).
 * K4's int8 order on the wgmma route ((x @ codes) * scale, the scale on
   the float32 sum) equals the TPU kernel's (x @ (codes * scale)) within
   atol 2^-20 of max(|x| @ |w|) (float32 rounding order) and, for a bf16
@@ -28,10 +34,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ops as ref_ops  # noqa: E402
-from repro_torch.kernels.flash_decode import (MAX_SPLIT, MIN_SPLIT,  # noqa: E402
-                                              NEG, chunk_padding,
-                                              decode_splits, head_groups,
-                                              n_rep_of)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    BLOCKS_PER_SM, MAX_REP_MMA, MAX_SPLIT, MAX_SPLITS, MIN_SPLIT, NEG,
+    chunk_padding, decode_splits, default_kv_heads, flash_decode_plain,
+    head_groups, head_table, merge_rank_partials, n_rep_of)
 from repro_torch.kernels.matmul import (MIN_K_TILES_PER_SPLIT,  # noqa: E402
                                         WGMMA_TILE, dequantized,
                                         matmul_route, matmul_splits)
@@ -119,6 +125,18 @@ def test_decode_splits_fill_the_card_at_the_lm_decode_shape():
     assert head_groups(24, 8) == 1 and head_groups(48, 1) == 12
 
 
+def test_decode_splits_at_the_long_500k_rank_call():
+    """hymba-1.5b's global layer on one of 4 data ranks: B 1, 5 head-table
+    entries (25 query heads over 5 KV heads, whole groups), 131,072
+    slots: within the merge's MAX_SPLITS and at least BLOCKS_PER_SM (4)
+    blocks per SM."""
+    assert len(head_table(default_kv_heads(25, 5), MAX_REP_MMA)) == 5
+    length, n = decode_splits(1, 5, 1, 131072, N_SMS)
+    assert n <= MAX_SPLITS and length * n == 131072
+    assert 5 * n >= BLOCKS_PER_SM * N_SMS
+    assert head_groups(25, 5) == 2
+
+
 @pytest.mark.parametrize("b,hkv,n_groups,w", [
     (4, 8, 1, 4096), (4, 8, 1, 1000), (2, 1, 12, 777), (1, 1, 1, 1),
     (1, 1, 1, 100), (2, 2, 1, 513), (64, 8, 2, 4096), (3, 5, 1, 64)])
@@ -170,6 +188,99 @@ def split_skip_merge(q, k, v, valid, chunk, split_len):
         num = (torch.stack(accs) * c[..., None]).sum(0)
         out[bi] = num / torch.clamp(den, min=1e-20)[:, None]
     return out.to(q.dtype)
+
+
+def _entries(table):
+    """(g, h0, nh) of each packed head-table entry (nh 16 stored as 0)."""
+    return [(e >> 16, (e >> 4) & 0xfff, (e & 0xf) or 16) for e in table]
+
+
+def _pv(p, vv, dtype):
+    """P.V as the tensor-core pass sums it: P in bf16 hi + lo parts for
+    bf16 operands, float32 sums."""
+    if dtype != torch.bfloat16:
+        return p @ vv
+    hi = p.to(torch.bfloat16).float()
+    return hi @ vv + (p - hi).to(torch.bfloat16).float() @ vv
+
+
+def whole_group_split_merge(q, k, v, valid, chunk, split_len, kv_heads=None,
+                            partial=False, warps=4, merge_warps=16, step=16):
+    """K5's tensor-core pass in torch. A block per (b, head-table entry of
+    up to MAX_REP_MMA query heads, split): the split's valid slots (all of
+    them where the split is full, the compacted ones where it has holes)
+    in steps of ``step``, warp i taking steps i, i + warps, ...; each warp
+    an online softmax over its steps (scores rounded to the input dtype,
+    then scaled); the warps' states merged in warp order into the split's
+    partial. Then per (b, h) the splits merged: weights exp(m_s - max),
+    the denominator their sum with the splits' l, the numerator in
+    ``merge_warps`` ranges of consecutive splits each summed in split
+    order, the ranges' sums added in range order. A row with no valid slot
+    is sum V / (W + pad), or in the partial mode a zero output and lse
+    -inf; otherwise the partial mode returns the float32 output and lse =
+    max + log(den)."""
+    b, hq, dh = q.shape
+    _, w, hkv, _ = k.shape
+    kv = default_kv_heads(hq, hkv) if kv_heads is None else tuple(kv_heads)
+    scale = 1.0 / math.sqrt(dh)
+    n_splits = -(-w // split_len)
+    m_p = torch.full((b, hq, n_splits), NEG)
+    l_p = torch.zeros((b, hq, n_splits))
+    a_p = torch.zeros((b, hq, n_splits, dh))
+    count = torch.zeros((b, n_splits), dtype=torch.long)
+    for bi in range(b):
+        for g, h0, nh in _entries(head_table(kv, MAX_REP_MMA)):
+            qe = q[bi, h0:h0 + nh].float()
+            for s in range(n_splits):
+                idx = torch.nonzero(valid[bi, s * split_len:(s + 1) * split_len]
+                                    ).flatten() + s * split_len
+                count[bi, s] = idx.numel()
+                steps = [idx[i:i + step] for i in range(0, idx.numel(), step)]
+                states = []
+                for wp in range(warps):
+                    m, l = torch.full((nh,), NEG), torch.zeros(nh)
+                    acc = torch.zeros((nh, dh))
+                    for st in steps[wp::warps]:
+                        kk, vv = k[bi, st, g].float(), v[bi, st, g].float()
+                        sc = (qe @ kk.T).to(q.dtype).float() * scale
+                        mx = torch.maximum(m, sc.amax(1))
+                        corr = torch.exp(m - mx)
+                        p = torch.exp(sc - mx[:, None])
+                        l = l * corr + p.sum(1)
+                        acc = acc * corr[:, None] + _pv(p, vv, q.dtype)
+                        m = mx
+                    states.append((m, l, acc))
+                mx = torch.stack([st[0] for st in states]).amax(0)
+                den, num = torch.zeros(nh), torch.zeros((nh, dh))
+                for m, l, acc in states:
+                    c = torch.exp(m - mx)
+                    den = den + l * c
+                    num = num + acc * c[:, None]
+                m_p[bi, h0:h0 + nh, s] = mx
+                l_p[bi, h0:h0 + nh, s] = den
+                a_p[bi, h0:h0 + nh, s] = num
+    out = torch.empty((b, hq, dh))
+    lse = torch.empty((b, hq))
+    per = -(-n_splits // merge_warps)
+    pad = chunk_padding(w, chunk)
+    for bi in range(b):
+        for h in range(hq):
+            if int(count[bi].sum()) == 0:
+                out[bi, h] = 0.0 if partial else v[bi, :, kv[h]].float().sum(0) / (w + pad)
+                lse[bi, h] = -math.inf
+                continue
+            mx = m_p[bi, h].max()
+            c = torch.exp(m_p[bi, h] - mx)
+            den = (l_p[bi, h] * c).sum()
+            num = torch.zeros(dh)
+            for r in range(merge_warps):
+                rn = torch.zeros(dh)
+                for s in range(r * per, min(n_splits, (r + 1) * per)):
+                    rn = rn + a_p[bi, h, s] * c[s]
+                num = num + rn
+            out[bi, h] = num / torch.clamp(den, min=1e-20)
+            lse[bi, h] = mx + torch.log(den)
+    return (out, lse) if partial else out.to(q.dtype)
 
 
 def _k5_case(seed, b, hq, hkv, dh, w):
@@ -235,6 +346,68 @@ def test_k5_dropping_invalid_slots_is_exact_beyond_float_order():
     a = split_skip_merge(*t, 512, 32)
     torch.testing.assert_close(a, split_skip_merge(*t, 512, 512), rtol=1e-6,
                                atol=1e-6)
+
+
+def _grouped_case(seed, b, hq, hkv, dh, w, mask):
+    """"dense": every slot valid (the TMA loader's splits); "holes": 60 %
+    of the slots valid (the compacted gather's), row 0 none."""
+    rng, q, k, v, valid = _k5_case(seed, b, hq, hkv, dh, w)
+    valid[:] = True if mask == "dense" else rng.uniform(size=valid.shape) < 0.6
+    if mask == "holes":
+        valid[0] = False
+    return q, k, v, valid
+
+
+GROUPED = [(2, 10, 2, 32, 700, 32, "dense"),   # groups of 5, 22 splits in 11 merge ranges
+           (2, 14, 2, 32, 400, 64, "holes"),   # groups of 7, a ragged last split
+           (2, 17, 1, 32, 300, 32, "holes")]   # a run of 17: entries of 16 and 1
+
+
+@pytest.mark.parametrize("b,hq,hkv,dh,w,split_len,mask", GROUPED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_whole_group_pass_matches_pallas(b, hq, hkv, dh, w, split_len, mask,
+                                            dtype):
+    """The tensor-core pass's algorithm (whole groups, warp steps, the
+    parallel merge) in the normal mode against the TPU kernel."""
+    q, k, v, valid = _grouped_case(hq * w, b, hq, hkv, dh, w, mask)
+    got = whole_group_split_merge(*(torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)),
+                                  torch.from_numpy(valid), 512, split_len)
+    want = ref_ops.flash_decode(*(jnp.asarray(a).astype(JDT[dtype]) for a in (q, k, v)),
+                                jnp.asarray(valid), chunk=512)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,dh,w,split_len,mask", GROUPED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_whole_group_pass_partial_mode(b, hq, hkv, dh, w, split_len, mask,
+                                          dtype):
+    """The same algorithm in the partial mode on two slot shards: each
+    shard's lse against the port's plain partial mode (rows with no valid
+    slot exactly -inf and zero), and the shards merged in rank order
+    against the TPU kernel on the whole cache (a row with no valid slot
+    merges to zero, where the kernel averages V)."""
+    q, k, v, valid = _grouped_case(hq * w + 1, b, hq, hkv, dh, w, mask)
+    t = [torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)] + [torch.from_numpy(valid)]
+    half = w // 2
+    outs, lses = [], []
+    for lo, hi in ((0, half), (half, w)):
+        shard = [x[:, lo:hi].contiguous() for x in t[1:]]
+        out, lse = whole_group_split_merge(t[0], *shard, 512, split_len, partial=True)
+        w_out, w_lse = flash_decode_plain(t[0], *shard, partial=True)
+        empty = torch.isinf(w_lse)
+        assert torch.equal(torch.isinf(lse), empty) and not out[empty].any()
+        torch.testing.assert_close(lse[~empty], w_lse[~empty], rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        outs.append(out)
+        lses.append(lse)
+    got = merge_rank_partials(outs, lses, TDT[dtype]).float().numpy()
+    want = np.asarray(ref_ops.flash_decode(
+        *(jnp.asarray(a).astype(JDT[dtype]) for a in (q, k, v)), jnp.asarray(valid),
+        chunk=512), np.float32)
+    rows = valid.any(1)
+    np.testing.assert_allclose(got[rows], want[rows], rtol=TOL[dtype], atol=TOL[dtype])
+    assert not got[~rows].any()
 
 
 # ---------------------------------------------------------------------------
