@@ -298,6 +298,7 @@ without a CUDA device, or without the repository beside it, the script
 exits non-zero before printing any result.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -5400,35 +5401,66 @@ def dist_rank_main():
     specs = train_state_shardings(cfg, mesh_a, state)
     placed = place_train_state(state, specs, mesh_a)
     del state
-    step = build_sharded_train_step(cfg, opt, mesh_a, specs)
     lbatch = local_batch(batch, mesh_a)
+    lbatch2 = local_batch(synth_token_batch(data, 1, device=device), mesh_a)
+    # the eager oracle: two steps from the placed state, on two batches;
+    # the first (its one-time costs: communicators, DTensor dispatch
+    # caches) against one card's step
+    eager = build_sharded_train_step(cfg, opt, mesh_a, specs, capture=False)
+    eager_ms = []
+    for i, rows in enumerate((lbatch, lbatch2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = eager(placed if i == 0 else eager.state, rows)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        if i:
+            continue
+        del placed          # the step holds its own copy
+        start = [x.to_local().to("cpu", copy=True) for x in tree_leaves(new)]
+        full = tree_unflatten(p_single, [b.full_tensor()
+                                         for b in tree_leaves(new.params)])
+        agree = accum_agreement(full, p_single, LM_TRAIN_LR)
+        loss = float(metrics["loss"])
+        loss_rel = abs(loss - loss_single) / abs(loss_single)
+        bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(full),
+                                                       tree_leaves(p_single)))
+        del full, p_single
+    want = [x.to_local().to("cpu", copy=True) for x in tree_leaves(new)]
+    want_metrics = {k: v.to("cpu", copy=True) for k, v in metrics.items()}
+    # captured: its standing state a copy of the eager one's (then the
+    # eager state goes: two states and a graph pool beside the parent's
+    # held weights are what the card holds); the first call warms up and
+    # captures; the eager state after the first step is copied in and
+    # the graph replayed on the second batch, held bitwise to the eager
+    # second step
+    step = build_sharded_train_step(cfg, opt, mesh_a, specs)
+    step.adopt(eager.state)
+    del eager, new, metrics
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    new, metrics = step(placed, lbatch)
+    step(step.state, lbatch)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    del placed
-    full = tree_unflatten(p_single, [b.full_tensor()
-                                     for b in tree_leaves(new.params)])
-    agree = accum_agreement(full, p_single, LM_TRAIN_LR)
-    loss = float(metrics["loss"])
-    loss_rel = abs(loss - loss_single) / abs(loss_single)
-    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(full),
-                                                   tree_leaves(p_single)))
-    del full, p_single
+    first_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        for x, b in zip(tree_leaves(step.state), start):
+            x.to_local().copy_(b)
+    new, metrics = step(step.state, lbatch2)
+    agreement = replay_agreement([x.to_local() for x in tree_leaves(new)],
+                                 want)
+    agreement["metrics_bitwise"] = all(torch.equal(metrics[k].cpu(), v)
+                                       for k, v in want_metrics.items())
+    agreement["held"] = agreement["held"] and agreement["metrics_bitwise"]
+    del want, start
     placements_ok = all(
         tuple(x.placements) == spec_placements(sp, mesh_a)
         for x, sp in zip(tree_leaves(new), spec_leaves(specs)))
-    # a second step from the first's state: the first call's one-time
-    # costs (communicators, DTensor dispatch caches) are behind it
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    second = step(new, lbatch)
-    torch.cuda.synchronize()
-    second_ms = (time.perf_counter() - t0) * 1e3
-    second_peak = torch.cuda.max_memory_allocated()
-    del second
+    same = all(a is b for a, b in zip(tree_leaves(new),
+                                     tree_leaves(step.state)))
+    captured = replay_record("distributed sharded step", step,
+                             lambda: step(step.state, lbatch2), eager_ms,
+                             first_ms, agreement)
     res["train_step"] = {"arch": LM_ARCH, "layers": cfg.n_layers,
                          "mesh": list(tshape), "batch": [DIST_TRAIN_BATCH,
                                                          DIST_TRAIN_SEQ],
@@ -5437,9 +5469,13 @@ def dist_rank_main():
                          "loss_limit": LM_ACCUM_LOSS_RTOL,
                          "params": agree, "bitwise_single_card": bitwise,
                          "placements_as_specs": placements_ok,
-                         "step_ms": step_ms, "second_step_ms": second_ms,
-                         "second_step_peak_bytes": second_peak}
-    if not (agree["held"] and loss_rel <= LM_ACCUM_LOSS_RTOL and placements_ok):
+                         "same_dtensors_returned": same,
+                         "placements": sorted({str(tuple(x.placements))
+                                               for x in tree_leaves(new)}),
+                         "step_ms": eager_ms[0], "second_step_ms": eager_ms[1],
+                         "captured": captured}
+    if not (agree["held"] and loss_rel <= LM_ACCUM_LOSS_RTOL and placements_ok
+            and same):
         raise AssertionError(f"distributed sharded step: {res['train_step']}")
 
     # --- reshard the trained state onto another mesh (in memory) ----------
@@ -5449,7 +5485,7 @@ def dist_rank_main():
     moved = reshard(new, named_sharding_tree(specs_b, mesh_b))
     same = all(torch.equal(a.full_tensor(), b.full_tensor())
                for a, b in zip(tree_leaves(new), tree_leaves(moved)))
-    del moved, new
+    del moved, new, metrics, step
     # ... and through the checkpoint store (minitron-4b's SMOKE config)
     scfg = get_smoke_config(LM_ARCH)
     sstate = make_train_state(scfg, torch.Generator(device=device).manual_seed(1),
@@ -5635,22 +5671,30 @@ def dist_long_decode(device, world, mesh_of):
 
 def dist_tp_train(device, world, mesh_of):
     """One NCCL rank of deepseek-7b (TP_TRAIN_RUNS' depth) trained on a
-    (1, world) mesh for TP_NCCL_TRAIN_STEPS steps: the train cell's rank
-    program (``Cell.fn``) on this card's slices of the state, after its
-    gradients (``grads_rank_body`` on the wire) are held per leaf to the
-    same slices of this card's one-card step (``tp_train_run``'s
-    limits); the loss per step within TP_TRAIN_LOSS_RTOL. Rank 0 reports
-    the worst leaf over all ranks."""
+    (1, world) mesh for TP_NCCL_TRAIN_STEPS steps of the train cell's
+    rank body over this card's slices of the state, placed as DTensors
+    (``train.step.ShardedTrainStep``): before each step its gradients
+    (``grads_rank_body`` on the wire) are held per leaf to the same
+    slices of this card's one-card step (``tp_train_run``'s limits),
+    after it the loss within TP_TRAIN_LOSS_RTOL. The steps run eager
+    (``capture=False``), then captured: the first call warms up and
+    captures, then the eager state after the first step is copied in and
+    the graph replayed on the second batch, held bitwise to the eager
+    second step. Rank 0 reports the worst leaf over all ranks."""
     import dataclasses
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import spec_placements
     from repro_torch.distributed.sharding import tree_map as spec_map
     from repro_torch.launch.input_specs import build_cell
     from repro_torch.models.registry import get_api
-    from repro_torch.optim.adamw import OptConfig, adamw_update, tree_leaves
+    from repro_torch.optim.adamw import (OptConfig, adamw_update, tree_leaves,
+                                         tree_unflatten)
     from repro_torch.train.step import (TrainState, _loss_and_grads,
+                                        build_sharded_train_step,
                                         grads_rank_body, make_train_state,
                                         spec_leaves)
     arch, depth, _ = TP_TRAIN_RUNS[0]
@@ -5670,17 +5714,26 @@ def dist_tp_train(device, world, mesh_of):
     state = make_train_state(cfg, torch.Generator(device=device).manual_seed(
         SEED), device=device)
     mine = cut(state, sspec)
+    places = [spec_placements(sp, mesh) for sp in spec_leaves(sspec)]
+    placed = TrainState(*tree_unflatten(tuple(mine), [
+        DTensor.from_local(t, mesh, pl, run_check=False)
+        for t, pl in zip(tree_leaves(tuple(mine)), places)]))
+    del mine
     worst = torch.zeros(2, dtype=torch.float64, device=device)
+    fulls = tp_train_batches(cfg, device, TP_NCCL_TRAIN_STEPS)
+    batches = [cut(b, bspec) for b in fulls]
+    eager = build_sharded_train_step(cfg, opt, mesh, sspec, capture=False)
     steps = []
-    for i, batch in enumerate(tp_train_batches(cfg, device,
-                                               TP_NCCL_TRAIN_STEPS)):
-        loss1, _, grads = grads_of(state.params, batch)
+    for i, rows in enumerate(batches):
+        loss1, _, grads = grads_of(state.params, fulls[i])
         params, opt_state, _ = adamw_update(state.params, grads, state.opt, opt)
         state = TrainState(params, opt_state, state.step + 1)
         del params, opt_state
-        rows = cut(batch, bspec)
+        now = placed if i == 0 else eager.state
         with torch.enable_grad():
-            _, _, got = C.run_spmd(grads_body(ctx, mine.params, rows), mesh)
+            _, _, got = C.run_spmd(grads_body(ctx, tree_unflatten(
+                now.params, [x.to_local() for x in tree_leaves(now.params)]),
+                rows), mesh)
         for g, want, spec in zip(tree_leaves(got), tree_leaves(grads),
                                  spec_leaves(sspec.params)):
             c = grad_limits(g, want[C.local_slices(spec, want.shape, ctx.size,
@@ -5690,10 +5743,10 @@ def dist_tp_train(device, world, mesh_of):
             worst = torch.maximum(worst, torch.tensor(
                 [c["max_rel"], c["median_rel"]], dtype=torch.float64,
                 device=device))
-        del got, grads
+        del got, grads, now
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mine, metrics = cell.fn(mine, rows)
+        _, metrics = eager(placed if i == 0 else eager.state, rows)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         loss = float(metrics["loss"])
@@ -5702,12 +5755,50 @@ def dist_tp_train(device, world, mesh_of):
                                  f"{loss} vs {float(loss1)}")
         steps.append({"loss": loss, "single_loss": float(loss1),
                       "tp_step_ms": ms})
+        if i == 0:          # the state the replay starts from
+            start = [x.to_local().to("cpu", copy=True)
+                     for x in tree_leaves(eager.state)]
+        elif i == 1:
+            want_state = [x.to_local().to("cpu", copy=True)
+                          for x in tree_leaves(eager.state)]
+            want_metrics = {k: v.to("cpu", copy=True)
+                            for k, v in metrics.items()}
     dist.all_reduce(worst, op=dist.ReduceOp.MAX)
-    del state, mine
+    del state, metrics, eager
+    torch.cuda.empty_cache()
+    # captured: the first call warms up and captures; the eager state after
+    # the first step is copied in and the graph replayed on the second
+    # batch, held bitwise to the eager second step
+    step = build_sharded_train_step(cfg, opt, mesh, sspec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(placed, batches[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del placed
+    with torch.no_grad():
+        for x, b in zip(tree_leaves(step.state), start):
+            x.to_local().copy_(b)
+    new, metrics = step(step.state, batches[1])
+    agreement = replay_agreement([x.to_local() for x in tree_leaves(new)],
+                                 want_state)
+    agreement["metrics_bitwise"] = all(torch.equal(metrics[k].cpu(), v)
+                                       for k, v in want_metrics.items())
+    agreement["held"] = agreement["held"] and agreement["metrics_bitwise"]
+    del want_state, start
+    placements_ok = all(tuple(x.placements) == pl
+                        for x, pl in zip(tree_leaves(new), places))
+    captured = replay_record(
+        f"distributed NCCL tp_train x{world}", step,
+        lambda: step(step.state, batches[1]), [s["tp_step_ms"] for s in steps],
+        first_ms, dict(agreement, placements_as_specs=placements_ok))
+    if not placements_ok:
+        raise AssertionError(f"distributed NCCL tp_train: placements {captured}")
+    del step, new
     return {"model": cfg.name, "tp": world, "reduced": reduced,
             "tokens": [TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1], "steps": steps,
             "grad_worst_max_rel": float(worst[0]),
-            "grad_worst_median_rel": float(worst[1])}
+            "grad_worst_median_rel": float(worst[1]), "captured": captured}
 
 
 def phase_distributed(device):
@@ -5753,6 +5844,7 @@ def phase_distributed(device):
     psum = dist_psum_check(dist_psum_run(
         lambda n: InProcessMesh((n,), ("pod",)), g_rows), g_rows)
     del g_rows
+    gc.collect()            # graphs of earlier phases' steps, and their pools
     torch.cuda.empty_cache()
     counts = counts_since(before)
     worlds = [1] + ([min(torch.cuda.device_count(), DIST_MAX_WORLD)]
@@ -5873,10 +5965,14 @@ def dryrun_fake_cells():
 # run at once (host-only traces; nothing is timed meanwhile); the groups
 # balance the traces' times (108 + 16 + 10 + 5 s against 55 + 53 + 22 +
 # 3 s on the card's host)
+# four groups a device, eight children on the card machine's eight cores:
+# the two largest train traces alone, so that no child holds two of them
+# (each cell's trace seconds are printed)
 DRYRUN_OPT_GROUPS = (
-    (("hymba-1.5b", "train_4k"), ("minitron-4b", "prefill_32k"),
-     ("whisper-tiny", "train_4k"), ("mamba2-130m", "prefill_32k")),
-    (("minitron-4b", "train_4k"), ("mamba2-130m", "train_4k"),
+    (("hymba-1.5b", "train_4k"),),
+    (("minitron-4b", "train_4k"),),
+    (("mamba2-130m", "train_4k"), ("whisper-tiny", "train_4k")),
+    (("minitron-4b", "prefill_32k"), ("mamba2-130m", "prefill_32k"),
      ("hymba-1.5b", "prefill_32k"), ("whisper-tiny", "prefill_32k")))
 DRYRUN_OPT_TIMEOUT_S = 900
 # the parent tree's figures of these cells, every model rank computing
@@ -5903,17 +5999,21 @@ def opt_fakes_child(device_name, group, out):
     DRYRUN_OPT_GROUPS[GROUP] with the fake tensors on ``DEVICE`` ("cuda"
     or "cpu"), their summaries written to ``OUT`` as JSON."""
     from repro_torch.launch import dryrun
-    Path(out).write_text(json.dumps({
-        f"{arch}/{shape}": dryrun_summary(dryrun.run_fake(
-            dryrun.lm_cell(arch, shape, True), "single", device=device_name))
-        for arch, shape in DRYRUN_OPT_GROUPS[int(group)]}))
+    cells = {}
+    for arch, shape in DRYRUN_OPT_GROUPS[int(group)]:
+        t0 = time.perf_counter()
+        cells[f"{arch}/{shape}"] = dict(dryrun_summary(dryrun.run_fake(
+            dryrun.lm_cell(arch, shape, True), "single", device=device_name)),
+            trace_s=time.perf_counter() - t0)
+    Path(out).write_text(json.dumps(cells))
 
 
 def dryrun_opt_fakes():
-    """(e): the cells traced by the card and by the CPU stand-in, in four
-    ``--opt-fakes`` children at once (this process waits; nothing is
-    timed meanwhile); the card's equal to the CPU's (FLOPs, peak, bytes
-    asked), beside the parent tree's figures (DRYRUN_OPT_BEFORE)."""
+    """(e): the cells traced by the card and by the CPU stand-in, in one
+    ``--opt-fakes`` child per group and device, all at once (this process
+    waits; nothing is timed meanwhile); the card's equal to the CPU's
+    (FLOPs, peak, bytes asked), beside the parent tree's figures
+    (DRYRUN_OPT_BEFORE)."""
     t0 = time.perf_counter()
     res = {"cuda": {}, "cpu": {}}
     with tempfile.TemporaryDirectory() as scratch:
@@ -6618,14 +6718,41 @@ def long_run(dtype, depth, meshes, device):
     if (1, 2) in logits and (2, 2) in logits:
         runs[-1]["against_tp2_whole_cache"] = long_agreement(
             logits[(2, 2)], logits[(1, 2)], f32)
+    scope = None
+    if not f32 and (1, 2) in meshes:
+        scope = long_scope_probe(cfg, params, cache, saved, device, dict(
+            zip([tuple(r["mesh"]) for r in runs], runs))[(1, 2)], single)
     del cache, saved, params
     memory_mark()
     return {"dtype": dtype, "reduced": reduced, "cache_bytes": cache_bytes,
             "held_bytes": held, "setup_s": setup_s,
             "single_step_ms": single["ms"],
             "single_k5_launches": single["k5_launches"], "runs": runs,
-            "k5_partial_call": kept,
+            "serving_scope_probe": scope, "k5_partial_call": kept,
             "seconds": time.perf_counter() - t0}
+
+
+def long_scope_probe(cfg, params, cache, saved, device, default, single):
+    """The bf16 tensor-parallel serve (1, 2) and its one card again, both
+    under ``train.step.float32_reductions`` (cuBLAS sums a bf16 GEMM's
+    partial products in float32, as the reference's dots accumulate):
+    agreement and decode ms beside the default's (``default``, the
+    mesh's record, and ``single``, the one card's)."""
+    from repro_torch.train.step import float32_reductions
+    with float32_reductions():
+        long_restore(cache, saved)
+        one = long_single(cfg, params, cache, device)
+        long_restore(cache, saved)
+        got = long_ranks(cfg, params, cache, one["tokens"], (1, 2), device)
+    scoped = long_agreement(got["logits"], one["logits"], False)
+    return {"mesh": [1, 2], "default": default["against_one_card"],
+            "float32_reductions": scoped,
+            "within_logit_limits": {"default": default["against_one_card"][
+                "held"], "float32_reductions": scoped["held"]},
+            "single_step_ms": {"default": single["ms"],
+                               "float32_reductions": one["ms"]},
+            "tp_step_ms": {"default": default["split_step_ms"],
+                           "float32_reductions": got["ms"]}}
 
 
 def long_context(device):
@@ -6727,7 +6854,8 @@ TP_TRAIN_RUNS = (("deepseek-7b", 4, (2, 4)),
                  ("olmoe-1b-7b", 2, (4,)))
 TP_TRAIN_BATCH = 4
 TP_TRAIN_SEQ = 512               # 513 tokens a row: 512 predicted
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2               # eager steps, each held to one card's;
+                                 # then the first replayed (3 before)
 TP_NCCL_TRAIN_STEPS = 2
 # per leaf: the gradient's max |d| <= 2^-4 and median <= 2^-8 of the
 # largest |g| (bf16 products summed in another order and split over the
@@ -6812,6 +6940,232 @@ def grad_limits(got, want, median_only=False, truth=None):
     return out
 
 
+# --------------------------------------------------------------------------
+# the multi-rank train steps as CUDA graphs: ``train.step.InProcessTrainStep``
+# (every rank of an in-process mesh in turn, one graph) and
+# ``ShardedTrainStep`` (one NCCL rank a process)
+# --------------------------------------------------------------------------
+
+STEP_REPLAYS = 3                 # replays timed after the one held to eager
+# a captured step's ``CommStats`` holds its first call of each key (the
+# warm-up): a replay runs no Python, so no byte count here comes from one
+
+
+def ms_summary(ms):
+    """Median, p10 and p90 of host-clock samples (below 10 samples p10 and
+    p90 are the least and the largest)."""
+    s = sorted(ms)
+    lo, hi = (statistics.quantiles(s, n=10)[0::8] if len(s) >= 10
+              else (s[0], s[-1]))
+    return {"n": len(s), "median_ms": statistics.median(s), "p10_ms": lo,
+            "p90_ms": hi}
+
+
+# the cells whose captured step may differ from the eager one, by the
+# rule each is held to instead of bitwise: their backward sums with
+# atomics (torch.gather's backward is a scatter_add), in an order that
+# changes from run to run
+REPLAY_NOT_BITWISE = {
+    # a token whose route then flips moves its whole share of a leaf from
+    # one expert to another: the max is no rounding, the median holds
+    # (``grad_limits`` holds a step whose router flipped so)
+    "olmoe-1b-7b": "median",
+    # the sampling backward's scatter_add; no route to flip
+    "deformable-detr-defa": "change",
+}
+
+
+def change_limits(got, want, old, median_only=False):
+    """A floating leaf of a replayed step (``got``) against the eager
+    step's (``want``), both one step from ``old``, held by the leaf's
+    change over the step: |got - want| less one rounding of the leaf's
+    dtype at want (eps x |want|: the parameters are stored rounded), as a
+    fraction of the largest |want - old|, within TP_TRAIN_GRAD_MAX (max;
+    not where ``median_only``) and TP_TRAIN_GRAD_MEDIAN (median): the
+    moments' change is a scaled gradient, the parameters' an AdamW step
+    of them."""
+    import torch
+    eps = torch.finfo(want.dtype).eps
+    dev = got.device
+    g, w, o = got.float(), want.to(dev).float(), old.to(dev).float()
+    scale = max(float((w - o).abs().max()), 1e-30)
+    e = ((g - w).abs() - eps * w.abs()).clamp_(min=0)
+    top, med = float(e.max()), float(e.reshape(-1).median())
+    return {"max_rel": top / scale, "median_rel": med / scale,
+            "held": bool(torch.isfinite(g).all())
+            and (median_only or top <= TP_TRAIN_GRAD_MAX * scale)
+            and med <= TP_TRAIN_GRAD_MEDIAN * scale}
+
+
+def replay_agreement(got, want, before=None, rule="bitwise"):
+    """A replayed step's state (leaves on the card) against the eager
+    step's from the same state (``want``, its leaves on the host): equal
+    leaf by leaf (``rule`` "bitwise"), which every deterministic cell is
+    held to. The cells of REPLAY_NOT_BITWISE give their rule and
+    ``before``, the state both steps started from (on the host): a
+    differing floating leaf is held by its change over the step
+    (:func:`change_limits`; "median": the median only); an integer leaf
+    (the step counts) must be equal."""
+    import torch
+    differing, held = [], True
+    worst = {"max_rel": 0.0, "median_rel": 0.0}
+    n = 1 << 22                 # elements a slice: beside a step's graph
+    #                             pool the card may hold little more
+    for i, (g, w) in enumerate(zip(got, want)):
+        a, b = g.reshape(-1), w.reshape(-1)
+        if all(torch.equal(a[j:j + n], b[j:j + n].to(a.device))
+               for j in range(0, a.numel(), n)):
+            continue
+        differing.append(i)
+        if rule == "bitwise" or not g.is_floating_point():
+            held = False
+            continue
+        try:
+            c = change_limits(g, w, before[i], rule == "median")
+        except torch.OutOfMemoryError:      # then on the host
+            c = change_limits(g.cpu(), w, before[i], rule == "median")
+        held = held and c["held"]
+        worst = {k: max(worst[k], c[k]) for k in worst}
+    out = {"rule": rule, "bitwise": not differing, "leaves": len(got),
+           "leaves_differing": len(differing), "held": held}
+    if differing:
+        out.update(first_differing=differing[:8], worst=worst)
+    return out
+
+
+def replay_profile(call):
+    """One call of a captured step that replays under the profiler: the
+    device's busy ms and idle share, its kernels, the host's graph and
+    kernel launches, pageable host-to-device copies."""
+    dev, cpu, wall = profile(call)
+    busy = sum(_device_us(e) for e in dev) / 1e3
+    count = lambda evts, frag: sum(e.count for e in evts if frag in e.key)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if wall <= 0 else max(0.0, 1 - busy / wall),
+            "device_kernels": sum(e.count for e in dev),
+            "cudaGraphLaunch": count(cpu, "cudaGraphLaunch"),
+            "cudaLaunchKernel": count(cpu, "cudaLaunchKernel"),
+            "htod_pageable": count(dev, "Memcpy HtoD (Pageable")}
+
+
+def check_replayed(label, rec):
+    """A captured step launches one graph a replay (one key captured) and
+    its replay holds against the eager step."""
+    if rec["per_replay"]["cudaGraphLaunch"] != 1 or rec["graphs"] != 1 \
+            or not rec["replay_vs_eager"]["held"]:
+        raise AssertionError(f"{label}: captured step {rec}")
+
+
+def replay_record(label, step, call, eager_ms, first_ms, agreement):
+    """A captured step's record after its replay was held to the eager
+    step (``agreement``): STEP_REPLAYS more replays of ``call`` timed
+    (host clock to a synchronize) beside the eager steps' and the first
+    call's (warm-up and capture) ms, one replay profiled, its graphs and
+    their pool, and the peak allocated over the replays (a replay
+    allocates from its pool, reserved before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(STEP_REPLAYS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    prof = replay_profile(call)
+    rec = {"eager_step_ms": ms_summary(eager_ms),
+           "replayed_step_ms": ms_summary(ms), "first_call_ms": first_ms,
+           "eager_ms": list(eager_ms), "replayed_ms": ms,
+           "per_replay": prof, "idle_share_at_median": max(
+               0.0, 1 - prof["device_busy_ms"] / statistics.median(ms)),
+           "graphs": len(step.graphs),
+           "graph_pool_bytes": graph_pool_bytes(step.graphs),
+           "peak_allocated_bytes": peak, "replay_vs_eager": agreement}
+    check_replayed(label, rec)
+    return rec
+
+
+def captured_vs_eager(label, body, mesh, n_state, initial, batches,
+                      before=None, after=None, rule="bitwise"):
+    """A train cell's in-place rank ``body`` on in-process ranks, eager and
+    captured (``train.step.InProcessTrainStep``), from one state.
+
+    ``initial()`` gives every rank's state arguments (views will do: a
+    step copies them into its own); ``batches[i]`` every rank's batch
+    arguments of step i, two steps at least, each batch its own. The
+    eager oracle (``capture=False``) takes the steps in order,
+    ``before(i, states)`` and ``after(i, outputs)`` around each (the
+    caller's checks against one card); its states after the first and
+    the second step go to the host. Then the captured step: its first
+    call, on ``batches[0]``, warms up and captures; the eager state after
+    the first step is copied into its standing state and the graph
+    replayed on ``batches[1]``, and the state it leaves is held to the
+    eager second step's (:func:`replay_agreement`): both are one step
+    from the same state, on a batch the capture never saw, so a graph
+    that kept anything of its warm-up's batch fails. ``rule``: bitwise,
+    loss and metrics too; a cell of REPLAY_NOT_BITWISE gives its own
+    (:func:`replay_agreement`).
+    :func:`replay_record` times it. Returns the record and the compared
+    replay's outputs past the state (its metrics or loss), per rank."""
+    import gc
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import InProcessTrainStep
+    assert len(batches) >= 2, "a replay is held on a batch of its own"
+    join = lambda states, rows: [tuple(s) + tuple(b)
+                                 for s, b in zip(states, rows)]
+    host = lambda tree: [t.to("cpu", copy=True) for t in tree_leaves(tree)]
+    eager = InProcessTrainStep(body, mesh, n_state=n_state, capture=False)
+    ms, peak = [], 0
+    for i, rows in enumerate(batches):
+        states = initial() if i == 0 else eager.ranks
+        if before is not None:
+            before(i, states)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = eager(join(states, rows))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        del states
+        if i == 0:          # copies: the eager state moves on in place
+            start = host(eager.ranks)
+        elif i == 1:
+            want = host(eager.ranks)
+            want_out = host([o[n_state:] for o in out])
+        if after is not None:
+            after(i, out)
+    del eager, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = InProcessTrainStep(body, mesh, n_state=n_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(join(initial(), batches[0]))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(step.ranks), start):
+            a.copy_(b)
+    out = step(join(step.ranks, batches[1]))
+    torch.cuda.synchronize()
+    agreement = replay_agreement(tree_leaves(step.ranks), want, start, rule)
+    agreement["outputs_bitwise"] = all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves([o[n_state:] for o in out]), want_out))
+    if rule == "bitwise":   # the loss and metrics too
+        agreement["held"] = agreement["held"] and agreement["outputs_bitwise"]
+    del want, start
+    rec = replay_record(label, step, lambda: step(join(step.ranks,
+                                                       batches[1])),
+                        ms, first_ms, agreement)
+    rec["eager_peak_bytes"] = peak      # above what was allocated before it
+    return rec, [o[n_state:] for o in out]
+
+
 def router_flips(picks_got, picks_want):
     """Tokens whose set of router picks differs between two runs, summed
     over the MoE layers."""
@@ -6886,9 +7240,13 @@ def tp_train_single(cfg, opt, device):
 def tp_train_run(cfg, tp, opt, device, single):
     """TP_TRAIN_STEPS steps of the train cell's rank bodies of a (1, tp)
     mesh from the seeded state, every rank in turn on this card on its
-    own slices: per step their gradients (``grads_rank_body``,
-    assembled) against the one card's (``tp_train_single``), then the
-    step itself (``Cell.body``), timed, with its peak above the state."""
+    own slices: before each step their gradients (``grads_rank_body``,
+    assembled) against the one card's (``tp_train_single``), after it
+    the loss. The steps are those of the cell's body written in place,
+    eager (``InProcessTrainStep(capture=False)``), then captured: its
+    first call warms up and captures, the second replays the first step
+    from the seeded state again, held to the eager one
+    (:func:`captured_vs_eager`)."""
     import torch
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed import collectives as C
@@ -6898,29 +7256,34 @@ def tp_train_run(cfg, tp, opt, device, single):
     from repro_torch.train.step import (grads_rank_body, make_train_state,
                                         spec_leaves)
     mesh = C.InProcessMesh((1, tp), ("data", "model"))
-    cell = build_cell(cfg.name, cfg, ShapeSpec("t", "train", TP_TRAIN_SEQ,
-                                               TP_TRAIN_BATCH), mesh, opt)
+    shape = ShapeSpec("t", "train", TP_TRAIN_SEQ, TP_TRAIN_BATCH)
+    cell = build_cell(cfg.name, cfg, shape, mesh, opt, in_place=True)
     sspec, bspec = cell.in_shardings
     grads_body = grads_rank_body(cfg, sspec.params)
     is_t = lambda x: isinstance(x, torch.Tensor)
     ctxs = [C.RankContext(mesh.coords(r), C.mesh_shape(mesh))
             for r in range(tp)]
     cut = lambda tree, specs, ctx: spec_map(lambda t, sp: t[C.local_slices(
-        sp, t.shape, ctx.size, ctx.index)].clone(), tree, specs, is_leaf=is_t)
-    state = make_train_state(cfg, torch.Generator(device=device).manual_seed(
-        SEED), device=device)
+        sp, t.shape, ctx.size, ctx.index)], tree, specs, is_leaf=is_t)
+
+    def initial():
+        """Every rank's views of the seeded state (a step copies them)."""
+        state = make_train_state(cfg, torch.Generator(
+            device=device).manual_seed(SEED), device=device)
+        return [(cut(state, sspec, c),) for c in ctxs]
+    state = cell.in_specs[0]                  # meta tensors
     state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
-    ranks = [cut(state, sspec, c) for c in ctxs]
     paths = [p for p, _ in leaf_paths(state.params)]
     shapes = [t.shape for t in tree_leaves(state.params)]
-    del state
+    batches = [[(cut(b, bspec, c),) for c in ctxs]
+               for b in tp_train_batches(cfg, device, TP_TRAIN_STEPS)]
     steps, worst = [], {}
-    for i, batch in enumerate(tp_train_batches(cfg, device, TP_TRAIN_STEPS)):
-        rows = [cut(batch, bspec, c) for c in ctxs]
-        held = torch.cuda.memory_allocated()
+
+    def before(i, states):
+        """The ranks' gradients at step i against the one card's."""
         with torch.enable_grad(), RouterPicks() as rp:
             outs = C.run_in_process(lambda r, ctx: grads_body(
-                ctx, ranks[r].params, rows[r]), mesh)
+                ctx, states[r][0].params, batches[i][r][0]), mesh)
         # rank 0's router calls (every rank routes the same rows alike)
         flips = router_flips(rp.picks[::tp], single[i]["picks"])
         cmps = {}
@@ -6936,40 +7299,40 @@ def tp_train_run(cfg, tp, opt, device, single):
         if bad:
             raise AssertionError(f"tp_train {cfg.name} x{tp} step {i}: "
                                  f"{next(iter(bad.items()))}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        with torch.enable_grad():
-            res = C.run_in_process(lambda r, ctx: cell.body(
-                ctx, ranks[r], rows[r]), mesh)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated() - base
-        ranks = [o[0] for o in res]
-        loss, want = float(res[0][1]["loss"]), single[i]["loss"]
-        if not abs(loss - want) <= TP_TRAIN_LOSS_RTOL * abs(want):
-            raise AssertionError(f"tp_train {cfg.name} x{tp} step {i}: loss "
-                                 f"{loss} vs {want}")
         for p, c in cmps.items():
             w = worst.setdefault(p, {"max_rel": 0.0, "median_rel": 0.0})
             w["max_rel"] = max(w["max_rel"], c["max_rel"])
             w["median_rel"] = max(w["median_rel"], c["median_rel"])
-        steps.append({"loss": loss, "single_loss": want,
-                      "held_against_f32": {p: c["against_f32"] for p, c
+        steps.append({"held_against_f32": {p: c["against_f32"] for p, c
                                            in cmps.items() if "against_f32" in c},
-                      "grad_norm": float(res[0][1]["grad_norm"]),
-                      "single_grad_norm": single[i]["grad_norm"],
-                      "router_flips": flips, "tp_step_ms": ms,
-                      "single_step_ms": single[i]["ms"],
-                      "allocated_at_step_bytes": held,
-                      "peak_above_state_bytes": peak})
-        del res
-    del ranks
+                      "router_flips": flips, "single_step_ms": single[i]["ms"],
+                      "allocated_at_step_bytes": torch.cuda.memory_allocated()})
+
+    def after(i, outs):
+        """The step's loss against the one card's."""
+        loss, want = float(outs[0][1]["loss"]), single[i]["loss"]
+        if not abs(loss - want) <= TP_TRAIN_LOSS_RTOL * abs(want):
+            raise AssertionError(f"tp_train {cfg.name} x{tp} step {i}: loss "
+                                 f"{loss} vs {want}")
+        steps[i].update(loss=loss, single_loss=want,
+                        grad_norm=float(outs[0][1]["grad_norm"]),
+                        single_grad_norm=single[i]["grad_norm"])
+
+    rec, outs = captured_vs_eager(f"tp_train {cfg.name} x{tp}", cell.body,
+                                  mesh, 1, initial, batches, before, after,
+                                  rule=REPLAY_NOT_BITWISE.get(cfg.name,
+                                                              "bitwise"))
+    loss, want = float(outs[0][0]["loss"]), single[1]["loss"]
+    if not abs(loss - want) <= TP_TRAIN_LOSS_RTOL * abs(want):
+        raise AssertionError(f"tp_train {cfg.name} x{tp} replayed step: loss "
+                             f"{loss} vs {want}")
+    for s, ms in zip(steps, rec["eager_ms"]):
+        s["tp_step_ms"] = ms
     top = max(worst, key=lambda p: worst[p]["max_rel"])
     return {"state_bytes": state_bytes, "steps": steps, "grad_worst": {
         "max_rel": worst[top]["max_rel"], "leaf_of_max": top,
         "median_rel": max(w["median_rel"] for w in worst.values())},
+        "captured": dict(rec, replayed_loss=loss),
         "computed_whole": cell.computed_whole}
 
 
@@ -7131,10 +7494,24 @@ def tp_detr(device, mesh_shape):
     opt = adamw_init(params2)
     _, single_step_ms, _ = timed(lambda: adamw_update(params2, want, opt,
                                                      OptConfig()))
-    with torch.enable_grad():
-        res_step, tp_step_ms, tp_step_peak = timed(lambda: C.run_in_process(
-            lambda r, ctx: cell.body(ctx, *ranks[r]), mesh))
-    losses = [float(o[2]) for o in res_step]
+    # the cell's step written in place: eager on two pyramids, then
+    # captured (its first call warms up and captures), the second step
+    # replayed from the eager state after the first and held to it
+    losses = []
+
+    def after(i, outs):
+        if i == 0:
+            losses.extend(float(o[2]) for o in outs)
+    cell = build_detr_cell(DETR_TP_ARCH, "train", mesh, batch=DETR_TP_BATCH,
+                           enc_cfg=enc2, in_place=True)
+    x2 = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        SEED + 32)).to(device)
+    rows = [[r[2:] for r in detr_rank_inputs(cell, mesh, (
+        params2, adamw_init(params2), xb, pos, refs))] for xb in (x, x2)]
+    captured, _ = captured_vs_eager(
+        f"tp detr train {mesh_shape}", cell.body, mesh, 2,
+        lambda: [r[:2] for r in ranks], rows, after=after,
+        rule=REPLAY_NOT_BITWISE.get(DETR_TP_ARCH, "bitwise"))
     if not all(abs(l - float(loss1)) <= DETR_TP_LOSS_RTOL * abs(float(loss1))
                for l in losses):
         raise AssertionError(f"tp detr train: losses {losses} vs {float(loss1)}")
@@ -7144,11 +7521,11 @@ def tp_detr(device, mesh_shape):
                     "single_loss": float(loss1),
                     "single_grad_ms": grad_ms, "tp_grad_ms": tp_grad_ms,
                     "single_adamw_ms": single_step_ms,
-                    "tp_step_ms": tp_step_ms,
+                    "tp_step_ms": captured["eager_ms"][0],
                     "single_grad_peak_bytes": grad_peak,
                     "tp_grad_peak_bytes": tp_grad_peak,
-                    "tp_step_peak_bytes": tp_step_peak}
-    del res_step, ranks, want, params, params2
+                    "captured": captured}
+    del ranks, rows, want, params, params2, x2
     memory_mark()
     return res
 
@@ -7157,9 +7534,12 @@ def tp_detr(device, mesh_shape):
 # opt: the pure-DP archs' --opt train and prefill cells on a sequence split
 # --------------------------------------------------------------------------
 
-# (arch, depth cut or None): full widths in bf16, minitron-4b and
-# hymba-1.5b cut in depth, mamba2-130m and whisper-tiny whole
-OPT_RUNS = (("minitron-4b", 2), ("mamba2-130m", None), ("hymba-1.5b", 4),
+# (arch, depth cut or None): full widths in bf16, minitron-4b, mamba2-130m
+# and hymba-1.5b cut in depth, whisper-tiny whole. mamba2 and hymba are
+# cut to 2 layers: their four ranks take turns on the host, and each
+# train cell runs two eager steps and a capture (mamba2 at its full 24
+# layers took 187 s on an H100, of the script's 1,200 s limit)
+OPT_RUNS = (("minitron-4b", 2), ("mamba2-130m", 2), ("hymba-1.5b", 2),
             ("whisper-tiny", None))
 OPT_MESHES = ((1, 4), (2, 2))
 OPT_SEQ = 4096
@@ -7175,6 +7555,14 @@ OPT_BLOCKWISE = ("minitron-4b", 2, 8192)
 OPT_F32_NO_TRAIN = {"minitron-4b": "not run in float32: four in-process "
                     "ranks' float32 gathers of the 1.74 G parameters and "
                     "their cotangents do not fit beside one card's (80 GB)"}
+# the train cells whose in-process step runs eager only: the graph pool of
+# minitron-4b's four ranks (51.2 GB at (1, 4): each rank's 256 K-column
+# logits of a microbatch alive at once, 2 GB apiece in float32) beside its
+# 17.4 GB standing state and one card's parameters ran out of the card's
+# 80 GB in the whole script
+OPT_NO_CAPTURE = {"minitron-4b": "eager only: four in-process ranks' graph "
+                  "pool (51.2 GB at (1, 4)) beside the standing state and "
+                  "one card's parameters does not fit the card (80 GB)"}
 
 
 def opt_config(arch, depth, kind, dtype=None):
@@ -7198,10 +7586,11 @@ def opt_config(arch, depth, kind, dtype=None):
     return cfg, reduced
 
 
-def opt_batch(cfg, b, s, device, train):
-    """Seeded tokens (s + 1 a row to train) and, for whisper, frames."""
+def opt_batch(cfg, b, s, device, train, draw=0):
+    """Seeded tokens (s + 1 a row to train) and, for whisper, frames;
+    ``draw`` picks another seed."""
     import torch
-    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41 + draw)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + int(train)),
                                      generator=gen, device=device,
                                      dtype=torch.int32)}
@@ -7307,7 +7696,8 @@ def opt_train(arch, cfg, device, meshes, seq, params):
     from repro_torch.models.registry import get_api
     from repro_torch.optim.adamw import (OptConfig, _update_scalars,
                                          global_norm, tree_leaves, tree_map)
-    from repro_torch.train.step import TrainState, _loss_and_grads, spec_leaves
+    from repro_torch.train.step import (InProcessTrainStep, TrainState,
+                                        _loss_and_grads, spec_leaves)
     f32 = cfg.dtype == torch.float32
     opt = OptConfig(warmup_steps=0)   # lr 3e-4 at once: a step above a bf16
                                       # rounding of most parameters
@@ -7328,87 +7718,113 @@ def opt_train(arch, cfg, device, meshes, seq, params):
         mesh = C.InProcessMesh((d, t), ("data", "model"))
         cell = build_cell(arch, cfg, ShapeSpec("t", "train", seq,
                                                OPT_TRAIN_BATCH), mesh, opt,
-                          policy=True)
-        # zero moments as stride-0 views (AdamW reads them out of place):
-        # minitron-4b's 14 GB of them do not fit beside the ranks' step
-        # and the phases' held state
+                          policy=True, in_place=True)
+        # the initial zero moments as stride-0 views: each step copies them
+        # into its own standing state (minitron-4b's 14 GB of moments once)
         zero = torch.zeros((), dtype=torch.float32, device=device)
+        step0 = torch.zeros((), dtype=torch.int32, device=device)
         state = TrainState(params, {
             "m": tree_map(lambda p: zero.expand(p.shape), params),
             "v": tree_map(lambda p: zero.expand(p.shape), params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)},
-            torch.zeros((), dtype=torch.int32, device=device))
+            "step": step0}, step0)
+        ranks = detr_rank_inputs(cell, mesh, (state, batch))
         memory_mark()
-        outs, step_ms, step_peak = opt_timed(lambda: opt_run(
-            cell, mesh, (state, batch), True))
-        step0 = state.opt["step"]
-        del state
-        metrics = outs[0][1]
-        loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
-        _, scale, _, lr, bc1, bc2 = _update_scalars(
-            None, {"step": step0}, opt, gnorm)
-        specs = spec_leaves(cell.in_shardings[0])
-        whole = lambda i, ref: C.assemble(
-            {r: tree_leaves(o[0])[i] for r, o in enumerate(outs)}, specs[i],
-            tuple(ref.shape), mesh)
-        worst = {"max_rel": 0.0, "median_rel": 0.0, "leaf": None}
-        params_worst = {"max_rel": 0.0, "bitwise": True}
-        outside = {}
-        for j, (w, p) in enumerate(zip(want, tree_leaves(params))):
-            w = w.to(device)
-            m, v = whole(n + j, w), whole(2 * n + 1 + j, w)
-            got_p = whole(j, w)
-            p_want = opt_step_want(p, m, v, lr, bc1, bc2, opt)
-            err = (got_p.float() - p_want.float()).abs()
-            lim = p_want.float().abs() * p_ulp
-            params_worst["bitwise"] &= bool(torch.equal(got_p, p_want))
-            params_worst["max_rel"] = max(params_worst["max_rel"], float(
-                (err / p_want.float().abs().clamp(min=1e-30)).max()))
-            if not bool((err <= lim).all()):
-                raise AssertionError(f"opt {arch} {d}x{t} step: parameter "
-                                     f"{j} is not AdamW of its moments")
-            del v, got_p, p_want, err, lim
-            g = m.div_((1 - opt.beta1) * scale)
-            if f32:
-                top = float(w.abs().max())
-                e = float((g - w).abs().max())
-                cmp = {"max_rel": e / max(top, 1e-30), "median_rel": 0.0,
-                       "held": bool(torch.isfinite(g).all())
-                       and e <= OPT_F32_TOL * top}
-                if not cmp["held"]:
-                    raise AssertionError(f"opt {arch} {d}x{t} gradient {j}: "
-                                         f"{cmp}")
-            else:
-                cmp = grad_limits(g, w)
-                if not cmp["held"]:
-                    outside[j] = g
-            if cmp["max_rel"] >= worst["max_rel"]:
-                worst.update(max_rel=cmp["max_rel"], leaf=j)
-            worst["median_rel"] = max(worst["median_rel"], cmp["median_rel"])
-            del g, m, w
-        del outs
-        if outside:
-            memory_mark()
-            truth = truth or opt_f32_truth(cfg, params, batch)
-            worst["against_f32"] = {}
-            for j, g in outside.items():
-                cmp = grad_limits(g, want[j].to(device),
-                                  truth=truth[j].to(device))
-                if not cmp["held"]:
-                    raise AssertionError(f"opt {arch} {d}x{t} gradient {j}: "
-                                         f"{cmp}")
-                worst["against_f32"][j] = cmp.get("against_f32")
-            del outside
-        if not abs(loss - float(loss1)) <= rtol * abs(float(loss1)):
-            raise AssertionError(f"opt {arch} {d}x{t}: loss {loss} vs "
-                                 f"{float(loss1)}")
-        if not abs(float(gnorm) - norm1) <= rtol * norm1:
-            raise AssertionError(f"opt {arch} {d}x{t}: grad_norm "
-                                 f"{float(gnorm)} vs {norm1}")
-        res[f"{d}x{t}"] = {"loss": loss, "grad_norm": float(gnorm),
-                           "grad_worst": worst, "params": params_worst,
-                           "tp_step_ms": step_ms,
-                           "tp_step_peak_bytes": step_peak}
+        checked = {}
+
+        def after(i, outs):
+            """The eager first step's gradients, new parameters, loss and
+            norm."""
+            nonlocal truth
+            if i:
+                return
+            metrics = outs[0][1]
+            loss, gnorm = float(metrics["loss"]), metrics["grad_norm"]
+            _, scale, _, lr, bc1, bc2 = _update_scalars(
+                None, {"step": step0}, opt, gnorm)
+            specs = spec_leaves(cell.in_shardings[0])
+            whole = lambda i, ref: C.assemble(
+                {r: tree_leaves(o[0])[i] for r, o in enumerate(outs)},
+                specs[i], tuple(ref.shape), mesh)
+            worst = {"max_rel": 0.0, "median_rel": 0.0, "leaf": None}
+            params_worst = {"max_rel": 0.0, "bitwise": True}
+            outside = {}
+            for j, (w, p) in enumerate(zip(want, tree_leaves(params))):
+                w = w.to(device)
+                m, v = whole(n + j, w), whole(2 * n + 1 + j, w)
+                got_p = whole(j, w)
+                p_want = opt_step_want(p, m, v, lr, bc1, bc2, opt)
+                err = (got_p.float() - p_want.float()).abs()
+                lim = p_want.float().abs() * p_ulp
+                params_worst["bitwise"] &= bool(torch.equal(got_p, p_want))
+                params_worst["max_rel"] = max(params_worst["max_rel"], float(
+                    (err / p_want.float().abs().clamp(min=1e-30)).max()))
+                if not bool((err <= lim).all()):
+                    raise AssertionError(f"opt {arch} {d}x{t} step: parameter "
+                                         f"{j} is not AdamW of its moments")
+                del v, got_p, p_want, err, lim
+                g = m.div_((1 - opt.beta1) * scale)
+                if f32:
+                    top = float(w.abs().max())
+                    e = float((g - w).abs().max())
+                    cmp = {"max_rel": e / max(top, 1e-30), "median_rel": 0.0,
+                           "held": bool(torch.isfinite(g).all())
+                           and e <= OPT_F32_TOL * top}
+                    if not cmp["held"]:
+                        raise AssertionError(f"opt {arch} {d}x{t} gradient "
+                                             f"{j}: {cmp}")
+                else:
+                    cmp = grad_limits(g, w)
+                    if not cmp["held"]:
+                        outside[j] = g
+                if cmp["max_rel"] >= worst["max_rel"]:
+                    worst.update(max_rel=cmp["max_rel"], leaf=j)
+                worst["median_rel"] = max(worst["median_rel"],
+                                          cmp["median_rel"])
+                del g, m, w
+            if outside:
+                memory_mark()
+                truth = truth or opt_f32_truth(cfg, params, batch)
+                worst["against_f32"] = {}
+                for j, g in outside.items():
+                    cmp = grad_limits(g, want[j].to(device),
+                                      truth=truth[j].to(device))
+                    if not cmp["held"]:
+                        raise AssertionError(f"opt {arch} {d}x{t} gradient "
+                                             f"{j}: {cmp}")
+                    worst["against_f32"][j] = cmp.get("against_f32")
+                del outside
+            if not abs(loss - float(loss1)) <= rtol * abs(float(loss1)):
+                raise AssertionError(f"opt {arch} {d}x{t}: loss {loss} vs "
+                                     f"{float(loss1)}")
+            if not abs(float(gnorm) - norm1) <= rtol * norm1:
+                raise AssertionError(f"opt {arch} {d}x{t}: grad_norm "
+                                     f"{float(gnorm)} vs {norm1}")
+            checked.update(loss=loss, grad_norm=float(gnorm),
+                           grad_worst=worst, params=params_worst)
+
+        # the cell's step written in place: eager on two batches, then
+        # captured (its first call warms up and captures), the second step
+        # replayed from the eager state after the first and held to it
+        if arch in OPT_NO_CAPTURE:
+            eager = InProcessTrainStep(cell.body, mesh, capture=False)
+            outs, ms, peak = opt_timed(lambda: eager(ranks))
+            after(0, outs)
+            del eager, outs
+            captured = {"eager_ms": [ms], "eager_peak_bytes": peak,
+                        "not_captured": OPT_NO_CAPTURE[arch]}
+        else:
+            second = detr_rank_inputs(cell, mesh, (state, opt_batch(
+                cfg, OPT_TRAIN_BATCH, seq, device, True, draw=1)))
+            captured, _ = captured_vs_eager(
+                f"opt {arch} {d}x{t}", cell.body, mesh, 1,
+                lambda: [r[:1] for r in ranks],
+                [[r[1:] for r in ranks], [r[1:] for r in second]],
+                after=after, rule=REPLAY_NOT_BITWISE.get(arch, "bitwise"))
+            del second
+        del ranks, state
+        res[f"{d}x{t}"] = dict(checked, tp_step_ms=captured["eager_ms"][0],
+                               tp_step_peak_bytes=captured["eager_peak_bytes"],
+                               captured=captured)
     del want, truth, batch
     memory_mark()
     return res
@@ -7514,7 +7930,10 @@ def phase_tp_train(device):
     rank bodies on in-process ranks, against the one card's step on the
     same batches (``tp_train_run``): the gradients per leaf and the loss
     within their limits. The LM train path launches none of K1-K5. Then
-    the DETR serve and train cells on the model axis (:func:`tp_detr`)."""
+    the DETR serve and train cells on the model axis (:func:`tp_detr`)
+    and the ``--opt`` cells (:func:`opt_cells`). Every train cell's step
+    runs eager and then as one CUDA graph for all its ranks
+    (:func:`captured_vs_eager`)."""
     import dataclasses
     import torch
     from repro_torch.optim.adamw import OptConfig
@@ -7562,7 +7981,15 @@ def phase_tp_train(device):
                    "bf16 rounding (2^-7 relative) of AdamW of the step's "
                    "moments, prefill logits logit_limits; float32 "
                    "gradients, loss, grad_norm, parameters and logits "
-                   "within 1e-4 of the largest",
+                   "within 1e-4 of the largest; captured (every train "
+                   "cell: InProcessTrainStep): the graph replayed from "
+                   "the eager state after step 1 on step 2's batch, its "
+                   "state, loss and metrics bitwise the eager step 2's; "
+                   "REPLAY_NOT_BITWISE cells (atomics in the backward): "
+                   "per leaf |got - want| less one rounding at want, "
+                   "median 2^-8 and (the DETR cell; not olmoe-1b-7b, "
+                   "whose routes flip) max 2^-4 of the leaf's largest "
+                   "change over the step; one graph launch a replay",
          seconds=time.perf_counter() - t0)
     return rows
 

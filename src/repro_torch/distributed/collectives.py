@@ -25,6 +25,12 @@ Two runners run a body, and the caller names which:
 :func:`run_local` runs a body that asks for no collective (a model path
 off any mesh) and returns its output.
 
+Both runners run eagerly. A train step captures them whole as one CUDA
+graph a batch shape: ``train.step.ShardedTrainStep`` a process's rank
+over NCCL, ``train.step.InProcessTrainStep`` every in-process rank
+taking turns (the turns are host bookkeeping; every collective here is
+tensor work on one stream, and none reads a value back to the host).
+
 Both compute every collective with the same operations in the same
 order, so they agree bitwise. A floating-point SUM adds each element's
 operands in rank order, where a ring all-reduce would add in an order

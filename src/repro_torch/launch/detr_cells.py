@@ -186,17 +186,21 @@ def _loss_body(enc_cfg: EncoderConfig, level_shapes) -> Callable:
 
 def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
                     backend: Optional[str] = None,
-                    enc_cfg: Optional[EncoderConfig] = None) -> Cell:
+                    enc_cfg: Optional[EncoderConfig] = None,
+                    in_place: bool = False) -> Cell:
     """serve: ``encoder_body`` on this rank's images and FFN shard;
     train: the rolled-target MSE, its gradient and AdamW on
     ``zero_spec`` moments (``train.step.train_rank_body`` over a
     ``ModelAPI`` with that ``loss_body``; ``Cell.body`` the rank body
     with args (params, opt, x, pos, refs) -> (params, opt, loss), run
-    with grad on; ``Cell.fn`` runs it on a ``DeviceMesh``). ``backend`` is the serve encoder's sampling backend (default:
+    with grad on; ``Cell.fn`` runs it on a ``DeviceMesh``). ``backend``
+    is the serve encoder's sampling backend (default:
     the config's, ``torch_gather`` for the family's ``impl="jnp"``, as
     the reference's cells sample with ``jnp_gather``; ``"auto"`` plans
     for the card, K1 there). ``enc_cfg`` replaces the config's encoder
-    (another dtype or depth)."""
+    (another dtype or depth). ``in_place``: the train body writes the
+    params and moments it is given and returns them
+    (``train.step.InProcessTrainStep``'s standing rank states)."""
     acfg = DETR_CONFIGS[name]
     enc_cfg = enc_cfg or acfg.encoder
     level_shapes = acfg.level_shapes
@@ -239,7 +243,8 @@ def build_detr_cell(name: str, kind: str, mesh, batch: Optional[int] = None,
     api = ModelAPI(*(None,) * len(ModelAPI._fields))._replace(
         loss_body=loss_body)
     rank_step = train_rank_body(enc_cfg, opt_cfg,
-                                TrainState(param_specs, opt_sh, P()), api)
+                                TrainState(param_specs, opt_sh, P()), api,
+                                in_place=in_place)
 
     def body(ctx, params, opt, x_flat, pos, refs):
         new_p, new_opt, _, metrics = yield from rank_step(

@@ -257,7 +257,11 @@ def run_real(make_cell, device, reps: int = 5, seed: int = 0,
     (``FlopCounterMode``), the bytes of the placed inputs, the card's
     peak above what was allocated before them (None on the CPU), and the
     host-clock ms of ``reps`` more calls (each ending in a
-    synchronize)."""
+    synchronize). A train cell runs here eagerly, as its rank program
+    (``Cell.fn``) and not through ``train.step.ShardedTrainStep``: this is
+    the counterpart of the fake trace, which counts the FLOPs and the
+    peak of one eager call of that program, and every call starts again
+    from the same arguments rather than from a standing state."""
     from torch.utils.flop_counter import FlopCounterMode
     import socket
     with socket.socket() as sock:

@@ -58,7 +58,11 @@ token sums.
 runs on a named ``DeviceMesh``; ``Cell.body``, where the program is one
 rank body, also runs every rank of an ``InProcessMesh`` in one process
 (``collectives.run_in_process``). A cell built on an ``InProcessMesh``
-has its specs and ``meta``; its ``fn`` needs a ``DeviceMesh``."""
+has its specs and ``meta``; its ``fn`` needs a ``DeviceMesh``. A train
+cell built with ``in_place=True`` writes the state it is given and
+returns those tensors, for ``train.step.InProcessTrainStep``'s standing
+rank states; by default it returns new tensors, as the reference's
+program does."""
 from __future__ import annotations
 
 import dataclasses
@@ -369,13 +373,14 @@ def spmd_program(body: Callable, mesh) -> Callable:
 
 
 def _train_body(cfg: ModelConfig, opt_cfg: OptConfig, specs: TrainState,
-                api=None) -> Callable:
+                api=None, in_place: bool = False) -> Callable:
     """The rank body of a train cell: args (state, batch), this rank's
     slices of each; returns (its slices of the new state, metrics)
-    (``train.step.train_rank_body``). Under a policy with ``seq_shard``
-    the rank takes its block of the input rows ``tokens[:, :-1]`` and of
-    their labels (``act_sharding.seq_split``)."""
-    step = train_rank_body(cfg, opt_cfg, specs, api)
+    (``train.step.train_rank_body``; ``in_place``: the state given,
+    written). Under a policy with ``seq_shard`` the rank takes its block
+    of the input rows ``tokens[:, :-1]`` and of their labels
+    (``act_sharding.seq_split``)."""
+    step = train_rank_body(cfg, opt_cfg, specs, api, in_place=in_place)
 
     def body(ctx: C.RankContext, state: TrainState, batch: dict):
         with acts.seq_split(ctx, batch["tokens"].shape[1] - 1) as split:
@@ -401,7 +406,7 @@ def _train_program(body: Callable, mesh) -> Callable:
 
 def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
                opt_cfg: Optional[OptConfig] = None,
-               policy: bool = False) -> Cell:
+               policy: bool = False, in_place: bool = False) -> Cell:
     api = get_api(cfg)
     sizes = C.mesh_shape(mesh)
     b, seq = shape.global_batch, shape.seq_len
@@ -416,8 +421,8 @@ def build_cell(arch: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
         state_sds = traced_shapes(lambda: make_train_state(cfg, device="cpu"))
         state_specs = train_state_shardings(cfg, mesh, state_sds)
         batch_sds, batch_sh = _batch_sds(cfg, b, seq, mesh, train=True)
-        body = _maybe_policy(_train_body(cfg, opt_cfg, state_specs, api),
-                             mesh, policy, cfg)
+        body = _maybe_policy(_train_body(cfg, opt_cfg, state_specs, api,
+                                         in_place), mesh, policy, cfg)
         return Cell(name=f"{arch}/{shape.name}",
                     fn=_train_program(body, mesh),
                     in_specs=(state_sds, batch_sds),

@@ -7,8 +7,10 @@ cpu``) it trains over the world: the local mesh ``(world, 1)`` named
 ("data", "model"), or with ``--production-mesh`` the reference's 16x16
 mesh, which needs 256 ranks. The state is laid out by
 ``train_state_shardings`` and each rank trains on its rows of the batch
-(``train.step.build_sharded_train_step``, eager). On one device the step
-is ``train.step.build_train_step``'s, a CUDA graph on the card.
+(``train.step.build_sharded_train_step``: on the cards a CUDA graph per
+batch shape, its NCCL collectives captured; eager on gloo). On one
+device the step is ``train.step.build_train_step``'s, a CUDA graph on
+the card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --device cpu --steps 30 --ckpt-dir /tmp/ckpt
@@ -105,7 +107,8 @@ def main(argv=None) -> int:
     # weights drawn on the device itself: a published-width model on the card
     state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
-    if mesh is None:                 # captured on the card (CUDA graphs)
+    # captured on the card (CUDA graphs), on one device or over the world
+    if mesh is None:
         step_fn = build_train_step(cfg, opt_cfg)
     else:
         specs = train_state_shardings(cfg, mesh, state)

@@ -71,6 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.bridge import host_constant
 from repro_torch.core.pap import topk_stable
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
@@ -173,10 +174,17 @@ def _kv_for_q(cfg: ModelConfig, k: torch.Tensor,
     and padded heads clamp to the last kv head (their output is masked)."""
     if blk is not None and blk.split:
         idx = _q_to_kv(cfg)[blk.q0:blk.q0 + blk.nq] - blk.kv_stored0
-        return k[:, :, torch.from_numpy(idx).to(k.device)]
+        return k[:, :, _head_index(tuple(idx.tolist()), k.device)]
     if cfg.h_phys == cfg.n_heads:
         return _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
-    return k[:, :, torch.from_numpy(_q_to_kv(cfg)).to(k.device)]
+    return k[:, :, _head_index(tuple(_q_to_kv(cfg).tolist()), k.device)]
+
+
+@host_constant
+def _head_index(idx: tuple, device: torch.device) -> torch.Tensor:
+    """A head index on ``device``, built once (no copy from the host in a
+    forward that runs again, or is captured)."""
+    return torch.tensor(idx, dtype=torch.long, device=device)
 
 
 def _head_mask(cfg: ModelConfig, dtype, device=None,

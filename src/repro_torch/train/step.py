@@ -27,7 +27,10 @@ split product), takes its gradients through every collective, sums them
 over the data axes (the FSDP gathers' backward is a reduce-scatter),
 takes the global norm with each element counted once and updates its
 moment slices. :func:`build_sharded_train_step` runs that body on a
-``DeviceMesh`` over DTensor states.
+``DeviceMesh`` over a standing DTensor state (:class:`ShardedTrainStep`)
+and :class:`InProcessTrainStep` a train cell's body for every rank of an
+in-process mesh over standing rank states, each a CUDA graph per batch
+shape on the card, as the reference jits its sharded step.
 
 Every gradient path (:func:`value_and_grad`, :class:`TrainStep`,
 :func:`grads_rank_body`) runs under :func:`float32_reductions`: the
@@ -54,6 +57,7 @@ from repro_torch.optim.adamw import (OptConfig, adamw_init, adamw_update,
                                      adamw_update_, global_norm, tree_leaves,
                                      tree_map, tree_unflatten)
 from repro_torch.utils.graphs import CapturedGraphs
+from repro_torch.utils.tree import tree_map_with_path_str
 
 
 class TrainState(NamedTuple):
@@ -215,18 +219,80 @@ def _batch_key(batch: Any) -> tuple:
     return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(batch))
 
 
-class TrainStep:
+def _copy_into(standing: list, given: list, what: str) -> None:
+    """Each of ``given`` copied into its standing tensor, unless it is that
+    tensor; raises unless the two lists agree in length and every pair in
+    shape, dtype and device."""
+    if len(given) != len(standing) or any(
+            a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
+            for a, b in zip(standing, given)):
+        raise ValueError(f"{what} keeps its structure, shapes, dtypes and "
+                         "device from call to call")
+    with torch.no_grad():
+        for a, b in zip(standing, given):
+            if a is not b:
+                a.copy_(b)
+
+
+def _clone_tree(tree: Any) -> Any:
+    """A copy of every tensor of ``tree``, NamedTuples kept."""
+    return tree_map_with_path_str(lambda _, t: t.clone(), tree)
+
+
+class _CapturedStep:
+    """What every captured train step keeps beside its standing state:
+    its graphs (made at the first call, on the state's device), a static
+    batch per key, and the keys ``stats`` has heard."""
+
+    def __init__(self, *, capture: bool, stats: Optional[C.CommStats] = None,
+                 error_mode: str = "global"):
+        self.stats = stats
+        self._capture, self._error_mode = capture, error_mode
+        self.graphs: Optional[CapturedGraphs] = None
+        self._batches: dict = {}                  # key -> static batch
+        self._recorded: set = set()               # keys stats has heard
+
+    def _start(self, device: torch.device) -> None:
+        self.graphs = CapturedGraphs(device, capture=self._capture,
+                                     error_mode=self._error_mode)
+
+    def _static(self, key: tuple, batch: Any) -> Any:
+        """The static batch of ``key``, holding ``batch``'s values."""
+        static = self._batches.get(key)
+        if static is None:
+            dev = self.graphs.device
+            static = self._batches[key] = tree_map_with_path_str(
+                lambda _, x: torch.empty_like(x, device=dev), batch)
+        for a, b in zip(tree_leaves(static), tree_leaves(batch)):
+            a.copy_(b)
+        return static
+
+    def _run(self, name: str, key: tuple, body: Callable) -> Any:
+        """``body(stats)`` through the graphs under ``key``: ``stats`` is
+        the step's at the first call of each key (at its warm-up: the
+        capture that follows runs the body again into a throwaway), a
+        throwaway later; the outputs are the caller's own."""
+        record = key not in self._recorded
+        self._recorded.add(key)
+        return self._own(self.graphs.run(name, key, lambda: body(
+            self.stats if record and not self.graphs.capturing
+            else C.CommStats())))
+
+    def _own(self, out: Any) -> Any:
+        """``out``, copied where a replay rewrites its static outputs."""
+        return _clone_tree(out) if self.graphs.capture else out
+
+
+class TrainStep(_CapturedStep):
     """``step(state, batch) -> (state, metrics)``: one train step on a
     standing :class:`TrainState` (see :func:`build_train_step`)."""
 
     def __init__(self, cfg, opt_cfg: OptConfig, api: ModelAPI, *,
                  capture: bool = True):
+        super().__init__(capture=capture)
         self.cfg, self.opt_cfg, self.api = cfg, opt_cfg, api
-        self._capture = capture
         self._grads_of = _loss_and_grads(cfg, api)
         self.state: Optional[TrainState] = None   # the standing state
-        self.graphs: Optional[CapturedGraphs] = None
-        self._batches: dict = {}                  # key -> static batch
         self._host_bufs: dict = {}                # key -> host stage buffers
 
     def adopt(self, state: TrainState) -> TrainState:
@@ -236,20 +302,11 @@ class TrainStep:
         itself (a fresh state after a restart in the same process)."""
         leaves = tree_leaves(tuple(state))
         if self.state is None:
-            self.graphs = CapturedGraphs(leaves[0].device,
-                                         capture=self._capture)
+            self._start(leaves[0].device)
             self.state = TrainState(*tree_map(torch.clone, tuple(state)))
             return self.state
-        standing = tree_leaves(tuple(self.state))
-        if len(leaves) != len(standing) or any(
-                a.shape != b.shape or a.dtype != b.dtype
-                or a.device != b.device for a, b in zip(standing, leaves)):
-            raise ValueError("a train step's state keeps its structure, "
-                             "shapes, dtypes and device from call to call")
-        with torch.no_grad():
-            for a, b in zip(standing, leaves):
-                if a is not b:
-                    a.copy_(b)
+        _copy_into(tree_leaves(tuple(self.state)), leaves,
+                   "a train step's state")
         return self.state
 
     def __call__(self, state: TrainState, batch: Any):
@@ -259,13 +316,7 @@ class TrainStep:
     def _call(self, state: TrainState, batch: Any):
         st = self.adopt(state)
         key = _batch_key(batch)
-        static = self._batches.get(key)
-        if static is None:
-            dev = self.graphs.device
-            static = self._batches[key] = tree_map(
-                lambda x: torch.empty_like(x, device=dev), batch)
-        for a, b in zip(tree_leaves(static), tree_leaves(batch)):
-            a.copy_(b)
+        static = self._static(key, batch)
         split = self.api.loss_split(self.cfg, static) \
             if self.api.loss_split is not None else None
         if split is None:
@@ -274,9 +325,7 @@ class TrainStep:
         else:
             out = self.graphs.run_split("train_step", key,
                                         *self._split(st, static, split, key))
-        if self.graphs.capture:       # a replay rewrites its static outputs
-            out = {k: v.clone() for k, v in out.items()}
-        return st, out
+        return st, self._own(out)
 
     def _update(self, st: TrainState, loss, metrics, grads) -> dict:
         metrics = dict(metrics) if isinstance(metrics, dict) else {"aux": metrics}
@@ -572,7 +621,8 @@ def grads_rank_body(cfg, param_specs: Any,
 
 
 def train_rank_body(cfg, opt_cfg: OptConfig, specs: TrainState,
-                    api: Optional[ModelAPI] = None) -> Callable:
+                    api: Optional[ModelAPI] = None, *,
+                    in_place: bool = False) -> Callable:
     """One rank's train step as a rank body ``body(ctx, params, opt,
     step, batch)`` over this rank's slices (``collectives.local_slices``
     of each leaf of ``specs``, the batch's rows split over the data axes
@@ -580,7 +630,15 @@ def train_rank_body(cfg, opt_cfg: OptConfig, specs: TrainState,
     with grad mode on. The gradients are :func:`grads_rank_body`'s; the
     global norm sums each element's square once (:func:`_owned`), and
     AdamW updates the rank's ``zero_spec`` slices, which are gathered
-    back into the parameters' layout."""
+    back into the parameters' layout.
+
+    ``in_place``: the step writes the state it is given and returns those
+    tensors (a captured step's standing state): AdamW
+    (:func:`~repro_torch.optim.adamw.adamw_update_`) writes the moment
+    slices, the step counts and the parameters' ``zero_spec`` slices
+    where they lie, and the gathered parameters are copied into the
+    parameter shards; bitwise the functional step. Each rank's tensors
+    must be its own (no two ranks share a storage)."""
     grads_of = grads_rank_body(cfg, specs.params, api)
     p_specs = spec_leaves(specs.params)
     extra = [_extra_spec(sp, zs)
@@ -597,60 +655,232 @@ def train_rank_body(cfg, opt_cfg: OptConfig, specs: TrainState,
         if every:
             sq = yield C.psum(every, sq)
         cut = lambda t, ex: t[C.local_slices(ex, t.shape, sizes, ctx.index)]
+        mine = [cut(x, ex) for x, ex in zip(tree_leaves(params), extra)]
+        moments = {"m": tree_leaves(opt["m"]), "v": tree_leaves(opt["v"]),
+                   "step": opt["step"]}
         with torch.no_grad():
-            new_p, new_opt, opt_metrics = adamw_update(
-                [cut(x, ex) for x, ex in zip(tree_leaves(params), extra)],
-                [cut(g, ex) for g, ex in zip(grads, extra)],
-                {"m": tree_leaves(opt["m"]), "v": tree_leaves(opt["v"]),
-                 "step": opt["step"]}, opt_cfg, grad_norm=torch.sqrt(sq))
+            g_mine = [cut(g, ex) for g, ex in zip(grads, extra)]
+            if in_place:      # the slices are views of the parameter shards
+                opt_metrics = adamw_update_(mine, g_mine, moments, opt_cfg,
+                                            grad_norm=torch.sqrt(sq))
+                new_p = mine
+            else:
+                new_p, moments, opt_metrics = adamw_update(
+                    mine, g_mine, moments, opt_cfg, grad_norm=torch.sqrt(sq))
         shards = []
         for x, ex in zip(new_p, extra):
             shards.append((yield from C.gather_dims(x, ex, sizes)))
         metrics = dict(metrics, loss=loss, **opt_metrics)
-        new_opt = {"m": tree_unflatten(opt["m"], new_opt["m"]),
-                   "v": tree_unflatten(opt["v"], new_opt["v"]),
-                   "step": new_opt["step"]}
+        if in_place:
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(params), shards):
+                    if src is not dst:
+                        dst.copy_(src)
+                if step is not opt["step"]:     # AdamW counted that one
+                    step.add_(1)
+            return params, opt, step, metrics
+        new_opt = {"m": tree_unflatten(opt["m"], moments["m"]),
+                   "v": tree_unflatten(opt["v"], moments["v"]),
+                   "step": moments["step"]}
         return tree_unflatten(params, shards), new_opt, step + 1, metrics
     return body
 
 
-def build_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
-                             api: Optional[ModelAPI] = None) -> Callable:
-    """Returns train_step(state, batch) -> (state, metrics) on ``mesh`` (a
-    ``DeviceMesh``). ``state`` is laid out by ``specs``
-    (:func:`place_train_state`); ``batch`` is this rank's rows
-    (:func:`local_batch`). The rank's slices run :func:`train_rank_body`
-    through ``collectives.run_spmd`` and come back as DTensors of the
-    same layout."""
-    from torch.distributed.tensor import DTensor
-    body = train_rank_body(cfg, opt_cfg, specs, api)
-    p_place = [spec_placements(sp, mesh) for sp in spec_leaves(specs.params)]
-    m_place = [spec_placements(sp, mesh) for sp in spec_leaves(specs.opt["m"])]
+def _same_key_on_every_rank(key: tuple) -> None:
+    """Raises unless every rank of the process group calls a sharded step
+    with a batch of the same shapes: each captures and replays its graph
+    of a key in the same order, so every rank must see the same keys in
+    the same order. Every call checks (one small collective before the
+    replay), so a rank that meets a new shape while another replays an
+    old one raises instead of waiting in a capture."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    keys = [None] * dist.get_world_size()
+    dist.all_gather_object(keys, repr(key))
+    if len(set(keys)) != 1:
+        raise RuntimeError(f"ranks called a sharded train step with batches "
+                           f"of other shapes: {keys}")
 
-    def train_step(state: TrainState, batch: dict):
-        local = lambda t: t.to_local()
-        params = tree_map(local, state.params)
-        opt = {"m": tree_map(local, state.opt["m"]),
-               "v": tree_map(local, state.opt["v"]),
-               "step": state.opt["step"].to_local()}
+
+class ShardedTrainStep(_CapturedStep):
+    """``step(state, batch) -> (state, metrics)`` on a ``DeviceMesh``: this
+    rank's :func:`train_rank_body` over the local shards of a standing
+    DTensor state (see :func:`build_sharded_train_step`)."""
+
+    def __init__(self, cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
+                 api: Optional[ModelAPI] = None, *, capture: bool = True,
+                 stats: Optional[C.CommStats] = None):
+        super().__init__(capture=capture, stats=stats,
+                         error_mode="thread_local")
+        self.mesh = mesh
+        self._body = train_rank_body(cfg, opt_cfg, specs, api, in_place=True)
+        self._ctx = C.rank_context(mesh)
+        self._placements = [spec_placements(sp, mesh)
+                            for sp in spec_leaves(specs)]
+        self.state: Optional[TrainState] = None   # the standing DTensors
+        self._locals: list = []                   # their local shards
+
+    def adopt(self, state: TrainState) -> TrainState:
+        """The standing state, holding ``state``'s values, as
+        :meth:`TrainStep.adopt`; every leaf must be a DTensor on the
+        step's mesh laid out by its specs."""
+        from torch.distributed.tensor import DTensor
+        leaves = tree_leaves(tuple(state))
+        if len(leaves) != len(self._placements) or any(
+                x.device_mesh != self.mesh or tuple(x.placements) != pl
+                for x, pl in zip(leaves, self._placements)):
+            raise ValueError("a sharded train step's state is laid out on "
+                             "its mesh by its specs")
+        if self.state is not None:
+            # the standing DTensors stand for their own shards: to_local()
+            # may view one with other strides on a dim of size 1, which
+            # copy_ refuses as an overlap
+            leaves = [loc if x is sd else x for x, sd, loc in zip(
+                leaves, tree_leaves(tuple(self.state)), self._locals)]
+        with torch.no_grad():                 # to_local() is then the shard
+            given = [x.to_local() if isinstance(x, DTensor) else x
+                     for x in leaves]
+        if self.state is None:
+            self._start(given[0].device)
+            self._locals = [t.clone() for t in given]
+            self.state = TrainState(*tree_unflatten(tuple(state), [
+                DTensor.from_local(t, x.device_mesh, x.placements,
+                                   run_check=False, shape=x.shape,
+                                   stride=x.stride())
+                for t, x in zip(self._locals, leaves)]))
+            return self.state
+        _copy_into(self._locals, given, "a sharded train step's state")
+        return self.state
+
+    def __call__(self, state: TrainState, batch: dict):
+        with float32_reductions():
+            st = self.adopt(state)
+            key = _batch_key(batch)
+            _same_key_on_every_rank(key)
+            static = self._static(key, batch)
+            return st, self._run("sharded_train_step", key,
+                                 lambda stats: self._step(static, stats))
+
+    def _step(self, batch: dict, stats: C.CommStats) -> dict:
+        params, opt, step = tree_unflatten(tuple(self.state), self._locals)
         with torch.enable_grad():
-            new_p, new_opt, step, metrics = C.run_spmd(
-                body(C.rank_context(mesh), params, opt,
-                     state.step.to_local(), batch), mesh)
-        wrap = lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False)
-        rep = lambda t: wrap(t, state.step.placements)
-        params = tree_unflatten(state.params, [
-            wrap(x, pl) for x, pl in zip(tree_leaves(new_p), p_place)])
-        opt = {"m": tree_unflatten(state.opt["m"], [
-                   wrap(x, pl) for x, pl in zip(tree_leaves(new_opt["m"]),
-                                                m_place)]),
-               "v": tree_unflatten(state.opt["v"], [
-                   wrap(x, pl) for x, pl in zip(tree_leaves(new_opt["v"]),
-                                                m_place)]),
-               "step": rep(new_opt["step"])}
-        return TrainState(params, opt, rep(step)), metrics
+            *_, metrics = C.run_spmd(self._body(self._ctx, params, opt, step,
+                                                batch), self.mesh, stats)
+        # the step's own copies: no buffer of the wire leaves the graph
+        return {k: v.detach().clone() for k, v in metrics.items()}
 
-    return train_step
+
+def build_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, specs: TrainState,
+                             api: Optional[ModelAPI] = None, *,
+                             capture: bool = True,
+                             stats: Optional[C.CommStats] = None
+                             ) -> ShardedTrainStep:
+    """Returns train_step(state, batch) -> (state, metrics) on ``mesh`` (a
+    ``DeviceMesh``), the reference's step jitted with the mesh's shardings
+    and its state donated. ``state`` is laid out by ``specs``
+    (:func:`place_train_state`); ``batch`` is this rank's rows
+    (:func:`local_batch`).
+
+    The step owns a **standing** state: DTensors of the same layout whose
+    local shards keep their address (the first call copies ``state``,
+    later calls copy a state that is not the standing one in, as
+    :meth:`TrainStep.adopt`). A call runs :func:`train_rank_body` on the
+    shards through ``collectives.run_spmd``: AdamW writes the rank's
+    ``zero_spec`` slices in place and the gathered parameters are copied
+    into their shards, so the same DTensors come back, placements
+    unchanged. Metrics are tensors of the caller's own.
+
+    On the card the step is a CUDA graph per batch shape
+    (:class:`~repro_torch.utils.graphs.CapturedGraphs` in
+    ``"thread_local"`` capture mode: ProcessGroupNCCL's watchdog thread
+    polls its events meanwhile), NCCL's collectives captured on the
+    graph's stream; the warm-up call of a key runs every collective, so
+    each sub-group's communicator exists before the capture. Every rank
+    must call the step with batches of the same shapes in the same order
+    (:func:`local_batch` gives every rank rows of one shape); every call
+    checks it. ``stats`` records the collectives of the first call of
+    each key only; later calls (replays) leave it as it is. On gloo, on
+    the CPU or with ``capture=False`` (the eager oracle) every call runs
+    the body eagerly. A capture that fails raises."""
+    return ShardedTrainStep(cfg, opt_cfg, mesh, specs, api, capture=capture,
+                            stats=stats)
+
+
+class InProcessTrainStep(_CapturedStep):
+    """``step(ranks) -> outputs``: a train cell's rank body run for every
+    rank of an :class:`~repro_torch.distributed.collectives.InProcessMesh`
+    in turn (``collectives.run_in_process``), as one CUDA graph per batch
+    shape on the card.
+
+    ``ranks[r]`` is rank r's arguments of ``body(ctx, *args)``: its state
+    (the first ``n_state`` arguments, trees of its slices) and then its
+    batch. The body writes the state it is given and returns it first
+    (its first ``n_state`` outputs), then anything else (its metrics, its
+    loss): a train cell built with ``in_place=True``
+    (``train_rank_body(..., in_place=True)``); a body that returns new
+    state tensors raises. The step owns every rank's **standing** state:
+    the first call copies the given states (the caller's tensors stay
+    untouched), a later call copies a state in unless it is the standing
+    one. Each rank's batch is copied into a static batch per key. Returns,
+    per rank, its standing state followed by its other outputs (the
+    step's own copies).
+
+    The key is the mesh's shape and every rank's batch shapes and dtypes;
+    on the card its first call runs the ranks eagerly on a side stream,
+    then captures all of them taking turns as one graph (the turns are
+    host bookkeeping, the collectives tensor work on one stream); later
+    calls replay it. ``stats`` records the first call of each key only.
+    On the CPU or with ``capture=False`` (the eager oracle) every call
+    runs eagerly."""
+
+    def __init__(self, body: Callable, mesh: C.InProcessMesh, *,
+                 n_state: int = 1, capture: bool = True,
+                 stats: Optional[C.CommStats] = None):
+        super().__init__(capture=capture, stats=stats)
+        self.body, self.mesh, self.n_state = body, mesh, n_state
+        self.ranks: Optional[list] = None     # per rank: its standing state
+        self._leaves: list = []               # per rank: their leaves
+
+    def adopt(self, states: list) -> list:
+        """Every rank's standing state, holding ``states[r]`` (a tuple of
+        its ``n_state`` state arguments)."""
+        if len(states) != self.mesh.size:
+            raise ValueError(f"{len(states)} states for {self.mesh}")
+        if self.ranks is None:
+            self._start(tree_leaves(states)[0].device)
+            self.ranks = [_clone_tree(tuple(s)) for s in states]
+            self._leaves = [tree_leaves(s) for s in self.ranks]
+            return self.ranks
+        for standing, s in zip(self._leaves, states):
+            _copy_into(standing, tree_leaves(tuple(s)),
+                       "an in-process train step's state")
+        return self.ranks
+
+    def __call__(self, ranks: list) -> list:
+        n = self.n_state
+        with float32_reductions():
+            standing = self.adopt([tuple(r[:n]) for r in ranks])
+            batches = [tuple(r[n:]) for r in ranks]
+            key = (tuple(self.mesh.shape.items()),) + _batch_key(batches)
+            static = self._static(key, batches)
+            out = self._run("in_process_train_step", key,
+                            lambda stats: self._step(standing, static, stats))
+        return [tuple(s) + tuple(o) for s, o in zip(standing, out)]
+
+    def _step(self, standing: list, batches: list,
+              stats: C.CommStats) -> list:
+        n = self.n_state
+        with torch.enable_grad():
+            outs = C.run_in_process(lambda r, ctx: self.body(
+                ctx, *standing[r], *batches[r]), self.mesh, stats)
+        if any(a is not b for leaves, o in zip(self._leaves, outs)
+               for a, b in zip(leaves, tree_leaves(tuple(o[:n])))):
+            raise ValueError("an in-process train step's body writes its "
+                             "state in place and returns it")
+        # the step's own copies: nothing of the turns' buffers leaves it
+        return [tree_map_with_path_str(lambda _, x: x.detach().clone(),
+                                       tuple(o[n:])) for o in outs]
 
 
 def spec_leaves(spec_tree: Any) -> list:

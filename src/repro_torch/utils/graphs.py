@@ -47,9 +47,14 @@ class CapturedGraphs:
     engine, a train step)."""
 
     def __init__(self, device: torch.device, *, capture: bool = True,
-                 on_prepare: Optional[Callable[[str], None]] = None):
+                 on_prepare: Optional[Callable[[str], None]] = None,
+                 error_mode: str = "global"):
         self.device = torch.device(device)
         self.capture = bool(capture) and self.device.type == "cuda"
+        # torch.cuda.graph's capture_error_mode: "thread_local" where another
+        # thread queries the card meanwhile (ProcessGroupNCCL's watchdog
+        # polls its events; in "global" mode that invalidates a capture)
+        self.error_mode = error_mode
         self._on_prepare = on_prepare   # called with the path name at the
         #   first call of each key (the reference's trace-time spy)
         self._graphs: dict = {}         # (fn, *key) -> (graph, outputs) or
@@ -132,7 +137,8 @@ class CapturedGraphs:
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode=self.error_mode):
                 static = self._call(body)
         finally:
             self.capturing = False

@@ -8,6 +8,7 @@ between pytest workers), read their inputs from a ``torch.save`` file and
 write what they computed to ``<out>/rank<r>.pt``."""
 from __future__ import annotations
 
+import copy
 import datetime
 import os
 import time
@@ -293,5 +294,116 @@ def seq_shard_ranks(rank, world, init_file, inputs_file, out_dir):
                          "metrics": second} if kind == "train" else \
                 {"logits": first, "cache": list(tree_leaves(second))}
         out[name] = got
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def sharded_capture_ranks(rank, world, init_file, inputs_file, out_dir):
+    """The sharded train step of tests/test_torch_sharded_capture.py on a
+    world of gloo ranks (``train.step.ShardedTrainStep``: eager here, as
+    off the card). Per case: the step, its ``capture=False`` oracle and
+    the composition it replaced (``train_rank_body`` through ``run_spmd``,
+    new DTensors every step) over the case's batches; this rank's shards
+    and metrics after each step, the standing shards' addresses, whether
+    the same DTensors and placements came back, the caller's state
+    untouched, the ``CommStats`` of each, a second batch shape's key, and
+    the errors of a state laid out otherwise and of ranks whose batches
+    differ in shape (at a step's first call, and with one rank on a key
+    it has seen)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import P, spec_placements
+    from repro_torch.distributed.sharding import tree_map as spec_map
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.optim.adamw import OptConfig, tree_leaves, tree_unflatten
+    from repro_torch.train.step import (
+        TrainState, build_sharded_train_step, local_batch, place_train_state,
+        spec_leaves, train_rank_body, train_state_shardings)
+    _join(rank, world, init_file)
+    inputs = torch.load(inputs_file, weights_only=False)
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg = ModelConfig(**case["cfg"])
+        opt = OptConfig(**case["opt"])
+        mesh = _mesh(case["mesh"], ("data", "model"))
+        state = case["state"]
+        specs = train_state_shardings(cfg, mesh, state)
+        placed = place_train_state(state, specs, mesh)
+        batches = [local_batch(b, mesh) for b in case["batches"]]
+        body = train_rank_body(cfg, opt, specs)
+        ctx = C.rank_context(mesh)
+        places = [spec_placements(sp, mesh) for sp in spec_leaves(specs)]
+
+        def replaced(st, batch, stats):
+            """The eager step as it was: functional, new DTensors."""
+            loc = tree_unflatten(tuple(st), [x.to_local()
+                                             for x in tree_leaves(tuple(st))])
+            with torch.enable_grad():
+                p, o, n, m = C.run_spmd(body(ctx, *loc, batch), mesh, stats)
+            return TrainState(*tree_unflatten(tuple(st), [
+                DTensor.from_local(t, mesh, pl, run_check=False)
+                for t, pl in zip(tree_leaves((p, o, n)), places)])), m
+
+        stats = {"replaced": C.CommStats(), "step": C.CommStats()}
+        step = build_sharded_train_step(cfg, opt, mesh, specs,
+                                        stats=stats["step"])
+        oracle = build_sharded_train_step(cfg, opt, mesh, specs,
+                                          capture=False)
+        runs = {"replaced": placed, "step": placed, "oracle": placed}
+        res = {k: [] for k in runs}
+        res.update(ptrs=[], same_objects=[], placements=[])
+        for i, b in enumerate(batches):
+            runs["replaced"], m_r = replaced(
+                runs["replaced"], b, stats["replaced"] if i == 0 else None)
+            runs["step"], m_s = step(runs["step"], b)
+            runs["oracle"], m_o = oracle(runs["oracle"], b)
+            for k, m in (("replaced", m_r), ("step", m_s), ("oracle", m_o)):
+                res[k].append(([x.to_local().clone()
+                                for x in tree_leaves(tuple(runs[k]))],
+                               {n: v.clone() for n, v in m.items()}))
+            leaves = tree_leaves(tuple(runs["step"]))
+            res["ptrs"].append([x.to_local().data_ptr() for x in leaves])
+            res["same_objects"].append(all(
+                a is c for a, c in zip(leaves, tree_leaves(tuple(step.state)))))
+            res["placements"].append(all(
+                tuple(x.placements) == pl for x, pl in zip(leaves, places)))
+        res["caller_untouched"] = all(
+            torch.equal(x.to_local(), _local(full, sp, mesh))
+            for x, full, sp in zip(tree_leaves(tuple(placed)),
+                                   tree_leaves(tuple(state)),
+                                   spec_leaves(specs)))
+        res["stats"] = copy.deepcopy({k: (s.sent, s.by_axis, s.backward)
+                                      for k, s in stats.items()})
+        # a second batch shape: a key of its own, recorded once
+        half = {k: v[:, :v.shape[1] // 2 + 1] for k, v in batches[0].items()}
+        step(runs["step"], half)
+        step(runs["step"], half)
+        res["keys"] = len(step._batches)
+        res["stats_two_keys"] = (stats["step"].sent, stats["step"].backward)
+        once = C.CommStats()
+        replaced(place_train_state(state, specs, mesh), half, once)
+        res["stats_half"] = (once.sent, once.backward)
+        # a state laid out otherwise: every leaf replicated
+        flat = spec_map(lambda sp: P(), specs,
+                        is_leaf=lambda x: isinstance(x, P))
+        try:
+            step(place_train_state(state, flat, mesh), batches[0])
+            res["other_layout"] = "no error"
+        except ValueError as e:
+            res["other_layout"] = str(e)
+        # ranks whose batches differ in shape, at a step's first call
+        odd = {k: v[:, :v.shape[1] - 1 - rank] for k, v in batches[0].items()}
+        try:
+            build_sharded_train_step(cfg, opt, mesh, specs)(placed, odd)
+            res["uneven_keys"] = "no error"
+        except RuntimeError as e:
+            res["uneven_keys"] = str(e)
+        # one rank replays a key it has seen while another meets a new one
+        try:
+            step(runs["step"], batches[0] if rank == 0 else odd)
+            res["mixed_keys"] = "no error"
+        except RuntimeError as e:
+            res["mixed_keys"] = str(e)
+        out[name] = res
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
